@@ -1,0 +1,98 @@
+"""Core tensor helpers of the PyTorch port (counterpart of vqtpu/core/utils.py).
+
+Plain functions over torch tensors. `resolve_device` is the port's one rule
+for where an entry point runs: on the CUDA card unless the caller asks for
+the CPU, and never quietly on the CPU when the card is missing.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable
+
+import torch
+
+
+def exists(val: Any) -> bool:
+    return val is not None
+
+
+def default(val, d):
+    return val if val is not None else d
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: `device`, or the CUDA card when it
+    is None. Raises when CUDA is asked for (or defaulted to) and there is no
+    CUDA device; pass `device='cpu'` to run on the CPU."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'vqtpu_torch runs on a CUDA device by default and none is '
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-6) -> torch.Tensor:
+    """L2-normalize along `dim`; the norm is clamped from below at `eps`."""
+    norm = torch.linalg.vector_norm(t, ord=2, dim=dim, keepdim=True)
+    return t / norm.clamp_min(eps)
+
+
+def append_dims_to(t: torch.Tensor, ndims: int) -> torch.Tensor:
+    if t.ndim > ndims:
+        raise ValueError(f'tensor has {t.ndim} dims, more than {ndims}')
+    return t.reshape(*t.shape, *((1,) * (ndims - t.ndim)))
+
+
+def cdist_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean pairwise distances (..., i, d) x (..., j, d) ->
+    (..., i, j) via the expansion ||x||^2 - 2 x y^T + ||y||^2, in float32."""
+    x = x.float()
+    y = y.float()
+    x2 = (x ** 2).sum(-1)
+    y2 = (y ** 2).sum(-1)
+    xy = x @ y.transpose(-1, -2)
+    return x2[..., :, None] - 2.0 * xy + y2[..., None, :]
+
+
+def lens_to_mask(lens: torch.Tensor, max_length: int) -> torch.Tensor:
+    """(b,) lengths -> (b, max_length) boolean mask."""
+    seq = torch.arange(max_length, device=lens.device)
+    return seq[None, :] < lens[:, None]
+
+
+def masked_mean(
+    t: torch.Tensor, mask: torch.Tensor | None, eps: float = 1e-6
+) -> torch.Tensor:
+    """Mean of `t` over elements where `mask` is True; `mask` broadcasts
+    from the leading dims of `t`."""
+    if mask is None:
+        return t.mean()
+    weights = append_dims_to(mask, t.ndim).to(t.dtype).expand(t.shape)
+    return (t * weights).sum() / weights.sum().clamp_min(eps)
+
+
+def uniform_init(shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """Kaiming-uniform values over the trailing fan-in dims (the JAX
+    package's codebook init), drawn from torch's global generator."""
+    fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
+    bound = math.sqrt(6.0 / fan_in)
+    return torch.empty(shape, device=device).uniform_(-bound, bound)
+
+
+def pack_tokens(
+    x: torch.Tensor,
+) -> tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]:
+    """Flatten (h, ..., d) -> (h, N, d); returns the flat tensor and an
+    `unpack(t)` that restores the middle dims on any tensor whose leading
+    dim is h and whose trailing dims may differ from d."""
+    lead, middle, dim = x.shape[0], tuple(x.shape[1:-1]), x.shape[-1]
+    n = math.prod(middle) if middle else 1
+    flat = x.reshape(lead, n, dim)
+
+    def unpack(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(t.shape[0], *middle, *t.shape[2:])
+
+    return flat, unpack

@@ -1,0 +1,78 @@
+"""Carry a vqtpu (JAX) model's state into the matching vqtpu_torch module.
+
+`state` is the JAX model's state as a nested dict of numpy arrays, in the
+form `nnx.to_pure_dict(nnx.state(model))` gives once each leaf is a numpy
+array. Keys follow the module tree; the port uses the JAX package's
+attribute names, so the trees line up. Layouts converted:
+
+  - nnx.Linear kernel (in, out)       -> nn.Linear weight (out, in)
+  - nnx.Conv kernel (H, W, I, O)      -> nn.Conv2d weight (O, I, H, W)
+  - nnx.LayerNorm scale               -> nn.LayerNorm weight
+  - codebook buffers                  -> copied as they are
+
+A `rngs` entry (flax's RNG streams) has no torch counterpart and is
+skipped. Any other key the module does not have, and any parameter or
+buffer the state does not give, raises KeyError.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+# JAX leaf name -> (torch name, layout conversion) for the leaf modules
+_LEAF_RULES = {
+    nn.Linear: {'kernel': ('weight', lambda a: a.T), 'bias': ('bias', None)},
+    nn.Conv2d: {
+        'kernel': ('weight', lambda a: a.transpose(3, 2, 0, 1)),
+        'bias': ('bias', None),
+    },
+    nn.LayerNorm: {'scale': ('weight', None), 'bias': ('bias', None)},
+}
+
+
+def _copy(target: torch.Tensor, value, key: str) -> None:
+    value = torch.from_numpy(np.array(value))
+    if tuple(value.shape) != tuple(target.shape):
+        raise ValueError(
+            f'{key}: state has shape {tuple(value.shape)}, module {tuple(target.shape)}'
+        )
+    with torch.no_grad():
+        target.copy_(value)
+
+
+def load_vqtpu_state(module: nn.Module, state: Mapping, prefix: str = '') -> None:
+    """Fill `module` in place from the JAX model's state (see module doc)."""
+    rules = _LEAF_RULES.get(type(module))
+    tensors = dict(module.named_parameters(recurse=False))
+    tensors.update(module.named_buffers(recurse=False))
+    children = dict(module.named_children())
+    filled = set()
+
+    for key, value in state.items():
+        path = prefix + key
+        if key == 'rngs':
+            continue
+        if rules is not None and key in rules:
+            name, convert = rules[key]
+            value = np.asarray(value)
+            _copy(tensors[name], convert(value) if convert else value, path)
+            filled.add(name)
+        elif rules is None and key in tensors:
+            _copy(tensors[key], value, path)
+            filled.add(key)
+        elif rules is None and key in children:
+            if not isinstance(value, Mapping):
+                raise KeyError(f'{path}: state holds an array where the module has a submodule')
+            load_vqtpu_state(children[key], value, path + '.')
+            filled.add(key)
+        else:
+            raise KeyError(f'{path}: no such parameter, buffer or submodule in the torch module')
+
+    expected = set(tensors) | (set() if rules is not None else set(children))
+    missing = sorted(expected - filled)
+    if missing:
+        raise KeyError(f'state gives no value for {", ".join(prefix + m for m in missing)}')
