@@ -6,10 +6,12 @@
 Needs one CUDA card and nvcc (on PATH or under /usr/local/cuda), and runs
 from the root of a checkout. It builds the port's kernels from the sources
 in the checkout, holds each kernel against its plain PyTorch version on the
-card, drives the port's eval forward through its public entry points at
-full width, times the kernel, and prints one JSON line per phase:
+card, drives the port's eval forward and its training step through their
+public entry points at full width, times the kernels and the step, and
+prints one JSON line per phase:
 
-1. device: card name and count, `nvidia-smi` name and power limit, build time;
+1. device: card name and count, `nvidia-smi` name and power limit, build
+   time of both kernels (built in parallel);
 2. kernel_vs_plain: the selection kernel against `nearest_code_plain` on the
    same inputs and bias, at the main shape (both metrics), ragged, tiny,
    batched-head and large-codebook shapes, plus exact tie probes;
@@ -19,14 +21,28 @@ full width, times the kernel, and prints one JSON line per phase:
    codebook_size=256) on 256 images of 28x28, against the same weights on
    the CPU;
 5. times: CUDA events after warm-up at the main shape;
-6. the {"kernels": [...]} line.
+6. train_fused_vs_plain: the fused train kernel against
+   `fused_train_quantize_plain` at the main shape (euclidean, cosine, with a
+   0/1 weight), the ragged, tiny and 3-head shapes of phase 2, (16384, 65536, 32)
+   and tie probes; two kernel calls must be bit-identical;
+7. train_path: VectorQuantize(dim=256, codebook_size=512).train() at full
+   width, 3 forward + backward steps with train_fused='on' and a twin with
+   'off' from the same state, the two routes held against each other;
+8. flagship_train: the flagship with train_fused='on', 50 AdamW steps, step
+   0 held against the same weights on the CPU;
+9. train_times: CUDA events, the fused kernel against the 'off' route's
+   composition, one training step on each route, peak memory and a
+   torch.profiler breakdown of a step;
+10. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
 (vqtpu_torch.kernels.distance.selection_disagreements); any other
-disagreement fails. TF32 is off in every phase
+disagreement fails. Statistics are held to the worst-case f32 summation
+bound against a float64 sum. TF32 is off in every phase
 (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32),
-so the plain versions run in full f32. Any failed check raises and the
+so the plain versions run in full f32, except where a check turns it on to
+show a result does not depend on it. Any failed check raises and the
 script exits non-zero; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -51,6 +67,12 @@ REPLACES = [
     'vqtpu/kernels/distance.py:255 _grid_select_kernel',
     'vqtpu/kernels/distance.py:156 _tiled_select_kernel',
 ]
+TRAIN_SOURCE = 'vqtpu_torch/kernels/csrc/train_fused.cu'
+TRAIN_REPLACES = 'vqtpu/kernels/train_fused.py:61'
+# f32 unit roundoff, and the most partial sums the fused kernel's merge adds
+# per entry (kMaxSplits in train_fused.cu)
+U32 = 2.0 ** -24
+MERGE_PARTIALS = 128
 
 
 def emit(phase: str, **fields) -> None:
@@ -101,10 +123,11 @@ def phase_device():
 
     from vqtpu_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build(['nearest_code'])
+    _build.build(['nearest_code', 'train_fused'])
     build_s = time.perf_counter() - t0
-    ptxas = [line.strip() for line in _build.build_log('nearest_code').splitlines()
-             if 'registers' in line or 'spill' in line]
+    ptxas = {name: [line.strip() for line in _build.build_log(name).splitlines()
+                    if 'registers' in line or 'spill' in line]
+             for name in ('nearest_code', 'train_fused')}
     emit('device', kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -254,27 +277,36 @@ def phase_flagship(device, sizes):
     return launches
 
 
-def profile_forward(vq, xin, forwards: int = 3) -> None:
-    """Device time per eval forward by kernel name, and the device's idle
-    share over the span of `forwards` back-to-back forwards (torch.profiler)."""
+def profile_device(fn, calls: int) -> dict:
+    """Device time per call by kernel name, and the device's idle share over
+    the span of `calls` back-to-back calls of `fn` (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(forwards):
-            vq(xin)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name: dict[str, float] = {}
     for e in kernels:
         name = e.name[:120]
-        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / forwards
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     idle = None
     if kernels:
         span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
         idle = 1 - sum(e.time_range.elapsed_us() for e in kernels) / span
-    emit('profile', forwards=forwards, device_events=len(kernels), device_idle_share=idle,
-         device_ms_per_forward=dict(sorted(by_name.items(), key=lambda kv: -kv[1])))
+    return dict(device_events=len(kernels), device_idle_share=idle,
+                device_ms_per_call=dict(sorted(by_name.items(), key=lambda kv: -kv[1])))
+
+
+def profile_forward(vq, xin, forwards: int = 3) -> None:
+    """Device time per eval forward by kernel name, and the device's idle
+    share over `forwards` back-to-back forwards."""
+    with torch.no_grad():
+        r = profile_device(lambda: vq(xin), forwards)
+    emit('profile', forwards=forwards, device_events=r['device_events'],
+         device_idle_share=r['device_idle_share'], device_ms_per_forward=r['device_ms_per_call'])
 
 
 def phase_times(vq, xin, x_main, e_main, sizes):
@@ -317,6 +349,432 @@ def phase_times(vq, xin, x_main, e_main, sizes):
                 library_ms=library_ms)
 
 
+def train_bound_ms(n: int, c: int, d: int, weighted: bool) -> tuple[float, str]:
+    """Least time for the fused train step: the selection's 2ncd f32 FLOP at
+    peak, or reading x, the codebook, bias (and the weights) once and writing
+    idx, q, bins and esum once."""
+    ops_ms = 2 * n * c * d / PEAK_F32_FLOPS * 1e3
+    nbytes = 4 * (2 * n * d + n + 2 * c * d + 2 * c + (n if weighted else 0))
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), 'operations' if ops_ms >= bytes_ms else 'bytes'
+
+
+def stats_reference(x, idx, c, w):
+    """float64 sums from given indices: esum, sum |w x| per entry, and the
+    number of tokens of nonzero weight per code. x (h, n, d), idx (h, n)."""
+    h, n, d = x.shape
+    flat = (idx.long() + torch.arange(h, device=x.device)[:, None] * c).reshape(-1)
+    wx = x.reshape(-1, d).double()
+    if w is not None:
+        wx = wx * w.reshape(-1, 1).double()
+    nonzero = torch.ones(h * n, dtype=torch.float64, device=x.device)
+    if w is not None:
+        nonzero = (w.reshape(-1) != 0).double()
+    esum = torch.zeros(h * c, d, dtype=torch.float64, device=x.device).index_put_((flat,), wx, accumulate=True)
+    asum = torch.zeros(h * c, d, dtype=torch.float64, device=x.device).index_put_(
+        (flat,), wx.abs(), accumulate=True)
+    count = torch.zeros(h * c, dtype=torch.float64, device=x.device).index_put_((flat,), nonzero, accumulate=True)
+    return esum.reshape(h, c, d), asum.reshape(h, c, d), count.reshape(h, c)
+
+
+def esum_within_bound(esum, ref):
+    """(max |esum - float64 sum|, its largest share of the worst-case f32
+    summation bound (tokens of the code + merge partials) * 2^-24 * sum |w x|)."""
+    ref_esum, ref_abs, count = ref
+    err = (esum.double() - ref_esum).abs()
+    bound = (count[..., None] + MERGE_PARTIALS) * U32 * ref_abs
+    share = float((err / bound.clamp_min(1e-300)).max())
+    return float(err.max()), share
+
+
+def compare_train(case, x, e, metric, w, device, exact=None):
+    """The fused train kernel against its plain version on the same inputs."""
+    from vqtpu_torch.kernels.distance import nearest_code, selection_bias, selection_disagreements
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize, fused_train_quantize_plain
+    bias = selection_bias(e, metric)
+    out = fused_train_quantize(x, e, metric, w, bias=bias)
+    again = fused_train_quantize(x, e, metric, w, bias=bias)
+    plain = fused_train_quantize_plain(x, e, bias, w)
+    nc = nearest_code(x, e, metric, bias)
+    sync(device)
+    check(all(torch.equal(a, b) for a, b in zip(out, again)), f'{case}: two kernel calls bit-identical')
+    check(torch.equal(out[0], nc), f'{case}: indices equal nearest_code on the same inputs')
+    del again
+    if x.ndim == 2:
+        x, e, bias = x[None], e[None], bias[None]
+        w = None if w is None else w[None]
+        out = tuple(t[None] for t in out)
+        plain = tuple(t[None] for t in plain)
+    idx, q, bins, esum = out
+    pidx, _, pbins, pesum = plain
+    if exact is not None:
+        check(torch.equal(idx.cpu(), exact[0]) and torch.equal(pidx.cpu(), exact[0]),
+              f'{case}: tie probe indices')
+        check(torch.equal(bins.cpu(), exact[1]) and torch.equal(pbins.cpu(), exact[1]),
+              f'{case}: tie probe bins equal the counts')
+    totals = {'tokens': 0, 'disagree': 0, 'non_tie': 0, 'max_score_gap': 0.0}
+    for h in range(x.shape[0]):
+        check(torch.equal(q[h], e[h][idx[h].long()]), f'{case}: q rows bit-equal to codebook rows')
+        r = selection_disagreements(x[h], e[h], bias[h], idx[h], pidx[h])
+        for k in ('tokens', 'disagree', 'non_tie'):
+            totals[k] += r[k]
+        totals['max_score_gap'] = max(totals['max_score_gap'], r['max_score_gap'])
+    check(totals['non_tie'] == 0, f'{case}: kernel and plain indices disagree beyond ties {totals}')
+    c = e.shape[1]
+    ref = stats_reference(x, idx, c, w)
+    wsum = torch.zeros_like(ref[2]).reshape(-1).index_put_(
+        ((idx.long() + torch.arange(x.shape[0], device=x.device)[:, None] * c).reshape(-1),),
+        torch.ones(idx.numel(), dtype=torch.float64, device=x.device) if w is None else w.reshape(-1).double(),
+        accumulate=True).reshape(bins.shape)
+    check(torch.equal(bins.double(), wsum), f'{case}: kernel bins equal the weight sums')
+    if totals['disagree'] == 0:
+        check(torch.equal(bins, pbins), f'{case}: kernel and plain bins equal')
+    err, share = esum_within_bound(esum, ref)
+    check(share <= 1.0, f'{case}: kernel esum within the f32 summation bound ({share})')
+    perr, pshare = esum_within_bound(pesum, ref if totals['disagree'] == 0 else stats_reference(x, pidx, c, w))
+    check(pshare <= 1.0, f'{case}: plain esum within the f32 summation bound ({pshare})')
+    emit('train_fused_vs_plain', case=case, shape=[x.shape[0], x.shape[1], c, x.shape[2]], metric=metric,
+         weighted=w is not None, bit_identical_calls=True, esum_max_abs_err=err, esum_share_of_bound=share,
+         plain_esum_max_abs_err=perr, plain_esum_share_of_bound=pshare, **totals)
+    return err
+
+
+def phase_train_fused_vs_plain(x_main, e_main, device, sizes):
+    from vqtpu_torch.core.utils import l2norm
+    gen = np.random.default_rng(11)
+
+    def rand(*shape):
+        return torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)).to(device)
+
+    n = x_main.shape[0]
+    main_err = compare_train('main', x_main, e_main, 'euclidean', None, device)
+    compare_train('main_cosine', l2norm(x_main), l2norm(e_main), 'cosine', None, device)
+    w = torch.from_numpy((gen.random(n) > 0.3).astype(np.float32)).to(device)
+    compare_train('main_weighted', x_main, e_main, 'euclidean', w, device)
+    for case, shape in sizes['others'].items():
+        *heads, n_, c_, d_ = shape
+        compare_train(case, rand(*heads, n_, d_), rand(*heads, c_, d_), 'euclidean', None, device)
+
+    tn, tc, td = sizes['ties']
+    zeros_bins = torch.zeros(1, tc)
+    zeros_bins[0, 0] = tn
+    compare_train('ties_all_zero', torch.zeros(tn, td, device=device), torch.zeros(tc, td, device=device),
+                  'euclidean', None, device,
+                  exact=(torch.zeros(1, tn, dtype=torch.int32), zeros_bins))
+    for copies in (2, 8):
+        base = rand(tc // copies, td)
+        bins = torch.zeros(1, tc)
+        bins[0, :tc // copies] = 1
+        compare_train(f'ties_{copies}_copies', base, torch.cat([base] * copies), 'euclidean', None, device,
+                      exact=(torch.arange(tc // copies, dtype=torch.int32)[None], bins))
+    return main_err
+
+
+def _max_rel_row_err(q, rows):
+    return float(((q - rows).abs().amax(-1) / rows.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def phase_train_path(device, sizes):
+    """VectorQuantize(dim=256, codebook_size=512).train() at full width, 3
+    forward + backward steps on each route from the same state."""
+    from vqtpu_torch import VectorQuantize
+    from vqtpu_torch.kernels.distance import (
+        nearest_code, nearest_code_plain, selection_bias, selection_disagreements,
+    )
+    from vqtpu_torch.kernels.train_fused import code_statistics_plain, fused_train_quantize
+    n, c, d = sizes['main']
+    b = sizes['batch']
+    torch.manual_seed(3)
+    models = {route: VectorQuantize(dim=d, codebook_size=c, train_fused=route, device=device).train()
+              for route in ('on', 'off')}
+    models['off'].load_state_dict(models['on'].state_dict())
+    gen = np.random.default_rng(12)
+    batches = [torch.from_numpy(gen.standard_normal((b, n // b, d), dtype=np.float32)).to(device)
+               for _ in range(sizes['train_steps'])]
+
+    runs = {}
+    for route, vq in models.items():
+        nearest_code.launches = 0
+        fused_train_quantize.launches = 0
+        steps = []
+        for s, batch in enumerate(batches):
+            embed = vq.codebook.clone()
+            x = batch.clone().requires_grad_()
+            q, idx, loss = vq(x)
+            (loss + q.square().mean()).backward()
+            sync(device)
+            check(bool(torch.isfinite(x.grad).all()), f'{route} step {s}: x.grad is finite')
+            rows = embed[idx.reshape(-1).long()]
+            rel = _max_rel_row_err(q.detach().reshape(-1, d), rows)
+            check(rel <= 1e-5, f'{route} step {s}: q within 1e-5 of codebook[idx] ({rel})')
+            step = dict(embed=embed, idx=idx, loss=loss.detach(), q_rel_err=rel,
+                        cluster_size=vq._codebook.cluster_size.clone(),
+                        embed_avg=vq._codebook.embed_avg.clone(), embed_after=vq.codebook.clone())
+            if s == 0:
+                step['grad'] = x.grad
+            steps.append(step)
+            del x, q
+        sync(device)
+        runs[route] = dict(steps=steps, launches=dict(train_fused=fused_train_quantize.launches,
+                                                      nearest_code=nearest_code.launches))
+    on, off = runs['on'], runs['off']
+    check(on['launches']['train_fused'] == len(batches) and on['launches']['nearest_code'] == 0,
+          f"'on' route launched the fused kernel and not the selection kernel {on['launches']}")
+    check(off['launches']['nearest_code'] == len(batches) and off['launches']['train_fused'] == 0,
+          f"'off' route launched the selection kernel and not the fused kernel {off['launches']}")
+
+    # step 0: one state, one selection tile -> the same indices, loss and grad
+    s0_on, s0_off = on['steps'][0], off['steps'][0]
+    check(torch.equal(s0_on['idx'], s0_off['idx']), 'step 0: the routes pick the same indices')
+    check(torch.equal(s0_on['loss'], s0_off['loss']), 'step 0: the routes give the same loss')
+    check(torch.equal(s0_on['grad'], s0_off['grad']), 'step 0: the routes give the same x.grad')
+    check(torch.equal(s0_on['cluster_size'], s0_off['cluster_size']), 'step 0: cluster_size equal')
+    # embed_avg moves by (1 - decay) * esum; each route's esum lies within the
+    # f32 summation bound of the float64 sum
+    x0 = batches[0].reshape(1, -1, d)
+    ref = stats_reference(x0, s0_on['idx'].reshape(1, -1), c, None)
+    bound = (ref[2][..., None] + MERGE_PARTIALS) * U32 * ref[1]
+    decay = models['on']._codebook.decay
+    ea_on, ea_off = s0_on['embed_avg'], s0_off['embed_avg']
+    ea_slack = 2 * (1 - decay) * bound + 4 * U32 * ea_on.abs().double()
+    check(bool(((ea_on - ea_off).abs().double() <= ea_slack).all()), 'step 0: embed_avg within the bound')
+    cs = s0_on['cluster_size']
+    total = cs.sum(-1, keepdim=True)
+    eps = models['on']._codebook.eps
+    smoothed = ((cs + eps) / (total + c * eps)) * total
+    e_slack = ea_slack / smoothed[..., None].double() + 4 * U32 * s0_on['embed_after'].abs().double()
+    check(bool(((s0_on['embed_after'] - s0_off['embed_after']).abs().double() <= e_slack[0]).all()),
+          'step 0: embed within the bound')
+
+    # later steps: the codebooks differ by that rounding, and a near-tie flip
+    # moves two codebook rows by a token's share of the EMA, so each route
+    # is held to the plain selection on its own codebook, and the routes to
+    # each other only by the share of tokens that flip; each flip moves two
+    # cluster sizes by at most (1 - decay)
+    disagree = []
+    cs_slack = 0.0
+    for s in range(len(batches)):
+        a, b_ = on['steps'][s], off['steps'][s]
+        xs = batches[s].reshape(-1, d)
+        for route, step in (('on', a), ('off', b_)):
+            bias = selection_bias(step['embed'], 'euclidean')
+            own = selection_disagreements(xs, step['embed'], bias, step['idx'],
+                                          nearest_code_plain(xs, step['embed'], bias))
+            check(own['non_tie'] == 0, f'{route} step {s}: indices disagree with the plain selection {own}')
+        r = selection_disagreements(xs, a['embed'], selection_bias(a['embed'], 'euclidean'), a['idx'], b_['idx'])
+        check(r['disagree'] <= 1e-3 * r['tokens'], f'step {s}: the routes flip more than 1e-3 of tokens {r}')
+        disagree.append(r['disagree'])
+        cs_slack = decay * cs_slack + 2 * (1 - decay) * r['disagree']
+        cs_err = float((a['cluster_size'] - b_['cluster_size']).abs().max())
+        check(cs_err <= cs_slack + 1e-3, f'step {s}: cluster_size equal but for near-tie flips ({cs_err})')
+    last_on, last_off = on['steps'][-1], off['steps'][-1]
+    embed_rel = float((last_on['embed_after'] - last_off['embed_after']).abs().max()
+                      / last_on['embed_after'].abs().max())
+    check(embed_rel <= 1e-2, f"after {len(batches)} steps the routes' codebooks agree to 1e-2 ({embed_rel})")
+    loss_rel = max(abs(float(a['loss']) - float(b_['loss'])) / abs(float(a['loss']))
+                   for a, b_ in zip(on['steps'], off['steps']))
+    check(loss_rel <= 1e-4, f"the routes' losses agree to 1e-4 ({loss_rel})")
+
+    # the 'off' statistics: deterministic, and the same with TF32 on
+    x0 = batches[0].reshape(1, -1, d)
+    idx0 = s0_off['idx'].reshape(1, -1)
+    stats = code_statistics_plain(x0, idx0, c)
+    again = code_statistics_plain(x0, idx0, c)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = code_statistics_plain(x0, idx0, c)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(all(torch.equal(a, b_) for a, b_ in zip(stats, again)), "'off' statistics deterministic")
+    check(all(torch.equal(a, b_) for a, b_ in zip(stats, tf32)), "'off' statistics the same with TF32 on")
+    emit('train_path', model=f'VectorQuantize(dim={d}, codebook_size={c}).train()',
+         input=list(batches[0].shape), steps=len(batches),
+         launches_on=on['launches'], launches_off=off['launches'],
+         loss_on=[float(t['loss']) for t in on['steps']], loss_off=[float(t['loss']) for t in off['steps']],
+         disagreements_per_step=disagree, embed_rel_diff_after=embed_rel, loss_rel_diff=loss_rel,
+         q_rel_err_vs_codebook_rows=max(t['q_rel_err'] for t in on['steps'] + off['steps']),
+         step0_identical=['indices', 'loss', 'x.grad', 'cluster_size'],
+         off_stats_deterministic=True, off_stats_tf32_invariant=True)
+    return on['launches']['train_fused'], off['launches']['nearest_code']
+
+
+def phase_flagship_train(device, sizes):
+    """The flagship with train_fused='on': step 0 against the CPU from the
+    same weights, then AdamW steps with a falling loss."""
+    from vqtpu_torch import SimpleQuantizeAutoEncoder, VectorQuantize
+    from vqtpu_torch.core.metrics import codebook_perplexity, ema_perplexity
+    from vqtpu_torch.kernels.distance import nearest_code, selection_bias, selection_disagreements
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    alpha = 10.0    # examples/autoencoder.py
+
+    def build(dev):
+        return SimpleQuantizeAutoEncoder(
+            VectorQuantize(dim=32, codebook_size=256, train_fused='on', device=dev), dim=32, device=dev,
+        ).train()
+
+    def loss_of(model, x):
+        recon, idx, cmt_loss = model(x)
+        rec = (recon.clamp(-1, 1) - x).abs().mean()
+        return rec + alpha * cmt_loss, idx
+
+    torch.manual_seed(4)
+    model = build(device)
+    ref = build('cpu')
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    rng = np.random.default_rng(5)
+    images = [rng.random((sizes['images'], 28, 28, 1), dtype=np.float32) for _ in range(sizes['flagship_steps'])]
+
+    # step 0 on both devices
+    x = torch.from_numpy(images[0])
+    with torch.no_grad():
+        z = model.encoder(x.to(device)).reshape(-1, 32)
+    embed = model.quantizer.codebook.clone()
+    nearest_code.launches = 0
+    fused_train_quantize.launches = 0
+    loss, idx = loss_of(model, x.to(device))
+    loss.backward()
+    ref_loss, ref_idx = loss_of(ref, x)
+    ref_loss.backward()
+    sync(device)
+    r = selection_disagreements(z, embed, selection_bias(embed, 'euclidean'),
+                                idx.reshape(-1), ref_idx.reshape(-1).to(device))
+    check(r['non_tie'] == 0, f'flagship step 0: indices disagree with the CPU beyond ties {r}')
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(loss_rel <= 1e-4, f'flagship step 0: loss matches the CPU ({loss_rel})')
+    cb, rcb = model.quantizer._codebook, ref.quantizer._codebook
+    cs_err = float((cb.cluster_size.cpu() - rcb.cluster_size).abs().max())
+    check(cs_err <= 2 * (1 - cb.decay) * r['disagree'] + 1e-6, f'flagship step 0: cluster_size ({cs_err})')
+    ea_err = float((cb.embed_avg.cpu() - rcb.embed_avg).abs().max() / rcb.embed_avg.abs().max())
+    check(r['disagree'] > 0 or ea_err <= 1e-5, f'flagship step 0: embed_avg matches the CPU ({ea_err})')
+    grad_err = 0.0
+    for (name, p), (_, rp) in zip(model.named_parameters(), ref.named_parameters()):
+        err = float((p.grad.cpu() - rp.grad).abs().max() / rp.grad.abs().max().clamp_min(1e-30))
+        grad_err = max(grad_err, err)
+    check(r['disagree'] > 0 or grad_err <= 1e-4, f'flagship step 0: gradients match the CPU ({grad_err})')
+    opt.step()
+    opt.zero_grad()
+
+    losses = [loss.item()]
+    for step in range(1, len(images)):
+        loss, idx = loss_of(model, torch.from_numpy(images[step]).to(device))
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.item())
+    sync(device)
+    launches = fused_train_quantize.launches
+    check(launches == len(images) and nearest_code.launches == 0,
+          f'the flagship trained through the fused kernel ({launches}, {nearest_code.launches})')
+    check(all(np.isfinite(losses)), 'flagship losses are finite')
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f'the flagship loss falls ({first} -> {last})')
+    emit('flagship_train',
+         model="SimpleQuantizeAutoEncoder(VectorQuantize(dim=32, codebook_size=256, train_fused='on'))",
+         optimizer='AdamW(lr=3e-4, weight_decay=1e-4)', input=[sizes['images'], 28, 28, 1],
+         steps=len(images), launches=launches, loss_first=losses[0], loss_last=losses[-1],
+         loss_mean_first5=first, loss_mean_last5=last,
+         step0_vs_cpu=dict(loss_rel_err=loss_rel, cluster_size_max_abs_err=cs_err,
+                           embed_avg_rel_err=ea_err, grad_max_rel_err=grad_err, **r),
+         codebook_perplexity=float(codebook_perplexity(idx, 256)),
+         ema_perplexity=float(ema_perplexity(cb.cluster_size)))
+    return launches
+
+
+def phase_train_times(x_main, e_main, sizes, smi):
+    from vqtpu_torch import VectorQuantize
+    from vqtpu_torch.kernels.distance import gather_codes, nearest_code, selection_bias
+    from vqtpu_torch.kernels.train_fused import (
+        code_statistics_plain, fused_train_quantize, fused_train_quantize_plain,
+    )
+    n, c, d = sizes['main']
+    bias = selection_bias(e_main, 'euclidean')
+    reps = sizes['train_reps']
+
+    def kernel():
+        fused_train_quantize(x_main, e_main, 'euclidean', bias=bias)
+
+    def composition():
+        idx = nearest_code(x_main, e_main, 'euclidean', bias)
+        gather_codes(e_main, idx)
+        code_statistics_plain(x_main[None], idx[None], c)
+
+    def plain():
+        fused_train_quantize_plain(x_main, e_main, bias)
+
+    # kernel, composition, composition, kernel, then the plain version
+    kernel_a, comp_a, comp_b, kernel_b = (cuda_ms(f, reps) for f in (kernel, composition, composition, kernel))
+    plain_ms = cuda_ms(plain, reps)
+    # the composition's statistics (index_put_) walk each code's tokens in
+    # one warp, so their time follows the largest cluster; the fused kernel
+    # splits every code over its token splits. The same pair on a codebook
+    # of data rows (as kmeans init and dead-code expiry draw them), with
+    # the largest cluster of each codebook:
+    largest_share = float(fused_train_quantize(x_main, e_main, 'euclidean', bias=bias)[2].max()) / n
+    e_data = x_main[torch.from_numpy(np.random.default_rng(13).choice(n, c, replace=False)).to(x_main.device)]
+    bias_data = selection_bias(e_data, 'euclidean')
+    data_rows_share = float(fused_train_quantize(x_main, e_data, 'euclidean', bias=bias_data)[2].max()) / n
+
+    def kernel_data():
+        fused_train_quantize(x_main, e_data, 'euclidean', bias=bias_data)
+
+    def composition_data():
+        idx = nearest_code(x_main, e_data, 'euclidean', bias_data)
+        gather_codes(e_data, idx)
+        code_statistics_plain(x_main[None], idx[None], c)
+
+    kernel_d_a, comp_d_a, comp_d_b, kernel_d_b = (
+        cuda_ms(f, reps) for f in (kernel_data, composition_data, composition_data, kernel_data))
+
+    torch.manual_seed(6)
+    models = {route: VectorQuantize(dim=d, codebook_size=c, train_fused=route, device=x_main.device).train()
+              for route in ('on', 'off')}
+    models['off'].load_state_dict(models['on'].state_dict())
+    xin = x_main.reshape(sizes['batch'], n // sizes['batch'], d)
+
+    def step(route):
+        def run():
+            x = xin.detach().requires_grad_()
+            q, _, loss = models[route](x)
+            (loss + q.square().mean()).backward()
+        return run
+
+    step_ms = {'on': [], 'off': []}
+    for route in ('on', 'off', 'off', 'on'):
+        step_ms[route].append(cuda_ms(step(route), sizes['step_reps'], warmup=1))
+    peak = {}
+    profiles = {}
+    for route in ('on', 'off'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(route)()
+        torch.cuda.synchronize()
+        peak[route] = torch.cuda.max_memory_allocated()
+        profiles[route] = profile_device(step(route), 1)
+    kernel_ms = (kernel_a + kernel_b) / 2
+    comp_ms = (comp_a + comp_b) / 2
+    bound_ms, bound_by = train_bound_ms(n, c, d, weighted=False)
+    step_mean = {r: sum(v) / len(v) for r, v in step_ms.items()}
+    emit('train_times', shape=[n, c, d], reps=reps, card=smi,
+         kernel_ms=kernel_ms, kernel_ms_runs=[kernel_a, kernel_b],
+         composition_ms=comp_ms, composition_ms_runs=[comp_a, comp_b],
+         composition='nearest_code kernel + index_select + code_statistics_plain (the off route)',
+         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, kernel_share_of_bound=bound_ms / kernel_ms,
+         largest_code_share=largest_share,
+         data_rows_codebook='512 rows of x', data_rows_largest_code_share=data_rows_share,
+         data_rows_kernel_ms_runs=[kernel_d_a, kernel_d_b], data_rows_composition_ms_runs=[comp_d_a, comp_d_b],
+         step_ms_on=step_mean['on'], step_ms_on_runs=step_ms['on'],
+         step_ms_off=step_mean['off'], step_ms_off_runs=step_ms['off'],
+         step='forward + backward of VectorQuantize(dim=256, codebook_size=512).train() on (1024, 1024, 256)',
+         vectors_per_s_on=n / (step_mean['on'] / 1e3), vectors_per_s_off=n / (step_mean['off'] / 1e3),
+         peak_allocated_bytes=peak,
+         profile_step_on=profiles['on'], profile_step_off=profiles['off'])
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, composition_ms=comp_ms,
+                composition_ms_data_rows=(comp_d_a + comp_d_b) / 2, ms_data_rows=(kernel_d_a + kernel_d_b) / 2,
+                step_ms_on=step_mean['on'], step_ms_off=step_mean['off'])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -337,6 +795,10 @@ def main() -> int:
         'ties': (1000, 512, 256),
         'images': 256,
         'reps': 20,
+        'train_steps': 3,
+        'flagship_steps': 50,
+        'train_reps': 10,
+        'step_reps': 5,
     }
 
     kind, count, smi = phase_device()
@@ -347,6 +809,11 @@ def main() -> int:
     vq, xin, main_launches = phase_main_path(x_main, device, sizes)
     flagship_launches = phase_flagship(device, sizes)
     times = phase_times(vq, xin, x_main, e_main, sizes)
+    del vq, xin
+    train_err = phase_train_fused_vs_plain(x_main, e_main, device, sizes)
+    train_launches, off_route_launches = phase_train_path(device, sizes)
+    flagship_train_launches = phase_flagship_train(device, sizes)
+    train_times = phase_train_times(x_main, e_main, sizes, smi)
 
     print(json.dumps({'kernels': [{
         'name': 'nearest_code',
@@ -356,11 +823,26 @@ def main() -> int:
         'replaces_all': REPLACES,
         'launches': main_launches,
         'launches_flagship': flagship_launches,
+        'launches_train_off_route': off_route_launches,
         'max_abs_err': selection['main']['max_score_gap'],
         'max_abs_err_of': 'float64 score gap between the kernel and plain picks at the main shape',
         **times,
         'check': 'indices equal the plain version except near-ties (float64 gap <= 1e-5 relative), '
                  'exact on tie probes, rows bit-equal to codebook rows',
+        'power_limit': smi,
+    }, {
+        'name': 'train_fused',
+        'route': 'cuda',
+        'source': TRAIN_SOURCE,
+        'replaces': TRAIN_REPLACES,
+        'launches': train_launches,
+        'launches_flagship_train': flagship_train_launches,
+        'max_abs_err': train_err,
+        'max_abs_err_of': 'max |esum - float64 sum| at the main shape (indices and rows are exact)',
+        **train_times,
+        'library_ms_note': "no single PyTorch call computes the fused step; composition_ms is the 'off' route",
+        'check': 'indices equal nearest_code and the plain version except near-ties, rows bit-equal, '
+                 'bins equal, esum within the f32 summation bound, two calls bit-identical',
         'power_limit': smi,
     }]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': count}}),

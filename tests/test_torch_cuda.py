@@ -1,4 +1,5 @@
-"""The Hopper selection kernel against its plain version, on the card.
+"""The Hopper kernels (selection, fused train step) against their plain
+versions, on the card.
 
 Marked `cuda`: each test asks the `card` fixture for the device, which
 skips when there is no CUDA card. Run on a machine with an H100 and nvcc:
@@ -11,6 +12,7 @@ import torch
 
 import vqtpu_torch
 import vqtpu_torch.kernels.distance as td
+import vqtpu_torch.kernels.train_fused as ttf
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +96,84 @@ def test_vq_eval_on_card_matches_cpu(card):
             idx[..., h].reshape(-1), idx_ref[..., h].reshape(-1).to(card),
         )
         assert r['non_tie'] == 0, r
+
+
+@pytest.mark.parametrize('weighted', (False, True), ids=('unweighted', 'weighted'))
+@pytest.mark.parametrize('metric', td.METRICS)
+@pytest.mark.parametrize('shape', (
+    (1024, 64, 96), (1000, 130, 100), (37, 5, 3), (3, 200, 20, 16), (20000, 512, 256),
+))
+def test_train_kernel_matches_plain(card, metric, shape, weighted):
+    x, e = _operands(shape, metric, card)
+    w = None
+    if weighted:
+        w = (torch.rand(x.shape[:-1], device=card, generator=torch.Generator(card).manual_seed(1)) > 0.3).float()
+    bias = td.selection_bias(e, metric)
+    before = ttf.fused_train_quantize.launches
+    idx, q, bins, esum = ttf.fused_train_quantize(x, e, metric, w, bias=bias)
+    again = ttf.fused_train_quantize(x, e, metric, w, bias=bias)
+    torch.cuda.synchronize()
+    assert ttf.fused_train_quantize.launches == before + 2
+    # two calls bit-identical, and the same indices as the selection kernel
+    assert all(torch.equal(a, b) for a, b in zip((idx, q, bins, esum), again))
+    assert torch.equal(idx, td.nearest_code(x, e, metric, bias))
+    pidx, _, pbins, pesum = ttf.fused_train_quantize_plain(x, e, bias, w)
+    if x.ndim == 2:
+        x, e, bias, idx, q, pidx = x[None], e[None], bias[None], idx[None], q[None], pidx[None]
+    for h in range(x.shape[0]):
+        assert torch.equal(q[h], e[h][idx[h].long()])
+        r = td.selection_disagreements(x[h], e[h], bias[h], idx[h], pidx[h])
+        assert r['non_tie'] == 0, r
+    if torch.equal(idx, pidx.reshape(idx.shape)):
+        assert torch.equal(bins, pbins)
+        # f32 sums in another order: within 1e-5 of the largest entry
+        assert float((esum - pesum).abs().max()) <= 1e-5 * max(float(esum.abs().max()), 1.0)
+
+
+def test_train_kernel_ties_and_bins(card):
+    x = torch.zeros(1000, 256, device=card)
+    idx, q, bins, esum = ttf.fused_train_quantize(x, torch.zeros(512, 256, device=card))
+    assert (idx == 0).all() and float(bins[0]) == 1000 and float(bins[1:].abs().sum()) == 0
+    assert float(esum.abs().sum()) == 0
+    base, _ = _operands((64, 1, 48), 'euclidean', card, seed=1)
+    idx, q, bins, _ = ttf.fused_train_quantize(base, torch.cat([base] * 8))
+    assert torch.equal(idx.cpu(), torch.arange(64, dtype=torch.int32))
+    assert torch.equal(q, base) and torch.equal(bins[:64].cpu(), torch.ones(64))
+
+
+def test_train_kernel_rejects_what_it_does_not_take(card):
+    x, e = _operands((100, 16, 8), 'euclidean', card)
+    with pytest.raises(TypeError, match='float32'):
+        ttf.fused_train_quantize(x.half(), e)
+    with pytest.raises(ValueError, match='contiguous'):
+        ttf.fused_train_quantize(x.T.contiguous().T, e)
+    with pytest.raises(TypeError, match='weights must be float32'):
+        ttf.fused_train_quantize(x, e, weights=torch.ones(100, device=card, dtype=torch.float64))
+
+
+@pytest.mark.parametrize('route', ('on', 'off'))
+def test_vq_training_step_on_card_matches_cpu(card, route):
+    torch.manual_seed(0)
+    kwargs = dict(dim=64, codebook_size=256, heads=2, codebook_dim=32, separate_codebook_per_head=True,
+                  train_fused=route)
+    vq = vqtpu_torch.VectorQuantize(**kwargs, device=card).train()
+    ref = vqtpu_torch.VectorQuantize(**kwargs, device='cpu').train()
+    ref.load_state_dict({k: v.cpu() for k, v in vq.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((4, 300, 64), dtype=np.float32))
+    launches = (ttf.fused_train_quantize.launches, td.nearest_code.launches)
+    xc = x.to(card).requires_grad_()
+    q, idx, loss = vq(xc)
+    (loss + q.square().mean()).backward()
+    xr = x.clone().requires_grad_()
+    q_ref, idx_ref, loss_ref = ref(xr)
+    (loss_ref + q_ref.square().mean()).backward()
+    torch.cuda.synchronize()
+    fused, nearest = ttf.fused_train_quantize.launches - launches[0], td.nearest_code.launches - launches[1]
+    assert (fused, nearest) == ((1, 0) if route == 'on' else (0, 1))
+    if torch.equal(idx.cpu(), idx_ref):
+        torch.testing.assert_close(q.detach().cpu(), q_ref.detach(), rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(loss.detach().cpu(), loss_ref.detach(), rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(xc.grad.cpu(), xr.grad, rtol=1e-4, atol=1e-6)
+        assert torch.equal(vq._codebook.cluster_size.cpu(), ref._codebook.cluster_size)
+        torch.testing.assert_close(vq._codebook.embed.cpu(), ref._codebook.embed, rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(xc.grad).all()

@@ -174,24 +174,37 @@ def test_vq_return_loss_breakdown_and_bf16_input():
 
 
 def test_vq_training_forward_not_ported():
+    """The training forward is ported (tests/test_torch_vq_train.py); the
+    features it still lacks raise in both modes and name themselves."""
     _, tvq = _pair(dict(dim=16, codebook_size=32))
     x = torch.zeros(2, 4, 16)
+    for mode in ('train', 'eval'):
+        getattr(tvq, mode)()
+        for kwargs, feature in (
+            (dict(indices=torch.zeros(2, 4, dtype=torch.long)), 'indices='),
+            (dict(topk=2), 'topk='),
+            (dict(codebook_transform_fn=lambda e: e), 'codebook_transform_fn='),
+        ):
+            with pytest.raises(NotImplementedError, match=feature):
+                tvq(x, **kwargs)
     tvq.train()
-    with pytest.raises(NotImplementedError, match='training-mode forward'):
-        tvq(x)
-    tvq.eval()
-    for kwargs, feature in (
-        (dict(indices=torch.zeros(2, 4, dtype=torch.long)), 'indices='),
-        (dict(topk=2), 'topk='),
-        (dict(codebook_transform_fn=lambda e: e), 'codebook_transform_fn='),
-    ):
-        with pytest.raises(NotImplementedError, match=feature):
-            tvq(x, **kwargs)
-    cb = Codebook(16, 8, device='cpu').eval()
-    with pytest.raises(NotImplementedError, match='need_distances'):
-        cb(torch.zeros(3, 16))
-    with pytest.raises(NotImplementedError, match='kmeans_init'):
-        Codebook(16, 8, kmeans_init=True, device='cpu').eval()(torch.zeros(3, 16), need_distances=False)
+    q, idx, loss = tvq(x)
+    assert q.shape == x.shape and float(loss) >= 0.0
+
+    cb = Codebook(16, 8, device='cpu')
+    for mode in ('train', 'eval'):
+        getattr(cb, mode)()
+        with pytest.raises(NotImplementedError, match='need_distances'):
+            cb(torch.zeros(3, 16))
+        with pytest.raises(NotImplementedError, match='stochastic'):
+            cb(torch.zeros(3, 16), need_distances=False, stochastic=True)
+    with pytest.raises(NotImplementedError, match='stat_precision'):
+        Codebook(16, 8, stat_precision='default', device='cpu')
+    # a kmeans_init codebook initialises on its first forward, in eval too,
+    # as the JAX package does (held against it in test_torch_vq_train.py)
+    cb = Codebook(16, 8, kmeans_init=True, device='cpu').eval()
+    cb(torch.randn(30, 16), need_distances=False)
+    assert bool(cb.initted) and bool(cb.embed.abs().sum() > 0)
 
 
 @pytest.mark.parametrize('kwargs,feature', (
@@ -204,6 +217,11 @@ def test_vq_training_forward_not_ported():
     (dict(in_place_codebook_optimizer=object()), 'in_place_codebook_optimizer'),
     (dict(stochastic_sample_codes=True), 'stochastic'),
     (dict(straight_through=True), 'gumbel'),
+    (dict(orthogonal_reg_weight=0.1), 'orthogonal_reg_weight'),
+    (dict(directional_reparam=True, threshold_ema_dead_code=2), 'directional_reparam'),
+    (dict(commitment_use_cross_entropy_loss=True), 'commitment_use_cross_entropy_loss'),
+    (dict(codebook_diversity_loss_weight=0.1), 'codebook_diversity_loss_weight'),
+    (dict(stat_precision='default'), 'stat_precision'),
 ))
 def test_vq_out_of_slice_features_raise(kwargs, feature):
     with pytest.raises(NotImplementedError, match=feature):

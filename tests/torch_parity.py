@@ -1,5 +1,6 @@
 """Helpers for the tests that hold the PyTorch port (vqtpu_torch) against
-the JAX package (vqtpu): state transfer and the index tie rule."""
+the JAX package (vqtpu): state and gradient transfer and the index tie
+rule."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 from flax import nnx
 
 from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+from vqtpu_torch.utils.weights import _LEAF_RULES
 
 # share of tokens allowed to flip at a near-tie (see assert_indices_tie_equal)
 MAX_TIE_SHARE = 1e-3
@@ -35,6 +37,38 @@ def jax_state(model) -> dict:
             return np.asarray(jax.random.key_data(leaf))
         return np.asarray(leaf)
     return jax.tree.map(to_np, nnx.to_pure_dict(nnx.state(model)))
+
+
+def torch_layout_grads(module, grads, prefix: str = '') -> dict:
+    """A JAX gradient tree (the nested dict of a model's nnx.Param
+    gradients, as numpy arrays) mapped onto the torch module's parameter
+    names and layouts, with the layout rules of load_vqtpu_state (Linear and
+    Conv kernels transposed): {torch parameter name: numpy array}."""
+    rules = _LEAF_RULES.get(type(module))
+    children = dict(module.named_children())
+    out = {}
+    for key, value in grads.items():
+        if rules is not None and key in rules:
+            name, convert = rules[key]
+            value = np.asarray(value)
+            out[prefix + name] = convert(value) if convert else value
+        elif key in children:
+            out.update(torch_layout_grads(children[key], value, f'{prefix}{key}.'))
+        else:
+            raise KeyError(f'{prefix}{key}: no such parameter or submodule in the torch module')
+    return out
+
+
+def assert_grads_close(module, grads, rtol, atol):
+    """Every parameter of the torch module has a .grad equal, to the
+    tolerance, to the JAX gradient of the same parameter; the JAX tree
+    covers every parameter."""
+    want = torch_layout_grads(module, grads)
+    params = dict(module.named_parameters())
+    assert sorted(want) == sorted(params), (sorted(want), sorted(params))
+    for name, p in params.items():
+        assert p.grad is not None, name
+        np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=rtol, atol=atol, err_msg=name)
 
 
 def assert_indices_tie_equal(x, embed, metric, idx_a, idx_b):

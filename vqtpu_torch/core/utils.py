@@ -40,6 +40,26 @@ def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-6) -> torch.Tensor:
     return t / norm.clamp_min(eps)
 
 
+def safe_div(num: torch.Tensor, den: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return num / den.clamp_min(eps)
+
+
+def laplace_smoothing(
+    x: torch.Tensor, n_categories: int, eps: float = 1e-5, dim: int = -1
+) -> torch.Tensor:
+    denom = x.sum(dim=dim, keepdim=True)
+    return (x + eps) / (denom + n_categories * eps)
+
+
+def batched_bincount(x: torch.Tensor, *, minlength: int) -> torch.Tensor:
+    """(h, n) int indices in [0, minlength) -> (h, minlength) float32
+    counts."""
+    offsets = torch.arange(x.shape[0], device=x.device)[:, None] * minlength
+    flat = (x.long() + offsets).reshape(-1)
+    counts = torch.bincount(flat, minlength=x.shape[0] * minlength)
+    return counts.reshape(x.shape[0], minlength).float()
+
+
 def append_dims_to(t: torch.Tensor, ndims: int) -> torch.Tensor:
     if t.ndim > ndims:
         raise ValueError(f'tensor has {t.ndim} dims, more than {ndims}')

@@ -1,4 +1,5 @@
-"""Hot-path kernels: nearest-code selection and code lookup."""
+"""Hot-path kernels: nearest-code selection, code lookup and the fused
+training step."""
 
 from .distance import (
     gather_codes,
@@ -6,4 +7,9 @@ from .distance import (
     nearest_code_plain,
     nearest_code_xla,
     quantize_lookup,
+)
+from .train_fused import (
+    code_statistics_plain,
+    fused_train_quantize,
+    fused_train_quantize_plain,
 )

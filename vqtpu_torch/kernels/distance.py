@@ -57,10 +57,10 @@ def nearest_code_plain(
     return out
 
 
-def _check_kernel_operands(x, embed, bias):
+def _check_kernel_operands(x, embed, bias, name='nearest_code'):
     if x.ndim != embed.ndim or x.ndim not in (2, 3) or bias.ndim != x.ndim - 1:
         raise ValueError(
-            'nearest_code takes x (n, d) or (h, n, d), embed (c, d) or '
+            f'{name} takes x (n, d) or (h, n, d), embed (c, d) or '
             f'(h, c, d) and bias (c,) or (h, c); got {tuple(x.shape)}, '
             f'{tuple(embed.shape)}, {tuple(bias.shape)}'
         )

@@ -1,11 +1,15 @@
-"""VectorQuantize (counterpart of vqtpu/quantizers/vq.py), eval forward.
+"""VectorQuantize (counterpart of vqtpu/quantizers/vq.py).
 
 The constructor takes the JAX module's kwargs. This port runs the eval
-(serving) forward: projections, heads with shared or separate codebooks,
-cosine similarity, channel-first / image / 3D feature-map layouts, masks
-and lengths, both quantize tiers, and decoding from indices. Features of
-the training forward and distributed codebooks raise NotImplementedError
-that names them.
+(serving) forward and the EMA training forward: projections, heads with
+shared or separate codebooks, cosine similarity, channel-first / image / 3D
+feature-map layouts, masks and lengths, both quantize tiers, decoding from
+indices; in training the EMA codebook update (kmeans init, dead-code
+expiry, accumulated and weighted EMA, the fused train kernel under
+`train_fused='on'`), the rotation trick or straight-through gradient, and
+the MSE commitment loss. The distance-materializing features, the
+learnable-codebook family and distributed codebooks raise
+NotImplementedError that names them.
 """
 
 from __future__ import annotations
@@ -17,7 +21,10 @@ from torch import nn
 
 from ..codebook.codebook import Codebook, not_ported
 from ..core.layout import to_tokens
-from ..core.utils import append_dims_to, default, exists, lens_to_mask, resolve_device
+from ..core.ste import rotate_to, straight_through
+from ..core.utils import (
+    append_dims_to, default, exists, lens_to_mask, masked_mean, resolve_device,
+)
 from ..kernels.distance import gather_codes
 
 
@@ -104,11 +111,15 @@ class VectorQuantize(nn.Module):
             ('sync_codebook', bool(sync_codebook)),
             ('code_axis', code_axis is not None),
             ('vq_bridge', vq_bridge is not None),
+            ('directional_reparam (DiVeQ, a learnable codebook)', directional_reparam),
             ('learnable_codebook', learnable_codebook),
+            ('orthogonal_reg_weight (it makes the codebook learnable)', orthogonal_reg_weight > 0),
             ('affine_param', affine_param),
             ('in_place_codebook_optimizer', in_place_codebook_optimizer is not None),
             ('stochastic_sample_codes (stochastic sampling)', stochastic_sample_codes),
             ('straight_through (gumbel sampling)', straight_through),
+            ('commitment_use_cross_entropy_loss (needs distances)', commitment_use_cross_entropy_loss),
+            ('codebook_diversity_loss_weight (needs distances)', codebook_diversity_loss_weight > 0),
         ):
             if used:
                 raise not_ported(feature)
@@ -144,23 +155,41 @@ class VectorQuantize(nn.Module):
         self.channel_last = channel_last
         self.return_zeros_for_masked_padding = return_zeros_for_masked_padding
 
-        # the settings only the training forward reads (decay, eps, losses
-        # and their weights, kmeans and dead-code options, gradient
-        # estimators, sampling temperature, EMA options, stat_precision,
-        # train_fused) are accepted for the JAX signature and not used until
-        # that forward is ported
+        self.has_commitment_loss = commitment_weight > 0.0
+        self.commitment_weight = commitment_weight
+        self.rotation_trick = default(rotation_trick, dim > 1)
+        self.route_gradients_to_input = route_gradients_to_input
+        self.freeze_codebook = freeze_codebook
+
+        # orthogonal_reg_active_codes_only, orthogonal_reg_max_codes,
+        # codebook_diversity_temperature, sample_codebook_temp, approx_topk,
+        # directional_reparam_variance, sync_affine_param, the affine decays,
+        # sync_update_v and manual_in_place_optimizer_update belong to
+        # features not ported yet and are accepted for the JAX signature
         self._codebook = Codebook(
             dim=codebook_dim,
             num_codebooks=heads if separate_codebook_per_head else 1,
             codebook_size=codebook_size,
             kmeans_init=kmeans_init,
+            kmeans_iters=kmeans_iters,
+            decay=decay,
+            eps=eps,
+            threshold_ema_dead_code=threshold_ema_dead_code,
+            ema_update=default(ema_update, True),
+            manual_ema_update=manual_ema_update,
             use_cosine_sim=use_cosine_sim,
             use_pallas=use_pallas,
+            stat_precision=stat_precision,
             quantize_tier=quantize_tier,
+            train_fused=train_fused,
             device=device,
         )
 
     # -- small helpers ---------------------------------------------------------
+
+    @property
+    def ema_update(self) -> bool:
+        return self._codebook.ema_update
 
     @property
     def codebook(self) -> torch.Tensor:
@@ -273,6 +302,51 @@ class VectorQuantize(nn.Module):
             return codes.movedim(-1, 1)
         return self.project_out(codes)
 
+    # -- external state updates ---------------------------------------------------
+
+    def update_indices(
+        self,
+        x: torch.Tensor,
+        indices: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        ema_update_weight=None,
+        accum_ema_update: bool = False,
+        ema_update: bool | None = None,
+    ):
+        """EMA update of the codebook from indices chosen elsewhere (after a
+        beam search); an index of -1 counts for nothing."""
+        if x.ndim == 2:
+            x = x[:, None, :]
+            indices = indices[:, None]
+        x, _ = self._normalize_input_layout(x)
+        with torch.no_grad():
+            x = self.codebook_input(x)
+        if self.heads > 1:
+            b = indices.shape[0]
+            if self.separate_codebook_per_head:
+                indices = indices.movedim(-1, 0)                      # (h, b, n)
+            else:
+                ind = indices.reshape(b, -1, self.heads)
+                indices = ind.permute(0, 2, 1).reshape(1, -1, ind.shape[1])  # (1, b*h, n)
+        if self.accept_image_fmap:
+            indices = (indices.reshape(indices.shape[0], -1, *indices.shape[3:])
+                       if indices.ndim > 3 else indices.reshape(indices.shape[0], -1))
+        if self.accept_3d_fmap:
+            indices = indices.reshape(indices.shape[0], -1)
+        self._codebook.update_indices(
+            x, indices, mask=mask, ema_update_weight=ema_update_weight,
+            accum_ema_update=accum_ema_update, ema_update=ema_update,
+        )
+
+    update_ema_indices = update_indices
+
+    def expire_codes_(self, x: torch.Tensor):
+        """Replace the codes whose EMA cluster size fell below the dead-code
+        threshold with vectors of `x`, given in codebook space."""
+        x = self._codebook.transform_input(x)
+        x = self.maybe_split_heads_from_input(x)
+        self._codebook.expire_codes_(x)
+
     # -- forward -------------------------------------------------------------------
 
     def forward(
@@ -291,13 +365,18 @@ class VectorQuantize(nn.Module):
         ema_update: bool | None = None,
         dist_precision=None,
     ):
-        """Eval forward: x -> (quantized, indices int32, loss), the loss 0.
+        """x -> (quantized, indices int32, loss).
 
-        Masked positions (`mask`, or `lens` as lengths) return zeros, or the
-        input with return_zeros_for_masked_padding=False, and index -1.
-        sample_codebook_temp, freeze_codebook, ema_update_weight,
-        accum_ema_update, ema_update and dist_precision only act in
-        training or on distance-materializing paths, and have no effect here.
+        In training mode the EMA codebook takes this batch's statistics (not
+        with `freeze_codebook`), the quantized output carries the rotation
+        trick's gradient to x (or the straight-through one with
+        rotation_trick=False), and the loss is the weighted MSE commitment
+        loss; in eval the loss is 0. Masked positions (`mask`, or `lens` as
+        lengths) return zeros, or the input with
+        return_zeros_for_masked_padding=False, and index -1, and add nothing
+        to the statistics or the loss. sample_codebook_temp and
+        dist_precision only act on distance-materializing paths, which are
+        not ported.
         """
         for feature, used in (
             ('indices= (cross-entropy loss against given codes)', exists(indices)),
@@ -306,14 +385,10 @@ class VectorQuantize(nn.Module):
         ):
             if used:
                 raise not_ported(feature)
-        if self.training:
-            raise not_ported(
-                'the training-mode forward (EMA codebook update, kmeans init, '
-                'dead-code expiry, rotation trick and commitment loss); call .eval()'
-            )
 
         orig_input = x
         orig_dtype = x.dtype
+        freeze_codebook = default(freeze_codebook, self.freeze_codebook)
 
         if exists(mask) and exists(lens):
             raise ValueError('pass mask or lens, not both')
@@ -332,7 +407,43 @@ class VectorQuantize(nn.Module):
         tokens, layout = self._normalize_input_layout(x)
         x = self.codebook_input(tokens)
 
-        quantize, embed_ind, _ = self._codebook(x, mask=mask, need_distances=False)
+        quantize, embed_ind, _ = self._codebook(
+            x, mask=mask, freeze_codebook=freeze_codebook,
+            ema_update_weight=ema_update_weight, accum_ema_update=accum_ema_update,
+            ema_update=ema_update, need_distances=False,
+        )
+
+        commit_loss = torch.zeros((), dtype=torch.float32, device=quantize.device)
+        loss = commit_loss
+        if self.training:
+            x32 = x.float()
+            commit_quantize = quantize.detach()
+            if self.route_gradients_to_input:
+                if self.rotation_trick:
+                    quantize = rotate_to(x32, quantize)
+                else:
+                    quantize = straight_through(x32, quantize)
+
+            if self.has_commitment_loss:
+                if exists(mask):
+                    # as in the JAX package: against the unprojected input
+                    # when its shape allows, else the codebook-space input
+                    target = (
+                        orig_input.float()
+                        if commit_quantize.shape[-1] == orig_input.shape[-1] and self.heads == 1
+                        else x32
+                    )
+                    err = (commit_quantize - target) ** 2
+                    loss_mask = mask
+                    if self.heads > 1:
+                        c, bh, n = err.shape[:3]
+                        hh = bh // mask.shape[0]
+                        loss_mask = mask[None, :, None, :].expand(c, mask.shape[0], hh, n)
+                        loss_mask = loss_mask.reshape(c, bh, n)
+                    commit_loss = masked_mean(err, loss_mask)
+                else:
+                    commit_loss = ((commit_quantize - x32) ** 2).mean()
+                loss = commit_loss * self.commitment_weight
 
         if self.heads > 1:
             embed_ind = self._reshape_indices_from_heads(embed_ind, batch)
@@ -359,7 +470,7 @@ class VectorQuantize(nn.Module):
                 append_dims_to(mask, embed_ind.ndim), embed_ind, -1
             )
 
-        loss = torch.zeros((), dtype=torch.float32, device=quantize.device)
         if not return_loss_breakdown:
             return quantize, embed_ind, loss
-        return quantize, embed_ind, loss, LossBreakdown(loss, loss, loss, loss)
+        zero = torch.zeros((), dtype=torch.float32, device=quantize.device)
+        return quantize, embed_ind, loss, LossBreakdown(commit_loss, zero, zero, zero)
