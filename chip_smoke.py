@@ -11,7 +11,7 @@ public entry points at full width, times the kernels and the step, and
 prints one JSON line per phase:
 
 1. device: card name and count, `nvidia-smi` name and power limit, build
-   time of both kernels (built in parallel);
+   time of the three kernel sources (built in parallel);
 2. kernel_vs_plain: the selection kernel against `nearest_code_plain` on the
    same inputs and bias, at the main shape (both metrics), ragged, tiny,
    batched-head and large-codebook shapes, plus exact tie probes;
@@ -33,7 +33,23 @@ prints one JSON line per phase:
 9. train_times: CUDA events, the fused kernel against the 'off' route's
    composition, one training step on each route, peak memory and a
    torch.profiler breakdown of a step;
-10. the {"kernels": [...]} line.
+10. lfq_kernels_vs_plain: the four LFQ entropy sweeps (csrc/lfq_entropy.cu)
+   against their plain versions on the same inputs, errors against float64,
+   two calls bit-identical, at the main LFQ shape (inv_temp 100 and 1),
+   non-spherical at scale 0.25, 0/1 weights, ragged N, K = 2^8 and three
+   heads at K = 2^12;
+11. lfq_train_path: LFQ(dim=18, codebook_size=2**18, spherical=True).train()
+   on (8, 1024, 18), one step per entropy_fused route ('on' and 'auto' run
+   the sweeps, 'off' does not), held against each other; then 3 SGD steps
+   of ResidualLFQ(dim=64, codebook_size=2**10, num_quantizers=4) on 8192
+   tokens, 'on' against 'off';
+12. lfq_flagship_train: the LFQ autoencoder (examples/autoencoder_lfq.py,
+   entropy_fused='on'), 50 AdamW steps, step 0 held against the CPU;
+13. lfq_times: CUDA events at the main LFQ shape: each sweep, its plain
+   version and bound, the fused statistics against the 'off' route's
+   streamed ones, one training step per route with peak memory and a
+   torch.profiler breakdown;
+14. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -42,8 +58,10 @@ disagreement fails. Statistics are held to the worst-case f32 summation
 bound against a float64 sum. TF32 is off in every phase
 (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32),
 so the plain versions run in full f32, except where a check turns it on to
-show a result does not depend on it. Any failed check raises and the
-script exits non-zero; the last line is {"ok": true, "device": {...}}.
+show a result does not depend on it. cuDNN is set deterministic (no
+benchmark search), so the flagships' convolutions pick the same algorithm in
+every run. Any failed check raises and the script exits non-zero; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -73,6 +91,19 @@ TRAIN_REPLACES = 'vqtpu/kernels/train_fused.py:61'
 # per entry (kMaxSplits in train_fused.cu)
 U32 = 2.0 ** -24
 MERGE_PARTIALS = 128
+LFQ_SOURCE = 'vqtpu_torch/kernels/csrc/lfq_entropy.cu'
+LFQ_REPLACES = {
+    'a': 'vqtpu/kernels/lfq_entropy.py:76 _kernel_a',
+    'b': 'vqtpu/kernels/lfq_entropy.py:95 _kernel_b',
+    'c': 'vqtpu/kernels/lfq_entropy.py:116 _kernel_c',
+    'd': 'vqtpu/kernels/lfq_entropy.py:139 _kernel_d',
+}
+# the JAX package's LFQ 2^18 shape (benchmarks/lfq_entropy_tpu.py:25-31):
+# N tokens of d = 18 dims, K = 2^18 implicit codes, spherical, inv_temp 100
+LFQ_MAIN = (8192, 18)
+LFQ_INV_TEMP = 100.0
+# H100 SXM: 16 exp/log (MUFU) results per clock per SM, 132 SMs, 1.98 GHz boost
+PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
 
 
 def emit(phase: str, **fields) -> None:
@@ -123,11 +154,12 @@ def phase_device():
 
     from vqtpu_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build(['nearest_code', 'train_fused'])
+    sources = ['nearest_code', 'train_fused', 'lfq_entropy']
+    _build.build(sources)
     build_s = time.perf_counter() - t0
     ptxas = {name: [line.strip() for line in _build.build_log(name).splitlines()
                     if 'registers' in line or 'spill' in line]
-             for name in ('nearest_code', 'train_fused')}
+             for name in sources}
     emit('device', kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -327,6 +359,22 @@ def phase_times(vq, xin, x_main, e_main, sizes):
     # plain, kernel, kernel, plain: one card, alternating
     plain_a, kernel_a, kernel_b, plain_b = (cuda_ms(f, reps) for f in (plain, kernel, kernel, plain))
     library_ms = cuda_ms(library, reps)
+
+    # K3's own shape: the kernel's c-loop over a 65536-code codebook
+    ln, lc, ld = sizes['others']['large_codebook']
+    gen = np.random.default_rng(14)
+    x_large = torch.from_numpy(gen.standard_normal((ln, ld), dtype=np.float32)).to(x_main.device)
+    e_large = torch.from_numpy(gen.standard_normal((lc, ld), dtype=np.float32)).to(x_main.device)
+    b_large = selection_bias(e_large, 'euclidean')
+    large = [lambda: nearest_code(x_large, e_large, 'euclidean', b_large),
+             lambda: nearest_code_plain(x_large, e_large, b_large),
+             lambda: torch.addmm(b_large, x_large, e_large.T).argmax(-1)]
+    lk_a, lp_a, lp_b, lk_b = (cuda_ms(large[i], reps) for i in (0, 1, 1, 0))
+    large_bound, large_by = selection_bound_ms(ln, lc, ld)
+    large_codebook = dict(shape=[ln, lc, ld], ms=(lk_a + lk_b) / 2, ms_runs=[lk_a, lk_b],
+                          plain_ms=(lp_a + lp_b) / 2, plain_ms_runs=[lp_a, lp_b],
+                          library_ms=cuda_ms(large[2], reps), bound_ms=large_bound, bound_by=large_by)
+    del x_large, e_large
     with torch.no_grad():
         forward_ms = cuda_ms(lambda: vq(xin), reps)
         torch.cuda.synchronize()
@@ -344,9 +392,10 @@ def phase_times(vq, xin, x_main, e_main, sizes):
          vq_forward_ms=forward_ms, vq_vectors_per_s=n / (forward_ms / 1e3),
          peak_allocated_bytes=peak, peak_note='one forward, with the 1 GiB input and the other live tensors of this script',
          bound_ms=bound_ms, bound_by=bound_by, kernel_share_of_bound=bound_ms / kernel_ms,
-         bound_basis='published H100 SXM peaks at 700 W: 67 TFLOP/s f32, 3.35 TB/s')
+         bound_basis='published H100 SXM peaks at 700 W: 67 TFLOP/s f32, 3.35 TB/s',
+         large_codebook=large_codebook)
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+                library_ms=library_ms, large_codebook=large_codebook)
 
 
 def train_bound_ms(n: int, c: int, d: int, weighted: bool) -> tuple[float, str]:
@@ -775,6 +824,455 @@ def phase_train_times(x_main, e_main, sizes, smi):
                 step_ms_on=step_mean['on'], step_ms_off=step_mean['off'])
 
 
+# -- LFQ: the entropy sweeps K5-K8 -------------------------------------------------
+
+
+def lfq_operands(n, d, spherical, weighted, device, seed):
+    gen = np.random.default_rng(seed)
+    x = gen.standard_normal((n, d), dtype=np.float32)
+    if spherical:
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    w = (gen.random(n) > 0.3).astype(np.float32) if weighted else np.ones(n, np.float32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(w).to(device)
+
+
+def lfq_cotangents(w, avgp, weight=0.1, gamma=1.0):
+    """The cotangents LFQ's aux loss weight * (sum w ent / W - gamma H(avgp / W))
+    sends to (ent, avgp)."""
+    denom = w.sum().clamp_min(1e-6)
+    a = avgp.double() / denom
+    entbar = (weight * w / denom).float()
+    gbar = (weight * gamma * (torch.log(a.clamp_min(1e-5)) + (a > 1e-5).double()) / denom).float()
+    return entbar, gbar
+
+
+def lfq_sweep_outputs(x, w, kw, entbar, gbar, plain=False):
+    """(logz, ent, avgp, sigma, gdot, dx) through the kernels, or through the
+    plain sweeps (in the dtype of x) when `plain`."""
+    from vqtpu_torch.kernels import lfq_entropy as tle
+    a, b, c, d_ = ((tle.sweep_a_plain, tle.sweep_b_plain, tle.sweep_c_plain, tle.sweep_d_plain) if plain
+                   else (tle.sweep_a, tle.sweep_b, tle.sweep_c, tle.sweep_d))
+    eb, gb = entbar.to(x.dtype), gbar.to(x.dtype)
+    m, s = a(x, **kw)
+    logz = m + torch.log(s)
+    ent, avgp = b(x, w.to(x.dtype), logz, eps=1e-5, **kw)
+    sigma, gdot = c(x, w.to(x.dtype), logz, eb, gb, eps=1e-5, **kw)
+    dx = d_(x, w.to(x.dtype), logz, eb, gb, sigma, eps=1e-5, **kw)
+    return dict(logz=logz, ent=ent, avgp=avgp, sigma=sigma, gdot=gdot, dx=dx)
+
+
+def compare_lfq(case, n, d, spherical, scale, weighted, inv_temp, device, seed, heads=1):
+    """The four sweeps against the plain sweeps on the same inputs, both held
+    to a float64 plain run; two kernel calls bit-identical. The kernel's
+    error must be within the stated tolerance of the largest float64 entry
+    (forward: 1e-5 at inv_temp 1, 1e-4 at 100; sigma, gdot and dx: 2e-5) or
+    within 4x the plain f32 sweep's own error, where a sum over 2^18 codes
+    cancels. Each limit must lie below a tenth of the largest entry (where
+    that entry is within f32's range), so that an output that is zero, or
+    off by a tenth, fails."""
+    from vqtpu_torch.kernels import lfq_entropy as tle
+    k = 1 << d
+    v = tle.code_magnitude(d, scale, spherical)
+    kw = dict(k=k, v=v, inv_temp=inv_temp)
+    errors = {}
+    for h in range(heads):
+        x, w = lfq_operands(n, d, spherical, weighted, device, seed + h)
+        if inv_temp == 1.0:
+            gen = np.random.default_rng(seed + 100 + h)
+            entbar = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(device)
+            gbar = torch.from_numpy(gen.standard_normal(k).astype(np.float32)).to(device)
+        else:
+            entbar, gbar = lfq_cotangents(w, tle.entropy_fwd_plain(x.double(), w.double(), **kw)[1])
+        ref = lfq_sweep_outputs(x.double(), w, kw, entbar, gbar, plain=True)
+        got = lfq_sweep_outputs(x, w, kw, entbar, gbar)
+        again = lfq_sweep_outputs(x, w, kw, entbar, gbar)
+        plain = lfq_sweep_outputs(x, w, kw, entbar, gbar, plain=True)
+        sync(device)
+        check(all(torch.equal(got[key], again[key]) for key in got), f'{case}: two kernel calls bit-identical')
+        for key in got:
+            scale_ref = float(ref[key].abs().max())
+            err = float((got[key].double() - ref[key]).abs().max())
+            plain_err = float((plain[key].double() - ref[key]).abs().max())
+            if key in ('logz', 'ent', 'avgp'):
+                tol = (1e-5 if inv_temp == 1.0 else 1e-4) * max(scale_ref, 1e-30 if key != 'logz' else 1.0)
+            else:
+                tol = 2e-5 * scale_ref
+            limit = max(tol, 4 * plain_err)
+            check(limit < 0.1 * scale_ref or scale_ref < torch.finfo(torch.float32).tiny,
+                  f'{case} head {h}: the {key} limit {limit} bites (largest entry {scale_ref})')
+            check(err <= limit,
+                  f'{case} head {h}: kernel {key} within {tol} or 4x the plain error ({err}, plain {plain_err})')
+            prev = errors.get(key, dict(max_abs_err=0.0, plain_max_abs_err=0.0, ref_max_abs=0.0, limit=0.0))
+            errors[key] = dict(max_abs_err=max(prev['max_abs_err'], err),
+                               plain_max_abs_err=max(prev['plain_max_abs_err'], plain_err),
+                               ref_max_abs=max(prev['ref_max_abs'], scale_ref), limit=max(prev['limit'], limit))
+        del ref, got, again, plain
+    emit('lfq_kernels_vs_plain', case=case, n=n, d=d, k=k, heads=heads, spherical=spherical, codebook_scale=scale,
+         v=v, weighted=weighted, inv_temp=inv_temp, bit_identical_calls=True,
+         cotangents='N(0, 1)' if inv_temp == 1.0 else "LFQ aux loss's (weight 0.1, gamma 1)",
+         errors_vs_float64=errors)
+    return errors
+
+
+def phase_lfq_kernels_vs_plain(device):
+    n, d = LFQ_MAIN
+    main = compare_lfq('main_t100', n, d, True, 1.0, False, LFQ_INV_TEMP, device, 20)
+    compare_lfq('main_t1', n, d, True, 1.0, False, 1.0, device, 21)
+    compare_lfq('main_scale025', n, d, False, 0.25, False, LFQ_INV_TEMP, device, 22)
+    compare_lfq('main_weighted', n, d, True, 1.0, True, LFQ_INV_TEMP, device, 23)
+    compare_lfq('ragged_300_k1024', 300, 10, True, 1.0, True, LFQ_INV_TEMP, device, 24)
+    compare_lfq('k256', 12544, 8, True, 1.0, False, LFQ_INV_TEMP, device, 25)
+    compare_lfq('heads3_k4096', 4096, 12, False, 1.0, False, LFQ_INV_TEMP, device, 26, heads=3)
+    return main
+
+
+def lfq_launches():
+    from vqtpu_torch.kernels import lfq_entropy as tle
+    return {name: f.launches for name, f in tle.SWEEPS.items()}
+
+
+def reset_lfq_launches():
+    from vqtpu_torch.kernels import lfq_entropy as tle
+    for f in tle.SWEEPS.values():
+        f.launches = 0
+
+
+def lfq_main_input(device, seed=30):
+    n, d = LFQ_MAIN
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal((8, n // 8, d), dtype=np.float32)).to(device)
+
+
+def lfq_main_model(route, device):
+    from vqtpu_torch import LFQ
+    n, d = LFQ_MAIN
+    return LFQ(dim=d, codebook_size=1 << d, spherical=True, entropy_loss_weight=0.1, diversity_gamma=1.0,
+               entropy_fused=route, device=device).train()
+
+
+def phase_lfq_train_path(device):
+    """The full-width LFQ training step on each entropy route, and 3 SGD
+    steps of ResidualLFQ on 'on' and 'off'. The aux loss's own gradient is
+    taken apart from the quantization term's (which no route changes), so
+    that the routes are held to each other on the part the sweeps make."""
+    from vqtpu_torch import ResidualLFQ
+    n, d = LFQ_MAIN
+    xin = lfq_main_input(device)
+    runs = {}
+    for route in ('on', 'auto', 'off'):
+        lfq = lfq_main_model(route, device)
+        x = xin.clone().requires_grad_()
+        reset_lfq_launches()
+        q, idx, aux = lfq(x, inv_temperature=LFQ_INV_TEMP)
+        aux_grad, = torch.autograd.grad(aux, x, retain_graph=True)
+        q.square().mean().backward()
+        grad = x.grad + aux_grad
+        sync(device)
+        runs[route] = dict(launches=lfq_launches(), idx=idx, aux=aux.detach(), grad=grad, aux_grad=aux_grad,
+                           q=q.detach())
+        check(bool(torch.isfinite(grad).all()) and bool(torch.isfinite(aux)), f'{route}: finite aux and x.grad')
+        del lfq, x, q
+    for route in ('on', 'auto'):
+        check(all(v == 1 for v in runs[route]['launches'].values()),
+              f"'{route}' ran each sweep once {runs[route]['launches']}")
+    check(all(v == 0 for v in runs['off']['launches'].values()), f"'off' ran no sweep {runs['off']['launches']}")
+    bits = ((xin > 0).long() << torch.arange(d - 1, -1, -1, device=device)).sum(-1).int()
+    for route, r in runs.items():
+        check(torch.equal(r['idx'], bits), f'{route}: indices equal the sign bits of x')
+        check(torch.equal(r['q'], runs['on']['q']), f'{route}: the same quantized output')
+    check(all(torch.equal(runs['auto'][key], runs['on'][key]) for key in ('aux', 'grad', 'aux_grad')),
+          "'auto' equals 'on' bit for bit")
+    aux_rel = float((runs['on']['aux'] - runs['off']['aux']).abs() / runs['off']['aux'].abs())
+    check(aux_rel <= 1e-4, f"'on' and 'off' aux agree to 1e-4 ({aux_rel})")
+    grads = {}
+    for key in ('aux_grad', 'grad'):
+        ref_max = float(runs['off'][key].abs().max())
+        rel = float((runs['on'][key] - runs['off'][key]).abs().max()) / ref_max
+        check(rel <= 1e-3, f"'on' and 'off' {key} agree to 1e-3 of the largest entry {ref_max} ({rel})")
+        grads[key] = dict(max_rel_diff_on_vs_off=rel, off_max_abs=ref_max)
+    main_launches = runs['on']['launches']
+
+    # ResidualLFQ: 3 SGD steps per route from the same state
+    torch.manual_seed(31)
+    kw = dict(dim=64, codebook_size=2 ** 10, num_quantizers=4, entropy_loss_weight=0.1)
+    models = {route: ResidualLFQ(**kw, entropy_fused=route, device=device).train() for route in ('on', 'off')}
+    models['off'].load_state_dict(models['on'].state_dict())
+    gen = np.random.default_rng(32)
+    batches = [torch.from_numpy(gen.standard_normal((8, 1024, 64), dtype=np.float32)).to(device) for _ in range(3)]
+    res = {}
+    for route, model in models.items():
+        opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+        reset_lfq_launches()
+        steps = []
+        for batch in batches:
+            q, idx, losses = model(batch)
+            loss = (q - batch).square().mean() + losses.sum()
+            loss.backward()
+            opt.step()
+            opt.zero_grad()
+            steps.append(dict(idx=idx, loss=loss.item(), losses=losses.detach()))
+        sync(device)
+        res[route] = dict(steps=steps, launches=lfq_launches())
+    check(all(v == 3 * 4 for v in res['on']['launches'].values()), f"ResidualLFQ 'on' launches {res['on']['launches']}")
+    check(all(v == 0 for v in res['off']['launches'].values()), f"ResidualLFQ 'off' launches {res['off']['launches']}")
+    check(torch.equal(res['on']['steps'][0]['idx'], res['off']['steps'][0]['idx']), 'ResidualLFQ step 0: same indices')
+    flips, loss_rel = [], []
+    for a, b in zip(res['on']['steps'], res['off']['steps']):
+        flips.append(int((a['idx'] != b['idx']).sum()))
+        loss_rel.append(abs(a['loss'] - b['loss']) / abs(b['loss']))
+    check(max(loss_rel) <= 1e-3, f"ResidualLFQ 'on' and 'off' losses agree to 1e-3 ({loss_rel})")
+    check(max(flips) <= 1e-3 * res['on']['steps'][0]['idx'].numel(), f'ResidualLFQ index flips {flips}')
+    emit('lfq_train_path', model=f'LFQ(dim={d}, codebook_size=2**{d}, spherical=True, entropy_loss_weight=0.1).train()',
+         input=list(xin.shape), inv_temperature=LFQ_INV_TEMP, launches={r: v['launches'] for r, v in runs.items()},
+         aux={r: float(v['aux']) for r, v in runs.items()}, aux_rel_on_vs_off=aux_rel,
+         x_grad=grads, x_grad_of=dict(aux_grad="the aux loss's gradient alone", grad='the whole loss'),
+         indices_equal_sign_bits=True, auto_equals_on=True,
+         residual=dict(model='ResidualLFQ(dim=64, codebook_size=2**10, num_quantizers=4)', input=[8, 1024, 64],
+                       optimizer='SGD(lr=1e-2)', steps=3, launches={r: v['launches'] for r, v in res.items()},
+                       loss_on=[t['loss'] for t in res['on']['steps']], loss_off=[t['loss'] for t in res['off']['steps']],
+                       loss_rel_diff=loss_rel, index_flips_per_step=flips))
+    return main_launches
+
+
+def phase_lfq_flagship_train(device, sizes):
+    """examples/autoencoder_lfq.py's model with entropy_fused='on': step 0
+    against the CPU from the same weights, then AdamW steps."""
+    from vqtpu_torch import LFQ, SimpleQuantizeAutoEncoder
+    alpha = 10.0
+
+    def build(dev):
+        return SimpleQuantizeAutoEncoder(
+            LFQ(dim=32, codebook_size=256, entropy_loss_weight=0.02, diversity_gamma=1.0, entropy_fused='on',
+                device=dev), dim=32, device=dev).train()
+
+    def loss_of(model, x):
+        recon, idx, aux = model(x)
+        return (recon.clamp(-1, 1) - x).abs().mean() + alpha * aux, idx, aux
+
+    torch.manual_seed(33)
+    model = build(device)
+    ref = build('cpu')
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    rng = np.random.default_rng(34)
+    images = [rng.random((sizes['images'], 28, 28, 1), dtype=np.float32) for _ in range(sizes['flagship_steps'])]
+
+    x = torch.from_numpy(images[0])
+    reset_lfq_launches()
+    loss, idx, aux = loss_of(model, x.to(device))
+    loss.backward()
+    ref_loss, ref_idx, ref_aux = loss_of(ref, x)
+    ref_loss.backward()
+    with torch.no_grad():
+        z = model.quantizer.project_in(model.encoder(x.to(device)).reshape(-1, 32)).cpu()
+    sync(device)
+    bits = ((z > 0).long() << torch.arange(7, -1, -1)).sum(-1).int().reshape(idx.shape)
+    check(torch.equal(idx.cpu(), bits), 'LFQ flagship step 0: indices are the sign bits of the projection')
+    flips = int((idx.cpu() != ref_idx).sum())
+    # a token may flip only where a projected value lies within rounding of 0
+    near_zero = (z.abs() < 1e-5).any(-1).reshape(idx.shape)
+    check(bool(((idx.cpu() != ref_idx) <= near_zero).all()), 'LFQ flagship step 0: flips only at near-zero values')
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(loss_rel <= 1e-4, f'LFQ flagship step 0: loss matches the CPU to 1e-4 ({loss_rel})')
+    compared_on = len(x)
+    if flips:
+        # the gradients are compared on the images with no flipped token
+        keep = (idx.cpu() == ref_idx).reshape(len(x), -1).all(-1)
+        compared_on = int(keep.sum())
+        check(compared_on > len(x) // 2, f'LFQ flagship step 0: {compared_on} images without a flip')
+        model.zero_grad()
+        ref.zero_grad()
+        sub_loss, sub_idx, _ = loss_of(model, x[keep].to(device))
+        sub_loss.backward()
+        ref_sub_loss, ref_sub_idx, _ = loss_of(ref, x[keep])
+        ref_sub_loss.backward()
+        check(torch.equal(sub_idx.cpu(), ref_sub_idx), 'LFQ flagship step 0: no flip on the images compared')
+    grad_err = 0.0
+    for (name, p), (_, rp) in zip(model.named_parameters(), ref.named_parameters()):
+        err = float((p.grad.cpu() - rp.grad).abs().max() / rp.grad.abs().max().clamp_min(1e-30))
+        grad_err = max(grad_err, err)
+    check(grad_err <= 1e-3, f'LFQ flagship step 0: gradients match the CPU to 1e-3 on {compared_on} images ({grad_err})')
+    if flips:
+        # the step itself takes the whole batch
+        model.zero_grad()
+        loss, idx, aux = loss_of(model, x.to(device))
+        loss.backward()
+    opt.step()
+    opt.zero_grad()
+
+    losses, auxes = [loss.item()], [aux.item()]
+    for step in range(1, len(images)):
+        loss, idx, aux = loss_of(model, torch.from_numpy(images[step]).to(device))
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.item())
+        auxes.append(aux.item())
+    sync(device)
+    launches = lfq_launches()
+    expected = len(images) + (2 if flips else 0)  # with flips, the sub-batch and the step's rerun
+    check(all(v == expected for v in launches.values()), f'the LFQ flagship ran each sweep every step {launches}')
+    check(all(np.isfinite(losses)), 'LFQ flagship losses are finite')
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f'the LFQ flagship loss falls ({first} -> {last})')
+    emit('lfq_flagship_train',
+         model="SimpleQuantizeAutoEncoder(LFQ(dim=32, codebook_size=256, entropy_loss_weight=0.02, "
+               "diversity_gamma=1.0, entropy_fused='on'))",
+         optimizer='AdamW(lr=3e-4, weight_decay=1e-4)', loss='|clip(out, -1, 1) - x|.mean() + 10 aux',
+         input=[sizes['images'], 28, 28, 1], steps=len(images), launches=launches,
+         loss_first=losses[0], loss_last=losses[-1], aux_first=auxes[0], aux_last=auxes[-1],
+         loss_mean_first5=first, loss_mean_last5=last,
+         step0_vs_cpu=dict(loss_rel_err=loss_rel, grad_max_rel_err=grad_err, index_flips=flips,
+                           grad_compared=True, grad_compared_on_images=compared_on),
+         codes_used_last_step=int(torch.unique(idx).numel()))
+    return launches
+
+
+def lfq_bound_ms(n, d, sweep):
+    """Least time for a sweep at n tokens, K = 2^d: the largest of the FMA
+    term, the MUFU term (the exp, and the log of B, C and D, per pair at
+    16/clk/SM) and the bytes (inputs read once, outputs written once).
+
+    The FMA term counts the dots as the function needs them, not as d FMAs
+    a pair: codes come in runs of 2^L (L = min(d, 4)) that share their top
+    d - L signs, so a run's 2^L dots take d - L FMAs for the shared prefix
+    and 2^(L+1) - 2 for the tree over the last L dims (2.75 a pair at
+    d = 18). Sweep D folds p (g - sigma) back through the same tree, its
+    transpose, as many adds again. At 67 TFLOP/s f32."""
+    k = 1 << d
+    pairs = n * k
+    lo = min(d, 4)
+    dot_fmas = (d - lo + (1 << (lo + 1)) - 2) / (1 << lo)
+    fma_ms = 2 * dot_fmas * pairs * (2 if sweep == 'd' else 1) / PEAK_F32_FLOPS * 1e3
+    mufu_ms = pairs * (1 if sweep == 'a' else 2) / PEAK_MUFU_PER_S * 1e3
+    floats = {'a': n * d + 2 * n, 'b': n * d + 3 * n + k, 'c': n * d + 5 * n + k, 'd': 2 * n * d + 4 * n + k}[sweep]
+    bytes_ms = 4 * floats / PEAK_BYTES_PER_S * 1e3
+    ops_ms = max(fma_ms, mufu_ms)
+    return dict(bound_ms=max(ops_ms, bytes_ms), bound_by='operations' if ops_ms >= bytes_ms else 'bytes',
+                fma_term_ms=fma_ms, mufu_term_ms=mufu_ms, bytes_term_ms=bytes_ms)
+
+
+def phase_lfq_times(sizes, smi):
+    from vqtpu_torch.kernels import lfq_entropy as tle
+    n, d = LFQ_MAIN
+    k = 1 << d
+    device = torch.device('cuda')
+    reps = sizes['lfq_reps']
+    x, w = lfq_operands(n, d, True, False, device, 40)
+    v = tle.code_magnitude(d, 1.0, True)
+    kw = dict(k=k, v=v, inv_temp=LFQ_INV_TEMP)
+    m, s = tle.sweep_a(x, **kw)
+    logz = m + torch.log(s)
+    ent, avgp = tle.sweep_b(x, w, logz, eps=1e-5, **kw)
+    entbar, gbar = lfq_cotangents(w, avgp)
+    sigma, _ = tle.sweep_c(x, w, logz, entbar, gbar, eps=1e-5, **kw)
+    calls = {
+        'a': (lambda: tle.sweep_a(x, **kw), lambda: tle.sweep_a_plain(x, **kw)),
+        'b': (lambda: tle.sweep_b(x, w, logz, eps=1e-5, **kw), lambda: tle.sweep_b_plain(x, w, logz, eps=1e-5, **kw)),
+        'c': (lambda: tle.sweep_c(x, w, logz, entbar, gbar, eps=1e-5, **kw),
+              lambda: tle.sweep_c_plain(x, w, logz, entbar, gbar, eps=1e-5, **kw)),
+        'd': (lambda: tle.sweep_d(x, w, logz, entbar, gbar, sigma, eps=1e-5, **kw),
+              lambda: tle.sweep_d_plain(x, w, logz, entbar, gbar, sigma, eps=1e-5, **kw)),
+    }
+    per_kernel = {}
+    for name, (kernel, plain) in calls.items():
+        # kernel, plain, kernel: one card, alternating
+        ka = cuda_ms(kernel, reps)
+        pm = cuda_ms(plain, sizes['lfq_plain_reps'], warmup=1)
+        kb = cuda_ms(kernel, reps)
+        per_kernel[name] = dict(ms=(ka + kb) / 2, ms_runs=[ka, kb], plain_ms=pm, **lfq_bound_ms(n, d, name))
+
+    # K5's library yardstick: the (N, K) logits materialized by one GEMM, then logsumexp
+    codes_t = tle.code_tile(0, k, d, v, device=device).T.contiguous()
+    zero = torch.zeros(k, device=device)
+
+    def library_a():
+        torch.logsumexp(torch.addmm(zero, x, codes_t, beta=0, alpha=2 * LFQ_INV_TEMP), -1)
+    per_kernel['a']['library_ms'] = cuda_ms(library_a, sizes['lfq_plain_reps'], warmup=1)
+    per_kernel['a']['library_call'] = 'torch.addmm(0, x, C.T, alpha=2 inv_temp) then torch.logsumexp: (8192, 2^18) f32 logits, 8.6 GB'
+    lse_err = float((torch.logsumexp(torch.addmm(zero, x, codes_t, beta=0, alpha=2 * LFQ_INV_TEMP), -1)
+                     - logz).abs().max())
+    del codes_t
+    for name in 'bcd':
+        per_kernel[name]['library_ms'] = None
+
+    # the statistics as LFQ's routes compute them: fused (the four sweeps)
+    # against the 'off' route's streamed chunks under checkpoint
+    lfq = lfq_main_model('off', device)
+    flat = x[:, None, :]
+
+    def loss_from(ent_sum, avgp_num):
+        a = avgp_num.reshape(-1) / n
+        return ent_sum / n - (-a * torch.log(a.clamp_min(1e-5))).sum()
+
+    def fused_fwd():
+        with torch.no_grad():
+            tle.lfq_entropy_stats(x, w, k=k, v=v, inv_temp=LFQ_INV_TEMP)
+
+    def fused_fwd_bwd():
+        xg = x.detach().requires_grad_()
+        ent_, avgp_ = tle.lfq_entropy_stats(xg, w, k=k, v=v, inv_temp=LFQ_INV_TEMP)
+        loss_from((ent_ * w).sum(), avgp_).backward()
+
+    def streamed_fwd():
+        with torch.no_grad():
+            lfq._streamed_entropy_stats(flat, w, LFQ_INV_TEMP, 1 << 14)
+
+    def streamed_fwd_bwd():
+        xg = flat.detach().requires_grad_()
+        loss_from(*lfq._streamed_entropy_stats(xg, w, LFQ_INV_TEMP, 1 << 14)).backward()
+
+    stats = {}
+    for name, fn in (('fused_fwd', fused_fwd), ('streamed_fwd', streamed_fwd), ('streamed_fwd', streamed_fwd),
+                     ('fused_fwd', fused_fwd), ('fused_fwd_bwd', fused_fwd_bwd),
+                     ('streamed_fwd_bwd', streamed_fwd_bwd), ('streamed_fwd_bwd', streamed_fwd_bwd),
+                     ('fused_fwd_bwd', fused_fwd_bwd)):
+        stats.setdefault(name, []).append(cuda_ms(fn, sizes['lfq_step_reps'], warmup=1))
+
+    # one whole training step per route
+    xin = lfq_main_input(device)
+    models = {route: lfq_main_model(route, device) for route in ('on', 'auto', 'off')}
+
+    def step(route):
+        def run():
+            xs = xin.detach().requires_grad_()
+            q, _, aux = models[route](xs, inv_temperature=LFQ_INV_TEMP)
+            (q.square().mean() + aux).backward()
+        return run
+
+    step_ms = {'on': [], 'auto': [], 'off': []}
+    for route in ('on', 'off', 'auto', 'auto', 'off', 'on'):
+        step_ms[route].append(cuda_ms(step(route), sizes['lfq_step_reps'], warmup=1))
+    peak, profiles = {}, {}
+    for route in ('on', 'auto', 'off'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(route)()
+        torch.cuda.synchronize()
+        peak[route] = torch.cuda.max_memory_allocated()
+        profiles[route] = profile_device(step(route), 1)
+    reset_lfq_launches()
+    step('on')()
+    sync(device)
+    launches_per_step = lfq_launches()
+    step_mean = {r: sum(t) / len(t) for r, t in step_ms.items()}
+    for name in per_kernel:
+        per_kernel[name]['launches_per_step'] = launches_per_step[name]
+    emit('lfq_times', shape=dict(n=n, d=d, k=k, inv_temp=LFQ_INV_TEMP, spherical=True), card=smi, reps=reps,
+         per_kernel=per_kernel, library_logsumexp_max_abs_diff_vs_kernel_logz=lse_err,
+         stats_ms={name: sum(t) / len(t) for name, t in stats.items()}, stats_ms_runs=stats,
+         stats_note="fused = lfq_entropy_stats (sweeps A+B, +C+D backward); streamed = the 'off' route's "
+                    'chunks of 2^14 codes under torch.utils.checkpoint; the loss is the entropy aux loss',
+         step_ms=step_mean, step_ms_runs=step_ms,
+         step='forward + backward of LFQ(dim=18, codebook_size=2**18, spherical=True).train() on (8, 1024, 18), '
+              'loss mean(q^2) + aux',
+         tokens_per_s={r: n / (t / 1e3) for r, t in step_mean.items()}, peak_allocated_bytes=peak,
+         launches_per_step=launches_per_step, profile_step=profiles,
+         bound_basis='H100 SXM at 700 W: 67 TFLOP/s f32 (FMA), 16 MUFU results/clk/SM x 132 SMs x 1.98 GHz, '
+                     '3.35 TB/s')
+    return dict(per_kernel=per_kernel, stats_ms={name: sum(t) / len(t) for name, t in stats.items()},
+                step_ms=step_mean)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -782,6 +1280,9 @@ def main() -> int:
     import vqtpu_torch  # noqa: F401  -- fails before any output outside a checkout
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the flagships' convolutions: one algorithm in every run, no benchmark search
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     device = torch.device('cuda')
     sizes = {
         'main': MAIN,
@@ -799,6 +1300,9 @@ def main() -> int:
         'flagship_steps': 50,
         'train_reps': 10,
         'step_reps': 5,
+        'lfq_reps': 10,
+        'lfq_plain_reps': 2,
+        'lfq_step_reps': 3,
     }
 
     kind, count, smi = phase_device()
@@ -814,6 +1318,17 @@ def main() -> int:
     train_launches, off_route_launches = phase_train_path(device, sizes)
     flagship_train_launches = phase_flagship_train(device, sizes)
     train_times = phase_train_times(x_main, e_main, sizes, smi)
+    del x_main, e_main
+    lfq_errors = phase_lfq_kernels_vs_plain(device)
+    lfq_main_launches = phase_lfq_train_path(device)
+    lfq_flagship_launches = phase_lfq_flagship_train(device, sizes)
+    lfq_times = phase_lfq_times(sizes, smi)
+    per_kernel = lfq_times['per_kernel']
+    lfq_per_kernel = [dict(sweep=name, replaces=LFQ_REPLACES[name], launches=lfq_main_launches[name],
+                           **{key: per_kernel[name][key] for key in (
+                               'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                               'fma_term_ms', 'mufu_term_ms', 'bytes_term_ms')})
+                      for name in 'abcd']
 
     print(json.dumps({'kernels': [{
         'name': 'nearest_code',
@@ -843,6 +1358,33 @@ def main() -> int:
         'library_ms_note': "no single PyTorch call computes the fused step; composition_ms is the 'off' route",
         'check': 'indices equal nearest_code and the plain version except near-ties, rows bit-equal, '
                  'bins equal, esum within the f32 summation bound, two calls bit-identical',
+        'power_limit': smi,
+    }, {
+        'name': 'lfq_entropy',
+        'route': 'cuda',
+        'source': LFQ_SOURCE,
+        'replaces': LFQ_REPLACES['a'].split()[0],
+        'replaces_all': list(LFQ_REPLACES.values()),
+        'launches': sum(lfq_main_launches.values()),
+        'launches_by_sweep': lfq_main_launches,
+        'launches_flagship_train': lfq_flagship_launches,
+        'max_abs_err': lfq_errors['dx']['max_abs_err'],
+        'max_abs_err_of': 'max |dx - float64 plain| at the main LFQ shape, inv_temp 100, '
+                          "LFQ aux loss cotangents (errors of every output: phase lfq_kernels_vs_plain)",
+        'ms': sum(k['ms'] for k in lfq_per_kernel),
+        'plain_ms': sum(k['plain_ms'] for k in lfq_per_kernel),
+        'bound_ms': sum(k['bound_ms'] for k in lfq_per_kernel),
+        'bound_by': 'operations',
+        'library_ms': None,
+        'library_ms_note': 'no single PyTorch call computes the four sweeps; per_kernel gives K5 against '
+                           "addmm + logsumexp, and stats_ms the 'off' route's streamed statistics",
+        'ms_of': 'the four sweeps of one LFQ training step at N = 8192, K = 2^18 (sum of per_kernel)',
+        'per_kernel': lfq_per_kernel,
+        'stats_ms': lfq_times['stats_ms'],
+        'step_ms': lfq_times['step_ms'],
+        'check': 'each sweep within its tolerance of a float64 plain run or 4x the plain f32 error, each limit '
+                 "under a tenth of the largest entry, two calls bit-identical; 'on'/'auto' and 'off' aux to 1e-4, "
+                 "the aux loss's x.grad and the whole x.grad to 1e-3 of their largest entry; indices equal sign bits",
         'power_limit': smi,
     }]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': count}}),

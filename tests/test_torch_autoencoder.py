@@ -21,7 +21,7 @@ from vqtpu_torch import load_vqtpu_state
 from vqtpu_torch.models import ConvDecoder, ConvEncoder
 
 from torch_parity import (  # noqa: F401  (one_torch_thread: autouse)
-    assert_grads_close, assert_indices_tie_equal, jax_state, one_torch_thread,
+    assert_grads_close, assert_indices_tie_equal, jax_state, one_torch_thread, torch_layout_grads,
 )
 
 
@@ -132,3 +132,52 @@ def test_autoencoder_training_step_matches_jax():
                                    rtol=1e-5, atol=1e-6, err_msg=name)
     grads = jax.tree.map(np.asarray, nnx.to_pure_dict(jgrads))
     assert_grads_close(tm, grads, rtol=1e-4, atol=1e-7)
+
+
+def _lfq_flagship(seed=0):
+    """examples/autoencoder_lfq.py's model with entropy_fused='on', so that
+    the entropy statistics run through the fused sweeps (the port's plain
+    sweeps here, the JAX Pallas kernels in interpret mode)."""
+    kw = dict(dim=32, codebook_size=256, entropy_loss_weight=0.02, diversity_gamma=1.0, entropy_fused='on')
+    rngs = nnx.Rngs(seed)
+    jm = jmodels.SimpleQuantizeAutoEncoder(vqtpu.LFQ(**kw, rngs=rngs), dim=32, rngs=rngs)
+    tm = vqtpu_torch.SimpleQuantizeAutoEncoder(vqtpu_torch.LFQ(**kw, device='cpu'), dim=32, device='cpu')
+    load_vqtpu_state(tm, jax_state(jm))
+    return jm, tm
+
+
+def test_lfq_autoencoder_training_step_matches_jax():
+    """One training step of the LFQ flagship from the same weights, with
+    examples/autoencoder_lfq.py's loss |clip(out) - x|.mean() + 10 aux:
+    indices equal, the loss and its terms within 1e-4 relative (the aux
+    loss at inv_temperature 100, tests/test_lfq.py's bound), and every
+    parameter's gradient within 1e-3 of its largest entry (the saturated
+    softmax's gradient noise, 5e-4 absolute per token, reaches the encoder
+    through the projection)."""
+    jm, tm = _lfq_flagship()
+    jm.train()
+    tm.train()
+    x = np.random.default_rng(6).random((8, 28, 28, 1), dtype=np.float32)
+
+    def loss_fn(m, x):
+        out, indices, aux = m(x)
+        rec = jnp.abs(jnp.clip(out, -1, 1) - x).mean()
+        return rec + ALPHA * aux, (rec, aux, indices)
+    step = nnx.jit(nnx.value_and_grad(loss_fn, has_aux=True))
+    (jloss, (jrec, jaux, jidx)), jgrads = step(jm, jnp.asarray(x))
+
+    tx = torch.from_numpy(x)
+    recon, idx, aux = tm(tx)
+    rec = (recon.clamp(-1, 1) - tx).abs().mean()
+    loss = rec + ALPHA * aux
+    loss.backward()
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(float(rec.detach()), float(jrec), rtol=1e-4)
+    np.testing.assert_allclose(float(aux.detach()), float(jaux), rtol=1e-4)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-4)
+    want = torch_layout_grads(tm, jax.tree.map(np.asarray, nnx.to_pure_dict(jgrads)))
+    params = dict(tm.named_parameters())
+    assert sorted(want) == sorted(params)
+    for name, p in params.items():
+        np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=0, atol=1e-3 * np.abs(want[name]).max(),
+                                   err_msg=name)

@@ -177,3 +177,158 @@ def test_vq_training_step_on_card_matches_cpu(card, route):
         assert torch.equal(vq._codebook.cluster_size.cpu(), ref._codebook.cluster_size)
         torch.testing.assert_close(vq._codebook.embed.cpu(), ref._codebook.embed, rtol=1e-5, atol=1e-5)
     assert torch.isfinite(xc.grad).all()
+
+
+# -- the LFQ entropy sweeps (csrc/lfq_entropy.cu) ---------------------------------
+
+import vqtpu_torch.kernels.lfq_entropy as tle  # noqa: E402
+
+
+def _lfq_operands(n, d, spherical, weighted, device, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    if spherical:
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    w = (rng.random(n) > 0.3).astype(np.float32) if weighted else np.ones(n, np.float32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(w).to(device)
+
+
+def _max_rel(a, ref):
+    return float((a.double() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize('case', (
+    (8192, 18, True, 1.0, False, 100.0), (8192, 18, True, 1.0, True, 1.0), (300, 10, False, 0.25, True, 100.0),
+    (1000, 8, True, 1.0, False, 1.0), (777, 12, False, 0.5, True, 1.0), (50, 3, False, 1.0, False, 1.0),
+    (129, 1, True, 1.0, True, 100.0),
+), ids=('main_t100', 'main_weighted_t1', 'ragged', 'k256', 'k4096', 'k8', 'k2'))
+def test_lfq_sweeps_match_plain(card, case):
+    """Each sweep against the plain sweep in float64 on the same inputs:
+    forward values within 1e-5 (inv_temp 1) or 1e-4 (inv_temp 100) of the
+    largest entry; sigma, gdot and dx within 2e-5 of theirs (at inv_temp 100
+    with the cotangents of LFQ's aux loss) or, where a sum over 2^18 codes
+    cancels, within 4x the plain sweep's own f32 error against float64. Each
+    limit lies below a tenth of the largest entry. Two calls bit-identical."""
+    n, d, spherical, scale, weighted, inv_temp = case
+    k = 1 << d
+    x, w = _lfq_operands(n, d, spherical, weighted, card)
+    v = tle.code_magnitude(d, scale, spherical)
+    kw = dict(k=k, v=v, inv_temp=inv_temp)
+    x64, w64 = x.double(), w.double()
+    m64, s64 = tle.sweep_a_plain(x64, **kw)
+    logz64 = m64 + torch.log(s64)
+    ent64, avgp64 = tle.sweep_b_plain(x64, w64, logz64, eps=1e-5, **kw)
+    before = {name: f.launches for name, f in tle.SWEEPS.items()}
+    m, s = tle.sweep_a(x, **kw)
+    logz = m + torch.log(s)
+    ent, avgp = tle.sweep_b(x, w, logz, eps=1e-5, **kw)
+    if inv_temp == 1.0:
+        gen = np.random.default_rng(1)
+        entbar = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(card)
+        gbar = torch.from_numpy(gen.standard_normal(k).astype(np.float32)).to(card)
+    else:
+        denom = w.sum().clamp_min(1e-6)
+        a = avgp64 / denom
+        entbar = (0.1 * w / denom).float()
+        gbar = (0.1 * (torch.log(a.clamp_min(1e-5)) + (a > 1e-5).double()) / denom).float()
+    sigma, gdot = tle.sweep_c(x, w, logz, entbar, gbar, eps=1e-5, **kw)
+    dx = tle.sweep_d(x, w, logz, entbar, gbar, sigma, eps=1e-5, **kw)
+    again = (tle.sweep_a(x, **kw), tle.sweep_b(x, w, logz, eps=1e-5, **kw),
+             tle.sweep_c(x, w, logz, entbar, gbar, eps=1e-5, **kw),
+             tle.sweep_d(x, w, logz, entbar, gbar, sigma, eps=1e-5, **kw))
+    torch.cuda.synchronize()
+    assert {name: f.launches - before[name] for name, f in tle.SWEEPS.items()} == dict(a=2, b=2, c=2, d=2)
+    assert all(torch.equal(a, b) for a, b in zip((m, s, ent, avgp, sigma, gdot, dx),
+                                                 (*again[0], *again[1], *again[2], again[3])))
+
+    fwd_tol = 1e-5 if inv_temp == 1.0 else 1e-4
+    assert float((logz.double() - logz64).abs().max()) <= fwd_tol * max(float(logz64.abs().max()), 1.0)
+    assert _max_rel(ent, ent64) <= fwd_tol and _max_rel(avgp, avgp64) <= fwd_tol
+    sigma64, gdot64 = tle.sweep_c_plain(x64, w64, logz64, entbar.double(), gbar.double(), eps=1e-5, **kw)
+    dx64 = tle.sweep_d_plain(x64, w64, logz64, entbar.double(), gbar.double(), sigma64, eps=1e-5, **kw)
+    sigma32, gdot32 = tle.sweep_c_plain(x, w, logz, entbar, gbar, eps=1e-5, **kw)
+    dx32 = tle.sweep_d_plain(x, w, logz, entbar, gbar, sigma32, eps=1e-5, **kw)
+    for got, plain, ref in ((sigma, sigma32, sigma64), (gdot, gdot32, gdot64), (dx, dx32, dx64)):
+        err = float((got.double() - ref).abs().max())
+        limit = max(2e-5 * float(ref.abs().max()), 4 * float((plain.double() - ref).abs().max()))
+        # a limit at a tenth of the largest entry would pass an output of zeros,
+        # unless the entries are below what f32 holds
+        tiny = torch.finfo(torch.float32).tiny
+        assert err <= limit and (limit < 0.1 * float(ref.abs().max()) or float(ref.abs().max()) < tiny), (err, limit)
+
+
+def test_lfq_entropy_stats_on_card_matches_cpu(card):
+    n, d = 2000, 12
+    x, w = _lfq_operands(n, d, True, True, card, seed=2)
+    v = tle.code_magnitude(d, 1.0, True)
+    xs = [x.clone().requires_grad_(), x.cpu().requires_grad_()]
+    outs = [tle.lfq_entropy_stats(t, w.to(t.device), k=1 << d, v=v, inv_temp=1.0) for t in xs]
+    gen = np.random.default_rng(3)
+    entbar = torch.from_numpy(gen.standard_normal(n).astype(np.float32))
+    gbar = torch.from_numpy(gen.standard_normal(1 << d).astype(np.float32))
+    grads = [torch.autograd.grad(o, t, (entbar.to(t.device), gbar.to(t.device)))[0] for o, t in zip(outs, xs)]
+    for a, b in zip(outs[0], outs[1]):
+        assert _max_rel(a.detach().cpu(), b.detach().double()) <= 1e-5
+    assert _max_rel(grads[0].cpu(), grads[1].double()) <= 2e-5
+
+
+def test_lfq_kernels_reject_what_they_do_not_take(card):
+    x, w = _lfq_operands(100, 8, False, False, card)
+    with pytest.raises(ValueError, match='1 <= d <= 24'):
+        tle.sweep_a(torch.zeros(4, 25, device=card), k=1 << 25, v=1.0, inv_temp=1.0)
+    with pytest.raises(TypeError, match='float32'):
+        tle.sweep_a(x.double(), k=256, v=1.0, inv_temp=1.0)
+    with pytest.raises(ValueError, match='contiguous'):
+        tle.sweep_b(x, torch.stack([w, w], 1)[:, 0], w, k=256, v=1.0, inv_temp=1.0, eps=1e-5)
+
+
+@pytest.mark.parametrize('route', ('on', 'auto', 'off'))
+def test_lfq_training_step_on_card_matches_cpu(card, route):
+    """LFQ with a chunked codebook (chunk 2^8 of 2^12): 'on' and 'auto' run
+    the four sweeps on the card, 'off' none. Values within 1e-4 relative,
+    and the input gradient of the aux loss alone and of the whole loss
+    within 1e-3 of their largest entry, of the CPU run of the same weights
+    (inv_temperature 100)."""
+    torch.manual_seed(0)
+    kw = dict(dim=12, codebook_size=2 ** 12, entropy_loss_weight=0.1, spherical=True,
+              entropy_chunk_size=2 ** 8, entropy_fused=route)
+    lfq = vqtpu_torch.LFQ(**kw, device=card).train()
+    ref = vqtpu_torch.LFQ(**kw, device='cpu').train()
+    ref.load_state_dict({k: v.cpu() for k, v in lfq.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((4, 300, 12), dtype=np.float32))
+    before = {name: f.launches for name, f in tle.SWEEPS.items()}
+    xc = x.to(card).requires_grad_()
+    q, idx, aux = lfq(xc)
+    aux_grad, = torch.autograd.grad(aux, xc, retain_graph=True)
+    q.square().mean().backward()
+    xr = x.clone().requires_grad_()
+    q_ref, idx_ref, aux_ref = ref(xr)
+    aux_grad_ref, = torch.autograd.grad(aux_ref, xr, retain_graph=True)
+    q_ref.square().mean().backward()
+    torch.cuda.synchronize()
+    launched = {name: f.launches - before[name] for name, f in tle.SWEEPS.items()}
+    assert launched == ({k: 0 for k in 'abcd'} if route == 'off' else {k: 1 for k in 'abcd'})
+    bits = (x > 0).long() << torch.arange(11, -1, -1)
+    assert torch.equal(idx.cpu(), idx_ref) and torch.equal(idx.cpu(), bits.sum(-1).int())
+    torch.testing.assert_close(q.detach().cpu(), q_ref.detach(), rtol=0, atol=1e-6)
+    torch.testing.assert_close(aux.detach().cpu(), aux_ref.detach(), rtol=1e-4, atol=0)
+    assert _max_rel(aux_grad.cpu(), aux_grad_ref.double()) <= 1e-3
+    assert _max_rel((xc.grad + aux_grad).cpu(), (xr.grad + aux_grad_ref).double()) <= 1e-3
+
+
+def test_residual_lfq_on_card_matches_cpu(card):
+    torch.manual_seed(1)
+    kw = dict(dim=32, codebook_size=2 ** 10, num_quantizers=3, entropy_loss_weight=0.1, entropy_fused='on')
+    rlfq = vqtpu_torch.ResidualLFQ(**kw, device=card).train()
+    ref = vqtpu_torch.ResidualLFQ(**kw, device='cpu').train()
+    ref.load_state_dict({k: v.cpu() for k, v in rlfq.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 500, 32), dtype=np.float32))
+    before = tle.sweep_d.launches
+    q, idx, losses = rlfq(x.to(card))
+    (losses.sum() + q.square().mean()).backward()
+    q_ref, idx_ref, losses_ref = ref(x)
+    torch.cuda.synchronize()
+    assert tle.sweep_d.launches == before + 3
+    assert torch.equal(idx.cpu(), idx_ref)
+    torch.testing.assert_close(q.detach().cpu(), q_ref.detach(), rtol=0, atol=1e-5)
+    torch.testing.assert_close(losses.detach().cpu(), losses_ref.detach(), rtol=1e-4, atol=1e-7)

@@ -43,15 +43,20 @@ def torch_layout_grads(module, grads, prefix: str = '') -> dict:
     """A JAX gradient tree (the nested dict of a model's nnx.Param
     gradients, as numpy arrays) mapped onto the torch module's parameter
     names and layouts, with the layout rules of load_vqtpu_state (Linear and
-    Conv kernels transposed): {torch parameter name: numpy array}."""
+    Conv kernels transposed, other parameters as they are):
+    {torch parameter name: numpy array}."""
     rules = _LEAF_RULES.get(type(module))
     children = dict(module.named_children())
+    params = dict(module.named_parameters(recurse=False))
     out = {}
     for key, value in grads.items():
+        key = str(key)                       # nnx.List children are keyed 0, 1, ...
         if rules is not None and key in rules:
             name, convert = rules[key]
             value = np.asarray(value)
             out[prefix + name] = convert(value) if convert else value
+        elif rules is None and key in params:
+            out[prefix + key] = np.asarray(value)
         elif key in children:
             out.update(torch_layout_grads(children[key], value, f'{prefix}{key}.'))
         else:

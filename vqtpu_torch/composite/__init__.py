@@ -1,0 +1,3 @@
+"""Composite quantizers: residual stacks of the port's quantizers."""
+
+from .residual_lfq import GroupedResidualLFQ, ResidualLFQ

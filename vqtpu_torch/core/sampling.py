@@ -4,12 +4,20 @@ vqtpu/core/sampling.py).
 Each function takes a `torch.Generator` on the device of the samples. The
 two frameworks cannot share a random stream, so the tests hand both sides
 the same indices by replacing these functions. The gumbel sampler of the
-distance-materializing path is not ported yet.
+distance-materializing path is not ported yet; `gumbel_noise` is the draw
+LFQ's token subsample uses.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def gumbel_noise(generator: torch.Generator, shape, device=None) -> torch.Tensor:
+    """Standard Gumbel noise, -log(-log u) for u uniform in (0, 1)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    tiny = torch.finfo(u.dtype).tiny
+    return -torch.log(-torch.log(u.clamp(tiny, 1.0 - 2 ** -24)))
 
 
 def sample_vectors(generator: torch.Generator, samples: torch.Tensor, num: int) -> torch.Tensor:

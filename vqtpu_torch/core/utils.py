@@ -44,6 +44,15 @@ def safe_div(num: torch.Tensor, den: torch.Tensor, eps: float = 1e-6) -> torch.T
     return num / den.clamp_min(eps)
 
 
+def log(t: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    return torch.log(t.clamp_min(eps))
+
+
+def entropy(prob: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Shannon entropy along the last dim: -sum p log max(p, eps)."""
+    return (-prob * log(prob, eps=eps)).sum(-1)
+
+
 def laplace_smoothing(
     x: torch.Tensor, n_categories: int, eps: float = 1e-5, dim: int = -1
 ) -> torch.Tensor:

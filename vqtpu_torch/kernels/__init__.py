@@ -1,5 +1,5 @@
-"""Hot-path kernels: nearest-code selection, code lookup and the fused
-training step."""
+"""Hot-path kernels: nearest-code selection, code lookup, the fused
+training step and the LFQ entropy sweeps."""
 
 from .distance import (
     gather_codes,
@@ -8,6 +8,7 @@ from .distance import (
     nearest_code_xla,
     quantize_lookup,
 )
+from .lfq_entropy import lfq_entropy_stats
 from .train_fused import (
     code_statistics_plain,
     fused_train_quantize,

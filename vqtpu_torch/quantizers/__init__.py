@@ -1,3 +1,4 @@
 """Quantizer layers."""
 
+from .lfq import LFQ
 from .vq import LossBreakdown, VectorQuantize

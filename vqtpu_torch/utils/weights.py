@@ -8,11 +8,15 @@ attribute names, so the trees line up. Layouts converted:
   - nnx.Linear kernel (in, out)       -> nn.Linear weight (out, in)
   - nnx.Conv kernel (H, W, I, O)      -> nn.Conv2d weight (O, I, H, W)
   - nnx.LayerNorm scale               -> nn.LayerNorm weight
-  - codebook buffers                  -> copied as they are
+  - codebook buffers, LFQ's orthogonal_rot, CosineSimLinear's
+    (in, out) weight                  -> copied as they are
+  - the integer keys of an nnx.List   -> the nn.ModuleList children '0', '1', ...
 
 A `rngs` entry (flax's RNG streams) has no torch counterpart and is
 skipped. Any other key the module does not have, and any parameter or
-buffer the state does not give, raises KeyError.
+persistent buffer the state does not give, raises KeyError. A submodule
+that holds neither may be missing from the state: flax leaves out a module
+whose only state is an RNG stream it shares with another.
 """
 
 from __future__ import annotations
@@ -48,11 +52,13 @@ def load_vqtpu_state(module: nn.Module, state: Mapping, prefix: str = '') -> Non
     """Fill `module` in place from the JAX model's state (see module doc)."""
     rules = _LEAF_RULES.get(type(module))
     tensors = dict(module.named_parameters(recurse=False))
-    tensors.update(module.named_buffers(recurse=False))
+    tensors.update((name, t) for name, t in module.named_buffers(recurse=False)
+                   if name not in module._non_persistent_buffers_set)
     children = dict(module.named_children())
     filled = set()
 
     for key, value in state.items():
+        key = str(key)                       # nnx.List children are keyed 0, 1, ...
         path = prefix + key
         if key == 'rngs':
             continue
@@ -72,7 +78,8 @@ def load_vqtpu_state(module: nn.Module, state: Mapping, prefix: str = '') -> Non
         else:
             raise KeyError(f'{path}: no such parameter, buffer or submodule in the torch module')
 
-    expected = set(tensors) | (set() if rules is not None else set(children))
+    stateless = {name for name, child in children.items() if not child.state_dict()}
+    expected = set(tensors) | (set() if rules is not None else set(children) - stateless)
     missing = sorted(expected - filled)
     if missing:
         raise KeyError(f'state gives no value for {", ".join(prefix + m for m in missing)}')
