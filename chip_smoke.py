@@ -11,7 +11,7 @@ public entry points at full width, times the kernels and the step, and
 prints one JSON line per phase:
 
 1. device: card name and count, `nvidia-smi` name and power limit, build
-   time of the three kernel sources (built in parallel);
+   time of the four kernel sources (built in parallel);
 2. kernel_vs_plain: the selection kernel against `nearest_code_plain` on the
    same inputs and bias, at the main shape (both metrics), ragged, tiny,
    batched-head and large-codebook shapes, plus exact tie probes;
@@ -49,7 +49,26 @@ prints one JSON line per phase:
    version and bound, the fused statistics against the 'off' route's
    streamed ones, one training step per route with peak memory and a
    torch.profiler breakdown;
-14. the {"kernels": [...]} line.
+14. rfsq_kernel_vs_plain: the fused ResidualFSQ eval kernel
+   (csrc/residual_fsq_fused.cu) against `fused_residual_fsq_eval_plain` on
+   the same inputs: the main shape (4,194,304 tokens, levels (8, 5, 5, 5),
+   q = 8), the level sets of tests/test_residual_fsq_fused.py, a ragged
+   count, a leading shape and the general instantiation (d = 9; q = 17);
+   values and indices bit-identical, two calls bit-identical;
+15. rfsq_eval_path: ResidualFSQ(dim=4, levels=[8, 5, 5, 5],
+   num_quantizers=8).eval() on (2048, 2048, 4), eval_fused 'auto' (one
+   launch) against 'off' (none), the decode from indices; the two-group
+   GroupedResidualFSQ (two launches); an ineligible 'on' configuration and
+   a training forward (none); FSQ with 8 dims on (2048, 2048, 8), its
+   codes decoded from its indices bit for bit;
+16. fsq_train_path: a full-width ResidualFSQ(dim=64) training step with an
+   injected quantize-dropout index against the same weights on the CPU, and
+   the FSQ autoencoder (examples/autoencoder_fsq.py), 50 AdamW steps, step
+   0 held against the CPU;
+17. rfsq_times: CUDA events at the main ResidualFSQ shape: the kernel, its
+   plain version and bound, the eval forward on 'auto' and 'off' with a
+   torch.profiler breakdown of each;
+18. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -106,6 +125,14 @@ LFQ_INV_TEMP = 100.0
 PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
 
 
+RFSQ_SOURCE = 'vqtpu_torch/kernels/csrc/residual_fsq_fused.cu'
+RFSQ_REPLACES = 'vqtpu/kernels/residual_fsq_fused.py:70 _kernel'
+# ResidualFSQ(dim=4, levels=[8, 5, 5, 5], num_quantizers=8).eval() on
+# (2048, 2048, 4) f32 (benchmarks/composites_tpu.py:136-140,
+# benchmarks/rfsq_fused_tpu.py:17-18): levels, q, leading shape
+RFSQ_MAIN = ((8, 5, 5, 5), 8, (2048, 2048))
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({'phase': phase, **fields}), flush=True)
 
@@ -143,6 +170,18 @@ def selection_bound_ms(n: int, c: int, d: int) -> tuple[float, str]:
     return max(ops_ms, bytes_ms), 'operations' if ops_ms >= bytes_ms else 'bytes'
 
 
+def ptxas_summary(log: str) -> dict:
+    """Kernels, the range of registers a thread, and each distinct
+    stack-frame and spill line with its count, from `-Xptxas -v`."""
+    registers = [int(line.split('Used ')[1].split()[0]) for line in log.splitlines() if 'registers' in line]
+    frames: dict[str, int] = {}
+    for line in log.splitlines():
+        if 'spill' in line:
+            frames[line.strip()] = frames.get(line.strip(), 0) + 1
+    return dict(kernels=len(registers), registers=[min(registers), max(registers)] if registers else None,
+                stack_and_spills=frames)
+
+
 def phase_device():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -154,12 +193,10 @@ def phase_device():
 
     from vqtpu_torch.kernels import _build
     t0 = time.perf_counter()
-    sources = ['nearest_code', 'train_fused', 'lfq_entropy']
+    sources = ['nearest_code', 'train_fused', 'lfq_entropy', 'residual_fsq_fused']
     _build.build(sources)
     build_s = time.perf_counter() - t0
-    ptxas = {name: [line.strip() for line in _build.build_log(name).splitlines()
-                    if 'registers' in line or 'spill' in line]
-             for name in sources}
+    ptxas = {name: ptxas_summary(_build.build_log(name)) for name in sources}
     emit('device', kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -1273,6 +1310,382 @@ def phase_lfq_times(sizes, smi):
                 step_ms=step_mean)
 
 
+# -- ResidualFSQ: the fused eval kernel K9 ------------------------------------------
+
+
+def all_launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    from vqtpu_torch.kernels import lfq_entropy as tle
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    return dict(nearest_code=nearest_code.launches, train_fused=fused_train_quantize.launches,
+                **{f'lfq_sweep_{k}': f.launches for k, f in tle.SWEEPS.items()},
+                residual_fsq_fused=fused_residual_fsq_eval.launches)
+
+
+def reset_all_launches() -> None:
+    from vqtpu_torch.kernels import lfq_entropy as tle
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    for f in (nearest_code, fused_train_quantize, fused_residual_fsq_eval, *tle.SWEEPS.values()):
+        f.launches = 0
+
+
+def deepest_quantum(levels, q) -> float:
+    lv = np.asarray(levels, np.float64)
+    return float((2.0 / (lv - 1) * lv ** -(q - 1)).max())
+
+
+def rfsq_input(levels, lead, device, seed):
+    x = np.random.default_rng(seed).standard_normal((*lead, len(levels)), dtype=np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def rfsq_layer_shares(idx, ref, q):
+    return [float((idx[..., i] == ref[..., i]).float().mean()) for i in range(q)]
+
+
+def compare_rfsq(case, levels, q, lead, device, seed):
+    """K9 against its plain version on the card, same inputs. Bit-identical
+    values and indices are the bar; a case that misses it is held to the
+    bar of tests/test_residual_fsq_fused.py (layers at scale > 1e-2 exact,
+    values within two deepest quanta) and reported with its shares."""
+    from vqtpu_torch import ResidualFSQ
+    from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval, fused_residual_fsq_eval_plain
+    m = ResidualFSQ(levels=list(levels), num_quantizers=q, device=device)
+    kw = dict(levels=tuple(levels), clamp=m.soft_clamp_input_value, num_quantizers=q)
+    x = rfsq_input(levels, lead, device, seed)
+    got = fused_residual_fsq_eval(x, m._scales(), **kw)
+    again = fused_residual_fsq_eval(x, m._scales(), **kw)
+    plain = fused_residual_fsq_eval_plain(x, m._scales(), **kw)
+    sync(device)
+    check(got[1].dtype == torch.int32 and got[1].shape == (*lead, q) and got[0].shape == x.shape,
+          f'{case}: output shapes')
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), f'{case}: two kernel calls bit-identical')
+    values_equal = torch.equal(got[0], plain[0])
+    indices_equal = torch.equal(got[1], plain[1])
+    err = float((got[0] - plain[0]).abs().max()) if x.numel() else 0.0
+    shares = rfsq_layer_shares(got[1], plain[1], q)
+    if not (values_equal and indices_equal):
+        for i, share in enumerate(shares):
+            if min(levels) ** -i > 1e-2:
+                check(share == 1.0, f'{case}: layer {i} (scale > 1e-2) indices equal the plain version ({shares})')
+        check(err <= 2 * deepest_quantum(levels, q), f'{case}: values within two deepest quanta ({err})')
+    emit('rfsq_kernel_vs_plain', case=case, levels=list(levels), q=q, shape=list(x.shape), values_bit_identical=values_equal,
+         indices_bit_identical=indices_equal, index_share_equal_per_layer=shares, max_abs_err=err,
+         bit_identical_calls=True)
+    return dict(bit_identical=values_equal and indices_equal, max_abs_err=err)
+
+
+def phase_rfsq_kernel_vs_plain(device):
+    levels, q, lead = RFSQ_MAIN
+    cases = {
+        'main': (levels, q, lead),
+        'l865_q3': ((8, 6, 5), 3, (2048, 1024)),
+        'l75555_q6': ((7, 5, 5, 5, 5), 6, (2048, 1024)),
+        'l44_q2': ((4, 4), 2, (2048, 1024)),
+        'l8555_q3': ((8, 5, 5, 5), 3, (2048, 1024)),
+        'ragged_1234': ((8, 6, 5), 4, (1234,)),
+        'lead_2x999': ((8, 5, 5, 5), 8, (2, 999)),
+        'd9_general': ((5,) * 9, 5, (300, 1000)),
+        'q17_general': ((8, 5, 5, 5), 17, (300, 1000)),
+    }
+    results = {case: compare_rfsq(case, *args, device, 50 + i) for i, (case, args) in enumerate(cases.items())}
+    return results
+
+
+def phase_rfsq_eval_path(device):
+    """The served path at full width, each route, with the launch counts of
+    every kernel set to 0 just before each forward and read just after."""
+    from vqtpu_torch import FSQ, GroupedResidualFSQ, ResidualFSQ
+    levels, q, lead = RFSQ_MAIN
+    torch.manual_seed(50)
+    m = ResidualFSQ(dim=4, levels=list(levels), num_quantizers=q, device=device).eval()
+    x = rfsq_input(levels, lead, device, 60)
+
+    def forward(model, xs, **kw):
+        reset_all_launches()
+        with torch.no_grad():
+            out = model(xs, **kw)
+        sync(device)
+        return out, all_launches()
+
+    (q_auto, idx_auto), launches_auto = forward(m, x)
+    check(launches_auto['residual_fsq_fused'] == 1 and sum(launches_auto.values()) == 1,
+          f"'auto' eval launched K9 once and nothing else {launches_auto}")
+    m.eval_fused = 'off'
+    (q_off, idx_off), launches_off = forward(m, x)
+    check(sum(launches_off.values()) == 0, f"'off' eval launched nothing {launches_off}")
+    check(q_auto.shape == x.shape and idx_auto.shape == (*lead, q) and idx_auto.dtype == torch.int32,
+          'ResidualFSQ output shapes')
+    shares = rfsq_layer_shares(idx_auto, idx_off, q)
+    check(all(s == 1.0 for s in shares[:3]), f"'auto' and 'off' indices equal on the first three layers {shares}")
+    auto_off_err = float((q_auto - q_off).abs().max())
+    check(auto_off_err <= 2 * deepest_quantum(levels, q), f"'auto' and 'off' values within two quanta ({auto_off_err})")
+    with torch.no_grad():
+        decoded = m.get_output_from_indices(idx_auto)
+    decode_err = float((decoded - q_auto).abs().max())
+    check(decode_err <= 1e-6, f'get_output_from_indices(indices) equals the output within 1e-6 ({decode_err})')
+    auto_equals_off = torch.equal(q_auto, q_off) and torch.equal(idx_auto, idx_off)
+    m.train()
+    _, launches_train = forward(m, x)
+    check(sum(launches_train.values()) == 0, f'a training forward launched nothing {launches_train}')
+    del q_off, idx_off, decoded
+
+    g = GroupedResidualFSQ(dim=8, groups=2, levels=list(levels), num_quantizers=q, device=device).eval()
+    xg = torch.cat([x, rfsq_input(levels, lead, device, 61)], -1)
+    (gq, gidx), launches_grouped = forward(g, xg)
+    check(launches_grouped['residual_fsq_fused'] == 2 and sum(launches_grouped.values()) == 2,
+          f'GroupedResidualFSQ (2 groups) launched K9 twice {launches_grouped}')
+    with torch.no_grad():
+        grouped_decode_err = float((g.get_output_from_indices(gidx) - gq).abs().max())
+    check(grouped_decode_err <= 1e-6, f'grouped decode within 1e-6 ({grouped_decode_err})')
+    del g, xg, gq, gidx
+
+    rot = ResidualFSQ(dim=4, levels=[5, 5, 5, 5], num_quantizers=q, eval_fused='on', orthogonal_rotation=True,
+                      device=device).eval()
+    rot_off = ResidualFSQ(dim=4, levels=[5, 5, 5, 5], num_quantizers=q, eval_fused='off', orthogonal_rotation=True,
+                          device=device).eval()
+    rot_off.load_state_dict(rot.state_dict())
+    (rq, ridx), launches_rot = forward(rot, x)
+    (rq_off, ridx_off), _ = forward(rot_off, x)
+    check(sum(launches_rot.values()) == 0, f"an ineligible 'on' configuration launched nothing {launches_rot}")
+    check(torch.equal(rq, rq_off) and torch.equal(ridx, ridx_off), "the ineligible 'on' equals 'off' exactly")
+    del rq, ridx, rq_off, ridx_off
+
+    fsq_levels = [8, 5, 5, 5, 5, 5, 5, 5]          # benchmarks/composites_tpu.py:99-102
+    fsq = FSQ(fsq_levels, device=device).eval()
+    xf = rfsq_input(fsq_levels, lead, device, 62)
+    (fq, fidx), launches_fsq = forward(fsq, xf)
+    with torch.no_grad():
+        fdecoded = fsq.indices_to_codes(fidx)
+    check(fidx.shape == lead and fidx.dtype == torch.int32 and torch.equal(fdecoded, fq),
+          'FSQ: indices_to_codes(indices) equals the output bit for bit')
+    emit('rfsq_eval_path', model=f'ResidualFSQ(dim=4, levels={list(levels)}, num_quantizers={q}).eval()',
+         input=list(x.shape), launches_auto=launches_auto, launches_off=launches_off, launches_train=launches_train,
+         index_share_equal_auto_vs_off=shares, values_max_abs_diff_auto_vs_off=auto_off_err,
+         auto_equals_off_bitwise=auto_equals_off,
+         decode_max_abs_err=decode_err,
+         grouped=dict(model=f'GroupedResidualFSQ(dim=8, groups=2, levels={list(levels)}, num_quantizers={q}).eval()',
+                      input=list(lead) + [8], launches=launches_grouped, decode_max_abs_err=grouped_decode_err),
+         ineligible=dict(model="ResidualFSQ(dim=4, levels=[5, 5, 5, 5], eval_fused='on', orthogonal_rotation=True)",
+                         launches=launches_rot, equals_off=True),
+         fsq=dict(model=f'FSQ({fsq_levels}).eval()', input=list(xf.shape), launches=launches_fsq,
+                  decode_bit_identical=True))
+    return launches_auto['residual_fsq_fused'], launches_grouped['residual_fsq_fused']
+
+
+def phase_fsq_train_path(device, sizes):
+    """A full-width ResidualFSQ training step against the CPU, and the FSQ
+    autoencoder's AdamW steps, step 0 against the CPU."""
+    from vqtpu_torch import FSQ, ResidualFSQ, SimpleQuantizeAutoEncoder
+    torch.manual_seed(70)
+    kw = dict(dim=64, levels=[8, 5, 5, 5], num_quantizers=8, quantize_dropout=True)
+    m = ResidualFSQ(**kw, device=device).train()
+    ref = ResidualFSQ(**kw, device='cpu').train()
+    ref.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(71).standard_normal((8, 1024, 64), dtype=np.float32))
+    dropout_index = 3                # layers 0-3 kept, scales down to 5^-3
+    dz = {}                          # the gradient at project_in's output, per device
+
+    def keep_dz(name):
+        def hook(module, inputs, out):
+            out.register_hook(lambda g: dz.__setitem__(name, g.detach()))
+        return hook
+    m.project_in.register_forward_hook(keep_dz('card'))
+    ref.project_in.register_forward_hook(keep_dz('cpu'))
+    reset_all_launches()
+    xd = x.to(device).requires_grad_()
+    q, idx = m(xd, rand_quantize_dropout_index=dropout_index)
+    q.square().mean().backward()
+    sync(device)
+    launches = all_launches()
+    check(sum(launches.values()) == 0, f'a ResidualFSQ training step launched nothing {launches}')
+    xr = x.detach().clone().requires_grad_()
+    q_ref, idx_ref = ref(xr, rand_quantize_dropout_index=dropout_index)
+    q_ref.square().mean().backward()
+    idx_c = idx.cpu()
+    check(bool((idx_c[..., dropout_index + 1:] == -1).all()) and bool((idx_c[..., :dropout_index + 1] >= 0).all()),
+          'layers after the dropout index give -1, the others codes')
+    shares = rfsq_layer_shares(idx_c, idx_ref, kw['num_quantizers'])
+    check(all(s == 1.0 for s in shares[:3]), f'card and CPU indices equal on the layers at scale > 1e-2 {shares}')
+    q_err = float((q.detach().cpu() - q_ref.detach()).abs().max())
+    check(q_err <= 1e-4, f'card and CPU outputs within 1e-4 ({q_err})')
+
+    def rel(a, ref_):
+        return float((a.double() - ref_.double()).abs().max() / ref_.abs().max().clamp_min(1e-30))
+    # project_out's gradients follow the quantized values: against the CPU
+    out_err = max(rel(p.grad.cpu(), rp.grad) for p, rp in ((m.project_out.weight, ref.project_out.weight),
+                                                           (m.project_out.bias, ref.project_out.bias)))
+    check(out_err <= 1e-5, f"project_out's gradients match the CPU to 1e-5 ({out_err})")
+    # the gradient reaching project_in passes each layer's clip mask, which
+    # flips where |r / s| lies within a last-bit difference of 1: the tokens
+    # whose dz differs from the CPU's must be few, and the card's backward
+    # through project_in is held to float64 on its own dz
+    dz_card = dz['card'].cpu().reshape(-1, 4).double()
+    dz_diff = ((dz_card - dz['cpu'].reshape(-1, 4).double()).abs() > 1e-5 * dz_card.abs().max()).any(-1)
+    check(int(dz_diff.sum()) <= 1e-3 * dz_diff.numel(), f'{int(dz_diff.sum())} tokens with another clip mask')
+    x64 = x.reshape(-1, 64).double()
+    in_err = max(rel(m.project_in.weight.grad.cpu(), dz_card.T @ x64),
+                 rel(m.project_in.bias.grad.cpu(), dz_card.sum(0)),
+                 rel(xd.grad.cpu().reshape(-1, 64), dz_card @ m.project_in.weight.detach().cpu().double()))
+    check(in_err <= 1e-5, f"project_in's and x's gradients match float64 from the card's dz to 1e-5 ({in_err})")
+    residual = dict(model='ResidualFSQ(dim=64, levels=[8, 5, 5, 5], num_quantizers=8, quantize_dropout=True).train()',
+                    input=list(x.shape), dropout_index=dropout_index, launches=launches,
+                    index_share_equal_vs_cpu=shares, q_max_abs_err_vs_cpu=q_err,
+                    project_out_grad_max_rel_err_vs_cpu=out_err, tokens_with_another_clip_mask=int(dz_diff.sum()),
+                    project_in_and_x_grad_max_rel_err_vs_float64=in_err)
+    del m, ref, xd, xr, q, q_ref
+
+    def build(dev):
+        return SimpleQuantizeAutoEncoder(FSQ([8, 6, 5], dim=32, device=dev), dim=32, device=dev).train()
+
+    def loss_of(model, xs):
+        recon, indices = model(xs)
+        return (recon.clamp(-1, 1) - xs).abs().mean(), indices
+
+    torch.manual_seed(72)
+    model = build(device)
+    cpu = build('cpu')
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4)
+    rng = np.random.default_rng(73)
+    images = [rng.random((sizes['images'], 28, 28, 1), dtype=np.float32) for _ in range(sizes['flagship_steps'])]
+    x0 = torch.from_numpy(images[0])
+    reset_all_launches()
+    loss, indices = loss_of(model, x0.to(device))
+    loss.backward()
+    ref_loss, ref_indices = loss_of(cpu, x0)
+    ref_loss.backward()
+    sync(device)
+    flips = int((indices.cpu() != ref_indices).sum())
+    check(flips <= 1e-3 * indices.numel(), f'FSQ flagship step 0: {flips} index flips against the CPU')
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(loss_rel <= 1e-4, f'FSQ flagship step 0: loss matches the CPU to 1e-4 ({loss_rel})')
+    compared_on = len(x0)
+    if flips:
+        # a flipped code moves the decoder's input: compare the gradients on the images without one
+        keep = (indices.cpu() == ref_indices).all(-1)
+        compared_on = int(keep.sum())
+        model.zero_grad()
+        cpu.zero_grad()
+        loss_of(model, x0[keep].to(device))[0].backward()
+        loss_of(cpu, x0[keep])[0].backward()
+    # the L1 loss's gradient is the sign of clip(recon) - x, which flips on
+    # pixels where the card's and the CPU's reconstructions (their
+    # convolutions sum in other orders) straddle x: 1e-3 of each gradient's
+    # largest entry, as the LFQ flagship
+    grad_errs = {name: float((p.grad.cpu() - rp.grad).abs().max() / rp.grad.abs().max().clamp_min(1e-30))
+                 for (name, p), (_, rp) in zip(model.named_parameters(), cpu.named_parameters())}
+    grad_err = max(grad_errs.values())
+    check(grad_err <= 1e-3, f'FSQ flagship step 0: gradients match the CPU to 1e-3 on {compared_on} images ({grad_errs})')
+    if flips:
+        model.zero_grad()
+        loss, indices = loss_of(model, x0.to(device))
+        loss.backward()
+    opt.step()
+    opt.zero_grad()
+    losses = [loss.item()]
+    for step in range(1, len(images)):
+        loss, indices = loss_of(model, torch.from_numpy(images[step]).to(device))
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.item())
+    sync(device)
+    flagship_launches = all_launches()
+    check(sum(flagship_launches.values()) == 0, f'FSQ has no kernel: the flagship launched nothing {flagship_launches}')
+    check(all(np.isfinite(losses)), 'FSQ flagship losses are finite')
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f'the FSQ flagship loss falls ({first} -> {last})')
+    emit('fsq_train_path', residual=residual,
+         flagship=dict(model='SimpleQuantizeAutoEncoder(FSQ([8, 6, 5], dim=32), dim=32)', optimizer='AdamW(lr=3e-4)',
+                       loss='|clip(out, -1, 1) - x|.mean()', input=[sizes['images'], 28, 28, 1], steps=len(images),
+                       launches=flagship_launches, loss_first=losses[0], loss_last=losses[-1],
+                       loss_mean_first5=first, loss_mean_last5=last,
+                       step0_vs_cpu=dict(loss_rel_err=loss_rel, index_flips=flips, grad_max_rel_err=grad_err,
+                                         grad_rel_err_by_parameter=grad_errs, grad_compared_on_images=compared_on),
+                       codes_used_last_step=int(torch.unique(indices).numel())))
+
+
+def rfsq_bound_ms(n, d, q):
+    """Least time for K9 at n tokens: reading x and writing the values and
+    the int32 indices once over 3.35 TB/s, or its f32 operations over
+    67 TFLOP/s: per dim a division, a tanh (counted as one) and a multiply
+    for the clamp, and per dim and layer two divisions, two compares and
+    eleven multiplies, adds and floors."""
+    bytes_ms = 4 * (2 * n * d + n * q) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n * d * (3 + 15 * q) / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bound_by='bytes' if bytes_ms >= ops_ms else 'operations',
+                bytes_term_ms=bytes_ms, ops_term_ms=ops_ms)
+
+
+def phase_rfsq_times(sizes, smi):
+    from vqtpu_torch import ResidualFSQ
+    from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval, fused_residual_fsq_eval_plain
+    levels, q, lead = RFSQ_MAIN
+    device = torch.device('cuda')
+    n, d = lead[0] * lead[1], len(levels)
+    torch.manual_seed(80)
+    m = ResidualFSQ(dim=d, levels=list(levels), num_quantizers=q, device=device).eval()
+    x = rfsq_input(levels, lead, device, 81)
+    xt = x.reshape(n, d)
+    kw = dict(levels=levels, clamp=m.soft_clamp_input_value, num_quantizers=q)
+    reps = sizes['rfsq_reps']
+
+    def kernel():
+        fused_residual_fsq_eval(xt, m._scales(), **kw)
+
+    def plain():
+        fused_residual_fsq_eval_plain(xt, m._scales(), **kw)
+
+    # kernel, plain, plain, kernel: one card, alternating
+    ka = cuda_ms(kernel, reps)
+    pa, pb = (cuda_ms(plain, sizes['rfsq_plain_reps']) for _ in range(2))
+    kb = cuda_ms(kernel, reps)
+
+    def forward(route):
+        def run():
+            m.eval_fused = route
+            with torch.no_grad():
+                m(x)
+        return run
+
+    fwd = {'auto': [], 'off': []}
+    for route in ('auto', 'off', 'off', 'auto'):
+        fwd[route].append(cuda_ms(forward(route), sizes['rfsq_plain_reps']))
+    peak, profiles, launches = {}, {}, {}
+    for route in ('auto', 'off'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        forward(route)()
+        torch.cuda.synchronize()
+        peak[route] = torch.cuda.max_memory_allocated()
+        launches[route] = all_launches()['residual_fsq_fused']
+        profiles[route] = profile_device(forward(route), 3)
+    check(launches == {'auto': 1, 'off': 0}, f"one K9 launch per 'auto' forward, none per 'off' {launches}")
+    fwd_mean = {r: sum(t) / len(t) for r, t in fwd.items()}
+    kernel_ms = (ka + kb) / 2
+    bound = rfsq_bound_ms(n, d, q)
+    emit('rfsq_times', shape=dict(tokens=n, d=d, q=q, levels=list(levels)), card=smi, reps=reps,
+         kernel_ms=kernel_ms, kernel_ms_runs=[ka, kb], plain_ms=(pa + pb) / 2, plain_ms_runs=[pa, pb], **bound,
+         kernel_share_of_bound=bound['bound_ms'] / kernel_ms,
+         library_ms=None, library_note='no single PyTorch call computes the chain; forward_ms off is the '
+                                       "'off' loop, its composition in PyTorch's elementwise kernels",
+         forward_ms=fwd_mean, forward_ms_runs=fwd, tokens_per_s={r: n / (t / 1e3) for r, t in fwd_mean.items()},
+         launches_per_forward=launches, peak_allocated_bytes=peak,
+         kernel_share_of_auto_forward=kernel_ms / fwd_mean['auto'], profile_forward=profiles,
+         profile_note="torch.profiler records no device event in a window whose only kernel is K9 (launched "
+                      "through ctypes); kernel_share_of_auto_forward is K9's CUDA-event time over the forward's",
+         bound_basis='H100 SXM at 700 W: 3.35 TB/s, 67 TFLOP/s f32')
+    return dict(ms=kernel_ms, plain_ms=(pa + pb) / 2, bound_ms=bound['bound_ms'], bound_by=bound['bound_by'],
+                library_ms=None, composition_ms=fwd_mean['off'], forward_ms_auto=fwd_mean['auto'],
+                forward_ms_off=fwd_mean['off'], launches_per_forward=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -1303,6 +1716,8 @@ def main() -> int:
         'lfq_reps': 10,
         'lfq_plain_reps': 2,
         'lfq_step_reps': 3,
+        'rfsq_reps': 50,
+        'rfsq_plain_reps': 5,
     }
 
     kind, count, smi = phase_device()
@@ -1329,6 +1744,10 @@ def main() -> int:
                                'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
                                'fma_term_ms', 'mufu_term_ms', 'bytes_term_ms')})
                       for name in 'abcd']
+    rfsq_cases = phase_rfsq_kernel_vs_plain(device)
+    rfsq_launches, rfsq_grouped_launches = phase_rfsq_eval_path(device)
+    phase_fsq_train_path(device, sizes)
+    rfsq_times = phase_rfsq_times(sizes, smi)
 
     print(json.dumps({'kernels': [{
         'name': 'nearest_code',
@@ -1385,6 +1804,25 @@ def main() -> int:
         'check': 'each sweep within its tolerance of a float64 plain run or 4x the plain f32 error, each limit '
                  "under a tenth of the largest entry, two calls bit-identical; 'on'/'auto' and 'off' aux to 1e-4, "
                  "the aux loss's x.grad and the whole x.grad to 1e-3 of their largest entry; indices equal sign bits",
+        'power_limit': smi,
+    }, {
+        'name': 'residual_fsq_fused',
+        'route': 'cuda',
+        'source': RFSQ_SOURCE,
+        'replaces': RFSQ_REPLACES.split()[0],
+        'launches': rfsq_launches,
+        'launches_grouped_two_groups': rfsq_grouped_launches,
+        'max_abs_err': max(r['max_abs_err'] for r in rfsq_cases.values()),
+        'max_abs_err_of': 'max |quantized - plain version| over the rfsq_kernel_vs_plain cases '
+                          f"({sum(r['bit_identical'] for r in rfsq_cases.values())} of {len(rfsq_cases)} "
+                          'bit-identical in values and indices)',
+        **rfsq_times,
+        'library_ms_note': "no single PyTorch call computes the chain; composition_ms is the 'off' loop's "
+                           'eval forward',
+        'ms_of': 'one call at 4,194,304 tokens, d = 4, q = 8 (the main ResidualFSQ shape)',
+        'check': 'values and indices bit-identical to the plain version on the card (or layers at scale > 1e-2 '
+                 "exact and values within two deepest quanta), two calls bit-identical; 'auto' against 'off' "
+                 'and the decode from indices',
         'power_limit': smi,
     }]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': count}}),

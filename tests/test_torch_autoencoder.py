@@ -181,3 +181,33 @@ def test_lfq_autoencoder_training_step_matches_jax():
     for name, p in params.items():
         np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=0, atol=1e-3 * np.abs(want[name]).max(),
                                    err_msg=name)
+
+
+def test_fsq_autoencoder_training_step_matches_jax():
+    """One training step of examples/autoencoder_fsq.py's model (FSQ levels
+    (8, 6, 5) behind projections of dim 32) from the same weights, with its
+    loss |clip(out, -1, 1) - x|.mean(): indices equal, the loss within 1e-5
+    relative and every gradient within 1e-4 relative (the convolutions sum
+    in another order than XLA's), as the VectorQuantize flagship's step."""
+    rngs = nnx.Rngs(0)
+    jm = jmodels.SimpleQuantizeAutoEncoder(vqtpu.FSQ([8, 6, 5], dim=32, rngs=rngs), dim=32, rngs=rngs)
+    tm = vqtpu_torch.SimpleQuantizeAutoEncoder(vqtpu_torch.FSQ([8, 6, 5], dim=32, device='cpu'), dim=32,
+                                               device='cpu')
+    load_vqtpu_state(tm, jax_state(jm))
+    jm.train()
+    tm.train()
+    x = np.random.default_rng(7).random((8, 28, 28, 1), dtype=np.float32)
+
+    def loss_fn(m, x):
+        out, indices = m(x)
+        return jnp.abs(jnp.clip(out, -1, 1) - x).mean(), indices
+    (jloss, jidx), jgrads = nnx.value_and_grad(loss_fn, has_aux=True)(jm, jnp.asarray(x))
+
+    tx = torch.from_numpy(x)
+    recon, idx = tm(tx)
+    loss = (recon.clamp(-1, 1) - tx).abs().mean()
+    loss.backward()
+    assert idx.dtype == torch.int32 and idx.shape == (8, 49)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    assert_grads_close(tm, jax.tree.map(np.asarray, nnx.to_pure_dict(jgrads)), rtol=1e-4, atol=1e-7)

@@ -332,3 +332,125 @@ def test_residual_lfq_on_card_matches_cpu(card):
     assert torch.equal(idx.cpu(), idx_ref)
     torch.testing.assert_close(q.detach().cpu(), q_ref.detach(), rtol=0, atol=1e-5)
     torch.testing.assert_close(losses.detach().cpu(), losses_ref.detach(), rtol=1e-4, atol=1e-7)
+
+
+# -- the fused ResidualFSQ eval (csrc/residual_fsq_fused.cu) ------------------------
+
+import vqtpu_torch.kernels.residual_fsq_fused as trf  # noqa: E402
+
+RFSQ_CASES = {
+    # levels, q, leading shape: the cases of tests/test_residual_fsq_fused.py,
+    # a ragged count, a leading shape, and the general instantiation (d > 8, q > 16)
+    'l8555_q8': ((8, 5, 5, 5), 8, (64, 2048)),
+    'l865_q3': ((8, 6, 5), 3, (4096,)),
+    'l75555_q6': ((7, 5, 5, 5, 5), 6, (4096,)),
+    'l44_q2': ((4, 4), 2, (4096,)),
+    'l8555_q3': ((8, 5, 5, 5), 3, (4096,)),
+    'ragged_1234': ((8, 6, 5), 4, (1234,)),
+    'lead_2x999': ((8, 5, 5, 5), 8, (2, 999)),
+    'd9_q5_general': ((5, 5, 5, 5, 5, 5, 5, 5, 5), 5, (3000,)),
+    'd4_q17_general': ((8, 5, 5, 5), 17, (3000,)),
+    'd1_q1': ((3,), 1, (7,)),
+}
+
+
+def _rfsq_call(x, levels, q, plain=False):
+    m = vqtpu_torch.ResidualFSQ(levels=list(levels), num_quantizers=q, device=x.device)
+    fn = trf.fused_residual_fsq_eval_plain if plain else trf.fused_residual_fsq_eval
+    return fn(x, m._scales(), levels=levels, clamp=m.soft_clamp_input_value, num_quantizers=q)
+
+
+@pytest.mark.parametrize('case', RFSQ_CASES)
+def test_rfsq_kernel_matches_plain_bit_for_bit(card, case):
+    """K9 against its plain version on the card, same inputs: quantized
+    values and indices bit-identical, two calls bit-identical, one launch a
+    call."""
+    levels, q, lead = RFSQ_CASES[case]
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(1.5 * rng.standard_normal((*lead, len(levels))).astype(np.float32)).to(card)
+    before = trf.fused_residual_fsq_eval.launches
+    got = _rfsq_call(x, levels, q)
+    again = _rfsq_call(x, levels, q)
+    want = _rfsq_call(x, levels, q, plain=True)
+    torch.cuda.synchronize()
+    assert trf.fused_residual_fsq_eval.launches == before + 2
+    assert got[1].dtype == torch.int32 and got[1].shape == (*lead, q) and got[0].shape == x.shape
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[1], want[1]), float((got[1] != want[1]).float().mean())
+    assert torch.equal(got[0], want[0]), float((got[0] - want[0]).abs().max())
+
+
+def test_rfsq_kernel_rejects_what_it_does_not_take(card):
+    with pytest.raises(ValueError, match='1 <= d <= 128'):
+        trf.fused_residual_fsq_eval(torch.zeros(4, 129, device=card), torch.ones(2, 129, device=card),
+                                    levels=(3,) * 129, clamp=(1.5,) * 129, num_quantizers=2)
+    with pytest.raises(ValueError, match='scales'):
+        trf.fused_residual_fsq_eval(torch.zeros(4, 3, device=card), torch.ones(3, 3, device=card),
+                                    levels=(8, 6, 5), clamp=(1.1, 1.2, 1.25), num_quantizers=2)
+    empty = _rfsq_call(torch.zeros(0, 4, device=card), (8, 5, 5, 5), 3)
+    assert empty[0].shape == (0, 4) and empty[1].shape == (0, 3)
+
+
+def test_rfsq_eval_routes_on_card(card):
+    """'auto' eval launches K9 once per ResidualFSQ (twice for two groups) and
+    equals 'off' bit for bit; 'off', training and an ineligible 'on' launch
+    nothing; the decode from indices matches the output within 1e-6."""
+    torch.manual_seed(2)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((4, 1000, 4), dtype=np.float32)).to(card)
+    m = vqtpu_torch.ResidualFSQ(levels=[8, 5, 5, 5], num_quantizers=8, device=card).eval()
+    launches = trf.fused_residual_fsq_eval.launches
+    with torch.no_grad():
+        q_auto, idx_auto = m(x)
+        assert trf.fused_residual_fsq_eval.launches == launches + 1
+        m.eval_fused = 'off'
+        q_off, idx_off = m(x)
+        m.train()
+        m(x)
+        assert trf.fused_residual_fsq_eval.launches == launches + 1
+        m.eval()
+        assert torch.equal(idx_auto, idx_off) and torch.equal(q_auto, q_off)
+        torch.testing.assert_close(m.get_output_from_indices(idx_auto), q_auto, rtol=0, atol=1e-6)
+
+        rot = vqtpu_torch.ResidualFSQ(levels=[5, 5, 5, 5], num_quantizers=3, eval_fused='on',
+                                      orthogonal_rotation=True, device=card).eval()
+        rot_off = vqtpu_torch.ResidualFSQ(levels=[5, 5, 5, 5], num_quantizers=3, eval_fused='off',
+                                          orthogonal_rotation=True, device=card).eval()
+        rot_off.load_state_dict(rot.state_dict())
+        a, b = rot(x), rot_off(x)
+        assert trf.fused_residual_fsq_eval.launches == launches + 1
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+        g = vqtpu_torch.GroupedResidualFSQ(dim=8, groups=2, levels=[8, 5, 5, 5], num_quantizers=8,
+                                           device=card).eval()
+        gq, gidx = g(torch.cat([x, x.flip(1)], -1))
+        assert trf.fused_residual_fsq_eval.launches == launches + 3
+        torch.testing.assert_close(g.get_output_from_indices(gidx), gq, rtol=0, atol=1e-6)
+
+
+def test_fsq_on_card_matches_cpu(card):
+    """FSQ and ResidualFSQ training forward + backward on the card against
+    the same weights on the CPU: hard-clamp FSQ codes equal; values within
+    1e-5 and gradients within 1e-5 of their largest entry."""
+    torch.manual_seed(3)
+    kw = dict(levels=[8, 5, 5, 5], num_quantizers=4, dim=32, quantize_dropout=True)
+    m = vqtpu_torch.ResidualFSQ(**kw, device=card).train()
+    ref = vqtpu_torch.ResidualFSQ(**kw, device='cpu').train()
+    ref.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 500, 32), dtype=np.float32))
+    before = trf.fused_residual_fsq_eval.launches
+    q, idx = m(x.to(card), rand_quantize_dropout_index=2)
+    q.square().mean().backward()
+    q_ref, idx_ref = ref(x, rand_quantize_dropout_index=2)
+    q_ref.square().mean().backward()
+    torch.cuda.synchronize()
+    assert trf.fused_residual_fsq_eval.launches == before
+    assert (idx[..., 3:] == -1).all() and torch.equal(idx.cpu()[..., :2], idx_ref[..., :2])
+    torch.testing.assert_close(q.detach().cpu(), q_ref.detach(), rtol=0, atol=1e-4)
+    for (name, p), (_, pr) in zip(m.named_parameters(), ref.named_parameters()):
+        assert _max_rel(p.grad.cpu(), pr.grad.double()) <= 1e-5, name
+
+    fsq = vqtpu_torch.FSQ([8, 5, 5, 5, 5], preserve_symmetry=True, bound_hard_clamp=True, device=card).eval()
+    xs = torch.from_numpy(np.random.default_rng(10).standard_normal((4, 999, 5), dtype=np.float32))
+    got, got_idx = fsq(xs.to(card))
+    want, want_idx = fsq.cpu()(xs)
+    assert torch.equal(got_idx.cpu(), want_idx) and torch.equal(got.cpu(), want)

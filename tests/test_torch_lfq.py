@@ -224,3 +224,26 @@ def test_lfq_routes_and_refusals():
     with pytest.raises(ValueError, match="entropy_fused"):
         tlfq.LFQ(dim=8, codebook_size=2 ** 8, entropy_fused='yes', device='cpu')
     assert vqtpu_torch.LFQ is tlfq.LFQ
+
+
+def test_cosine_sim_linear_resolves_its_device():
+    """CosineSimLinear runs where every entry point runs: the CUDA card when
+    no device is given (raising without one), the CPU when asked."""
+    if torch.cuda.is_available():
+        assert tlfq.CosineSimLinear(4, 8).weight.device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tlfq.CosineSimLinear(4, 8)
+    layer = tlfq.CosineSimLinear(4, 8, device='cpu')
+    assert layer.weight.device.type == 'cpu' and layer.weight.shape == (4, 8)
+    assert vqtpu_torch.quantizers.CosineSimLinear is tlfq.CosineSimLinear
+
+
+def test_cosine_sim_linear_matches_jax():
+    jl = jlfq.CosineSimLinear(6, 5, scale=2.0, rngs=nnx.Rngs(0))
+    tl = tlfq.CosineSimLinear(6, 5, scale=2.0, device='cpu')
+    load_vqtpu_state(tl, jax_state(jl))
+    x = np.random.default_rng(8).standard_normal((3, 6), dtype=np.float32)
+    with torch.no_grad():
+        got = tl(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jl(jnp.asarray(x))), rtol=1e-6, atol=1e-6)

@@ -4,14 +4,18 @@ The JAX package `vqtpu` is the reference; this package mirrors its layout
 (core, kernels, codebook, quantizers, composite, models, utils) with torch
 modules. Its hot path runs on hand-written CUDA kernels for Hopper:
 nearest-code selection (kernels/csrc/nearest_code.cu), the fused training
-step (kernels/csrc/train_fused.cu) and the LFQ entropy sweeps
-(kernels/csrc/lfq_entropy.cu). Entry points run on the CUDA card unless
-given `device='cpu'`. Ported so far: the eval forward and the EMA training
-step of VectorQuantize, LFQ with its entropy aux loss, ResidualLFQ and
-GroupedResidualLFQ, and the flagship SimpleQuantizeAutoEncoder.
+step (kernels/csrc/train_fused.cu), the LFQ entropy sweeps
+(kernels/csrc/lfq_entropy.cu) and the fused ResidualFSQ eval
+(kernels/csrc/residual_fsq_fused.cu). Entry points run on the CUDA card
+unless given `device='cpu'`. Ported so far: the eval forward and the EMA
+training step of VectorQuantize, LFQ with its entropy aux loss, ResidualLFQ
+and GroupedResidualLFQ, FSQ, ResidualFSQ and GroupedResidualFSQ (eval and
+training), and the flagship SimpleQuantizeAutoEncoder.
 """
 
+from .composite.residual_fsq import GroupedResidualFSQ, ResidualFSQ
 from .composite.residual_lfq import GroupedResidualLFQ, ResidualLFQ
+from .quantizers.fsq import FSQ
 from .quantizers.lfq import LFQ
 from .quantizers.vq import LossBreakdown, VectorQuantize
 from .models.autoencoder import SimpleQuantizeAutoEncoder
@@ -19,5 +23,6 @@ from .utils.weights import load_vqtpu_state
 
 __all__ = [
     'VectorQuantize', 'LossBreakdown', 'LFQ', 'ResidualLFQ', 'GroupedResidualLFQ',
+    'FSQ', 'ResidualFSQ', 'GroupedResidualFSQ',
     'SimpleQuantizeAutoEncoder', 'load_vqtpu_state',
 ]

@@ -1,3 +1,4 @@
 """Composite quantizers: residual stacks of the port's quantizers."""
 
+from .residual_fsq import GroupedResidualFSQ, ResidualFSQ
 from .residual_lfq import GroupedResidualLFQ, ResidualLFQ

@@ -5,7 +5,8 @@ Each function takes a `torch.Generator` on the device of the samples. The
 two frameworks cannot share a random stream, so the tests hand both sides
 the same indices by replacing these functions. The gumbel sampler of the
 distance-materializing path is not ported yet; `gumbel_noise` is the draw
-LFQ's token subsample uses.
+LFQ's token subsample uses, `bernoulli_and_uniform` the draw of FSQ's
+noise dropout.
 """
 
 from __future__ import annotations
@@ -18,6 +19,14 @@ def gumbel_noise(generator: torch.Generator, shape, device=None) -> torch.Tensor
     u = torch.rand(shape, generator=generator, device=device)
     tiny = torch.finfo(u.dtype).tiny
     return -torch.log(-torch.log(u.clamp(tiny, 1.0 - 2 ** -24)))
+
+
+def bernoulli_and_uniform(generator: torch.Generator, p: float, shape, dtype=torch.float32,
+                          device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A boolean mask, True with probability p, and uniform [0, 1) values of
+    `dtype`, both of `shape`."""
+    mask = torch.rand(shape, generator=generator, device=device) < p
+    return mask, torch.rand(shape, generator=generator, dtype=dtype, device=device)
 
 
 def sample_vectors(generator: torch.Generator, samples: torch.Tensor, num: int) -> torch.Tensor:

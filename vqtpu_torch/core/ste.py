@@ -17,6 +17,19 @@ def straight_through(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     return src + (tgt - src).detach()
 
 
+def round_ste(z: torch.Tensor) -> torch.Tensor:
+    """Round half to even with straight-through gradients. The forward
+    value is round(z) exactly: round(z) - z is exact in floating point, and
+    so is adding it back."""
+    return z + (torch.round(z) - z).detach()
+
+
+def floor_ste(z: torch.Tensor) -> torch.Tensor:
+    """Floor with straight-through gradients; the forward value is floor(z)
+    exactly, as for round_ste."""
+    return z + (torch.floor(z) - z).detach()
+
+
 def frac_gradient(t: torch.Tensor, frac: float) -> torch.Tensor:
     """Let only `frac` of the gradient flow through `t`."""
     if frac <= 0:

@@ -34,6 +34,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return device
 
 
+def random_orthogonal(n: int, generator: torch.Generator, device) -> torch.Tensor:
+    """A Haar-random (n, n) orthogonal matrix: QR of a Gaussian matrix with
+    the signs of R's diagonal folded into Q."""
+    q, r = torch.linalg.qr(torch.randn(n, n, generator=generator, device=device))
+    return q * torch.sign(torch.diagonal(r))[None, :]
+
+
 def l2norm(t: torch.Tensor, dim: int = -1, eps: float = 1e-6) -> torch.Tensor:
     """L2-normalize along `dim`; the norm is clamped from below at `eps`."""
     norm = torch.linalg.vector_norm(t, ord=2, dim=dim, keepdim=True)

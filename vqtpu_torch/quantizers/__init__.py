@@ -1,4 +1,5 @@
 """Quantizer layers."""
 
-from .lfq import LFQ
+from .fsq import FSQ
+from .lfq import LFQ, CosineSimLinear
 from .vq import LossBreakdown, VectorQuantize

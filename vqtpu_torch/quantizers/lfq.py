@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..codebook.codebook import not_ported
 from ..core.layout import to_tokens
 from ..core.sampling import gumbel_noise
-from ..core.utils import default, entropy as entropy_fn, l2norm, resolve_device
+from ..core.utils import default, entropy as entropy_fn, l2norm, random_orthogonal, resolve_device
 from ..kernels.lfq_entropy import code_magnitude, lfq_entropy_stats
 
 
@@ -54,25 +54,19 @@ class LossBreakdown(NamedTuple):
 
 class CosineSimLinear(nn.Module):
     """Linear layer over l2-normalized input and weight columns; the weight
-    is (dim_in, dim_out), as in the JAX package."""
+    is (dim_in, dim_out), as in the JAX package. `device` as for LFQ: the
+    CUDA card when None (raises if there is none), or 'cpu'."""
 
     def __init__(self, dim_in: int, dim_out: int, scale: float = 1.0, *, device=None):
         super().__init__()
         self.scale = scale
-        self.weight = nn.Parameter(torch.randn(dim_in, dim_out, device=device))
+        self.weight = nn.Parameter(torch.randn(dim_in, dim_out, device=resolve_device(device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = l2norm(x)
         w = self.weight
         w = w / torch.linalg.vector_norm(w, dim=0, keepdim=True).clamp_min(1e-12)
         return (x @ w) * self.scale
-
-
-def random_orthogonal(n: int, generator: torch.Generator, device) -> torch.Tensor:
-    """A Haar-random (n, n) orthogonal matrix: QR of a Gaussian matrix with
-    the signs of R's diagonal folded into Q."""
-    q, r = torch.linalg.qr(torch.randn(n, n, generator=generator, device=device))
-    return q * torch.sign(torch.diagonal(r))[None, :]
 
 
 class LFQ(nn.Module):
