@@ -11,23 +11,33 @@ public entry points at full width, times the kernels and the step, and
 prints one JSON line per phase:
 
 1. device: card name and count, `nvidia-smi` name and power limit, build
-   time of the four kernel sources (built in parallel);
-2. kernel_vs_plain: the selection kernel against `nearest_code_plain` on the
-   same inputs and bias, at the main shape (both metrics), ragged, tiny,
-   batched-head and large-codebook shapes, plus exact tie probes;
+   time of the four kernel sources (built in parallel), the compiler's
+   registers and spills per source, and on their own for the tensor-core
+   selection kernel, the f32 tile it replaced and every sweep D (no spill);
+2. kernel_vs_plain: the selection kernel (split-TF32 wgmma) against
+   `nearest_code_plain` on the same inputs and bias, at the main shape (both
+   metrics), ragged, tiny, batched-head, ragged-d (d = 30, d = 3) and
+   large-codebook shapes, plus exact tie probes; two calls bit-identical,
+   and `quantize_lookup`'s rows (the kernel's row copy) bit-equal to
+   codebook rows;
 3. main_path: VectorQuantize(dim=256, codebook_size=512).eval() on
-   (1024, 1024, 256) f32, exact and bf16 tiers;
+   (1024, 1024, 256) f32, exact (one kernel launch a forward) and bf16 tiers;
 4. flagship: SimpleQuantizeAutoEncoder around VectorQuantize(dim=32,
    codebook_size=256) on 256 images of 28x28, against the same weights on
    the CPU;
-5. times: CUDA events after warm-up at the main shape;
+5. times: CUDA events after warm-up at the main shape and K3's: the kernel,
+   the replaced f32 tile (same inputs), the plain version, addmm + argmax,
+   the f32 and the 3xTF32 bounds, and the eval forward, whose profile must
+   show no separate index_select;
 6. train_fused_vs_plain: the fused train kernel against
    `fused_train_quantize_plain` at the main shape (euclidean, cosine, with a
    0/1 weight), the ragged, tiny and 3-head shapes of phase 2, (16384, 65536, 32)
    and tie probes; two kernel calls must be bit-identical;
 7. train_path: VectorQuantize(dim=256, codebook_size=512).train() at full
    width, 3 forward + backward steps with train_fused='on' and a twin with
-   'off' from the same state, the two routes held against each other;
+   'off' from the same state; each route's loss and EMA step held every
+   step to float64 from its own indices and state, and the routes to each
+   other by a bound derived from the tokens that flip between them;
 8. flagship_train: the flagship with train_fused='on', 50 AdamW steps, step
    0 held against the same weights on the CPU;
 9. train_times: CUDA events, the fused kernel against the 'off' route's
@@ -46,7 +56,7 @@ prints one JSON line per phase:
 12. lfq_flagship_train: the LFQ autoencoder (examples/autoencoder_lfq.py,
    entropy_fused='on'), 50 AdamW steps, step 0 held against the CPU;
 13. lfq_times: CUDA events at the main LFQ shape: each sweep, its plain
-   version and bound, the fused statistics against the 'off' route's
+   version and bound (one MUFU op a pair), the fused statistics against the 'off' route's
    streamed ones, one training step per route with peak memory and a
    torch.profiler breakdown;
 14. rfsq_kernel_vs_plain: the fused ResidualFSQ eval kernel
@@ -86,6 +96,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -95,10 +106,13 @@ import torch
 
 # VectorQuantize(dim=256, codebook_size=512) on (1024, 1024, 256): n, c, d
 MAIN = (1 << 20, 512, 256)
-# published H100 SXM peaks at 700 W: f32 without tensor cores, HBM3
+# published H100 SXM peaks at 700 W: f32 without tensor cores, dense TF32
+# on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 KERNEL_SOURCE = 'vqtpu_torch/kernels/csrc/nearest_code.cu'
+KERNEL_DESIGN = '3xTF32 wgmma + TMA'
 REPLACES = [
     'vqtpu/kernels/distance.py:266 _pipelined_select_kernel',
     'vqtpu/kernels/distance.py:255 _grid_select_kernel',
@@ -123,6 +137,8 @@ LFQ_MAIN = (8192, 18)
 LFQ_INV_TEMP = 100.0
 # H100 SXM: 16 exp/log (MUFU) results per clock per SM, 132 SMs, 1.98 GHz boost
 PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
+# K8's redesign
+SWEEP_D_DESIGN = 'log-free ex2'
 
 
 RFSQ_SOURCE = 'vqtpu_torch/kernels/csrc/residual_fsq_fused.cu'
@@ -170,6 +186,15 @@ def selection_bound_ms(n: int, c: int, d: int) -> tuple[float, str]:
     return max(ops_ms, bytes_ms), 'operations' if ops_ms >= bytes_ms else 'bytes'
 
 
+def selection_bound_tc_ms(n: int, c: int, d: int) -> tuple[float, str]:
+    """Least time for the selection on the tensor cores at f32 accuracy:
+    three TF32 products (xs.eb, xb.es, xb.eb) of 2ncd FLOP each at the dense
+    TF32 peak, or the bytes of `selection_bound_ms`."""
+    ops_ms = 3 * 2 * n * c * d / PEAK_TF32_FLOPS * 1e3
+    bytes_ms = 4 * (n * d + c * d + c + n) / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), 'operations' if ops_ms >= bytes_ms else 'bytes'
+
+
 def ptxas_summary(log: str) -> dict:
     """Kernels, the range of registers a thread, and each distinct
     stack-frame and spill line with its count, from `-Xptxas -v`."""
@@ -180,6 +205,30 @@ def ptxas_summary(log: str) -> dict:
             frames[line.strip()] = frames.get(line.strip(), 0) + 1
     return dict(kernels=len(registers), registers=[min(registers), max(registers)] if registers else None,
                 stack_and_spills=frames)
+
+
+def ptxas_entries(log: str, marker: str) -> dict:
+    """Registers, stack frame and spills of each entry function whose
+    (mangled) name contains `marker`, from `-Xptxas -v`, and any line of the
+    compiler's about wgmma (serialization warnings)."""
+    entries: dict[str, dict] = {}
+    current = None
+    wgmma = []
+    for line in log.splitlines():
+        if 'wgmma' in line:
+            wgmma.append(line.strip())
+        if 'Compiling entry function' in line:
+            name = line.split("'")[1]
+            current = name if marker in name else None
+            if current:
+                entries[current] = {}
+        elif current and 'spill' in line:
+            stores, loads = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line).groups()
+            entries[current]['spills'] = line.strip()
+            entries[current]['spill_bytes'] = int(stores) + int(loads)
+        elif current and 'Used' in line and 'registers' in line:
+            entries[current]['registers'] = int(line.split('Used ')[1].split()[0])
+    return dict(entries=entries, wgmma_lines=wgmma)
 
 
 def phase_device():
@@ -197,36 +246,59 @@ def phase_device():
     _build.build(sources)
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_summary(_build.build_log(name)) for name in sources}
+    # the two redesigned kernels on their own: K1's tensor-core tile beside
+    # the replaced f32 tile, and every instantiation of sweep D (K8)
+    ptxas['nearest_code_tf32'] = ptxas_entries(_build.build_log('nearest_code'), 'select_tf32_kernel')
+    ptxas['nearest_code_simt'] = ptxas_entries(_build.build_log('nearest_code'), 'select_codes_kernel')
+    sweep_d = ptxas_entries(_build.build_log('lfq_entropy'), 'sweep_d_kernel')
+    ptxas['lfq_sweep_d'] = sweep_d
+    check(len(sweep_d['entries']) == 24, f"sweep D is built for every d <= 24 ({len(sweep_d['entries'])})")
     emit('device', kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
-    return kind, count, smi
+    return kind, count, smi, ptxas
+
+
+def check_no_spill(ptxas: dict) -> None:
+    """Sweep D must not spill (checked at the end of the run, so that a spill
+    does not hide the other phases' numbers)."""
+    spilled = {k: v for k, v in ptxas['lfq_sweep_d']['entries'].items() if v.get('spill_bytes', 1) != 0}
+    check(not spilled, f'sweep D spills no register {spilled}')
 
 
 def compare_selection(case, x, e, metric, device, exact=None):
-    """Kernel against plain version on the same inputs and bias."""
+    """Kernel against plain version on the same inputs and bias; two calls
+    bit-identical; `quantize_lookup` (the same kernel with its row copy)
+    gives the same indices and rows bit-equal to codebook rows."""
     from vqtpu_torch.kernels.distance import (
-        nearest_code, nearest_code_plain, selection_bias, selection_disagreements,
+        nearest_code, nearest_code_plain, quantize_lookup, selection_bias, selection_disagreements,
     )
     bias = selection_bias(e, metric)
     got = nearest_code(x, e, metric, bias)
+    again = nearest_code(x, e, metric, bias)
+    idx_rows, rows = quantize_lookup(x, e, metric)
     want = nearest_code_plain(x, e, bias)
     sync(device)
+    check(torch.equal(got, again), f'{case}: two kernel calls bit-identical')
+    check(torch.equal(idx_rows, got), f'{case}: quantize_lookup picks the indices of nearest_code')
     if exact is not None:
         check(torch.equal(got.cpu(), exact) and torch.equal(want.cpu(), exact),
               f'{case}: tie probe expects the first index')
     if x.ndim == 2:
-        x, e, bias, got, want = x[None], e[None], bias[None], got[None], want[None]
+        x, e, bias, got, want, rows = x[None], e[None], bias[None], got[None], want[None], rows[None]
     totals = {'tokens': 0, 'disagree': 0, 'non_tie': 0, 'max_score_gap': 0.0}
     for h in range(x.shape[0]):
+        check(torch.equal(rows[h], e[h][got[h].long()]), f'{case}: quantize_lookup rows bit-equal to codebook rows')
         r = selection_disagreements(x[h], e[h], bias[h], got[h], want[h])
         for k in ('tokens', 'disagree', 'non_tie'):
             totals[k] += r[k]
         totals['max_score_gap'] = max(totals['max_score_gap'], r['max_score_gap'])
     check(totals['non_tie'] == 0, f'{case}: kernel and plain version disagree beyond ties {totals}')
+    del again, idx_rows, rows
     emit('kernel_vs_plain', case=case, shape=list(x.shape[:-1]) + [e.shape[-2], x.shape[-1]],
-         metric=metric, agree_share=1 - totals['disagree'] / totals['tokens'], **totals)
+         metric=metric, agree_share=1 - totals['disagree'] / totals['tokens'], bit_identical_calls=True,
+         rows_bit_equal=True, **totals)
     return totals
 
 
@@ -282,7 +354,7 @@ def phase_main_path(x_main, device, sizes):
         launches = nearest_code.launches
         if tier == 'exact':
             main_launches = launches
-            check(launches > 0, 'the main path launched the selection kernel')
+            check(launches == 1, f'the exact forward launched the selection kernel once ({launches})')
         check(q.shape == xin.shape and idx.shape == xin.shape[:-1] and idx.dtype == torch.int32,
               f'{tier}: output shapes')
         codebook = model.codebook
@@ -369,17 +441,24 @@ def profile_device(fn, calls: int) -> dict:
                 device_ms_per_call=dict(sorted(by_name.items(), key=lambda kv: -kv[1])))
 
 
-def profile_forward(vq, xin, forwards: int = 3) -> None:
+def profile_forward(vq, xin, forwards: int = 3) -> dict:
     """Device time per eval forward by kernel name, and the device's idle
-    share over `forwards` back-to-back forwards."""
+    share over `forwards` back-to-back forwards. The row lookup is the
+    selection kernel's epilogue: no index_select kernel may appear."""
     with torch.no_grad():
         r = profile_device(lambda: vq(xin), forwards)
+    lookups = [name for name in r['device_ms_per_call'] if 'index_select' in name or 'indexSelect' in name]
+    check(not lookups, f'the eval forward runs no separate row lookup {lookups}')
     emit('profile', forwards=forwards, device_events=r['device_events'],
-         device_idle_share=r['device_idle_share'], device_ms_per_forward=r['device_ms_per_call'])
+         device_idle_share=r['device_idle_share'], device_ms_per_forward=r['device_ms_per_call'],
+         index_select_kernels=lookups)
+    return r
 
 
 def phase_times(vq, xin, x_main, e_main, sizes):
-    from vqtpu_torch.kernels.distance import nearest_code, nearest_code_plain, selection_bias
+    from vqtpu_torch.kernels.distance import (
+        nearest_code, nearest_code_plain, _nearest_code_simt, quantize_lookup, selection_bias,
+    )
     n, c, d = sizes['main']
     bias = selection_bias(e_main, 'euclidean')
     reps = sizes['reps']
@@ -387,15 +466,23 @@ def phase_times(vq, xin, x_main, e_main, sizes):
     def kernel():
         nearest_code(x_main, e_main, 'euclidean', bias)
 
+    def previous():
+        _nearest_code_simt(x_main, e_main, bias)
+
     def plain():
         nearest_code_plain(x_main, e_main, bias)
 
     def library():
         torch.addmm(bias, x_main, e_main.T).argmax(-1)
 
-    # plain, kernel, kernel, plain: one card, alternating
-    plain_a, kernel_a, kernel_b, plain_b = (cuda_ms(f, reps) for f in (plain, kernel, kernel, plain))
+    def with_rows():
+        quantize_lookup(x_main, e_main)
+
+    # plain, kernel, the replaced f32 tile twice, kernel, plain: one card, alternating
+    plain_a, kernel_a, prev_a, prev_b, kernel_b, plain_b = (
+        cuda_ms(f, reps) for f in (plain, kernel, previous, previous, kernel, plain))
     library_ms = cuda_ms(library, reps)
+    rows_ms = cuda_ms(with_rows, reps)
 
     # K3's own shape: the kernel's c-loop over a 65536-code codebook
     ln, lc, ld = sizes['others']['large_codebook']
@@ -405,12 +492,16 @@ def phase_times(vq, xin, x_main, e_main, sizes):
     b_large = selection_bias(e_large, 'euclidean')
     large = [lambda: nearest_code(x_large, e_large, 'euclidean', b_large),
              lambda: nearest_code_plain(x_large, e_large, b_large),
-             lambda: torch.addmm(b_large, x_large, e_large.T).argmax(-1)]
-    lk_a, lp_a, lp_b, lk_b = (cuda_ms(large[i], reps) for i in (0, 1, 1, 0))
+             lambda: torch.addmm(b_large, x_large, e_large.T).argmax(-1),
+             lambda: _nearest_code_simt(x_large, e_large, b_large)]
+    lk_a, lp_a, ls_a, ls_b, lp_b, lk_b = (cuda_ms(large[i], reps) for i in (0, 1, 3, 3, 1, 0))
     large_bound, large_by = selection_bound_ms(ln, lc, ld)
+    large_tc, _ = selection_bound_tc_ms(ln, lc, ld)
     large_codebook = dict(shape=[ln, lc, ld], ms=(lk_a + lk_b) / 2, ms_runs=[lk_a, lk_b],
+                          previous_ms=(ls_a + ls_b) / 2, previous_ms_runs=[ls_a, ls_b],
                           plain_ms=(lp_a + lp_b) / 2, plain_ms_runs=[lp_a, lp_b],
-                          library_ms=cuda_ms(large[2], reps), bound_ms=large_bound, bound_by=large_by)
+                          library_ms=cuda_ms(large[2], reps), bound_ms=large_bound, bound_by=large_by,
+                          bound_tc_ms=large_tc, share_of_bound=large_tc / ((lk_a + lk_b) / 2))
     del x_large, e_large
     with torch.no_grad():
         forward_ms = cuda_ms(lambda: vq(xin), reps)
@@ -419,20 +510,31 @@ def phase_times(vq, xin, x_main, e_main, sizes):
         vq(xin)
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    profile_forward(vq, xin)
+    profile = profile_forward(vq, xin)
     kernel_ms = (kernel_a + kernel_b) / 2
+    previous_ms = (prev_a + prev_b) / 2
     plain_ms = (plain_a + plain_b) / 2
     bound_ms, bound_by = selection_bound_ms(n, c, d)
+    bound_tc_ms, _ = selection_bound_tc_ms(n, c, d)
+    check(kernel_ms < previous_ms, f'the tensor-core kernel beats the f32 tile it replaced ({kernel_ms}, {previous_ms})')
     emit('times', shape=[n, c, d], reps=reps, kernel_ms=kernel_ms, kernel_ms_runs=[kernel_a, kernel_b],
+         design=KERNEL_DESIGN, previous_ms=previous_ms, previous_ms_runs=[prev_a, prev_b],
+         previous='the replaced register-blocked f32 FMA tile (vqtpu_nearest_code_f32_simt), same inputs',
+         with_rows_ms=rows_ms, with_rows='quantize_lookup: the same kernel with its row-copy epilogue',
          plain_ms=plain_ms, plain_ms_runs=[plain_a, plain_b],
          library_ms=library_ms, library_call='torch.addmm(bias, x, e.T).argmax(-1): two calls, not on the port path',
          vq_forward_ms=forward_ms, vq_vectors_per_s=n / (forward_ms / 1e3),
+         vq_forward_device_idle_share=profile['device_idle_share'],
          peak_allocated_bytes=peak, peak_note='one forward, with the 1 GiB input and the other live tensors of this script',
          bound_ms=bound_ms, bound_by=bound_by, kernel_share_of_bound=bound_ms / kernel_ms,
-         bound_basis='published H100 SXM peaks at 700 W: 67 TFLOP/s f32, 3.35 TB/s',
+         bound_tc_ms=bound_tc_ms, share_of_bound=bound_tc_ms / kernel_ms,
+         bound_basis='published H100 SXM peaks at 700 W: 67 TFLOP/s f32 (bound_ms), 495 TFLOP/s dense TF32 '
+                     'times three products (bound_tc_ms), 3.35 TB/s',
          large_codebook=large_codebook)
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, large_codebook=large_codebook)
+                library_ms=library_ms, previous_ms=previous_ms, bound_tc_ms=bound_tc_ms,
+                share_of_bound=bound_tc_ms / kernel_ms, with_rows_ms=rows_ms, vq_forward_ms=forward_ms,
+                large_codebook=large_codebook)
 
 
 def train_bound_ms(n: int, c: int, d: int, weighted: bool) -> tuple[float, str]:
@@ -473,6 +575,61 @@ def esum_within_bound(esum, ref):
     return float(err.max()), share
 
 
+def ema_step_reference(x, idx, prev_cs, prev_ea, decay):
+    """One EMA step of the codebook in float64, from a route's own indices
+    and its own previous f32 state, with the rounding the f32 step may carry:
+    cluster_size and embed_avg move by (1 - decay) towards the batch's counts
+    (exact in f32) and sums (within the f32 summation bound), and the lerp
+    rounds three times. x (n, d), idx (n,), prev_cs (c,), prev_ea (c, d) ->
+    (cluster_size, embed_avg, their bounds)."""
+    c = prev_cs.shape[-1]
+    esum, asum, count = (t[0] for t in stats_reference(x[None], idx.reshape(1, -1), c, None))
+    w = 1.0 - decay
+    pcs, pea = prev_cs.double(), prev_ea.double()
+    cs = pcs + (count - pcs) * w
+    ea = pea + (esum - pea) * w
+    cs_bound = 4 * U32 * (w * (count + pcs.abs()) + cs.abs())
+    sum_bound = (count[:, None] + MERGE_PARTIALS) * U32 * asum
+    ea_bound = w * sum_bound * (1 + 4 * U32) + 4 * U32 * (w * (esum.abs() + pea.abs()) + ea.abs())
+    return cs, ea, cs_bound, ea_bound
+
+
+def smoothed_sizes(cs, eps):
+    """float64 laplace-smoothed cluster sizes of f32 `cs` (c,), as
+    `Codebook.update_ema` divides embed_avg by them, and total / (total + c eps)."""
+    cs = cs.double()
+    total = cs.sum()
+    ratio = total / (total + cs.shape[-1] * eps)
+    return (cs + eps) * ratio, ratio
+
+
+def flips_explained(x, route_a, route_b, rel=1e-5):
+    """Tokens that two routes send to different codes, each route with its
+    own (codebook, bias, indices): on route a's codebook, a's pick may beat
+    b's pick by no more than the two codes' scores moved between the
+    codebooks, plus the near-tie margin of `selection_disagreements` (on one
+    codebook: near-ties only). Returns (flips, flips not so explained,
+    largest unexplained gap)."""
+    (embed_a, bias_a, idx_a), (embed_b, bias_b, idx_b) = route_a, route_b
+    idx_a, idx_b = idx_a.reshape(-1).long(), idx_b.reshape(-1).long()
+    differ = (idx_a != idx_b).nonzero().reshape(-1)
+    if differ.numel() == 0:
+        return 0, 0, 0.0
+    xd = x.reshape(-1, x.shape[-1])[differ].double()
+    pa, pb = idx_a[differ], idx_b[differ]
+
+    def scores(embed, bias, j):
+        e = embed[j].double()
+        return (xd * e).sum(-1) + bias[j].double(), xd.norm(dim=-1) * e.norm(dim=-1)
+
+    (sa_a, na_a), (sa_b, na_b) = scores(embed_a, bias_a, pa), scores(embed_a, bias_a, pb)
+    (sb_a, nb_a), (sb_b, nb_b) = scores(embed_b, bias_b, pa), scores(embed_b, bias_b, pb)
+    moved = ((sa_a - sb_a) - (sa_b - sb_b)).abs()
+    scale = torch.stack([sa_a.abs(), sa_b.abs(), sb_a.abs(), sb_b.abs(), na_a, na_b, nb_a, nb_b]).amax(0)
+    excess = (sa_a - sa_b) - moved - rel * scale
+    return int(differ.numel()), int((excess > 0).sum()), float(excess.max().clamp_min(0))
+
+
 def compare_train(case, x, e, metric, w, device, exact=None):
     """The fused train kernel against its plain version on the same inputs."""
     from vqtpu_torch.kernels.distance import nearest_code, selection_bias, selection_disagreements
@@ -484,10 +641,9 @@ def compare_train(case, x, e, metric, w, device, exact=None):
     nc = nearest_code(x, e, metric, bias)
     sync(device)
     check(all(torch.equal(a, b) for a, b in zip(out, again)), f'{case}: two kernel calls bit-identical')
-    check(torch.equal(out[0], nc), f'{case}: indices equal nearest_code on the same inputs')
     del again
     if x.ndim == 2:
-        x, e, bias = x[None], e[None], bias[None]
+        x, e, bias, nc = x[None], e[None], bias[None], nc[None]
         w = None if w is None else w[None]
         out = tuple(t[None] for t in out)
         plain = tuple(t[None] for t in plain)
@@ -499,8 +655,14 @@ def compare_train(case, x, e, metric, w, device, exact=None):
         check(torch.equal(bins.cpu(), exact[1]) and torch.equal(pbins.cpu(), exact[1]),
               f'{case}: tie probe bins equal the counts')
     totals = {'tokens': 0, 'disagree': 0, 'non_tie': 0, 'max_score_gap': 0.0}
+    nc_flips = 0
     for h in range(x.shape[0]):
         check(torch.equal(q[h], e[h][idx[h].long()]), f'{case}: q rows bit-equal to codebook rows')
+        # two selection tiles (K4's f32 FMA tile, K1's split-TF32 kernel): the
+        # same indices but for near-ties
+        nr = selection_disagreements(x[h], e[h], bias[h], idx[h], nc[h])
+        check(nr['non_tie'] == 0, f'{case}: indices equal nearest_code on the same inputs but for near-ties {nr}')
+        nc_flips += nr['disagree']
         r = selection_disagreements(x[h], e[h], bias[h], idx[h], pidx[h])
         for k in ('tokens', 'disagree', 'non_tie'):
             totals[k] += r[k]
@@ -520,7 +682,8 @@ def compare_train(case, x, e, metric, w, device, exact=None):
     perr, pshare = esum_within_bound(pesum, ref if totals['disagree'] == 0 else stats_reference(x, pidx, c, w))
     check(pshare <= 1.0, f'{case}: plain esum within the f32 summation bound ({pshare})')
     emit('train_fused_vs_plain', case=case, shape=[x.shape[0], x.shape[1], c, x.shape[2]], metric=metric,
-         weighted=w is not None, bit_identical_calls=True, esum_max_abs_err=err, esum_share_of_bound=share,
+         weighted=w is not None, bit_identical_calls=True, near_tie_flips_vs_nearest_code=nc_flips,
+         esum_max_abs_err=err, esum_share_of_bound=share,
          plain_esum_max_abs_err=perr, plain_esum_share_of_bound=pshare, **totals)
     return err
 
@@ -585,6 +748,7 @@ def phase_train_path(device, sizes):
         steps = []
         for s, batch in enumerate(batches):
             embed = vq.codebook.clone()
+            prev_cs, prev_ea = vq._codebook.cluster_size.clone(), vq._codebook.embed_avg.clone()
             x = batch.clone().requires_grad_()
             q, idx, loss = vq(x)
             (loss + q.square().mean()).backward()
@@ -593,7 +757,7 @@ def phase_train_path(device, sizes):
             rows = embed[idx.reshape(-1).long()]
             rel = _max_rel_row_err(q.detach().reshape(-1, d), rows)
             check(rel <= 1e-5, f'{route} step {s}: q within 1e-5 of codebook[idx] ({rel})')
-            step = dict(embed=embed, idx=idx, loss=loss.detach(), q_rel_err=rel,
+            step = dict(embed=embed, idx=idx, loss=loss.detach(), q_rel_err=rel, prev_cs=prev_cs, prev_ea=prev_ea,
                         cluster_size=vq._codebook.cluster_size.clone(),
                         embed_avg=vq._codebook.embed_avg.clone(), embed_after=vq.codebook.clone())
             if s == 0:
@@ -609,54 +773,97 @@ def phase_train_path(device, sizes):
     check(off['launches']['nearest_code'] == len(batches) and off['launches']['train_fused'] == 0,
           f"'off' route launched the selection kernel and not the fused kernel {off['launches']}")
 
-    # step 0: one state, one selection tile -> the same indices, loss and grad
-    s0_on, s0_off = on['steps'][0], off['steps'][0]
-    check(torch.equal(s0_on['idx'], s0_off['idx']), 'step 0: the routes pick the same indices')
-    check(torch.equal(s0_on['loss'], s0_off['loss']), 'step 0: the routes give the same loss')
-    check(torch.equal(s0_on['grad'], s0_off['grad']), 'step 0: the routes give the same x.grad')
-    check(torch.equal(s0_on['cluster_size'], s0_off['cluster_size']), 'step 0: cluster_size equal')
-    # embed_avg moves by (1 - decay) * esum; each route's esum lies within the
-    # f32 summation bound of the float64 sum
-    x0 = batches[0].reshape(1, -1, d)
-    ref = stats_reference(x0, s0_on['idx'].reshape(1, -1), c, None)
-    bound = (ref[2][..., None] + MERGE_PARTIALS) * U32 * ref[1]
-    decay = models['on']._codebook.decay
-    ea_on, ea_off = s0_on['embed_avg'], s0_off['embed_avg']
-    ea_slack = 2 * (1 - decay) * bound + 4 * U32 * ea_on.abs().double()
-    check(bool(((ea_on - ea_off).abs().double() <= ea_slack).all()), 'step 0: embed_avg within the bound')
-    cs = s0_on['cluster_size']
-    total = cs.sum(-1, keepdim=True)
-    eps = models['on']._codebook.eps
-    smoothed = ((cs + eps) / (total + c * eps)) * total
-    e_slack = ea_slack / smoothed[..., None].double() + 4 * U32 * s0_on['embed_after'].abs().double()
-    check(bool(((s0_on['embed_after'] - s0_off['embed_after']).abs().double() <= e_slack[0]).all()),
-          'step 0: embed within the bound')
-
-    # later steps: the codebooks differ by that rounding, and a near-tie flip
-    # moves two codebook rows by a token's share of the EMA, so each route
-    # is held to the plain selection on its own codebook, and the routes to
-    # each other only by the share of tokens that flip; each flip moves two
-    # cluster sizes by at most (1 - decay)
-    disagree = []
-    cs_slack = 0.0
-    for s in range(len(batches)):
-        a, b_ = on['steps'][s], off['steps'][s]
-        xs = batches[s].reshape(-1, d)
-        for route, step in (('on', a), ('off', b_)):
+    # each route on its own, every step: indices are the plain selection on
+    # its codebook but for near-ties, the loss is the float64 MSE to its own
+    # rows, and cluster_size, embed_avg and embed are one float64 EMA step
+    # from its own indices and previous state, within the f32 rounding
+    decay, eps = models['on']._codebook.decay, models['on']._codebook.eps
+    bounds = {}
+    ema_share = 0.0
+    for route, run in runs.items():
+        for s, step in enumerate(run['steps']):
+            xs = batches[s].reshape(-1, d)
             bias = selection_bias(step['embed'], 'euclidean')
             own = selection_disagreements(xs, step['embed'], bias, step['idx'],
                                           nearest_code_plain(xs, step['embed'], bias))
             check(own['non_tie'] == 0, f'{route} step {s}: indices disagree with the plain selection {own}')
-        r = selection_disagreements(xs, a['embed'], selection_bias(a['embed'], 'euclidean'), a['idx'], b_['idx'])
-        check(r['disagree'] <= 1e-3 * r['tokens'], f'step {s}: the routes flip more than 1e-3 of tokens {r}')
-        disagree.append(r['disagree'])
-        cs_slack = decay * cs_slack + 2 * (1 - decay) * r['disagree']
-        cs_err = float((a['cluster_size'] - b_['cluster_size']).abs().max())
-        check(cs_err <= cs_slack + 1e-3, f'step {s}: cluster_size equal but for near-tie flips ({cs_err})')
+            idx = step['idx'].reshape(-1).long()
+            loss64 = float((xs.double() - step['embed'][idx].double()).square().mean())
+            loss_err = abs(float(step['loss']) - loss64) / loss64
+            check(loss_err <= 1e-5, f'{route} step {s}: loss within 1e-5 of the float64 MSE ({loss_err})')
+            cs, ea, cs_bound, ea_bound = ema_step_reference(xs, idx, step['prev_cs'][0], step['prev_ea'][0], decay)
+            smoothed, _ = smoothed_sizes(step['cluster_size'][0], eps)
+            e_ref = step['embed_avg'][0].double() / smoothed[:, None]
+            e_bound = 8 * U32 * e_ref.abs()
+            for name, got, ref, bound in (('cluster_size', step['cluster_size'][0], cs, cs_bound),
+                                          ('embed_avg', step['embed_avg'][0], ea, ea_bound),
+                                          ('embed', step['embed_after'], e_ref, e_bound)):
+                share = float(((got.double() - ref).abs() / bound.clamp_min(1e-300)).max())
+                check(share <= 1.0, f'{route} step {s}: {name} within the f32 bound of one float64 EMA step '
+                                    f'from its own indices and state ({share})')
+                ema_share = max(ema_share, share)
+            bounds[route, s] = cs_bound, ea_bound
+
+    # step 0: one state, but two selection tiles (the fused kernel's f32 FMA
+    # tile, the 'off' route's split-TF32 kernel), so the indices may differ
+    # at near-ties only; a flip changes x.grad only in the flipped token's
+    # row, and where no token flips, loss, x.grad and cluster_size are
+    # identical
+    s0_on, s0_off = on['steps'][0], off['steps'][0]
+    check(torch.equal(s0_on['embed'], s0_off['embed']), 'step 0: the routes start from one codebook')
+    r0 = selection_disagreements(batches[0].reshape(-1, d), s0_on['embed'],
+                                 selection_bias(s0_on['embed'], 'euclidean'), s0_on['idx'], s0_off['idx'])
+    check(r0['non_tie'] == 0, f'step 0: the routes pick the same indices but for near-ties {r0}')
+    same = (s0_on['idx'] == s0_off['idx']).reshape(-1)
+    check(torch.equal(s0_on['grad'].reshape(-1, d)[same], s0_off['grad'].reshape(-1, d)[same]),
+          'step 0: the routes give the same x.grad on the tokens that pick the same code')
+    step0_identical = ['indices but near-ties', 'x.grad of the tokens that agree']
+    if r0['disagree'] == 0:
+        check(torch.equal(s0_on['loss'], s0_off['loss']), 'step 0: the routes give the same loss')
+        check(torch.equal(s0_on['grad'], s0_off['grad']), 'step 0: the routes give the same x.grad')
+        check(torch.equal(s0_on['cluster_size'], s0_off['cluster_size']), 'step 0: cluster_size equal')
+        step0_identical = ['indices', 'loss', 'x.grad', 'cluster_size']
+
+    # the routes against each other: a flip moves two codes' counts by one
+    # and their sums by the token, each scaled by (1 - decay), so the
+    # difference of the routes' states is bounded from the flips alone (plus
+    # each route's rounding above), step after step, for every code; and each
+    # later flip is explained by the codebooks' difference at that step
+    w = 1.0 - decay
+    d_cs = torch.zeros(c, dtype=torch.float64, device=device)
+    d_ea = torch.zeros(c, d, dtype=torch.float64, device=device)
+    disagree, unexplained, embed_share = [], 0, 0.0
+    for s in range(len(batches)):
+        a, b_ = on['steps'][s], off['steps'][s]
+        xs = batches[s].reshape(-1, d)
+        flips, bad, gap = flips_explained(
+            xs, (a['embed'], selection_bias(a['embed'], 'euclidean'), a['idx']),
+            (b_['embed'], selection_bias(b_['embed'], 'euclidean'), b_['idx']))
+        check(bad == 0, f'step {s}: {bad} of {flips} flips beyond near-ties and the codebooks\' difference ({gap})')
+        disagree.append(flips)
+        unexplained += bad
+        flipped = (a['idx'] != b_['idx']).reshape(-1)
+        picks = torch.cat([a['idx'].reshape(-1)[flipped], b_['idx'].reshape(-1)[flipped]]).long()
+        mass = xs[flipped].double().abs().repeat(2, 1)
+        d_cs = decay * d_cs + w * torch.bincount(picks, minlength=c) + bounds['on', s][0] + bounds['off', s][0]
+        d_ea = (decay * d_ea + w * torch.zeros_like(d_ea).index_add_(0, picks, mass)
+                + bounds['on', s][1] + bounds['off', s][1])
+        cs_a, cs_b = a['cluster_size'][0], b_['cluster_size'][0]
+        ea_a, ea_b = a['embed_avg'][0].double(), b_['embed_avg'][0].double()
+        check(bool(((cs_a - cs_b).double().abs() <= d_cs).all()), f'step {s}: cluster_size within the flips\' bound')
+        check(bool(((ea_a - ea_b).abs() <= d_ea).all()), f'step {s}: embed_avg within the flips\' bound')
+        # embed = embed_avg / smoothed, smoothed = (cs + eps) * ratio
+        (sm_a, ratio_a), (sm_b, ratio_b) = smoothed_sizes(cs_a, eps), smoothed_sizes(cs_b, eps)
+        d_sm = d_cs * ratio_a + (cs_b.double() + eps) * (ratio_a - ratio_b).abs()
+        e_a, e_b = a['embed_after'].double(), b_['embed_after'].double()
+        d_e = (d_ea / sm_a[:, None] + ea_b.abs() * (d_sm / (sm_a * sm_b))[:, None]
+               + 9 * U32 * (e_a.abs() + e_b.abs()))
+        share = float(((e_a - e_b).abs() / d_e.clamp_min(1e-300)).max())
+        check(share <= 1.0, f"step {s}: the routes' codebooks within the flips' bound ({share})")
+        embed_share = max(embed_share, share)
     last_on, last_off = on['steps'][-1], off['steps'][-1]
     embed_rel = float((last_on['embed_after'] - last_off['embed_after']).abs().max()
                       / last_on['embed_after'].abs().max())
-    check(embed_rel <= 1e-2, f"after {len(batches)} steps the routes' codebooks agree to 1e-2 ({embed_rel})")
     loss_rel = max(abs(float(a['loss']) - float(b_['loss'])) / abs(float(a['loss']))
                    for a, b_ in zip(on['steps'], off['steps']))
     check(loss_rel <= 1e-4, f"the routes' losses agree to 1e-4 ({loss_rel})")
@@ -677,9 +884,10 @@ def phase_train_path(device, sizes):
          input=list(batches[0].shape), steps=len(batches),
          launches_on=on['launches'], launches_off=off['launches'],
          loss_on=[float(t['loss']) for t in on['steps']], loss_off=[float(t['loss']) for t in off['steps']],
-         disagreements_per_step=disagree, embed_rel_diff_after=embed_rel, loss_rel_diff=loss_rel,
+         disagreements_per_step=disagree, unexplained_flips=unexplained, embed_rel_diff_after=embed_rel,
+         ema_step_share_of_bound=ema_share, embed_diff_share_of_flip_bound=embed_share, loss_rel_diff=loss_rel,
          q_rel_err_vs_codebook_rows=max(t['q_rel_err'] for t in on['steps'] + off['steps']),
-         step0_identical=['indices', 'loss', 'x.grad', 'cluster_size'],
+         step0_identical=step0_identical, step0_flips=r0['disagree'],
          off_stats_deterministic=True, off_stats_tf32_invariant=True)
     return on['launches']['train_fused'], off['launches']['nearest_code']
 
@@ -769,7 +977,7 @@ def phase_flagship_train(device, sizes):
 
 def phase_train_times(x_main, e_main, sizes, smi):
     from vqtpu_torch import VectorQuantize
-    from vqtpu_torch.kernels.distance import gather_codes, nearest_code, selection_bias
+    from vqtpu_torch.kernels.distance import quantize_lookup, selection_bias
     from vqtpu_torch.kernels.train_fused import (
         code_statistics_plain, fused_train_quantize, fused_train_quantize_plain,
     )
@@ -781,8 +989,7 @@ def phase_train_times(x_main, e_main, sizes, smi):
         fused_train_quantize(x_main, e_main, 'euclidean', bias=bias)
 
     def composition():
-        idx = nearest_code(x_main, e_main, 'euclidean', bias)
-        gather_codes(e_main, idx)
+        idx, _ = quantize_lookup(x_main, e_main)
         code_statistics_plain(x_main[None], idx[None], c)
 
     def plain():
@@ -805,8 +1012,7 @@ def phase_train_times(x_main, e_main, sizes, smi):
         fused_train_quantize(x_main, e_data, 'euclidean', bias=bias_data)
 
     def composition_data():
-        idx = nearest_code(x_main, e_data, 'euclidean', bias_data)
-        gather_codes(e_data, idx)
+        idx, _ = quantize_lookup(x_main, e_data)
         code_statistics_plain(x_main[None], idx[None], c)
 
     kernel_d_a, comp_d_a, comp_d_b, kernel_d_b = (
@@ -844,7 +1050,7 @@ def phase_train_times(x_main, e_main, sizes, smi):
     emit('train_times', shape=[n, c, d], reps=reps, card=smi,
          kernel_ms=kernel_ms, kernel_ms_runs=[kernel_a, kernel_b],
          composition_ms=comp_ms, composition_ms_runs=[comp_a, comp_b],
-         composition='nearest_code kernel + index_select + code_statistics_plain (the off route)',
+         composition="quantize_lookup (selection kernel with its row copy) + code_statistics_plain (the 'off' route)",
          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, kernel_share_of_bound=bound_ms / kernel_ms,
          largest_code_share=largest_share,
          data_rows_codebook='512 rows of x', data_rows_largest_code_share=data_rows_share,
@@ -1166,8 +1372,14 @@ def phase_lfq_flagship_train(device, sizes):
 
 def lfq_bound_ms(n, d, sweep):
     """Least time for a sweep at n tokens, K = 2^d: the largest of the FMA
-    term, the MUFU term (the exp, and the log of B, C and D, per pair at
-    16/clk/SM) and the bytes (inputs read once, outputs written once).
+    term, the MUFU term (one exp per pair at 16/clk/SM) and the bytes
+    (inputs read once, outputs written once).
+
+    One MUFU op a pair in every sweep: the function needs no log. Where
+    p > eps, log p = l - logz, so the entropy term and its slope
+    f'(p) = -log max(p, eps) - [p > eps] come from the logit with FMAs;
+    where p <= eps the slope is the constant -log(eps). Sweep D's kernel
+    computes it that way; B's and C's still call logf (their redesign).
 
     The FMA term counts the dots as the function needs them, not as d FMAs
     a pair: codes come in runs of 2^L (L = min(d, 4)) that share their top
@@ -1180,7 +1392,7 @@ def lfq_bound_ms(n, d, sweep):
     lo = min(d, 4)
     dot_fmas = (d - lo + (1 << (lo + 1)) - 2) / (1 << lo)
     fma_ms = 2 * dot_fmas * pairs * (2 if sweep == 'd' else 1) / PEAK_F32_FLOPS * 1e3
-    mufu_ms = pairs * (1 if sweep == 'a' else 2) / PEAK_MUFU_PER_S * 1e3
+    mufu_ms = pairs / PEAK_MUFU_PER_S * 1e3
     floats = {'a': n * d + 2 * n, 'b': n * d + 3 * n + k, 'c': n * d + 5 * n + k, 'd': 2 * n * d + 4 * n + k}[sweep]
     bytes_ms = 4 * floats / PEAK_BYTES_PER_S * 1e3
     ops_ms = max(fma_ms, mufu_ms)
@@ -1304,8 +1516,9 @@ def phase_lfq_times(sizes, smi):
               'loss mean(q^2) + aux',
          tokens_per_s={r: n / (t / 1e3) for r, t in step_mean.items()}, peak_allocated_bytes=peak,
          launches_per_step=launches_per_step, profile_step=profiles,
-         bound_basis='H100 SXM at 700 W: 67 TFLOP/s f32 (FMA), 16 MUFU results/clk/SM x 132 SMs x 1.98 GHz, '
-                     '3.35 TB/s')
+         bound_basis='H100 SXM at 700 W: 67 TFLOP/s f32 (FMA), 16 MUFU results/clk/SM x 132 SMs x 1.98 GHz '
+                     '(one exp a pair, no log), 3.35 TB/s',
+         sweep_d_design=SWEEP_D_DESIGN)
     return dict(per_kernel=per_kernel, stats_ms={name: sum(t) / len(t) for name, t in stats.items()},
                 step_ms=step_mean)
 
@@ -1704,6 +1917,8 @@ def main() -> int:
             'ragged': (300, 130, 96),
             'tiny': (64, 8, 32),
             'heads': (3, 1000, 257, 40),
+            'ragged_d30': (500, 300, 30),
+            'tiny_d3': (64, 5, 3),
             'large_codebook': (16384, 65536, 32),
         },
         'ties': (1000, 512, 256),
@@ -1720,7 +1935,7 @@ def main() -> int:
         'rfsq_plain_reps': 5,
     }
 
-    kind, count, smi = phase_device()
+    kind, count, smi, ptxas = phase_device()
     n, c, d = sizes['main']
     x_main = torch.from_numpy(
         np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)).to(device)
@@ -1744,10 +1959,14 @@ def main() -> int:
                                'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
                                'fma_term_ms', 'mufu_term_ms', 'bytes_term_ms')})
                       for name in 'abcd']
+    d18 = [v for k, v in ptxas['lfq_sweep_d']['entries'].items() if 'ILi18E' in k]
+    lfq_per_kernel[3].update(design=SWEEP_D_DESIGN, ptxas_d18=d18[0] if d18 else None,
+                             share_of_bound=per_kernel['d']['bound_ms'] / per_kernel['d']['ms'])
     rfsq_cases = phase_rfsq_kernel_vs_plain(device)
     rfsq_launches, rfsq_grouped_launches = phase_rfsq_eval_path(device)
     phase_fsq_train_path(device, sizes)
     rfsq_times = phase_rfsq_times(sizes, smi)
+    check_no_spill(ptxas)
 
     print(json.dumps({'kernels': [{
         'name': 'nearest_code',
@@ -1760,9 +1979,15 @@ def main() -> int:
         'launches_train_off_route': off_route_launches,
         'max_abs_err': selection['main']['max_score_gap'],
         'max_abs_err_of': 'float64 score gap between the kernel and plain picks at the main shape',
+        'design': KERNEL_DESIGN,
         **times,
+        # the least time for f32-accurate selection is the 3xTF32 bound; the
+        # kernel runs below the f32 FMA bound, which is kept beside it
+        'bound_ms': times['bound_tc_ms'],
+        'bound_f32_fma_ms': times['bound_ms'],
+        'previous_ms_of': 'the replaced f32 FMA tile (vqtpu_nearest_code_f32_simt), measured in this run',
         'check': 'indices equal the plain version except near-ties (float64 gap <= 1e-5 relative), '
-                 'exact on tie probes, rows bit-equal to codebook rows',
+                 'exact on tie probes, two calls bit-identical, rows bit-equal to codebook rows',
         'power_limit': smi,
     }, {
         'name': 'train_fused',

@@ -1,5 +1,5 @@
-"""The Hopper kernels (selection, fused train step) against their plain
-versions, on the card.
+"""The Hopper kernels (selection, fused train step, LFQ entropy sweeps,
+fused ResidualFSQ eval) against their plain versions, on the card.
 
 Marked `cuda`: each test asks the `card` fixture for the device, which
 skips when there is no CUDA card. Run on a machine with an H100 and nvcc:
@@ -37,18 +37,24 @@ def _operands(shape, metric, device, seed=0):
     return x, e
 
 
-@pytest.mark.parametrize('metric', td.METRICS)
-@pytest.mark.parametrize('shape', (
+SELECTION_SHAPES = (
     (300, 130, 96), (64, 8, 32), (1, 1, 1), (4099, 640, 130), (3, 1000, 257, 40), (20000, 512, 256),
-))
+    (500, 300, 30), (64, 5, 3),
+)
+
+
+@pytest.mark.parametrize('metric', td.METRICS)
+@pytest.mark.parametrize('shape', SELECTION_SHAPES)
 def test_kernel_matches_plain(card, metric, shape):
     x, e = _operands(shape, metric, card)
     bias = td.selection_bias(e, metric)
     before = td.nearest_code.launches
     got = td.nearest_code(x, e, metric, bias)
+    again = td.nearest_code(x, e, metric, bias)
     torch.cuda.synchronize()
-    assert td.nearest_code.launches == before + 1
+    assert td.nearest_code.launches == before + 2
     assert got.dtype == torch.int32 and got.shape == x.shape[:-1]
+    assert torch.equal(got, again)
     want = td.nearest_code_plain(x, e, bias)
     if x.ndim == 2:
         x, e, bias, got, want = x[None], e[None], bias[None], got[None], want[None]
@@ -63,6 +69,50 @@ def test_kernel_ties_first_index(card):
     base, _ = _operands((64, 1, 48), 'euclidean', card, seed=1)
     dup = torch.cat([base] * 8)                  # copies in one thread, one tile, other tiles
     assert torch.equal(td.nearest_code(base, dup).cpu(), torch.arange(64, dtype=torch.int32))
+    # the probes of chip_smoke.py: 512 codes of 256 dims, copies in other c-tiles
+    base, _ = _operands((256, 1, 256), 'euclidean', card, seed=2)
+    for copies in (2, 8):
+        first = base[:512 // copies]
+        idx, q = td.quantize_lookup(first, torch.cat([first] * copies))
+        assert torch.equal(idx.cpu(), torch.arange(512 // copies, dtype=torch.int32)) and torch.equal(q, first)
+    zero_x = torch.zeros(1000, 256, device=card)
+    e = _operands((1, 512, 256), 'cosine', card, seed=3)[1]
+    assert (td.nearest_code(zero_x, e, 'cosine') == 0).all()
+
+
+@pytest.mark.parametrize('metric', td.METRICS)
+@pytest.mark.parametrize('shape', SELECTION_SHAPES)
+def test_quantize_lookup_rows_bit_equal(card, metric, shape):
+    """One launch gives the indices of `nearest_code` and the original
+    codebook rows, bit for bit."""
+    x, e = _operands(shape, metric, card, seed=4)
+    before = td.nearest_code.launches
+    idx, q = td.quantize_lookup(x, e, metric)
+    torch.cuda.synchronize()
+    assert td.nearest_code.launches == before + 1
+    assert torch.equal(idx, td.nearest_code(x, e, metric)) and q.shape == x.shape
+    if x.ndim == 2:
+        x, e, idx, q = x[None], e[None], idx[None], q[None]
+    for h in range(x.shape[0]):
+        assert torch.equal(q[h], e[h][idx[h].long()])
+
+
+@pytest.mark.parametrize('shape', ((300, 130, 96), (64, 8, 32), (3, 1000, 257, 40), (20000, 512, 256)))
+def test_simt_yardstick_matches_plain(card, shape):
+    """The replaced f32 tile, kept as a same-run yardstick, still selects as
+    the plain version does, and counts no launch of the port's kernel."""
+    x, e = _operands(shape, 'euclidean', card, seed=5)
+    bias = td.selection_bias(e, 'euclidean')
+    before = td.nearest_code.launches
+    got = td._nearest_code_simt(x, e, bias)
+    torch.cuda.synchronize()
+    assert td.nearest_code.launches == before
+    want = td.nearest_code_plain(x, e, bias)
+    if x.ndim == 2:
+        x, e, bias, got, want = x[None], e[None], bias[None], got[None], want[None]
+    for h in range(x.shape[0]):
+        r = td.selection_disagreements(x[h], e[h], bias[h], got[h], want[h])
+        assert r['non_tie'] == 0, r
 
 
 def test_kernel_rejects_what_it_does_not_take(card):
@@ -71,6 +121,12 @@ def test_kernel_rejects_what_it_does_not_take(card):
         td.nearest_code(x.half(), e)
     with pytest.raises(ValueError, match='contiguous'):
         td.nearest_code(x.T.contiguous().T, e)
+    with pytest.raises(TypeError, match='float32'):
+        td.quantize_lookup(x, e.double())
+    with pytest.raises(ValueError, match='contiguous'):
+        td.quantize_lookup(x, e.T.contiguous().T)
+    with pytest.raises(ValueError, match='CUDA tensors only'):
+        td._nearest_code_simt(x.cpu(), e.cpu(), td.selection_bias(e.cpu(), 'euclidean'))
 
 
 def test_vq_eval_on_card_matches_cpu(card):
@@ -114,14 +170,16 @@ def test_train_kernel_matches_plain(card, metric, shape, weighted):
     again = ttf.fused_train_quantize(x, e, metric, w, bias=bias)
     torch.cuda.synchronize()
     assert ttf.fused_train_quantize.launches == before + 2
-    # two calls bit-identical, and the same indices as the selection kernel
+    # two calls bit-identical, and the indices of the selection kernel but for
+    # near-ties (K4 keeps the f32 FMA tile, the selection kernel is split-TF32)
     assert all(torch.equal(a, b) for a, b in zip((idx, q, bins, esum), again))
-    assert torch.equal(idx, td.nearest_code(x, e, metric, bias))
+    nc = td.nearest_code(x, e, metric, bias)
     pidx, _, pbins, pesum = ttf.fused_train_quantize_plain(x, e, bias, w)
     if x.ndim == 2:
-        x, e, bias, idx, q, pidx = x[None], e[None], bias[None], idx[None], q[None], pidx[None]
+        x, e, bias, idx, q, pidx, nc = x[None], e[None], bias[None], idx[None], q[None], pidx[None], nc[None]
     for h in range(x.shape[0]):
         assert torch.equal(q[h], e[h][idx[h].long()])
+        assert td.selection_disagreements(x[h], e[h], bias[h], idx[h], nc[h])['non_tie'] == 0
         r = td.selection_disagreements(x[h], e[h], bias[h], idx[h], pidx[h])
         assert r['non_tie'] == 0, r
     if torch.equal(idx, pidx.reshape(idx.shape)):
@@ -257,6 +315,44 @@ def test_lfq_sweeps_match_plain(card, case):
         assert err <= limit and (limit < 0.1 * float(ref.abs().max()) or float(ref.abs().max()) < tiny), (err, limit)
 
 
+@pytest.mark.parametrize('case', ((8192, 18, 100.0), (8192, 18, 1.0), (4096, 8, 100.0), (3000, 10, 1.0),
+                                  (777, 10, 100.0)), ids=('main_t100', 'main_t1', 'd8', 'd10', 'd10_ragged'))
+def test_sweep_d_log_free_matches_plain(card, case):
+    """Sweep D (log-free, base 2 on ex2) against `sweep_d_plain` in float64 on
+    the same statistics: within 2e-5 of the largest entry or 4x the plain f32
+    sweep's own error, the limit under a tenth of that entry; two calls
+    bit-identical."""
+    n, d, inv_temp = case
+    k = 1 << d
+    x, w = _lfq_operands(n, d, True, True, card, seed=11)
+    kw = dict(k=k, v=tle.code_magnitude(d, 1.0, True), inv_temp=inv_temp, eps=1e-5)
+    x64, w64 = x.double(), w.double()
+    m64, s64 = tle.sweep_a_plain(x64, k=k, v=kw['v'], inv_temp=inv_temp)
+    logz64 = m64 + torch.log(s64)
+    if inv_temp == 1.0:
+        gen = np.random.default_rng(12)
+        entbar = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(card)
+        gbar = torch.from_numpy(gen.standard_normal(k).astype(np.float32)).to(card)
+    else:
+        # the cotangents LFQ's aux loss sends (weight 0.1, gamma 1)
+        a = tle.sweep_b_plain(x64, w64, logz64, **kw)[1] / w64.sum()
+        entbar = (0.1 * w / w.sum()).float()
+        gbar = (0.1 * (torch.log(a.clamp_min(1e-5)) + (a > 1e-5).double()) / w64.sum()).float()
+    sigma64, _ = tle.sweep_c_plain(x64, w64, logz64, entbar.double(), gbar.double(), **kw)
+    logz, sigma = logz64.float(), sigma64.float()
+    before = tle.sweep_d.launches
+    dx = tle.sweep_d(x, w, logz, entbar, gbar, sigma, **kw)
+    again = tle.sweep_d(x, w, logz, entbar, gbar, sigma, **kw)
+    torch.cuda.synchronize()
+    assert tle.sweep_d.launches == before + 2 and torch.equal(dx, again)
+    ref = tle.sweep_d_plain(x64, w64, logz.double(), entbar.double(), gbar.double(), sigma.double(), **kw)
+    plain = tle.sweep_d_plain(x, w, logz, entbar, gbar, sigma, **kw)
+    scale = float(ref.abs().max())
+    limit = max(2e-5 * scale, 4 * float((plain.double() - ref).abs().max()))
+    assert limit < 0.1 * scale
+    assert float((dx.double() - ref).abs().max()) <= limit
+
+
 def test_lfq_entropy_stats_on_card_matches_cpu(card):
     n, d = 2000, 12
     x, w = _lfq_operands(n, d, True, True, card, seed=2)
@@ -280,6 +376,12 @@ def test_lfq_kernels_reject_what_they_do_not_take(card):
         tle.sweep_a(x.double(), k=256, v=1.0, inv_temp=1.0)
     with pytest.raises(ValueError, match='contiguous'):
         tle.sweep_b(x, torch.stack([w, w], 1)[:, 0], w, k=256, v=1.0, inv_temp=1.0, eps=1e-5)
+    col = torch.zeros(4, device=card)
+    with pytest.raises(ValueError, match='1 <= d <= 24'):
+        tle.sweep_d(torch.zeros(4, 25, device=card), col, col, col, torch.zeros(1 << 25, device=card), col,
+                    k=1 << 25, v=1.0, inv_temp=1.0, eps=1e-5)
+    with pytest.raises(ValueError, match='sigma must have shape'):
+        tle.sweep_d(x, w, w, w, torch.zeros(256, device=card), col, k=256, v=1.0, inv_temp=1.0, eps=1e-5)
 
 
 @pytest.mark.parametrize('route', ('on', 'auto', 'off'))

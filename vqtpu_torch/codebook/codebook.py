@@ -10,7 +10,8 @@ accum_embed_avg) and runs both forwards:
   package's order, track -> ema -> expire, with kmeans init on the first
   batch. With `train_fused='on'` selection, lookup and batch statistics run
   in one fused kernel (`fused_train_quantize`); otherwise ('auto', 'off')
-  the selection kernel, `index_select` and `code_statistics_plain`.
+  the selection kernel with its row copy (`quantize_lookup`) and
+  `code_statistics_plain`.
 
 Buffers are updated in place under `torch.no_grad()` from detached tensors,
 so no graph is kept on them from step to step. Random draws (kmeans init,
@@ -30,7 +31,7 @@ from ..core.utils import (
     append_dims_to, default, l2norm, laplace_smoothing, pack_tokens, resolve_device, uniform_init,
 )
 from ..kernels.distance import (
-    gather_codes_per_head, nearest_code, nearest_code_xla, quantize_lookup,
+    gather_codes_per_head, nearest_code_xla, quantize_lookup,
 )
 from ..kernels.train_fused import code_statistics_plain, fused_train_quantize
 from . import kmeans as kmeans_module
@@ -441,11 +442,11 @@ class Codebook(nn.Module):
             fused_stats = (bins, esum)
         elif not self.training and self.quantize_tier == 'bf16':
             embed_ind, quantize = quantize_lookup(flatten, embed, metric, tier='bf16')
+        elif self.use_pallas:
+            # on the card, selection and row copy in one kernel launch
+            embed_ind, quantize = quantize_lookup(flatten, embed, metric)
         else:
-            if self.use_pallas:
-                embed_ind = nearest_code(flatten, embed, metric)
-            else:
-                embed_ind = nearest_code_xla(flatten, embed, metric)
+            embed_ind = nearest_code_xla(flatten, embed, metric)
             quantize = gather_codes_per_head(embed, embed_ind)
 
         if update:

@@ -18,8 +18,9 @@
 // What bounds it: no tensor is read but x (n x d, d <= 24) and a few
 // per-token columns, so bytes are nothing (well under 1 MB at n = 8192);
 // the work is n * K (token, code) pairs, 2.1e9 at n = 8192, d = 18, each a
-// d-term dot, an exp (A) or an exp and a log (B, C, D), and a few products.
-// The codebook is generated, never read.
+// d-term dot, an exp (A, D) or an exp and a log (B, C), and a few products.
+// The codebook is generated, never read. (B and C need no log either, by
+// the algebra sweep D uses; they keep theirs until their own redesign.)
 //
 // What the design does about it:
 //
@@ -47,9 +48,11 @@
 //
 // No float atomics anywhere: two calls on the same inputs give bit-identical
 // outputs, and the split plan depends on (n, d) only. Ragged n is masked in
-// the kernels; no padded copies are made. Accurate expf / logf (the build
-// has no fast-math flag); the logits are two rounded multiplies and the
-// subtractions before exp are not contracted, as the TPU kernels write them.
+// the kernels; no padded copies are made. Sweeps A-C use accurate expf /
+// logf (the build has no fast-math flag); their logits are two rounded
+// multiplies and the subtractions before exp are not contracted, as the TPU
+// kernels write them. Sweep D works in base 2 on MUFU ex2 without a log (its
+// note below).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -327,72 +330,124 @@ sweep_c_kernel(const float* __restrict__ x, const float* __restrict__ w,
   part_gdot[at] = gdot;
 }
 
-// ---- D: dx = 2 inv_temp sum_k p (g - sigma) c_k ---------------------------
-template <int L>
-__global__ void __launch_bounds__(kThreads)
+// ---- D: dx = 2 inv_temp sum_k p (g - sigma) c_k, without a log ------------
+//
+// K8's redesign. The slope needs no log: where p > eps, log p = l - logz, so
+// f'(p) = -(l - logz) - 1; where p <= eps it is the constant -log(eps)
+// (computed once on the host, in f32). The logits are taken in base 2, with
+// log2(e) folded into the logit scale: t = dot * (2 inv_temp log2 e) -
+// logz log2 e in one FMA, p = ex2.approx.ftz(t) (one MUFU op; p below 2^-126
+// flushes to 0, which only zeroes terms far below eps), and the slope
+// -t ln 2 - 1. A pair then costs one MUFU op and a few FMAs: no accurate expf
+// and no logf. The indicator still compares the computed p with eps.
+//
+// The token's arrays are sized by d at compile time (one instantiation per
+// d <= 24), not for 24 dims with zero padding (the old kernel held 151
+// registers, 3 blocks of 128 threads an SM). __launch_bounds__(128, 4) caps a
+// thread at 128 registers, so that 4 blocks fit on an SM: at 5 (96
+// registers) ptxas spilled 20 bytes at d = 18, 23 and 24. The split plan,
+// the merge in split order and the rounding of the dots (the FMA chain over
+// the dims in order, the shared prefix once per run of 2^L codes) are those
+// of the other sweeps.
+
+// floor(log2(v)) for v >= 1, at compile time
+__host__ __device__ constexpr int log2_floor(int v) { return v <= 1 ? 0 : 1 + log2_floor(v / 2); }
+
+__device__ __forceinline__ float ex2_approx(float t) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(t));
+  return r;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 4)
 sweep_d_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ logz, const float* __restrict__ entbar,
                const float* __restrict__ gbar, const float* __restrict__ sigma,
-               float* __restrict__ part_dx, Plan p, float v, float inv_temp, float eps) {
+               float* __restrict__ part_dx, Plan p, float v, float inv_temp, float eps,
+               float logit_scale2, float neg_log_eps) {
+  constexpr int L = D < 4 ? D : 4;
   constexpr int V = 1 << L;
+  constexpr int DH = D - L;        // the leading dims, shared within a run
+  constexpr int NH = DH > 0 ? DH : 1;
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr float kLn2 = 0.6931471805599453f;
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= p.n) return;
-  Token<L> tk;
-  load_token<L>(x, t, true, p.d, tk);
+  const float* row = x + t * D;
+  float hi[NH];
+  float lo[L];
+#pragma unroll
+  for (int j = 0; j < DH; ++j) hi[j] = row[j];
+#pragma unroll
+  for (int i = 0; i < L; ++i) lo[i] = row[DH + i];
   const float wt = w[t];
-  const float lz = logz[t];
+  const float lz2 = __fmul_rn(logz[t], kLog2e);
   const float eb = entbar[t];
   const float sg = sigma[t];
-  const int dh = p.d - L;
   const int k_begin = blockIdx.y * p.split_len;
   const int k_end = k_begin + p.split_len;
   // sums of +-dl over the codes, the sign of dim j's entry; v comes in at the end
-  float acc_hi[kMaxD - L];
+  float acc_hi[NH];
   float acc_lo[L];
 #pragma unroll
-  for (int j = 0; j < kMaxD - L; ++j) acc_hi[j] = 0.f;
+  for (int j = 0; j < NH; ++j) acc_hi[j] = 0.f;
 #pragma unroll
   for (int i = 0; i < L; ++i) acc_lo[i] = 0.f;
   for (int k0 = k_begin; k0 < k_end; k0 += V) {
+    // the dots of the run's 2^L codes: the chain's shared prefix, then the
+    // last L dims as a tree (leaf u: bit L-1-i of u picks the sign of lo[i])
+    // The tree's levels are walked as one flat loop of constant trip count:
+    // nested loops whose inner bound depends on the outer index were left
+    // rolled by the compiler here, which put l[] in local memory.
     float l[V];
+    float h = 0.f;
+#pragma unroll
+    for (int j = 0; j < DH; ++j) h = fmaf(hi[j], ((k0 >> (D - 1 - j)) & 1) ? v : -v, h);
+    l[0] = h;
+#pragma unroll
+    for (int s = 0; s < V - 1; ++s) {
+      const int i = log2_floor(s + 1);   // tree level, nodes 2^i - 1 .. 2^(i+1) - 2
+      const int q = (2 << i) - 2 - s;    // a level's nodes from the last down
+      const float base = l[q];
+      l[2 * q + 1] = fmaf(lo[i], v, base);
+      l[2 * q] = fmaf(lo[i], -v, base);
+    }
     float gb[V];
-    run_logits<L>(tk, k0, p.d, v, inv_temp, l);
     load_run<V>(gbar + k0, gb);
 #pragma unroll
     for (int u = 0; u < V; ++u) {
-      const float pu = expf(__fsub_rn(l[u], lz));
-      const float g = __fadd_rn(__fmul_rn(eb, entropy_slope(pu, eps)), __fmul_rn(wt, gb[u]));
+      const float t2 = fmaf(l[u], logit_scale2, -lz2);  // log2 p
+      const float pu = ex2_approx(t2);
+      const float slope = pu > eps ? fmaf(-t2, kLn2, -1.f) : neg_log_eps;
+      const float g = fmaf(eb, slope, __fmul_rn(wt, gb[u]));
       l[u] = __fmul_rn(pu, __fsub_rn(g, sg));
     }
     // the last L dims: leaves 2q and 2q + 1 differ in the sign of lo[i] at
-    // tree level i; fold the tree from the leaves up
+    // tree level i; fold the tree from the leaves up, level L-1 first, q
+    // ascending within a level (one flat loop, as above)
+    float diff = 0.f;
 #pragma unroll
-    for (int i = L - 1; i >= 0; --i) {
-      float diff = 0.f;
-#pragma unroll
-      for (int q = 0; q < (1 << i); ++q) {
-        diff = __fadd_rn(diff, __fsub_rn(l[2 * q + 1], l[2 * q]));
-        l[q] = __fadd_rn(l[2 * q + 1], l[2 * q]);
-      }
-      acc_lo[i] = __fadd_rn(acc_lo[i], diff);
+    for (int s = 0; s < V - 1; ++s) {
+      const int i = log2_floor(V - 1 - s);  // level i holds 2^i nodes from s = V - 2^(i+1)
+      const int q = s - (V - (2 << i));
+      diff = __fadd_rn(q == 0 ? 0.f : diff, __fsub_rn(l[2 * q + 1], l[2 * q]));
+      l[q] = __fadd_rn(l[2 * q + 1], l[2 * q]);
+      if (q == (1 << i) - 1) acc_lo[i] = __fadd_rn(acc_lo[i], diff);
     }
     const float run_sum = l[0];
 #pragma unroll
-    for (int j = 0; j < kMaxD - L; ++j) {
-      if (j < dh) {
-        const bool plus = (k0 >> (p.d - 1 - j)) & 1;
-        acc_hi[j] = __fadd_rn(acc_hi[j], plus ? run_sum : -run_sum);
-      }
+    for (int j = 0; j < DH; ++j) {
+      const bool plus = (k0 >> (D - 1 - j)) & 1;
+      acc_hi[j] = __fadd_rn(acc_hi[j], plus ? run_sum : -run_sum);
     }
   }
   const float scale = 2.f * inv_temp;
-  float* out = part_dx + (static_cast<size_t>(blockIdx.y) * p.n + t) * p.d;
+  float* out = part_dx + (static_cast<size_t>(blockIdx.y) * p.n + t) * D;
 #pragma unroll
-  for (int j = 0; j < kMaxD - L; ++j) {
-    if (j < dh) out[j] = __fmul_rn(__fmul_rn(acc_hi[j], v), scale);
-  }
+  for (int j = 0; j < DH; ++j) out[j] = __fmul_rn(__fmul_rn(acc_hi[j], v), scale);
 #pragma unroll
-  for (int i = 0; i < L; ++i) out[dh + i] = __fmul_rn(__fmul_rn(acc_lo[i], v), scale);
+  for (int i = 0; i < L; ++i) out[DH + i] = __fmul_rn(__fmul_rn(acc_lo[i], v), scale);
 }
 
 // ---- merges: the splits in split order ------------------------------------
@@ -477,12 +532,15 @@ int launch_c(const float* x, const float* w, const float* logz, const float* ent
   return merge_sum(part_gdot, gdot, p.n, p.splits, st);
 }
 
-template <int L>
+template <int D>
 int launch_d(const float* x, const float* w, const float* logz, const float* entbar,
              const float* gbar, const float* sigma, float* dx, float* scratch, const Plan& p,
              float v, float inv_temp, float eps, cudaStream_t st) {
-  sweep_d_kernel<L><<<sweep_grid(p), kThreads, 0, st>>>(x, w, logz, entbar, gbar, sigma, scratch,
-                                                         p, v, inv_temp, eps);
+  // the base-2 logit scale 2 inv_temp log2(e), and the slope where p <= eps
+  const float logit_scale2 = static_cast<float>(2.0 * inv_temp * 1.4426950408889634);
+  const float neg_log_eps = -logf(eps);
+  sweep_d_kernel<D><<<sweep_grid(p), kThreads, 0, st>>>(x, w, logz, entbar, gbar, sigma, scratch, p,
+                                                         v, inv_temp, eps, logit_scale2, neg_log_eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return merge_sum(scratch, dx, p.n * p.d, p.splits, st);
@@ -554,8 +612,20 @@ int vqtpu_lfq_sweep_d(const float* x, const float* w, const float* logz, const f
                       long long n, int d, float v, float inv_temp, float eps, void* stream) {
   const Plan p = make_plan(n, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  VQTPU_DISPATCH_L(d, return launch_d<L>(x, w, logz, entbar, gbar, sigma, dx, scratch, p, v,
-                                         inv_temp, eps, st))
+  switch (d) {
+#define VQTPU_SWEEP_D_CASE(D) \
+  case D:                     \
+    return launch_d<D>(x, w, logz, entbar, gbar, sigma, dx, scratch, p, v, inv_temp, eps, st);
+    VQTPU_SWEEP_D_CASE(1) VQTPU_SWEEP_D_CASE(2) VQTPU_SWEEP_D_CASE(3) VQTPU_SWEEP_D_CASE(4)
+    VQTPU_SWEEP_D_CASE(5) VQTPU_SWEEP_D_CASE(6) VQTPU_SWEEP_D_CASE(7) VQTPU_SWEEP_D_CASE(8)
+    VQTPU_SWEEP_D_CASE(9) VQTPU_SWEEP_D_CASE(10) VQTPU_SWEEP_D_CASE(11) VQTPU_SWEEP_D_CASE(12)
+    VQTPU_SWEEP_D_CASE(13) VQTPU_SWEEP_D_CASE(14) VQTPU_SWEEP_D_CASE(15) VQTPU_SWEEP_D_CASE(16)
+    VQTPU_SWEEP_D_CASE(17) VQTPU_SWEEP_D_CASE(18) VQTPU_SWEEP_D_CASE(19) VQTPU_SWEEP_D_CASE(20)
+    VQTPU_SWEEP_D_CASE(21) VQTPU_SWEEP_D_CASE(22) VQTPU_SWEEP_D_CASE(23) VQTPU_SWEEP_D_CASE(24)
+#undef VQTPU_SWEEP_D_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* vqtpu_cuda_error_string(int err) {

@@ -85,35 +85,73 @@ def _check_kernel_operands(x, embed, bias, name='nearest_code'):
     return x, embed, bias
 
 
-def _nearest_code_cuda(x, embed, bias):
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.vqtpu_cuda_error_string(err).decode()
+        raise RuntimeError(f'{what} kernel launch failed: {msg} ({err})')
+
+
+def _nearest_code_cuda(x, embed, bias, rows: bool = False):
+    """The tensor-core kernel: indices, and with `rows` the winning codebook
+    rows copied by the same launch. Counts one launch in
+    `nearest_code.launches`."""
     squeeze = x.ndim == 2
     x, embed, bias = _check_kernel_operands(x, embed, bias)
     h, n, d = x.shape
     c = embed.shape[1]
     idx = torch.empty((h, n), dtype=torch.int32, device=x.device)
+    q = torch.empty((h, n, d), dtype=torch.float32, device=x.device) if rows else None
     if n:
         lib = _kernel_library()
+        scratch = torch.empty(lib.vqtpu_nearest_code_scratch_floats(h, c, d), device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.vqtpu_nearest_code_f32(
-                x.data_ptr(), embed.data_ptr(), bias.data_ptr(), idx.data_ptr(),
-                h, n, c, d, stream,
+                x.data_ptr(), embed.data_ptr(), bias.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
+                None if q is None else q.data_ptr(), h, n, c, d, stream,
             )
-        if err != 0:
-            msg = lib.vqtpu_cuda_error_string(err).decode()
-            raise RuntimeError(f'nearest_code kernel launch failed: {msg} ({err})')
+        _raise_on(lib, err, 'nearest_code')
         nearest_code.launches += 1
-    return idx[0] if squeeze else idx
+    if squeeze:
+        idx, q = idx[0], None if q is None else q[0]
+    return (idx, q) if rows else idx
 
 
 def _kernel_library() -> ctypes.CDLL:
     lib = _build.load('nearest_code')
-    fn = lib.vqtpu_nearest_code_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, size = ctypes.c_void_p, ctypes.c_longlong
+    lib.vqtpu_nearest_code_f32.argtypes = [ptr] * 6 + [size] * 4 + [ptr]
+    lib.vqtpu_nearest_code_f32.restype = ctypes.c_int
+    lib.vqtpu_nearest_code_f32_simt.argtypes = [ptr] * 4 + [size] * 4 + [ptr]
+    lib.vqtpu_nearest_code_f32_simt.restype = ctypes.c_int
+    lib.vqtpu_nearest_code_scratch_floats.argtypes = [size] * 3
+    lib.vqtpu_nearest_code_scratch_floats.restype = ctypes.c_longlong
     lib.vqtpu_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vqtpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _nearest_code_simt(x: torch.Tensor, embed: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The register-blocked f32 FMA selection tile that the tensor-core
+    kernel replaced (csrc/select_codes.cuh, still K4's tile), on CUDA
+    tensors only: a same-run yardstick for measurements and card tests. No
+    path of the port calls it, and it counts no launch."""
+    if x.device.type != 'cuda':
+        raise ValueError(f'_nearest_code_simt runs on CUDA tensors only, not {x.device}')
+    squeeze = x.ndim == 2
+    x, embed, bias = _check_kernel_operands(x, embed, bias, '_nearest_code_simt')
+    h, n, d = x.shape
+    idx = torch.empty((h, n), dtype=torch.int32, device=x.device)
+    if n:
+        lib = _kernel_library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.vqtpu_nearest_code_f32_simt(
+                x.data_ptr(), embed.data_ptr(), bias.data_ptr(), idx.data_ptr(),
+                h, n, embed.shape[1], d, stream,
+            )
+        _raise_on(lib, err, '_nearest_code_simt')
+    return idx[0] if squeeze else idx
 
 
 def nearest_code(
@@ -191,7 +229,10 @@ def quantize_lookup(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(n, d) or (h, n, d) tokens -> (indices int32, quantized rows).
 
-    tier='exact': f32 selection through `nearest_code` and an exact row copy.
+    tier='exact': f32 selection and an exact row copy. On CUDA tensors one
+    launch of the selection kernel does both (counted in
+    `nearest_code.launches`; f32 and contiguous, or it raises); CPU tensors
+    take `nearest_code_plain` and `index_select`.
     tier='bf16': x and the codebook are cast to bfloat16; scores are f32
     products of the bf16 values (each product is exact in f32) with the bias
     taken from the bf16-cast codebook, so indices and rows are exact with
@@ -201,6 +242,8 @@ def quantize_lookup(
         return _quantize_lookup_bf16(x, embed, metric)
     if tier != 'exact':
         raise ValueError(f"tier must be 'exact' or 'bf16', got {tier!r}")
+    if x.device.type == 'cuda':
+        return _nearest_code_cuda(x, embed, selection_bias(embed, metric), rows=True)
     idx = nearest_code(x, embed, metric)
     if embed.ndim > 2:
         return idx, gather_codes_per_head(embed, idx)
