@@ -13,7 +13,8 @@ prints one JSON line per phase:
 1. device: card name and count, `nvidia-smi` name and power limit, build
    time of the four kernel sources (built in parallel), the compiler's
    registers and spills per source, and on their own for the tensor-core
-   selection kernel, the f32 tile it replaced and every sweep D (no spill);
+   selection kernel (in nearest_code.cu and in train_fused.cu), the f32 tile
+   it replaced and every sweep B and D (no spill);
 2. kernel_vs_plain: the selection kernel (split-TF32 wgmma) against
    `nearest_code_plain` on the same inputs and bias, at the main shape (both
    metrics), ragged, tiny, batched-head, ragged-d (d = 30, d = 3) and
@@ -29,19 +30,23 @@ prints one JSON line per phase:
    the replaced f32 tile (same inputs), the plain version, addmm + argmax,
    the f32 and the 3xTF32 bounds, and the eval forward, whose profile must
    show no separate index_select;
-6. train_fused_vs_plain: the fused train kernel against
-   `fused_train_quantize_plain` at the main shape (euclidean, cosine, with a
-   0/1 weight), the ragged, tiny and 3-head shapes of phase 2, (16384, 65536, 32)
-   and tie probes; two kernel calls must be bit-identical;
+6. train_fused_vs_plain: the fused train kernel against `nearest_code`
+   (the same indices, bit for bit) and `fused_train_quantize_plain` at the
+   main shape (euclidean, cosine, with a 0/1 weight), the ragged, tiny and
+   3-head shapes of phase 2, (16384, 65536, 32) and tie probes; two kernel
+   calls must be bit-identical;
 7. train_path: VectorQuantize(dim=256, codebook_size=512).train() at full
    width, 3 forward + backward steps with train_fused='on' and a twin with
-   'off' from the same state; each route's loss and EMA step held every
-   step to float64 from its own indices and state, and the routes to each
-   other by a bound derived from the tokens that flip between them;
+   'off' from the same state; step 0 identical on both routes; each route's
+   loss and EMA step held every step to float64 from its own indices and
+   state, and the routes to each other by a bound derived from the tokens
+   that flip between them (each step's flips reported);
 8. flagship_train: the flagship with train_fused='on', 50 AdamW steps, step
    0 held against the same weights on the CPU;
-9. train_times: CUDA events, the fused kernel against the 'off' route's
-   composition, one training step on each route, peak memory and a
+9. train_times: CUDA events on a codebook of random rows and one of data
+   rows: the fused kernel against the step it replaced (same run) and the
+   'off' route's composition, each of their passes on its own, the largest
+   cluster's share; one training step on each route, peak memory and a
    torch.profiler breakdown of a step;
 10. lfq_kernels_vs_plain: the four LFQ entropy sweeps (csrc/lfq_entropy.cu)
    against their plain versions on the same inputs, errors against float64,
@@ -120,6 +125,7 @@ REPLACES = [
 ]
 TRAIN_SOURCE = 'vqtpu_torch/kernels/csrc/train_fused.cu'
 TRAIN_REPLACES = 'vqtpu/kernels/train_fused.py:61'
+TRAIN_DESIGN = "nearest_code's 3xTF32 wgmma tile with its rows, then statistics by sorted code"
 # f32 unit roundoff, and the most partial sums the fused kernel's merge adds
 # per entry (kMaxSplits in train_fused.cu)
 U32 = 2.0 ** -24
@@ -137,8 +143,8 @@ LFQ_MAIN = (8192, 18)
 LFQ_INV_TEMP = 100.0
 # H100 SXM: 16 exp/log (MUFU) results per clock per SM, 132 SMs, 1.98 GHz boost
 PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
-# K8's redesign
-SWEEP_D_DESIGN = 'log-free ex2'
+# K6's and K8's redesign
+LOG_FREE_DESIGN = 'log-free ex2'
 
 
 RFSQ_SOURCE = 'vqtpu_torch/kernels/csrc/residual_fsq_fused.cu'
@@ -246,13 +252,19 @@ def phase_device():
     _build.build(sources)
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_summary(_build.build_log(name)) for name in sources}
-    # the two redesigned kernels on their own: K1's tensor-core tile beside
-    # the replaced f32 tile, and every instantiation of sweep D (K8)
+    # the redesigned kernels on their own: K1's tensor-core tile beside the
+    # replaced f32 tile, and every instantiation of sweeps B and D (K6, K8)
     ptxas['nearest_code_tf32'] = ptxas_entries(_build.build_log('nearest_code'), 'select_tf32_kernel')
     ptxas['nearest_code_simt'] = ptxas_entries(_build.build_log('nearest_code'), 'select_codes_kernel')
-    sweep_d = ptxas_entries(_build.build_log('lfq_entropy'), 'sweep_d_kernel')
-    ptxas['lfq_sweep_d'] = sweep_d
-    check(len(sweep_d['entries']) == 24, f"sweep D is built for every d <= 24 ({len(sweep_d['entries'])})")
+    # K4: the same tensor-core tile, built into train_fused.cu, and its
+    # statistics' kernels
+    ptxas['train_fused_tf32'] = ptxas_entries(_build.build_log('train_fused'), 'select_tf32_kernel')
+    ptxas['train_fused_stats'] = ptxas_entries(_build.build_log('train_fused'), 'train_fused_cu')
+    for sweep in 'bd':
+        entries = ptxas_entries(_build.build_log('lfq_entropy'), f'sweep_{sweep}_kernel')
+        ptxas[f'lfq_sweep_{sweep}'] = entries
+        check(len(entries['entries']) == 24,
+              f"sweep {sweep.upper()} is built for every d <= 24 ({len(entries['entries'])})")
     emit('device', kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -261,10 +273,12 @@ def phase_device():
 
 
 def check_no_spill(ptxas: dict) -> None:
-    """Sweep D must not spill (checked at the end of the run, so that a spill
-    does not hide the other phases' numbers)."""
-    spilled = {k: v for k, v in ptxas['lfq_sweep_d']['entries'].items() if v.get('spill_bytes', 1) != 0}
-    check(not spilled, f'sweep D spills no register {spilled}')
+    """Sweeps B and D and the fused train step's statistics kernels must not
+    spill (checked at the end of the run, so that a spill does not hide the
+    other phases' numbers)."""
+    for key in ('lfq_sweep_b', 'lfq_sweep_d', 'train_fused_stats'):
+        spilled = {k: v for k, v in ptxas[key]['entries'].items() if v.get('spill_bytes', 1) != 0}
+        check(not spilled, f'{key} spills no register {spilled}')
 
 
 def compare_selection(case, x, e, metric, device, exact=None):
@@ -537,14 +551,17 @@ def phase_times(vq, xin, x_main, e_main, sizes):
                 large_codebook=large_codebook)
 
 
-def train_bound_ms(n: int, c: int, d: int, weighted: bool) -> tuple[float, str]:
-    """Least time for the fused train step: the selection's 2ncd f32 FLOP at
-    peak, or reading x, the codebook, bias (and the weights) once and writing
-    idx, q, bins and esum once."""
-    ops_ms = 2 * n * c * d / PEAK_F32_FLOPS * 1e3
+def train_bound_ms(n: int, c: int, d: int, weighted: bool) -> dict:
+    """Least time for the fused train step at f32 accuracy: the selection's
+    three TF32 products (2ncd FLOP each) at the dense TF32 peak, or reading
+    x, the codebook, bias (and the weights) once and writing idx, q, bins and
+    esum once; beside it the same with the 2ncd f32 FLOP on the FMA pipes."""
     nbytes = 4 * (2 * n * d + n + 2 * c * d + 2 * c + (n if weighted else 0))
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), 'operations' if ops_ms >= bytes_ms else 'bytes'
+    tc_ms = 3 * 2 * n * c * d / PEAK_TF32_FLOPS * 1e3
+    fma_ms = 2 * n * c * d / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(tc_ms, bytes_ms), bound_by='operations' if tc_ms >= bytes_ms else 'bytes',
+                bound_f32_fma_ms=max(fma_ms, bytes_ms))
 
 
 def stats_reference(x, idx, c, w):
@@ -631,7 +648,8 @@ def flips_explained(x, route_a, route_b, rel=1e-5):
 
 
 def compare_train(case, x, e, metric, w, device, exact=None):
-    """The fused train kernel against its plain version on the same inputs."""
+    """The fused train kernel against nearest_code (indices bit for bit) and
+    its plain version (near-ties) on the same inputs."""
     from vqtpu_torch.kernels.distance import nearest_code, selection_bias, selection_disagreements
     from vqtpu_torch.kernels.train_fused import fused_train_quantize, fused_train_quantize_plain
     bias = selection_bias(e, metric)
@@ -641,9 +659,12 @@ def compare_train(case, x, e, metric, w, device, exact=None):
     nc = nearest_code(x, e, metric, bias)
     sync(device)
     check(all(torch.equal(a, b) for a, b in zip(out, again)), f'{case}: two kernel calls bit-identical')
-    del again
+    # K4 runs nearest_code's own split-TF32 tile on the same operands: the
+    # same indices, bit for bit (not the near-tie rule)
+    check(torch.equal(out[0], nc), f'{case}: indices equal nearest_code on the same operands')
+    del again, nc
     if x.ndim == 2:
-        x, e, bias, nc = x[None], e[None], bias[None], nc[None]
+        x, e, bias = x[None], e[None], bias[None]
         w = None if w is None else w[None]
         out = tuple(t[None] for t in out)
         plain = tuple(t[None] for t in plain)
@@ -655,14 +676,10 @@ def compare_train(case, x, e, metric, w, device, exact=None):
         check(torch.equal(bins.cpu(), exact[1]) and torch.equal(pbins.cpu(), exact[1]),
               f'{case}: tie probe bins equal the counts')
     totals = {'tokens': 0, 'disagree': 0, 'non_tie': 0, 'max_score_gap': 0.0}
-    nc_flips = 0
     for h in range(x.shape[0]):
         check(torch.equal(q[h], e[h][idx[h].long()]), f'{case}: q rows bit-equal to codebook rows')
-        # two selection tiles (K4's f32 FMA tile, K1's split-TF32 kernel): the
-        # same indices but for near-ties
-        nr = selection_disagreements(x[h], e[h], bias[h], idx[h], nc[h])
-        check(nr['non_tie'] == 0, f'{case}: indices equal nearest_code on the same inputs but for near-ties {nr}')
-        nc_flips += nr['disagree']
+        # the plain version's f32 matmul is another formulation: the same
+        # indices but for near-ties
         r = selection_disagreements(x[h], e[h], bias[h], idx[h], pidx[h])
         for k in ('tokens', 'disagree', 'non_tie'):
             totals[k] += r[k]
@@ -682,7 +699,7 @@ def compare_train(case, x, e, metric, w, device, exact=None):
     perr, pshare = esum_within_bound(pesum, ref if totals['disagree'] == 0 else stats_reference(x, pidx, c, w))
     check(pshare <= 1.0, f'{case}: plain esum within the f32 summation bound ({pshare})')
     emit('train_fused_vs_plain', case=case, shape=[x.shape[0], x.shape[1], c, x.shape[2]], metric=metric,
-         weighted=w is not None, bit_identical_calls=True, near_tie_flips_vs_nearest_code=nc_flips,
+         weighted=w is not None, bit_identical_calls=True, indices_equal_nearest_code=True,
          esum_max_abs_err=err, esum_share_of_bound=share,
          plain_esum_max_abs_err=perr, plain_esum_share_of_bound=pshare, **totals)
     return err
@@ -737,6 +754,7 @@ def phase_train_path(device, sizes):
     models = {route: VectorQuantize(dim=d, codebook_size=c, train_fused=route, device=device).train()
               for route in ('on', 'off')}
     models['off'].load_state_dict(models['on'].state_dict())
+    state0 = {k: v.clone() for k, v in models['on'].state_dict().items()}
     gen = np.random.default_rng(12)
     batches = [torch.from_numpy(gen.standard_normal((b, n // b, d), dtype=np.float32)).to(device)
                for _ in range(sizes['train_steps'])]
@@ -768,6 +786,19 @@ def phase_train_path(device, sizes):
         runs[route] = dict(steps=steps, launches=dict(train_fused=fused_train_quantize.launches,
                                                       nearest_code=nearest_code.launches))
     on, off = runs['on'], runs['off']
+    # train_fused='auto' (the default) takes the fused kernel on the card:
+    # one step from the routes' first state gives the 'on' route's step 0
+    auto = VectorQuantize(dim=d, codebook_size=c, device=device).train()
+    auto.load_state_dict(state0)
+    nearest_code.launches = 0
+    fused_train_quantize.launches = 0
+    with torch.no_grad():
+        _, auto_idx, _ = auto(batches[0])
+    sync(device)
+    auto_launches = dict(train_fused=fused_train_quantize.launches, nearest_code=nearest_code.launches)
+    check(auto_launches == dict(train_fused=1, nearest_code=0) and torch.equal(auto_idx, on['steps'][0]['idx']),
+          f"'auto' takes the fused kernel on the card {auto_launches}")
+    del auto
     check(on['launches']['train_fused'] == len(batches) and on['launches']['nearest_code'] == 0,
           f"'on' route launched the fused kernel and not the selection kernel {on['launches']}")
     check(off['launches']['nearest_code'] == len(batches) and off['launches']['train_fused'] == 0,
@@ -804,31 +835,25 @@ def phase_train_path(device, sizes):
                 ema_share = max(ema_share, share)
             bounds[route, s] = cs_bound, ea_bound
 
-    # step 0: one state, but two selection tiles (the fused kernel's f32 FMA
-    # tile, the 'off' route's split-TF32 kernel), so the indices may differ
-    # at near-ties only; a flip changes x.grad only in the flipped token's
-    # row, and where no token flips, loss, x.grad and cluster_size are
-    # identical
+    # step 0: one state and one selection kernel (K4 runs nearest_code's own
+    # split-TF32 tile with its row copy, as the 'off' route does), so the
+    # routes pick the same indices and give the same loss, x.grad and
+    # cluster_size; only esum's order of summation differs between them
     s0_on, s0_off = on['steps'][0], off['steps'][0]
     check(torch.equal(s0_on['embed'], s0_off['embed']), 'step 0: the routes start from one codebook')
-    r0 = selection_disagreements(batches[0].reshape(-1, d), s0_on['embed'],
-                                 selection_bias(s0_on['embed'], 'euclidean'), s0_on['idx'], s0_off['idx'])
-    check(r0['non_tie'] == 0, f'step 0: the routes pick the same indices but for near-ties {r0}')
-    same = (s0_on['idx'] == s0_off['idx']).reshape(-1)
-    check(torch.equal(s0_on['grad'].reshape(-1, d)[same], s0_off['grad'].reshape(-1, d)[same]),
-          'step 0: the routes give the same x.grad on the tokens that pick the same code')
-    step0_identical = ['indices but near-ties', 'x.grad of the tokens that agree']
-    if r0['disagree'] == 0:
-        check(torch.equal(s0_on['loss'], s0_off['loss']), 'step 0: the routes give the same loss')
-        check(torch.equal(s0_on['grad'], s0_off['grad']), 'step 0: the routes give the same x.grad')
-        check(torch.equal(s0_on['cluster_size'], s0_off['cluster_size']), 'step 0: cluster_size equal')
-        step0_identical = ['indices', 'loss', 'x.grad', 'cluster_size']
+    check(torch.equal(s0_on['idx'], s0_off['idx']), 'step 0: the routes pick the same indices')
+    check(torch.equal(s0_on['loss'], s0_off['loss']), 'step 0: the routes give the same loss')
+    check(torch.equal(s0_on['grad'], s0_off['grad']), 'step 0: the routes give the same x.grad')
+    check(torch.equal(s0_on['cluster_size'], s0_off['cluster_size']), 'step 0: cluster_size equal')
+    step0_identical = ['indices', 'loss', 'x.grad', 'cluster_size']
 
-    # the routes against each other: a flip moves two codes' counts by one
-    # and their sums by the token, each scaled by (1 - decay), so the
-    # difference of the routes' states is bounded from the flips alone (plus
-    # each route's rounding above), step after step, for every code; and each
-    # later flip is explained by the codebooks' difference at that step
+    # the routes against each other: from step 1 on their codebooks differ by
+    # esum's summation order, which can flip a near-tie; a flip moves two
+    # codes' counts by one and their sums by the token, each scaled by
+    # (1 - decay), so the difference of the routes' states is bounded from
+    # the flips alone (plus each route's rounding above), step after step,
+    # for every code; and each flip is explained by the codebooks'
+    # difference at that step
     w = 1.0 - decay
     d_cs = torch.zeros(c, dtype=torch.float64, device=device)
     d_ea = torch.zeros(c, d, dtype=torch.float64, device=device)
@@ -882,12 +907,12 @@ def phase_train_path(device, sizes):
     check(all(torch.equal(a, b_) for a, b_ in zip(stats, tf32)), "'off' statistics the same with TF32 on")
     emit('train_path', model=f'VectorQuantize(dim={d}, codebook_size={c}).train()',
          input=list(batches[0].shape), steps=len(batches),
-         launches_on=on['launches'], launches_off=off['launches'],
+         launches_on=on['launches'], launches_off=off['launches'], launches_auto_one_step=auto_launches,
          loss_on=[float(t['loss']) for t in on['steps']], loss_off=[float(t['loss']) for t in off['steps']],
          disagreements_per_step=disagree, unexplained_flips=unexplained, embed_rel_diff_after=embed_rel,
          ema_step_share_of_bound=ema_share, embed_diff_share_of_flip_bound=embed_share, loss_rel_diff=loss_rel,
          q_rel_err_vs_codebook_rows=max(t['q_rel_err'] for t in on['steps'] + off['steps']),
-         step0_identical=step0_identical, step0_flips=r0['disagree'],
+         step0_identical=step0_identical,
          off_stats_deterministic=True, off_stats_tf32_invariant=True)
     return on['launches']['train_fused'], off['launches']['nearest_code']
 
@@ -975,48 +1000,88 @@ def phase_flagship_train(device, sizes):
     return launches
 
 
+def data_rows_codebook(x, c, seed=13):
+    """c rows of x drawn without replacement, as kmeans init and dead-code
+    expiry draw codes: a codebook whose clusters are less even than random
+    rows'."""
+    return x[torch.from_numpy(np.random.default_rng(seed).choice(x.shape[0], c, replace=False)).to(x.device)]
+
+
+def stats_bound_ms(n, c, d):
+    """Least time for the statistics passes: read x and the indices once,
+    write bins and esum once (bytes; they do n d adds)."""
+    return 4 * (n * d + n + c * d + c) / PEAK_BYTES_PER_S * 1e3
+
+
+SORTED_PASSES = ('sort', 'row_scan', 'code_scan', 'scatter', 'segment_sums', 'segment_merge')
+SPLIT_PASSES = ('split_partial', 'split_merge')
+
+
+def train_pass_times(x, e, reps):
+    """Device ms of each pass of the fused step on (x, e) alone (CUDA
+    events): the two selections with their rows in turns (a, b, b, a), then,
+    on the split-TF32 indices, each statistics' passes in order (each reads
+    what the pass before it left), in two rounds; and the largest cluster's
+    share of the tokens. The small passes' times include the host's launch
+    through ctypes."""
+    from vqtpu_torch.kernels.distance import nearest_code, selection_bias
+    from vqtpu_torch.kernels.train_fused import _fused_train_stages
+    selections = ('select_tf32', 'select_simt')
+    stats = (SORTED_PASSES, SPLIT_PASSES)
+    n, c, d = x.shape[0], e.shape[0], x.shape[1]
+    runs = _fused_train_stages(x, e, selection_bias(e, 'euclidean'))
+    times: dict[str, list] = {}
+    for name in (*selections, *selections[::-1]):
+        times.setdefault(name, []).append(cuda_ms(runs[name], reps))
+    runs[selections[0]]()
+    for _ in range(2):
+        for passes in stats:
+            for name in passes:
+                times.setdefault(name, []).append(cuda_ms(runs[name], reps))
+    ms = {name: sum(t) / len(t) for name, t in times.items()}
+    bound = stats_bound_ms(n, c, d)
+    sums = {f'{passes[0]}..{passes[-1]}': sum(ms[p] for p in passes) for passes in stats}
+    largest = float(torch.bincount(nearest_code(x, e).long(), minlength=c).max()) / n
+    return dict(ms=ms, ms_runs=times, stats_ms=sums, stats_bound_ms=bound,
+                stats_share_of_bound={k: bound / v for k, v in sums.items()}, largest_code_share=largest)
+
+
 def phase_train_times(x_main, e_main, sizes, smi):
+    """K4 against the step it replaced (same run) and the 'off' route's
+    composition, with each pass on its own, on two codebooks: random rows,
+    and rows of x (as kmeans init and dead-code expiry draw them), whose
+    clusters are less even; then a training step per route."""
     from vqtpu_torch import VectorQuantize
     from vqtpu_torch.kernels.distance import quantize_lookup, selection_bias
     from vqtpu_torch.kernels.train_fused import (
-        code_statistics_plain, fused_train_quantize, fused_train_quantize_plain,
+        _fused_train_simt, code_statistics_plain, fused_train_quantize, fused_train_quantize_plain,
     )
     n, c, d = sizes['main']
-    bias = selection_bias(e_main, 'euclidean')
     reps = sizes['train_reps']
-
-    def kernel():
-        fused_train_quantize(x_main, e_main, 'euclidean', bias=bias)
-
-    def composition():
-        idx, _ = quantize_lookup(x_main, e_main)
-        code_statistics_plain(x_main[None], idx[None], c)
-
-    def plain():
-        fused_train_quantize_plain(x_main, e_main, bias)
-
-    # kernel, composition, composition, kernel, then the plain version
-    kernel_a, comp_a, comp_b, kernel_b = (cuda_ms(f, reps) for f in (kernel, composition, composition, kernel))
-    plain_ms = cuda_ms(plain, reps)
-    # the composition's statistics (index_put_) walk each code's tokens in
-    # one warp, so their time follows the largest cluster; the fused kernel
-    # splits every code over its token splits. The same pair on a codebook
-    # of data rows (as kmeans init and dead-code expiry draw them), with
-    # the largest cluster of each codebook:
-    largest_share = float(fused_train_quantize(x_main, e_main, 'euclidean', bias=bias)[2].max()) / n
-    e_data = x_main[torch.from_numpy(np.random.default_rng(13).choice(n, c, replace=False)).to(x_main.device)]
-    bias_data = selection_bias(e_data, 'euclidean')
-    data_rows_share = float(fused_train_quantize(x_main, e_data, 'euclidean', bias=bias_data)[2].max()) / n
-
-    def kernel_data():
-        fused_train_quantize(x_main, e_data, 'euclidean', bias=bias_data)
-
-    def composition_data():
-        idx, _ = quantize_lookup(x_main, e_data)
-        code_statistics_plain(x_main[None], idx[None], c)
-
-    kernel_d_a, comp_d_a, comp_d_b, kernel_d_b = (
-        cuda_ms(f, reps) for f in (kernel_data, composition_data, composition_data, kernel_data))
+    codebooks = {'random_rows': e_main, 'data_rows': data_rows_codebook(x_main, c)}
+    per_codebook = {}
+    for name, e in codebooks.items():
+        bias = selection_bias(e, 'euclidean')
+        idx, _ = quantize_lookup(x_main, e)
+        calls = {
+            'kernel': lambda: fused_train_quantize(x_main, e, 'euclidean', bias=bias),
+            'previous': lambda: _fused_train_simt(x_main, e, bias),
+            # the 'off' route: the selection kernel with its row copy, then
+            # index_put_ statistics
+            'composition': lambda: code_statistics_plain(x_main[None], quantize_lookup(x_main, e)[0][None], c),
+            'composition_stats': lambda: code_statistics_plain(x_main[None], idx[None], c),
+        }
+        runs: dict[str, list] = {}
+        # one card, in turns
+        for key in ('kernel', 'previous', 'composition', 'composition_stats',
+                    'composition_stats', 'composition', 'previous', 'kernel'):
+            runs.setdefault(key, []).append(cuda_ms(calls[key], reps))
+        ms = {key: sum(t) / len(t) for key, t in runs.items()}
+        check(ms['kernel'] < ms['previous'],
+              f"{name}: K4 beats the step it replaced ({ms['kernel']}, {ms['previous']})")
+        per_codebook[name] = dict(ms=ms, ms_runs=runs, passes=train_pass_times(x_main, e, reps))
+    plain_ms = cuda_ms(lambda: fused_train_quantize_plain(x_main, e_main, selection_bias(e_main, 'euclidean')),
+                       reps)
 
     torch.manual_seed(6)
     models = {route: VectorQuantize(dim=d, codebook_size=c, train_fused=route, device=x_main.device).train()
@@ -1043,27 +1108,30 @@ def phase_train_times(x_main, e_main, sizes, smi):
         torch.cuda.synchronize()
         peak[route] = torch.cuda.max_memory_allocated()
         profiles[route] = profile_device(step(route), 1)
-    kernel_ms = (kernel_a + kernel_b) / 2
-    comp_ms = (comp_a + comp_b) / 2
-    bound_ms, bound_by = train_bound_ms(n, c, d, weighted=False)
+    bound = train_bound_ms(n, c, d, weighted=False)
     step_mean = {r: sum(v) / len(v) for r, v in step_ms.items()}
-    emit('train_times', shape=[n, c, d], reps=reps, card=smi,
-         kernel_ms=kernel_ms, kernel_ms_runs=[kernel_a, kernel_b],
-         composition_ms=comp_ms, composition_ms_runs=[comp_a, comp_b],
-         composition="quantize_lookup (selection kernel with its row copy) + code_statistics_plain (the 'off' route)",
-         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, kernel_share_of_bound=bound_ms / kernel_ms,
-         largest_code_share=largest_share,
-         data_rows_codebook='512 rows of x', data_rows_largest_code_share=data_rows_share,
-         data_rows_kernel_ms_runs=[kernel_d_a, kernel_d_b], data_rows_composition_ms_runs=[comp_d_a, comp_d_b],
+    main, data = per_codebook['random_rows'], per_codebook['data_rows']
+    emit('train_times', shape=[n, c, d], reps=reps, card=smi, per_codebook=per_codebook,
+         kernel='fused_train_quantize (split-TF32 selection with its rows, then the statistics)',
+         previous='the replaced step (f32 FMA tile with its rows, then the same statistics; '
+                  'vqtpu_train_fused_f32_simt), same inputs',
+         composition="quantize_lookup (selection kernel with its row copy) + code_statistics_plain (the 'off' "
+                     'route); composition_stats the latter alone',
+         passes='each pass on its own (vqtpu_train_fused_stage); the statistics read the split-TF32 indices',
+         plain_ms=plain_ms, **bound, share_of_bound=bound['bound_ms'] / main['ms']['kernel'],
          step_ms_on=step_mean['on'], step_ms_on_runs=step_ms['on'],
          step_ms_off=step_mean['off'], step_ms_off_runs=step_ms['off'],
          step='forward + backward of VectorQuantize(dim=256, codebook_size=512).train() on (1024, 1024, 256)',
          vectors_per_s_on=n / (step_mean['on'] / 1e3), vectors_per_s_off=n / (step_mean['off'] / 1e3),
          peak_allocated_bytes=peak,
          profile_step_on=profiles['on'], profile_step_off=profiles['off'])
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, composition_ms=comp_ms,
-                composition_ms_data_rows=(comp_d_a + comp_d_b) / 2, ms_data_rows=(kernel_d_a + kernel_d_b) / 2,
+    return dict(ms=main['ms']['kernel'], previous_ms=main['ms']['previous'], plain_ms=plain_ms, **bound,
+                share_of_bound=bound['bound_ms'] / main['ms']['kernel'], library_ms=None,
+                composition_ms=main['ms']['composition'], passes_ms=main['passes']['ms'],
+                largest_code_share=main['passes']['largest_code_share'],
+                ms_data_rows=data['ms']['kernel'], previous_ms_data_rows=data['ms']['previous'],
+                composition_ms_data_rows=data['ms']['composition'], passes_ms_data_rows=data['passes']['ms'],
+                largest_code_share_data_rows=data['passes']['largest_code_share'],
                 step_ms_on=step_mean['on'], step_ms_off=step_mean['off'])
 
 
@@ -1378,8 +1446,8 @@ def lfq_bound_ms(n, d, sweep):
     One MUFU op a pair in every sweep: the function needs no log. Where
     p > eps, log p = l - logz, so the entropy term and its slope
     f'(p) = -log max(p, eps) - [p > eps] come from the logit with FMAs;
-    where p <= eps the slope is the constant -log(eps). Sweep D's kernel
-    computes it that way; B's and C's still call logf (their redesign).
+    where p <= eps the slope is the constant -log(eps). Sweeps B and D
+    compute it that way; C still calls logf (its redesign).
 
     The FMA term counts the dots as the function needs them, not as d FMAs
     a pair: codes come in runs of 2^L (L = min(d, 4)) that share their top
@@ -1518,7 +1586,7 @@ def phase_lfq_times(sizes, smi):
          launches_per_step=launches_per_step, profile_step=profiles,
          bound_basis='H100 SXM at 700 W: 67 TFLOP/s f32 (FMA), 16 MUFU results/clk/SM x 132 SMs x 1.98 GHz '
                      '(one exp a pair, no log), 3.35 TB/s',
-         sweep_d_design=SWEEP_D_DESIGN)
+         log_free_sweeps=['b', 'd'])
     return dict(per_kernel=per_kernel, stats_ms={name: sum(t) / len(t) for name, t in stats.items()},
                 step_ms=step_mean)
 
@@ -1959,9 +2027,11 @@ def main() -> int:
                                'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
                                'fma_term_ms', 'mufu_term_ms', 'bytes_term_ms')})
                       for name in 'abcd']
-    d18 = [v for k, v in ptxas['lfq_sweep_d']['entries'].items() if 'ILi18E' in k]
-    lfq_per_kernel[3].update(design=SWEEP_D_DESIGN, ptxas_d18=d18[0] if d18 else None,
-                             share_of_bound=per_kernel['d']['bound_ms'] / per_kernel['d']['ms'])
+    # the log-free sweeps (K6, K8): design, the compiler's report at d = 18, share of bound
+    for i, sweep in ((1, 'b'), (3, 'd')):
+        d18 = [v for k, v in ptxas[f'lfq_sweep_{sweep}']['entries'].items() if 'ILi18E' in k]
+        lfq_per_kernel[i].update(design=LOG_FREE_DESIGN, ptxas_d18=d18[0] if d18 else None,
+                                 share_of_bound=per_kernel[sweep]['bound_ms'] / per_kernel[sweep]['ms'])
     rfsq_cases = phase_rfsq_kernel_vs_plain(device)
     rfsq_launches, rfsq_grouped_launches = phase_rfsq_eval_path(device)
     phase_fsq_train_path(device, sizes)
@@ -1998,10 +2068,14 @@ def main() -> int:
         'launches_flagship_train': flagship_train_launches,
         'max_abs_err': train_err,
         'max_abs_err_of': 'max |esum - float64 sum| at the main shape (indices and rows are exact)',
+        'design': TRAIN_DESIGN,
         **train_times,
+        'previous_ms_of': 'the replaced step (f32 FMA tile, then the same statistics; '
+                          'vqtpu_train_fused_f32_simt), measured in this run',
         'library_ms_note': "no single PyTorch call computes the fused step; composition_ms is the 'off' route",
-        'check': 'indices equal nearest_code and the plain version except near-ties, rows bit-equal, '
-                 'bins equal, esum within the f32 summation bound, two calls bit-identical',
+        'check': 'indices equal nearest_code bit for bit (the same kernel on the same operands) and the plain '
+                 'version except near-ties, rows bit-equal, bins equal the weight sums, esum within the f32 '
+                 'summation bound, two calls bit-identical',
         'power_limit': smi,
     }, {
         'name': 'lfq_entropy',

@@ -170,16 +170,15 @@ def test_train_kernel_matches_plain(card, metric, shape, weighted):
     again = ttf.fused_train_quantize(x, e, metric, w, bias=bias)
     torch.cuda.synchronize()
     assert ttf.fused_train_quantize.launches == before + 2
-    # two calls bit-identical, and the indices of the selection kernel but for
-    # near-ties (K4 keeps the f32 FMA tile, the selection kernel is split-TF32)
+    # two calls bit-identical, and the indices of the selection kernel bit for
+    # bit: K4 runs nearest_code's own split-TF32 tile on the same operands
     assert all(torch.equal(a, b) for a, b in zip((idx, q, bins, esum), again))
-    nc = td.nearest_code(x, e, metric, bias)
+    assert torch.equal(idx, td.nearest_code(x, e, metric, bias))
     pidx, _, pbins, pesum = ttf.fused_train_quantize_plain(x, e, bias, w)
     if x.ndim == 2:
-        x, e, bias, idx, q, pidx, nc = x[None], e[None], bias[None], idx[None], q[None], pidx[None], nc[None]
+        x, e, bias, idx, q, pidx = x[None], e[None], bias[None], idx[None], q[None], pidx[None]
     for h in range(x.shape[0]):
         assert torch.equal(q[h], e[h][idx[h].long()])
-        assert td.selection_disagreements(x[h], e[h], bias[h], idx[h], nc[h])['non_tie'] == 0
         r = td.selection_disagreements(x[h], e[h], bias[h], idx[h], pidx[h])
         assert r['non_tie'] == 0, r
     if torch.equal(idx, pidx.reshape(idx.shape)):
@@ -315,13 +314,15 @@ def test_lfq_sweeps_match_plain(card, case):
         assert err <= limit and (limit < 0.1 * float(ref.abs().max()) or float(ref.abs().max()) < tiny), (err, limit)
 
 
+@pytest.mark.parametrize('sweep', ('b', 'd'))
 @pytest.mark.parametrize('case', ((8192, 18, 100.0), (8192, 18, 1.0), (4096, 8, 100.0), (3000, 10, 1.0),
                                   (777, 10, 100.0)), ids=('main_t100', 'main_t1', 'd8', 'd10', 'd10_ragged'))
-def test_sweep_d_log_free_matches_plain(card, case):
-    """Sweep D (log-free, base 2 on ex2) against `sweep_d_plain` in float64 on
-    the same statistics: within 2e-5 of the largest entry or 4x the plain f32
-    sweep's own error, the limit under a tenth of that entry; two calls
-    bit-identical."""
+def test_sweep_d_log_free_matches_plain(card, case, sweep):
+    """The log-free sweeps (base 2 on ex2), B and D, against their plain
+    versions in float64 on the same statistics: each output within 2e-5 of
+    its largest entry (B's ent and avgp: 1e-5 at inv_temp 1, 1e-4 at 100) or
+    4x the plain f32 sweep's own error, the limit under a tenth of that
+    entry; two calls bit-identical."""
     n, d, inv_temp = case
     k = 1 << d
     x, w = _lfq_operands(n, d, True, True, card, seed=11)
@@ -329,28 +330,41 @@ def test_sweep_d_log_free_matches_plain(card, case):
     x64, w64 = x.double(), w.double()
     m64, s64 = tle.sweep_a_plain(x64, k=k, v=kw['v'], inv_temp=inv_temp)
     logz64 = m64 + torch.log(s64)
-    if inv_temp == 1.0:
-        gen = np.random.default_rng(12)
-        entbar = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(card)
-        gbar = torch.from_numpy(gen.standard_normal(k).astype(np.float32)).to(card)
+    logz = logz64.float()
+    if sweep == 'b':
+        fn = tle.sweep_b
+        args = (x, w, logz)
+        refs = tle.sweep_b_plain(x64, w64, logz.double(), **kw)
+        plains = tle.sweep_b_plain(*args, **kw)
+        tols = (1e-5 if inv_temp == 1.0 else 1e-4,) * 2
     else:
-        # the cotangents LFQ's aux loss sends (weight 0.1, gamma 1)
-        a = tle.sweep_b_plain(x64, w64, logz64, **kw)[1] / w64.sum()
-        entbar = (0.1 * w / w.sum()).float()
-        gbar = (0.1 * (torch.log(a.clamp_min(1e-5)) + (a > 1e-5).double()) / w64.sum()).float()
-    sigma64, _ = tle.sweep_c_plain(x64, w64, logz64, entbar.double(), gbar.double(), **kw)
-    logz, sigma = logz64.float(), sigma64.float()
-    before = tle.sweep_d.launches
-    dx = tle.sweep_d(x, w, logz, entbar, gbar, sigma, **kw)
-    again = tle.sweep_d(x, w, logz, entbar, gbar, sigma, **kw)
+        if inv_temp == 1.0:
+            gen = np.random.default_rng(12)
+            entbar = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(card)
+            gbar = torch.from_numpy(gen.standard_normal(k).astype(np.float32)).to(card)
+        else:
+            # the cotangents LFQ's aux loss sends (weight 0.1, gamma 1)
+            a = tle.sweep_b_plain(x64, w64, logz64, **kw)[1] / w64.sum()
+            entbar = (0.1 * w / w.sum()).float()
+            gbar = (0.1 * (torch.log(a.clamp_min(1e-5)) + (a > 1e-5).double()) / w64.sum()).float()
+        sigma64, _ = tle.sweep_c_plain(x64, w64, logz64, entbar.double(), gbar.double(), **kw)
+        sigma = sigma64.float()
+        fn = tle.sweep_d
+        args = (x, w, logz, entbar, gbar, sigma)
+        refs = (tle.sweep_d_plain(x64, w64, logz.double(), entbar.double(), gbar.double(), sigma.double(), **kw),)
+        plains = (tle.sweep_d_plain(*args, **kw),)
+        tols = (2e-5,)
+    before = fn.launches
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
     torch.cuda.synchronize()
-    assert tle.sweep_d.launches == before + 2 and torch.equal(dx, again)
-    ref = tle.sweep_d_plain(x64, w64, logz.double(), entbar.double(), gbar.double(), sigma.double(), **kw)
-    plain = tle.sweep_d_plain(x, w, logz, entbar, gbar, sigma, **kw)
-    scale = float(ref.abs().max())
-    limit = max(2e-5 * scale, 4 * float((plain.double() - ref).abs().max()))
-    assert limit < 0.1 * scale
-    assert float((dx.double() - ref).abs().max()) <= limit
+    got, again = (got, again) if sweep == 'b' else ((got,), (again,))
+    assert fn.launches == before + 2 and all(torch.equal(a, b) for a, b in zip(got, again))
+    for out, plain, ref, tol in zip(got, plains, refs, tols):
+        scale = float(ref.abs().max())
+        limit = max(tol * scale, 4 * float((plain.double() - ref).abs().max()))
+        assert limit < 0.1 * scale
+        assert float((out.double() - ref).abs().max()) <= limit
 
 
 def test_lfq_entropy_stats_on_card_matches_cpu(card):
@@ -382,6 +396,28 @@ def test_lfq_kernels_reject_what_they_do_not_take(card):
                     k=1 << 25, v=1.0, inv_temp=1.0, eps=1e-5)
     with pytest.raises(ValueError, match='sigma must have shape'):
         tle.sweep_d(x, w, w, w, torch.zeros(256, device=card), col, k=256, v=1.0, inv_temp=1.0, eps=1e-5)
+
+
+def test_lfq_auto_streams_beyond_the_sweeps(card):
+    """LFQ(dim=25, codebook_size=2**25) at 'auto' trains a step on the card
+    on the streamed route (the sweeps take d <= 24): no sweep launches, the
+    indices are the sign bits, the aux loss and x.grad finite. 'on' raises."""
+    torch.manual_seed(0)
+    lfq = vqtpu_torch.LFQ(dim=25, codebook_size=2 ** 25, entropy_loss_weight=0.1, device=card).train()
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 256, 25), dtype=np.float32)).to(card)
+    xg = x.clone().requires_grad_()
+    before = {name: f.launches for name, f in tle.SWEEPS.items()}
+    q, idx, aux = lfq(xg)
+    (q.square().mean() + aux).backward()
+    torch.cuda.synchronize()
+    assert {name: f.launches - before[name] for name, f in tle.SWEEPS.items()} == {k: 0 for k in 'abcd'}
+    bits = ((x > 0).long() << torch.arange(24, -1, -1, device=card)).sum(-1).int()
+    assert torch.equal(idx, bits)
+    assert bool(torch.isfinite(aux)) and bool(torch.isfinite(xg.grad).all())
+    on = vqtpu_torch.LFQ(dim=25, codebook_size=2 ** 25, entropy_loss_weight=0.1, entropy_fused='on',
+                         device=card).train()
+    with pytest.raises(ValueError, match='1 <= d <= 24'):
+        on(x)
 
 
 @pytest.mark.parametrize('route', ('on', 'auto', 'off'))

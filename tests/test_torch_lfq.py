@@ -210,11 +210,9 @@ def test_lfq_routes_and_refusals():
     """'auto' on the CPU takes the streamed route for chunked sizes and never
     the fused one; the features that are not ported raise."""
     tm = tlfq.LFQ(dim=18, codebook_size=2 ** 18, device='cpu')
-    flat = torch.zeros(4, 1, 18)
-    assert not tm._entropy_fused_active(flat, 1 << 14)
-    assert tlfq.LFQ(dim=8, codebook_size=2 ** 8, entropy_fused='on', device='cpu')._entropy_fused_active(flat, None)
-    assert not tlfq.LFQ(dim=8, codebook_size=2 ** 8, entropy_fused='off', device='cpu')._entropy_fused_active(
-        flat, 4)
+    assert tlfq.entropy_route(tm.entropy_fused, 'cpu', tm.codebook_dim, 1 << 14) == 'streamed'
+    assert tlfq.entropy_route('on', 'cpu', 8, None) == 'fused'
+    assert tlfq.entropy_route('off', 'cpu', 8, 4) == 'streamed'
     with pytest.raises(NotImplementedError, match='sync_axis'):
         tlfq.LFQ(dim=8, codebook_size=2 ** 8, sync_axis='data', device='cpu')
     with pytest.raises(TypeError, match='rngs'):
@@ -224,6 +222,29 @@ def test_lfq_routes_and_refusals():
     with pytest.raises(ValueError, match="entropy_fused"):
         tlfq.LFQ(dim=8, codebook_size=2 ** 8, entropy_fused='yes', device='cpu')
     assert vqtpu_torch.LFQ is tlfq.LFQ
+
+
+@pytest.mark.parametrize('mode,device,d,chunk,route', (
+    ('auto', 'cuda', 18, 1 << 14, 'fused'),
+    ('auto', 'cuda', 25, 1 << 14, 'streamed'),
+    ('auto', 'cuda', 12, None, 'dense'),
+    ('auto', 'cpu', 18, 1 << 14, 'streamed'),
+    ('auto', 'cpu', 8, None, 'dense'),
+    ('on', 'cuda', 24, None, 'fused'),
+    ('on', 'cpu', 25, 1 << 14, 'fused'),
+    ('on', 'cuda', 25, 1 << 14, ValueError),
+    ('off', 'cuda', 18, 1 << 14, 'streamed'),
+), ids=('auto_cuda_d18', 'auto_cuda_d25', 'auto_cuda_dense', 'auto_cpu_d18', 'auto_cpu_dense', 'on_cuda_d24',
+        'on_cpu_d25', 'on_cuda_d25_raises', 'off_cuda_d18'))
+def test_entropy_route_by_device_and_dim(mode, device, d, chunk, route):
+    """'auto' takes the fused sweeps on the card only, for chunked statistics
+    the sweeps take (d <= 24), and streams beyond them; 'on' raises where the
+    sweeps cannot run; the CPU never takes them under 'auto'."""
+    if route is ValueError:
+        with pytest.raises(ValueError, match='1 <= d <= 24'):
+            tlfq.entropy_route(mode, device, d, chunk)
+    else:
+        assert tlfq.entropy_route(mode, device, d, chunk) == route
 
 
 def test_cosine_sim_linear_resolves_its_device():

@@ -174,6 +174,22 @@ def record_kmeans_embed(monkeypatch):
     monkeypatch.setattr(tcodebook.Codebook, 'init_embed_', init_and_record)
 
 
+@pytest.mark.parametrize('route,device,fused', (
+    ('auto', 'cuda', True), ('auto', 'cpu', False), ('on', 'cuda', True), ('on', 'cpu', True),
+    ('off', 'cuda', False), ('off', 'cpu', False),
+), ids=('auto_cuda', 'auto_cpu', 'on_cuda', 'on_cpu', 'off_cuda', 'off_cpu'))
+def test_train_fused_route_by_device(route, device, fused, fused_calls):
+    """train_fused='auto' takes the fused kernel on the card and the
+    composition on the CPU; 'on' and 'off' force one or the other; a CPU
+    training forward follows the rule."""
+    tvq = vqtpu_torch.VectorQuantize(**BASE, train_fused=route, device='cpu').train()
+    assert tvq._codebook._train_fused_active(device) == fused
+    if device == 'cpu':
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(SHAPE, dtype=np.float32))
+        tvq(x)
+        assert fused_calls['n'] == int(fused)
+
+
 @pytest.mark.parametrize('route', ROUTES)
 @pytest.mark.parametrize('case', sorted(KWARG_SETS))
 def test_training_steps_match_jax(case, route, injected_draws, record_kmeans_embed, fused_calls):

@@ -8,10 +8,10 @@ accum_embed_avg) and runs both forwards:
   the bf16 tier;
 - training: the same selection and lookup, then the EMA update in the JAX
   package's order, track -> ema -> expire, with kmeans init on the first
-  batch. With `train_fused='on'` selection, lookup and batch statistics run
-  in one fused kernel (`fused_train_quantize`); otherwise ('auto', 'off')
-  the selection kernel with its row copy (`quantize_lookup`) and
-  `code_statistics_plain`.
+  batch. With `train_fused='on'`, or 'auto' on the card, selection, lookup
+  and batch statistics run in one fused kernel (`fused_train_quantize`);
+  otherwise ('off', or 'auto' on the CPU) the selection kernel with its row
+  copy (`quantize_lookup`) and `code_statistics_plain`.
 
 Buffers are updated in place under `torch.no_grad()` from detached tensors,
 so no graph is kept on them from step to step. Random draws (kmeans init,
@@ -164,9 +164,20 @@ class Codebook(nn.Module):
     def transform_input(self, x: torch.Tensor) -> torch.Tensor:
         return l2norm(x) if self.use_cosine_sim else x
 
-    def _train_fused_active(self) -> bool:
-        """'on' takes the fused kernel; 'auto' keeps the JAX package's
-        meaning, the unfused composition, as does 'off'."""
+    def _train_fused_active(self, device_type: str) -> bool:
+        """Whether a training forward on tensors of `device_type` takes the
+        fused kernel. 'on': always. 'off': never, the composition (the
+        selection kernel with its row copy, then `code_statistics_plain`).
+        'auto': the fused kernel on the card ('cuda'); elsewhere the
+        composition, which is the JAX package's 'auto' on every device.
+
+        On the card the fused step is the faster on both codebooks that
+        chip_smoke.py's train_times phase measures (an H100 80GB HBM3 at
+        700 W, n = 2^20, c = 512, d = 256): it runs the composition's own
+        selection kernel, and its statistics do not follow the largest
+        cluster as index_put_'s do."""
+        if self.train_fused == 'auto':
+            return device_type == 'cuda'
         return self.train_fused == 'on'
 
     # -- kmeans init ---------------------------------------------------------
@@ -434,7 +445,7 @@ class Codebook(nn.Module):
         update = self.training and update_usage and not freeze_codebook
         fused_stats = None
 
-        if update and self.use_pallas and self._train_fused_active():
+        if update and self.use_pallas and self._train_fused_active(flatten.device.type):
             weights = None if flat_mask is None else flat_mask.float().contiguous()
             embed_ind, quantize, bins, esum = fused_train_quantize(
                 flatten, embed, metric, weights

@@ -19,15 +19,15 @@
 // per-token columns, so bytes are nothing (well under 1 MB at n = 8192);
 // the work is n * K (token, code) pairs, 2.1e9 at n = 8192, d = 18, each a
 // d-term dot, an exp (A, D) or an exp and a log (B, C), and a few products.
-// The codebook is generated, never read. (B and C need no log either, by
-// the algebra sweep D uses; they keep theirs until their own redesign.)
+// The codebook is generated, never read. (C needs no log either, by the
+// algebra sweeps B and D use; it keeps its own until its redesign.)
 //
 // What the design does about it:
 //
 // 1. One thread per token, 128 tokens a block, the token's d floats in
-//    registers. Every thread of a block walks the same codes at the same
-//    time, so the code bits are uniform across the warp and cost no
-//    divergence.
+//    registers (sweep B: two or four tokens a lane, one warp a block).
+//    Every thread of a block walks the same codes at the same time, so the
+//    code bits are uniform across the warp and cost no divergence.
 // 2. Codes go in runs of V = 2^L (L = min(d, 4)) consecutive codes, which
 //    share their top d - L bits. A dot is the FMA chain over the dims in
 //    order, dot = fma(x_{d-1}, c_{d-1}, ... fma(x_0, c_0, 0)); the chain's
@@ -40,19 +40,19 @@
 //    partials to scratch, and a merge pass combines the splits in split
 //    order: (m, s) pairs as m = max(m1, m2), s = s1 exp(m1 - m) + s2 exp(m2 - m);
 //    ent, sigma, gdot and dx partials by addition.
-// 4. avgp sums over tokens: each warp reduces its 32 tokens' w p of a run
-//    with a butterfly of shuffles (16 shuffles for 16 codes), the warps'
-//    sums go through shared memory and are added in warp order, and each
-//    block row writes one row of partials per token group. The caller sums
-//    the rows (torch.sum over them, deterministic on the card).
+// 4. avgp sums over tokens: in sweep B each lane first adds its tokens'
+//    w p of a run, then a butterfly of shuffles (16 shuffles for 16 codes)
+//    sums the warp's lanes, and each block row writes one row of partials
+//    per token group. The caller sums the rows (torch.sum over them,
+//    deterministic on the card).
 //
 // No float atomics anywhere: two calls on the same inputs give bit-identical
 // outputs, and the split plan depends on (n, d) only. Ragged n is masked in
-// the kernels; no padded copies are made. Sweeps A-C use accurate expf /
-// logf (the build has no fast-math flag); their logits are two rounded
-// multiplies and the subtractions before exp are not contracted, as the TPU
-// kernels write them. Sweep D works in base 2 on MUFU ex2 without a log (its
-// note below).
+// the kernels; no padded copies are made. Sweeps A and C use accurate expf
+// (and C logf; the build has no fast-math flag); their logits are two
+// rounded multiplies and the subtractions before exp are not contracted, as
+// the TPU kernels write them. Sweeps B and D work in base 2 on MUFU ex2
+// without a log (their notes below).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -62,11 +62,9 @@
 namespace {
 
 constexpr int kThreads = 128;                 // tokens per block, one thread each
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 24;
 constexpr int kTargetBlocks = 132 * 8;        // 8 blocks per SM on an H100 SXM
 constexpr int kMaxSplits = 64;
-constexpr int kFlushRuns = 8;                 // runs of avgp partials per shared-memory flush
 constexpr long long kMaxAvgpFloats = 1LL << 27;  // 512 MB of avgp partial rows at most
 
 struct Plan {
@@ -196,6 +194,15 @@ __device__ __forceinline__ float entropy_slope(float p, float eps) {
   return __fsub_rn(-logf(fmaxf(p, eps)), p > eps ? 1.f : 0.f);
 }
 
+// floor(log2(v)) for v >= 1, at compile time
+__host__ __device__ constexpr int log2_floor(int v) { return v <= 1 ? 0 : 1 + log2_floor(v / 2); }
+
+__device__ __forceinline__ float ex2_approx(float t) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(t));
+  return r;
+}
+
 // ---- A: online logsumexp over the split's codes ---------------------------
 template <int L>
 __global__ void __launch_bounds__(kThreads)
@@ -228,64 +235,132 @@ sweep_a_kernel(const float* __restrict__ x, float* __restrict__ part_m, float* _
   part_s[at] = s;
 }
 
-// ---- B: entropy per token and w-weighted column sums ----------------------
-template <int L>
-__global__ void __launch_bounds__(kThreads)
+// ---- B: entropy per token and w-weighted column sums, without a log -------
+//
+// K6's redesign, on sweep D's algebra. Where p > eps, -p log max(p, eps) =
+// -p (l - logz) = -p t ln 2, with t = log2 p = dot * (2 inv_temp log2 e) -
+// logz log2 e in one FMA and p = ex2.approx.ftz(t) (one MUFU op); where
+// p <= eps the term is p * -log(eps), a host constant. The indicator
+// compares the computed p with eps, as sweep D's does. A pair costs one MUFU
+// op and a few FMAs: no accurate expf and no logf.
+//
+// A block is one warp and walks its 128-token tile in parts of 32 T tokens,
+// T = 4 tokens a lane (lanes l, l + 32, ...), or T = 2 for d > 18, whose x
+// would not leave room in 128 registers for four. A token's weight and
+// base-2 logZ wait in shared memory, read once a run, so that their
+// registers go to x. A run's avgp column sums add a lane's T tokens in
+// registers first, in token order, then one butterfly of shuffles over the
+// 32 lanes gives the part's sums: 2^L shuffles a run serve 32 T tokens, where
+// the old kernel's served 32 and flushed every 8 runs through shared memory
+// between two barriers. Here there is no barrier: the lane that holds a
+// code's sum adds it into the block's row of avgp partials itself, part
+// after part and tile after tile in order (loading the partial it adds to at
+// the start of the run, so that the load's latency hides behind the run).
+//
+// The token's arrays are sized by d at compile time (one instantiation per
+// d <= 24), with no padding to 24 dims. __launch_bounds__(32, 16) caps a
+// thread at 128 registers, so that the 2048 blocks of the main shape (64
+// token tiles x 32 splits) run in one wave on 132 SMs: 15 blocks an SM would
+// leave a tail of 68 blocks. No instantiation spills. The split plan, the
+// merge of ent in split order, the rows of avgp partials that the caller sums
+// and the rounding of the dots (the FMA chain over the dims in order, the
+// shared prefix once per run of 2^L codes) are those of the other sweeps.
+constexpr int kBThreads = 32;  // one warp a block
+
+template <int D>
+__global__ void __launch_bounds__(kBThreads, 16)
 sweep_b_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ logz, float* __restrict__ part_ent,
-               float* __restrict__ part_avgp, Plan p, float v, float inv_temp, float eps) {
+               float* __restrict__ part_avgp, Plan p, float v, float eps, float logit_scale2,
+               float neg_log_eps) {
+  constexpr int L = D < 4 ? D : 4;
   constexpr int V = 1 << L;
-  __shared__ float buf[kWarps][kFlushRuns][V];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  constexpr int DH = D - L;        // the leading dims, shared within a run
+  constexpr int NH = DH > 0 ? DH : 1;
+  constexpr int T = D <= 18 ? 4 : 2;             // tokens a lane carries
+  constexpr int kParts = kThreads / (32 * T);    // parts of a tile, walked in turn
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr float kLn2 = 0.6931471805599453f;
+  __shared__ float token_w[32 * T];
+  __shared__ float token_lz2[32 * T];
+  // volatile: read in every run, not held in registers across the runs
+  volatile float* wts = token_w;
+  volatile float* lz2s = token_lz2;
+  const int lane = threadIdx.x;
   const int k_begin = blockIdx.y * p.split_len;
   const int k_end = k_begin + p.split_len;
-  float* avgp_row = part_avgp + static_cast<size_t>(blockIdx.x) * p.k;
+  const bool holder = (lane & ((32 >> L) - 1)) == 0;  // holds a code's column sum
+  float* avgp_row = part_avgp + static_cast<size_t>(blockIdx.x) * p.k + (lane >> (5 - L));
   const int tile0 = blockIdx.x * p.tiles_per_row;
   const int tile_end = min(p.token_tiles, tile0 + p.tiles_per_row);
 
   for (int tile = tile0; tile < tile_end; ++tile) {
-    // every thread of the block runs every run: the shuffles and barriers
-    // below need the whole block; a token past n has w = 0
-    const long long t = static_cast<long long>(tile) * kThreads + threadIdx.x;
-    const bool valid = t < p.n;
-    Token<L> tk;
-    load_token<L>(x, t, valid, p.d, tk);
-    const float wt = valid ? w[t] : 0.f;
-    const float lz = valid ? logz[t] : 0.f;
-    float ent = 0.f;
-    int slot = 0;
-    int flush_k0 = k_begin;
-    for (int k0 = k_begin; k0 < k_end; k0 += V) {
-      float l[V];
-      run_logits<L>(tk, k0, p.d, v, inv_temp, l);
-      float run_ent = 0.f;
+    for (int part = 0; part < kParts; ++part) {
+      // every lane runs every run: the shuffles need the whole warp; a token
+      // past n has w = 0 and writes no ent
+      const long long t0 = static_cast<long long>(tile) * kThreads + part * 32 * T + lane;
+      const bool first = tile == tile0 && part == 0;
+      float hi[T][NH];
+      float lo[T][L];
+      float ent[T];
+      __syncwarp();  // the previous part's reads of the shared columns are done
 #pragma unroll
-      for (int u = 0; u < V; ++u) {
-        const float pu = expf(__fsub_rn(l[u], lz));
-        run_ent = __fadd_rn(run_ent, __fmul_rn(-pu, logf(fmaxf(pu, eps))));
-        l[u] = __fmul_rn(pu, wt);
+      for (int j = 0; j < T; ++j) {
+        const long long t = t0 + 32 * j;
+        const bool valid = t < p.n;
+        const float* row = x + t * D;
+#pragma unroll
+        for (int i = 0; i < DH; ++i) hi[j][i] = valid ? row[i] : 0.f;
+#pragma unroll
+        for (int i = 0; i < L; ++i) lo[j][i] = valid ? row[DH + i] : 0.f;
+        wts[32 * j + lane] = valid ? w[t] : 0.f;
+        lz2s[32 * j + lane] = valid ? __fmul_rn(logz[t], kLog2e) : 0.f;
+        ent[j] = 0.f;
       }
-      ent = __fadd_rn(ent, run_ent);
-      const float col = warp_column_sum<L>(l, lane);
-      if ((lane & ((32 >> L) - 1)) == 0) buf[warp][slot][lane >> (5 - L)] = col;
-      ++slot;
-      if (slot == kFlushRuns || k0 + V == k_end) {
-        __syncthreads();
-        const int count = slot * V;
-        for (int i = threadIdx.x; i < count; i += kThreads) {
-          float sum = buf[0][i / V][i % V];
+      __syncwarp();
+      for (int k0 = k_begin; k0 < k_end; k0 += V) {
+        const float prev = holder && !first ? avgp_row[k0] : 0.f;
+        float col[V];
 #pragma unroll
-          for (int wi = 1; wi < kWarps; ++wi) sum = __fadd_rn(sum, buf[wi][i / V][i % V]);
-          float* dst = avgp_row + flush_k0 + i;
-          *dst = tile == tile0 ? sum : __fadd_rn(*dst, sum);
+        for (int u = 0; u < V; ++u) col[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          // the dots of the run's 2^L codes: the chain's shared prefix, then
+          // the last L dims as a tree, walked as one flat loop (sweep D's)
+          float l[V];
+          float h = 0.f;
+#pragma unroll
+          for (int i = 0; i < DH; ++i) h = fmaf(hi[j][i], ((k0 >> (D - 1 - i)) & 1) ? v : -v, h);
+          l[0] = h;
+#pragma unroll
+          for (int s = 0; s < V - 1; ++s) {
+            const int i = log2_floor(s + 1);
+            const int q = (2 << i) - 2 - s;
+            const float base = l[q];
+            l[2 * q + 1] = fmaf(lo[j][i], v, base);
+            l[2 * q] = fmaf(lo[j][i], -v, base);
+          }
+          const float wt = wts[32 * j + lane];
+          const float lz2 = lz2s[32 * j + lane];
+          float run_ent = 0.f;
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+            const float t2 = fmaf(l[u], logit_scale2, -lz2);  // log2 p
+            const float pu = ex2_approx(t2);
+            run_ent = fmaf(pu, pu > eps ? __fmul_rn(-t2, kLn2) : neg_log_eps, run_ent);
+            col[u] = fmaf(pu, wt, col[u]);
+          }
+          ent[j] = __fadd_rn(ent[j], run_ent);
         }
-        __syncthreads();
-        slot = 0;
-        flush_k0 = k0 + V;
+        const float sum = warp_column_sum<L>(col, lane);
+        if (holder) avgp_row[k0] = first ? sum : __fadd_rn(prev, sum);
+      }
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        const long long t = t0 + 32 * j;
+        if (t < p.n) part_ent[static_cast<size_t>(blockIdx.y) * p.n + t] = ent[j];
       }
     }
-    if (valid) part_ent[static_cast<size_t>(blockIdx.y) * p.n + t] = ent;
   }
 }
 
@@ -349,15 +424,6 @@ sweep_c_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // the merge in split order and the rounding of the dots (the FMA chain over
 // the dims in order, the shared prefix once per run of 2^L codes) are those
 // of the other sweeps.
-
-// floor(log2(v)) for v >= 1, at compile time
-__host__ __device__ constexpr int log2_floor(int v) { return v <= 1 ? 0 : 1 + log2_floor(v / 2); }
-
-__device__ __forceinline__ float ex2_approx(float t) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(t));
-  return r;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 4)
@@ -507,11 +573,15 @@ int launch_a(const float* x, float* m, float* s, float* scratch, const Plan& p, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int L>
+// the base-2 logit scale 2 inv_temp log2(e) of sweeps B and D
+float logit_scale2(float inv_temp) { return static_cast<float>(2.0 * inv_temp * 1.4426950408889634); }
+
+template <int D>
 int launch_b(const float* x, const float* w, const float* logz, float* ent, float* avgp_rows,
              float* scratch, const Plan& p, float v, float inv_temp, float eps, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>(p.rows), static_cast<unsigned>(p.splits));
-  sweep_b_kernel<L><<<grid, kThreads, 0, st>>>(x, w, logz, scratch, avgp_rows, p, v, inv_temp, eps);
+  sweep_b_kernel<D><<<grid, kBThreads, 0, st>>>(x, w, logz, scratch, avgp_rows, p, v, eps,
+                                                 logit_scale2(inv_temp), -logf(eps));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return merge_sum(scratch, ent, p.n, p.splits, st);
@@ -536,11 +606,10 @@ template <int D>
 int launch_d(const float* x, const float* w, const float* logz, const float* entbar,
              const float* gbar, const float* sigma, float* dx, float* scratch, const Plan& p,
              float v, float inv_temp, float eps, cudaStream_t st) {
-  // the base-2 logit scale 2 inv_temp log2(e), and the slope where p <= eps
-  const float logit_scale2 = static_cast<float>(2.0 * inv_temp * 1.4426950408889634);
-  const float neg_log_eps = -logf(eps);
+  // the slope where p <= eps is -log(eps)
   sweep_d_kernel<D><<<sweep_grid(p), kThreads, 0, st>>>(x, w, logz, entbar, gbar, sigma, scratch, p,
-                                                         v, inv_temp, eps, logit_scale2, neg_log_eps);
+                                                         v, inv_temp, eps, logit_scale2(inv_temp),
+                                                         -logf(eps));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return merge_sum(scratch, dx, p.n * p.d, p.splits, st);
@@ -553,6 +622,19 @@ int launch_d(const float* x, const float* w, const float* logz, const float* ent
     case 2: { constexpr int L = 2; call; }   \
     case 3: { constexpr int L = 3; call; }   \
     default: { constexpr int L = 4; call; }  \
+  }
+
+// runs `call` with the constant D = d in scope, 1 <= d <= 24
+#define VQTPU_D_CASE(n, call) case n: { constexpr int D = n; call; }
+#define VQTPU_DISPATCH_D(d, call)                                                        \
+  switch (d) {                                                                           \
+    VQTPU_D_CASE(1, call) VQTPU_D_CASE(2, call) VQTPU_D_CASE(3, call) VQTPU_D_CASE(4, call)     \
+    VQTPU_D_CASE(5, call) VQTPU_D_CASE(6, call) VQTPU_D_CASE(7, call) VQTPU_D_CASE(8, call)     \
+    VQTPU_D_CASE(9, call) VQTPU_D_CASE(10, call) VQTPU_D_CASE(11, call) VQTPU_D_CASE(12, call)  \
+    VQTPU_D_CASE(13, call) VQTPU_D_CASE(14, call) VQTPU_D_CASE(15, call) VQTPU_D_CASE(16, call) \
+    VQTPU_D_CASE(17, call) VQTPU_D_CASE(18, call) VQTPU_D_CASE(19, call) VQTPU_D_CASE(20, call) \
+    VQTPU_D_CASE(21, call) VQTPU_D_CASE(22, call) VQTPU_D_CASE(23, call) VQTPU_D_CASE(24, call) \
+    default: return static_cast<int>(cudaErrorInvalidValue);                             \
   }
 
 }  // namespace
@@ -594,7 +676,7 @@ int vqtpu_lfq_sweep_b(const float* x, const float* w, const float* logz, float* 
                       float inv_temp, float eps, void* stream) {
   const Plan p = make_plan(n, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  VQTPU_DISPATCH_L(d, return launch_b<L>(x, w, logz, ent, avgp_rows, scratch, p, v, inv_temp,
+  VQTPU_DISPATCH_D(d, return launch_b<D>(x, w, logz, ent, avgp_rows, scratch, p, v, inv_temp,
                                          eps, st))
 }
 
@@ -612,20 +694,8 @@ int vqtpu_lfq_sweep_d(const float* x, const float* w, const float* logz, const f
                       long long n, int d, float v, float inv_temp, float eps, void* stream) {
   const Plan p = make_plan(n, d);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-#define VQTPU_SWEEP_D_CASE(D) \
-  case D:                     \
-    return launch_d<D>(x, w, logz, entbar, gbar, sigma, dx, scratch, p, v, inv_temp, eps, st);
-    VQTPU_SWEEP_D_CASE(1) VQTPU_SWEEP_D_CASE(2) VQTPU_SWEEP_D_CASE(3) VQTPU_SWEEP_D_CASE(4)
-    VQTPU_SWEEP_D_CASE(5) VQTPU_SWEEP_D_CASE(6) VQTPU_SWEEP_D_CASE(7) VQTPU_SWEEP_D_CASE(8)
-    VQTPU_SWEEP_D_CASE(9) VQTPU_SWEEP_D_CASE(10) VQTPU_SWEEP_D_CASE(11) VQTPU_SWEEP_D_CASE(12)
-    VQTPU_SWEEP_D_CASE(13) VQTPU_SWEEP_D_CASE(14) VQTPU_SWEEP_D_CASE(15) VQTPU_SWEEP_D_CASE(16)
-    VQTPU_SWEEP_D_CASE(17) VQTPU_SWEEP_D_CASE(18) VQTPU_SWEEP_D_CASE(19) VQTPU_SWEEP_D_CASE(20)
-    VQTPU_SWEEP_D_CASE(21) VQTPU_SWEEP_D_CASE(22) VQTPU_SWEEP_D_CASE(23) VQTPU_SWEEP_D_CASE(24)
-#undef VQTPU_SWEEP_D_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  VQTPU_DISPATCH_D(d, return launch_d<D>(x, w, logz, entbar, gbar, sigma, dx, scratch, p, v,
+                                         inv_temp, eps, st))
 }
 
 const char* vqtpu_cuda_error_string(int err) {

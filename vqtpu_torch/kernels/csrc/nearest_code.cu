@@ -13,7 +13,7 @@
 // says what bounds it and what its design does about it.
 //
 // vqtpu_nearest_code_f32_simt is the register-blocked f32 FMA tile this
-// kernel replaced (select_codes.cuh, which the fused train kernel still
+// kernel replaced (select_codes.cuh, which train_fused.cu's yardstick also
 // uses), kept as a same-run yardstick: no path of the port calls it.
 
 #include "select_codes.cuh"

@@ -133,9 +133,10 @@ def _kernel_library() -> ctypes.CDLL:
 
 def _nearest_code_simt(x: torch.Tensor, embed: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """The register-blocked f32 FMA selection tile that the tensor-core
-    kernel replaced (csrc/select_codes.cuh, still K4's tile), on CUDA
-    tensors only: a same-run yardstick for measurements and card tests. No
-    path of the port calls it, and it counts no launch."""
+    kernel replaced (csrc/select_codes.cuh, also the replaced fused train
+    step's tile), on CUDA tensors only: a same-run yardstick for
+    measurements and card tests. No path of the port calls it, and it
+    counts no launch."""
     if x.device.type != 'cuda':
         raise ValueError(f'_nearest_code_simt runs on CUDA tensors only, not {x.device}')
     squeeze = x.ndim == 2

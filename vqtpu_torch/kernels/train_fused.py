@@ -5,8 +5,9 @@
     bins = sum_t w_t onehot(idx_t)              esum = sum_t w_t onehot(idx_t) x_t
 
 `fused_train_quantize` dispatches on where its tensors lie: CUDA tensors go
-to the hand-written Hopper kernel in csrc/train_fused.cu (one call, three
-passes; deterministic, no float atomics), CPU tensors to
+to the hand-written Hopper kernels in csrc/train_fused.cu (one call: the
+split-TF32 selection of `nearest_code` with its row copy, then the
+statistics by sorted code; deterministic, no float atomics), CPU tensors to
 `fused_train_quantize_plain`, the same function in plain PyTorch.
 
 `code_statistics_plain` is also the statistics of the unfused training
@@ -65,9 +66,12 @@ def fused_train_quantize_plain(
 
 def _kernel_library() -> ctypes.CDLL:
     lib = _build.load('train_fused')
-    fn = lib.vqtpu_train_fused_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.vqtpu_train_fused_f32, lib.vqtpu_train_fused_f32_simt):
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.vqtpu_train_fused_stage.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [
+        ctypes.c_void_p]
+    lib.vqtpu_train_fused_stage.restype = ctypes.c_int
     lib.vqtpu_train_fused_scratch_floats.argtypes = [ctypes.c_longlong] * 4
     lib.vqtpu_train_fused_scratch_floats.restype = ctypes.c_longlong
     lib.vqtpu_cuda_error_string.argtypes = [ctypes.c_int]
@@ -90,7 +94,9 @@ def _check_weights(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return weights
 
 
-def _fused_train_cuda(x, embed, bias, weights):
+def _fused_train_cuda(x, embed, bias, weights, entry='vqtpu_train_fused_f32'):
+    """The step through C function `entry` of csrc/train_fused.cu; the
+    port's path (the default entry) counts the launch."""
     squeeze = x.ndim == 2
     x, embed, bias = _check_kernel_operands(x, embed, bias, 'fused_train_quantize')
     if weights is not None:
@@ -109,10 +115,11 @@ def _fused_train_cuda(x, embed, bias, weights):
         esum.zero_()
     else:
         lib = _kernel_library()
+        # the selection's packed codebook, then the statistics' arrays
         scratch = torch.empty(lib.vqtpu_train_fused_scratch_floats(h, n, c, d), device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.vqtpu_train_fused_f32(
+            err = getattr(lib, entry)(
                 x.data_ptr(), embed.data_ptr(), bias.data_ptr(),
                 None if weights is None else weights.data_ptr(),
                 idx.data_ptr(), q.data_ptr(), bins.data_ptr(), esum.data_ptr(),
@@ -121,9 +128,59 @@ def _fused_train_cuda(x, embed, bias, weights):
         if err != 0:
             msg = lib.vqtpu_cuda_error_string(err).decode()
             raise RuntimeError(f'fused_train_quantize kernel launch failed: {msg} ({err})')
-        fused_train_quantize.launches += 1
+        if entry == 'vqtpu_train_fused_f32':
+            fused_train_quantize.launches += 1
     out = (idx, q, bins, esum)
     return tuple(t[0] for t in out) if squeeze else out
+
+
+def _fused_train_simt(x, embed, bias, weights=None):
+    """The step that `fused_train_quantize`'s kernel replaced (the
+    register-blocked f32 FMA tile of csrc/select_codes.cuh with its row
+    copy, then the split statistics), on CUDA tensors only: a same-run
+    yardstick for measurements and card tests. No path of the port calls
+    it, and it counts no launch."""
+    if x.device.type != 'cuda':
+        raise ValueError(f'_fused_train_simt runs on CUDA tensors only, not {x.device}')
+    return _fused_train_cuda(x, embed, bias, weights, entry='vqtpu_train_fused_f32_simt')
+
+
+# the passes that `_fused_train_stages` runs one at a time: the two
+# selections, the replaced split statistics, and the statistics by sorted
+# code (csrc/train_fused.cu, passes a-f)
+STAGES = ('select_tf32', 'select_simt', 'split_partial', 'split_merge',
+          'sort', 'row_scan', 'code_scan', 'scatter', 'segment_sums', 'segment_merge')
+
+
+def _fused_train_stages(x, embed, bias) -> dict:
+    """Callables, by the names of STAGES, that each run one pass of the
+    unweighted step on these CUDA operands ((n, d) tokens and (c, d) codes,
+    or with heads), on buffers shared between them, for timing: each
+    selection with its row copy (the split-TF32 one with its codebook
+    pre-pass), and each pass of either statistics, which reads what the
+    passes before it left (the two statistics share their scratch). No path
+    of the port calls them, and they count no launch."""
+    x, embed, bias = _check_kernel_operands(x, embed, bias, '_fused_train_stages')
+    h, n, d = x.shape
+    c = embed.shape[1]
+    dev = x.device
+    lib = _kernel_library()
+    bufs = dict(idx=torch.empty((h, n), dtype=torch.int32, device=dev), q=torch.empty((h, n, d), device=dev),
+                bins=torch.empty((h, c), device=dev), esum=torch.empty((h, c, d), device=dev),
+                scratch=torch.empty(lib.vqtpu_train_fused_scratch_floats(h, n, c, d), device=dev))
+
+    def stage(i):
+        def run():
+            with torch.cuda.device(dev):
+                err = lib.vqtpu_train_fused_stage(
+                    i, x.data_ptr(), embed.data_ptr(), bias.data_ptr(), None,
+                    *(bufs[k].data_ptr() for k in ('idx', 'q', 'bins', 'esum', 'scratch')),
+                    h, n, c, d, torch.cuda.current_stream(dev).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f'{STAGES[i]} launch failed: {lib.vqtpu_cuda_error_string(err).decode()}')
+        return run
+
+    return {name: stage(i) for i, name in enumerate(STAGES)}
 
 
 def fused_train_quantize(

@@ -19,7 +19,8 @@ of K = 2^codebook_dim codes:
     the hand-written Hopper kernels on the card.
 
 `entropy_fused='auto'` takes the fused route when the tensors are on the
-card and the statistics are chunked; 'on' and 'off' force it. Masked tokens
+card, the statistics are chunked and the sweeps take the codebook
+(codebook_dim <= 24); 'on' and 'off' force it (`entropy_route`). Masked tokens
 are weighted out, never dropped, as in the JAX package. Cross-replica sums
 (`sync_axis`) are not ported yet.
 """
@@ -37,7 +38,29 @@ from ..codebook.codebook import not_ported
 from ..core.layout import to_tokens
 from ..core.sampling import gumbel_noise
 from ..core.utils import default, entropy as entropy_fn, l2norm, random_orthogonal, resolve_device
-from ..kernels.lfq_entropy import code_magnitude, lfq_entropy_stats
+from ..kernels.lfq_entropy import MAX_DIM, code_magnitude, lfq_entropy_stats
+
+
+def entropy_route(mode: str, device_type: str, codebook_dim: int, chunk: int | None) -> str:
+    """The route of the entropy statistics of a 2^codebook_dim-code LFQ with
+    `entropy_fused=mode` on tensors of `device_type`, chunked in `chunk`
+    codes (None: not chunked): 'fused', 'streamed' or 'dense'.
+
+    'on' takes the fused sweeps; on the card they take 1 <= codebook_dim <=
+    MAX_DIM, so a wider codebook raises there. 'auto' takes them when the
+    tensors are on the card ('cuda'), the statistics are chunked and the
+    sweeps take the codebook, and otherwise the streamed route when chunked
+    (as the JAX package's 'auto' does on a device without the sweeps), else
+    the dense one. 'off' never takes them."""
+    chunked = chunk is not None and chunk < 1 << codebook_dim
+    if mode == 'on':
+        if device_type == 'cuda' and codebook_dim > MAX_DIM:
+            raise ValueError(f"entropy_fused='on': the sweeps take 1 <= d <= {MAX_DIM} on the card, "
+                             f'got codebook_dim {codebook_dim}')
+        return 'fused'
+    if mode == 'auto' and device_type == 'cuda' and chunked and codebook_dim <= MAX_DIM:
+        return 'fused'
+    return 'streamed' if chunked else 'dense'
 
 
 class Return(NamedTuple):
@@ -260,9 +283,10 @@ class LFQ(nn.Module):
         chunk = self.entropy_chunk_size
         if chunk is None and self.codebook_size > (1 << 16):
             chunk = 1 << 14
-        if self._entropy_fused_active(flat, chunk):
+        route = entropy_route(self.entropy_fused, flat.device.type, self.codebook_dim, chunk)
+        if route == 'fused':
             ent_sum, avg_prob_num = self._fused_entropy_stats(flat, weights, inv_temperature)
-        elif chunk is not None and chunk < self.codebook_size:
+        elif route == 'streamed':
             ent_sum, avg_prob_num = self._streamed_entropy_stats(flat, weights, inv_temperature, chunk)
         else:
             codebook = self.maybe_l2norm(self.codebook)                   # (K, d)
@@ -275,16 +299,6 @@ class LFQ(nn.Module):
         avg_prob = avg_prob_num / denom                                    # (c, K)
         codebook_entropy = entropy_fn(avg_prob, eps=1e-5).mean()
         return per_sample_entropy, codebook_entropy
-
-    def _entropy_fused_active(self, flat: torch.Tensor, chunk) -> bool:
-        """The fused route: forced by 'on'; under 'auto' when the tensors are
-        on the card and the statistics are chunked (K > 2^16, or an
-        `entropy_chunk_size` below K)."""
-        if self.entropy_fused == 'off':
-            return False
-        if self.entropy_fused == 'on':
-            return True
-        return flat.device.type == 'cuda' and chunk is not None and chunk < self.codebook_size
 
     def _fused_entropy_stats(self, flat, weights, inv_temperature):
         """The statistics through `lfq_entropy_stats`, one call per codebook;
