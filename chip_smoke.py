@@ -14,7 +14,8 @@ prints one JSON line per phase:
    time of the four kernel sources (built in parallel), the compiler's
    registers and spills per source, and on their own for the tensor-core
    selection kernel (in nearest_code.cu and in train_fused.cu), the f32 tile
-   it replaced and every sweep B and D (no spill);
+   it replaced and every instantiation of the four LFQ sweeps, one per
+   d <= 24 (no spill);
 2. kernel_vs_plain: the selection kernel (split-TF32 wgmma) against
    `nearest_code_plain` on the same inputs and bias, at the main shape (both
    metrics), ragged, tiny, batched-head, ragged-d (d = 30, d = 3) and
@@ -60,10 +61,11 @@ prints one JSON line per phase:
    tokens, 'on' against 'off';
 12. lfq_flagship_train: the LFQ autoencoder (examples/autoencoder_lfq.py,
    entropy_fused='on'), 50 AdamW steps, step 0 held against the CPU;
-13. lfq_times: CUDA events at the main LFQ shape: each sweep, its plain
-   version and bound (one MUFU op a pair), the fused statistics against the 'off' route's
-   streamed ones, one training step per route with peak memory and a
-   torch.profiler breakdown;
+13. lfq_times: CUDA events at the main LFQ shape: each sweep (all four
+   without a log or an accurate exp, on the card's ex2), its plain version,
+   its bound (one MUFU op a pair) and its share of it, the fused statistics
+   against the 'off' route's streamed ones, one training step per route
+   with peak memory and a torch.profiler breakdown;
 14. rfsq_kernel_vs_plain: the fused ResidualFSQ eval kernel
    (csrc/residual_fsq_fused.cu) against `fused_residual_fsq_eval_plain` on
    the same inputs: the main shape (4,194,304 tokens, levels (8, 5, 5, 5),
@@ -143,8 +145,13 @@ LFQ_MAIN = (8192, 18)
 LFQ_INV_TEMP = 100.0
 # H100 SXM: 16 exp/log (MUFU) results per clock per SM, 132 SMs, 1.98 GHz boost
 PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
-# K6's and K8's redesign
-LOG_FREE_DESIGN = 'log-free ex2'
+# the four sweeps' designs (K5-K8)
+LFQ_DESIGNS = {
+    'a': 'ex2, its shift the largest logit in closed form (no running max), tokens a lane',
+    'b': 'log-free ex2, tokens a lane, one butterfly a run for avgp',
+    'c': 'log-free ex2, g factored out of the pair loop, tokens a lane',
+    'd': 'log-free ex2, one token a thread',
+}
 
 
 RFSQ_SOURCE = 'vqtpu_torch/kernels/csrc/residual_fsq_fused.cu'
@@ -253,14 +260,14 @@ def phase_device():
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_summary(_build.build_log(name)) for name in sources}
     # the redesigned kernels on their own: K1's tensor-core tile beside the
-    # replaced f32 tile, and every instantiation of sweeps B and D (K6, K8)
+    # replaced f32 tile, and every instantiation of the LFQ sweeps (K5-K8)
     ptxas['nearest_code_tf32'] = ptxas_entries(_build.build_log('nearest_code'), 'select_tf32_kernel')
     ptxas['nearest_code_simt'] = ptxas_entries(_build.build_log('nearest_code'), 'select_codes_kernel')
     # K4: the same tensor-core tile, built into train_fused.cu, and its
     # statistics' kernels
     ptxas['train_fused_tf32'] = ptxas_entries(_build.build_log('train_fused'), 'select_tf32_kernel')
     ptxas['train_fused_stats'] = ptxas_entries(_build.build_log('train_fused'), 'train_fused_cu')
-    for sweep in 'bd':
+    for sweep in 'abcd':
         entries = ptxas_entries(_build.build_log('lfq_entropy'), f'sweep_{sweep}_kernel')
         ptxas[f'lfq_sweep_{sweep}'] = entries
         check(len(entries['entries']) == 24,
@@ -273,10 +280,10 @@ def phase_device():
 
 
 def check_no_spill(ptxas: dict) -> None:
-    """Sweeps B and D and the fused train step's statistics kernels must not
-    spill (checked at the end of the run, so that a spill does not hide the
-    other phases' numbers)."""
-    for key in ('lfq_sweep_b', 'lfq_sweep_d', 'train_fused_stats'):
+    """The four LFQ sweeps and the fused train step's statistics kernels
+    must not spill (checked at the end of the run, so that a spill does not
+    hide the other phases' numbers)."""
+    for key in ('lfq_sweep_a', 'lfq_sweep_b', 'lfq_sweep_c', 'lfq_sweep_d', 'train_fused_stats'):
         spilled = {k: v for k, v in ptxas[key]['entries'].items() if v.get('spill_bytes', 1) != 0}
         check(not spilled, f'{key} spills no register {spilled}')
 
@@ -1446,8 +1453,9 @@ def lfq_bound_ms(n, d, sweep):
     One MUFU op a pair in every sweep: the function needs no log. Where
     p > eps, log p = l - logz, so the entropy term and its slope
     f'(p) = -log max(p, eps) - [p > eps] come from the logit with FMAs;
-    where p <= eps the slope is the constant -log(eps). Sweeps B and D
-    compute it that way; C still calls logf (its redesign).
+    where p <= eps the slope is the constant -log(eps); and A's shift, the
+    largest logit, is known in closed form, so A needs no running max and
+    no rescale. All four sweeps compute it that way.
 
     The FMA term counts the dots as the function needs them, not as d FMAs
     a pair: codes come in runs of 2^L (L = min(d, 4)) that share their top
@@ -1586,7 +1594,7 @@ def phase_lfq_times(sizes, smi):
          launches_per_step=launches_per_step, profile_step=profiles,
          bound_basis='H100 SXM at 700 W: 67 TFLOP/s f32 (FMA), 16 MUFU results/clk/SM x 132 SMs x 1.98 GHz '
                      '(one exp a pair, no log), 3.35 TB/s',
-         log_free_sweeps=['b', 'd'])
+         log_free_sweeps=['a', 'b', 'c', 'd'])
     return dict(per_kernel=per_kernel, stats_ms={name: sum(t) / len(t) for name, t in stats.items()},
                 step_ms=step_mean)
 
@@ -2027,11 +2035,11 @@ def main() -> int:
                                'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
                                'fma_term_ms', 'mufu_term_ms', 'bytes_term_ms')})
                       for name in 'abcd']
-    # the log-free sweeps (K6, K8): design, the compiler's report at d = 18, share of bound
-    for i, sweep in ((1, 'b'), (3, 'd')):
+    # each sweep's design, the compiler's report at d = 18 and its share of the bound
+    for entry, sweep in zip(lfq_per_kernel, 'abcd'):
         d18 = [v for k, v in ptxas[f'lfq_sweep_{sweep}']['entries'].items() if 'ILi18E' in k]
-        lfq_per_kernel[i].update(design=LOG_FREE_DESIGN, ptxas_d18=d18[0] if d18 else None,
-                                 share_of_bound=per_kernel[sweep]['bound_ms'] / per_kernel[sweep]['ms'])
+        entry.update(design=LFQ_DESIGNS[sweep], ptxas_d18=d18[0] if d18 else None,
+                     share_of_bound=per_kernel[sweep]['bound_ms'] / per_kernel[sweep]['ms'])
     rfsq_cases = phase_rfsq_kernel_vs_plain(device)
     rfsq_launches, rfsq_grouped_launches = phase_rfsq_eval_path(device)
     phase_fsq_train_path(device, sizes)

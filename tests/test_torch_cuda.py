@@ -314,15 +314,19 @@ def test_lfq_sweeps_match_plain(card, case):
         assert err <= limit and (limit < 0.1 * float(ref.abs().max()) or float(ref.abs().max()) < tiny), (err, limit)
 
 
-@pytest.mark.parametrize('sweep', ('b', 'd'))
+@pytest.mark.parametrize('sweep', ('a', 'b', 'c', 'd'))
 @pytest.mark.parametrize('case', ((8192, 18, 100.0), (8192, 18, 1.0), (4096, 8, 100.0), (3000, 10, 1.0),
-                                  (777, 10, 100.0)), ids=('main_t100', 'main_t1', 'd8', 'd10', 'd10_ragged'))
-def test_sweep_d_log_free_matches_plain(card, case, sweep):
-    """The log-free sweeps (base 2 on ex2), B and D, against their plain
-    versions in float64 on the same statistics: each output within 2e-5 of
-    its largest entry (B's ent and avgp: 1e-5 at inv_temp 1, 1e-4 at 100) or
-    4x the plain f32 sweep's own error, the limit under a tenth of that
-    entry; two calls bit-identical."""
+                                  (777, 10, 100.0), (300, 22, 100.0)),
+                         ids=('main_t100', 'main_t1', 'd8', 'd10', 'd10_ragged', 'd22_ragged'))
+def test_log_free_sweeps_match_plain(card, case, sweep):
+    """The four sweeps, without a log or an accurate exp (base 2 on ex2),
+    against their plain versions in float64 on the same statistics: A's
+    logz = m + log s within the forward tolerance of max(|logz|, 1) (1e-5 at
+    inv_temp 1, 1e-4 at 100), B's ent and avgp within it of their largest
+    entry, C's sigma and gdot and D's dx within 2e-5 of theirs, or 4x the
+    plain f32 sweep's own error, the limit under a tenth of the largest
+    entry; two calls bit-identical. d = 22 runs the two-token tier of
+    sweeps A, B and C (d > 18) on a ragged N."""
     n, d, inv_temp = case
     k = 1 << d
     x, w = _lfq_operands(n, d, True, True, card, seed=11)
@@ -331,13 +335,8 @@ def test_sweep_d_log_free_matches_plain(card, case, sweep):
     m64, s64 = tle.sweep_a_plain(x64, k=k, v=kw['v'], inv_temp=inv_temp)
     logz64 = m64 + torch.log(s64)
     logz = logz64.float()
-    if sweep == 'b':
-        fn = tle.sweep_b
-        args = (x, w, logz)
-        refs = tle.sweep_b_plain(x64, w64, logz.double(), **kw)
-        plains = tle.sweep_b_plain(*args, **kw)
-        tols = (1e-5 if inv_temp == 1.0 else 1e-4,) * 2
-    else:
+    fwd_tol = 1e-5 if inv_temp == 1.0 else 1e-4
+    if sweep in 'cd':
         if inv_temp == 1.0:
             gen = np.random.default_rng(12)
             entbar = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(card)
@@ -347,22 +346,35 @@ def test_sweep_d_log_free_matches_plain(card, case, sweep):
             a = tle.sweep_b_plain(x64, w64, logz64, **kw)[1] / w64.sum()
             entbar = (0.1 * w / w.sum()).float()
             gbar = (0.1 * (torch.log(a.clamp_min(1e-5)) + (a > 1e-5).double()) / w64.sum()).float()
-        sigma64, _ = tle.sweep_c_plain(x64, w64, logz64, entbar.double(), gbar.double(), **kw)
-        sigma = sigma64.float()
-        fn = tle.sweep_d
-        args = (x, w, logz, entbar, gbar, sigma)
-        refs = (tle.sweep_d_plain(x64, w64, logz.double(), entbar.double(), gbar.double(), sigma.double(), **kw),)
-        plains = (tle.sweep_d_plain(*args, **kw),)
-        tols = (2e-5,)
+    if sweep == 'a':
+        args, call_kw, tols = (x,), dict(k=k, v=kw['v'], inv_temp=inv_temp), ((fwd_tol, 1.0),)
+    elif sweep == 'b':
+        args, call_kw, tols = (x, w, logz), kw, ((fwd_tol, 0.0),) * 2
+    elif sweep == 'c':
+        args, call_kw, tols = (x, w, logz, entbar, gbar), kw, ((2e-5, 0.0),) * 2
+    else:
+        sigma = tle.sweep_c_plain(x64, w64, logz64, entbar.double(), gbar.double(), **kw)[0].float()
+        args, call_kw, tols = (x, w, logz, entbar, gbar, sigma), kw, ((2e-5, 0.0),)
+    fn, plain_fn = tle.SWEEPS[sweep], getattr(tle, f'sweep_{sweep}_plain')
+
+    def outputs(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    def compared(out):
+        """What is held: logz = m + log s for A, each output otherwise."""
+        out = outputs(out)
+        return (out[0] + torch.log(out[1]),) if sweep == 'a' else out
+    refs = compared(plain_fn(*(a.double() for a in args), **call_kw))
+    plains = compared(plain_fn(*args, **call_kw))
     before = fn.launches
-    got = fn(*args, **kw)
-    again = fn(*args, **kw)
+    got = fn(*args, **call_kw)
+    again = fn(*args, **call_kw)
     torch.cuda.synchronize()
-    got, again = (got, again) if sweep == 'b' else ((got,), (again,))
-    assert fn.launches == before + 2 and all(torch.equal(a, b) for a, b in zip(got, again))
-    for out, plain, ref, tol in zip(got, plains, refs, tols):
+    assert fn.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(outputs(got), outputs(again)))
+    for out, plain, ref, (tol, floor) in zip(compared(got), plains, refs, tols):
         scale = float(ref.abs().max())
-        limit = max(tol * scale, 4 * float((plain.double() - ref).abs().max()))
+        limit = max(tol * max(scale, floor), 4 * float((plain.double() - ref).abs().max()))
         assert limit < 0.1 * scale
         assert float((out.double() - ref).abs().max()) <= limit
 

@@ -54,16 +54,32 @@ def _lfq_cotangents(w, avgp, weight=0.1, gamma=1.0):
     return entbar.astype(np.float32), gbar.astype(np.float32)
 
 
+def _padded(x, w, block_n=128):
+    """x and w padded to the JAX sweeps' token block, with zero weights."""
+    n_pad = -(-x.shape[0] // block_n) * block_n
+    xp = np.zeros((n_pad, x.shape[1]), np.float32)
+    xp[:len(x)] = x
+    wp = np.zeros(n_pad, np.float32)
+    wp[:len(w)] = w
+    return xp, wp
+
+
+def _jax_logz(x, w, k, v, inv_temp):
+    """logz of the JAX forward pass (`_fwd_pass`: `_kernel_a`, an online
+    max, in interpret mode), N padded as `_jax_stats` pads."""
+    xp, wp = _padded(x, w)
+    logz = jle._fwd_pass(jnp.asarray(xp), jnp.asarray(wp).reshape(-1, 1), k=k, v=v, inv_temp=inv_temp, eps=EPS,
+                         block_n=128, block_k=min(k, 2048), interpret=True)[2]
+    return np.array(logz).reshape(-1)[:len(x)]
+
+
 def _jax_stats(x, w, k, v, inv_temp):
     """The JAX fused sweeps in interpret mode, N padded to the token block
     with zero weights; returns the forward and the vjp on the padded rows."""
     n = x.shape[0]
     block_n = 128
-    n_pad = -(-n // block_n) * block_n
-    xp = np.zeros((n_pad, x.shape[1]), np.float32)
-    xp[:n] = x
-    wp = np.zeros(n_pad, np.float32)
-    wp[:n] = w
+    xp, wp = _padded(x, w, block_n)
+    n_pad = xp.shape[0]
 
     def f(a, b):
         return jle.lfq_entropy_stats_fused(a, b, k=k, v=v, inv_temp=inv_temp, block_n=block_n,
@@ -125,6 +141,60 @@ def test_stats_and_vjp_match_jax_kernels(case):
         assert float(np.abs(dw.numpy() - jdw).max()) < 5e-4
         # and relative to the largest entry, which 5e-4 alone may exceed
         assert _rel(dx.numpy(), jdx) <= 1e-3 and _rel(dw.numpy(), jdw) <= 1e-3
+
+
+@pytest.mark.parametrize('case', list(CASES))
+def test_plain_logz_matches_jax_kernel_a(case):
+    """logz = m + log s of the port's `sweep_a_plain` (its shift the largest
+    logit in closed form) against the JAX package's `_fwd_pass` (its
+    `_kernel_a`, an online max, in interpret mode, N padded as `_jax_stats`
+    pads), within the forward tolerance of max(|logz|, 1)."""
+    n, d, spherical, scale, weighted, inv_temp = CASES[case]
+    k = 1 << d
+    x, w = _inputs(n, d, spherical, weighted, seed=len(case))
+    v = tle.code_magnitude(d, scale, spherical)
+    jlogz = _jax_logz(x, w, k, v, inv_temp)
+    m, s = tle.sweep_a_plain(torch.from_numpy(x), k=k, v=v, inv_temp=inv_temp)
+    logz = (m + torch.log(s)).numpy()
+    assert logz.shape == (n,) and bool(np.isfinite(logz).all())
+    fwd_tol = 1e-5 if inv_temp == 1.0 else 1e-4
+    assert float(np.abs(logz - jlogz).max()) <= fwd_tol * max(float(np.abs(jlogz).max()), 1.0)
+
+
+@pytest.mark.parametrize('inv_temp,v', ((100.0, 0.25), (-3.0, -0.5)))
+def test_largest_logit_in_closed_form(inv_temp, v):
+    """Sweep A's shift, in float64: max_k l_nk = 2 |inv_temp| |v| ||x_n||_1,
+    for either sign of inv_temp and v, and s = sum_k exp(l - m) >= 1."""
+    n, d = 50, 9
+    k = 1 << d
+    x = torch.from_numpy(_inputs(n, d, False, False, seed=d)[0]).double()
+    logits = tle._logits(x, 0, k, v, inv_temp)
+    shift = tle.logit_shift(x, v=v, inv_temp=inv_temp)
+    torch.testing.assert_close(shift, logits.amax(1), rtol=1e-13, atol=0)
+    torch.testing.assert_close(shift, 2 * abs(inv_temp) * abs(v) * x.abs().sum(1), rtol=1e-15, atol=0)
+    m, s = tle.sweep_a_plain(x, k=k, v=v, inv_temp=inv_temp)
+    assert torch.equal(m, shift) and bool((s >= 1 - 1e-12).all())
+    torch.testing.assert_close(m + torch.log(s), torch.logsumexp(logits, 1), rtol=1e-13, atol=0)
+
+
+def test_sigma_factors_out_of_the_pair_loop():
+    """Sweep C's grouping, in float64: sigma = sum_k p (entbar f'(p) + w gbar)
+    = entbar sum_k p f'(p) + w gdot, held against `sweep_c_plain`."""
+    n, d, inv_temp = 64, 8, 10.0
+    k = 1 << d
+    x, w = (torch.from_numpy(a).double() for a in _inputs(n, d, True, True, seed=5))
+    v = tle.code_magnitude(d, 1.0, True)
+    rng = np.random.default_rng(6)
+    entbar = torch.from_numpy(rng.standard_normal(n))
+    gbar = torch.from_numpy(rng.standard_normal(k))
+    m, s = tle.sweep_a_plain(x, k=k, v=v, inv_temp=inv_temp)
+    logz = m + torch.log(s)
+    sigma, gdot = tle.sweep_c_plain(x, w, logz, entbar, gbar, k=k, v=v, inv_temp=inv_temp, eps=EPS)
+    p = torch.exp(tle._logits(x, 0, k, v, inv_temp) - logz[:, None])
+    fprime = -torch.log(p.clamp_min(EPS)) - (p > EPS).double()
+    slope_sum = (p * fprime).sum(1)
+    torch.testing.assert_close(gdot, p @ gbar, rtol=1e-12, atol=0)
+    torch.testing.assert_close(sigma, entbar * slope_sum + w * gdot, rtol=0, atol=1e-12 * float(sigma.abs().max()))
 
 
 @pytest.mark.parametrize('inv_temp', (1.0, 100.0))

@@ -8,7 +8,8 @@ stored. Four sweeps over the codes compute the statistics and their
 gradient without an (N, K) tensor in memory:
 
     logits l_nk = (x_n . c_k * -2) * -inv_temp
-    A  (fwd): m, s of an online logsumexp             -> logz = m + log s
+    A  (fwd): m = 2 |inv_temp| |v| ||x_n||_1, the largest logit in closed form;
+              s = sum_k exp(l - m)                    -> logz = m + log s
     B  (fwd): p = exp(l - logz); ent_n = sum_k -p log max(p, eps);
               avgp_k = sum_n w_n p_nk
     C  (bwd): g = entbar f'(p) + w gbar, f'(p) = -log max(p, eps) - [p > eps];
@@ -76,16 +77,21 @@ def _chunks(x: torch.Tensor, k: int):
     return ((start, size) for start in range(0, k, size))
 
 
+def logit_shift(x: torch.Tensor, *, v: float, inv_temp: float) -> torch.Tensor:
+    """(N, d) -> (N,) the largest logit of each token in closed form,
+    2 |inv_temp| |v| ||x_n||_1: every code is +-v in each dim, and the sign
+    pattern of x reaches the largest dot, |v| ||x_n||_1."""
+    return x.abs().sum(1) * abs(v) * (2.0 * abs(inv_temp))
+
+
 def sweep_a_plain(x: torch.Tensor, *, k: int, v: float, inv_temp: float):
-    """(N, d) -> (m, s) (N,): the online logsumexp over the K codes."""
-    n = x.shape[0]
-    m = torch.full((n,), float('-inf'), dtype=x.dtype, device=x.device)
-    s = torch.zeros(n, dtype=x.dtype, device=x.device)
+    """(N, d) -> (m, s) (N,) with logz = m + log s: m is `logit_shift` and
+    s = sum_k exp(l_k - m), one shifted sum over the K codes (each term at
+    most 1 up to rounding, so s >= 1)."""
+    m = logit_shift(x, v=v, inv_temp=inv_temp)
+    s = torch.zeros_like(m)
     for start, size in _chunks(x, k):
-        logits = _logits(x, start, size, v, inv_temp)
-        m_new = torch.maximum(m, logits.amax(1))
-        s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(1)
-        m = m_new
+        s = s + torch.exp(_logits(x, start, size, v, inv_temp) - m[:, None]).sum(1)
     return m, s
 
 
@@ -228,9 +234,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def sweep_a(x: torch.Tensor, *, k: int, v: float, inv_temp: float):
-    """(m, s) of the online logsumexp (pass A). CUDA tensors launch the
-    kernel (counted in `sweep_a.launches`), CPU tensors take
-    `sweep_a_plain`."""
+    """(m, s) with logz = m + log s (pass A): m is the shift of
+    `logit_shift`, the largest logit in closed form, not the largest of the
+    computed logits (the kernel rounds it in base 2), and s the sum of
+    exp(l - m). CUDA tensors launch the kernel (counted in
+    `sweep_a.launches`), CPU tensors take `sweep_a_plain`."""
     if _runs_plain('sweep_a', x):
         return sweep_a_plain(x, k=k, v=v, inv_temp=inv_temp)
     n, d = _check_operands('sweep_a', x, k)
