@@ -14,8 +14,9 @@ prints one JSON line per phase:
    time of the four kernel sources (built in parallel), the compiler's
    registers and spills per source, and on their own for the tensor-core
    selection kernel (in nearest_code.cu and in train_fused.cu), the f32 tile
-   it replaced and every instantiation of the four LFQ sweeps, one per
-   d <= 24 (no spill);
+   it replaced, every instantiation of the four LFQ sweeps, one per
+   d <= 24, and of K9, one per d <= 8 and q <= 16 and the general one (no
+   spill in any but the general one);
 2. kernel_vs_plain: the selection kernel (split-TF32 wgmma) against
    `nearest_code_plain` on the same inputs and bias, at the main shape (both
    metrics), ragged, tiny, batched-head, ragged-d (d = 30, d = 3) and
@@ -70,8 +71,13 @@ prints one JSON line per phase:
    (csrc/residual_fsq_fused.cu) against `fused_residual_fsq_eval_plain` on
    the same inputs: the main shape (4,194,304 tokens, levels (8, 5, 5, 5),
    q = 8), the level sets of tests/test_residual_fsq_fused.py, a ragged
-   count, a leading shape and the general instantiation (d = 9; q = 17);
-   values and indices bit-identical, two calls bit-identical;
+   count, a leading shape, the general instantiation (d = 9; q = 17), a
+   non-dyadic step (7, 7, 7), a deep stack (5, 5, 5, 5) at q = 16, a
+   configuration beyond the integer index proof (256, 256, 64), infinite,
+   huge, tiny and NaN inputs, the same with scales that are not the
+   module's (every token on the IEEE route), and every f32 value of [1, 2)
+   and [-2, -1) as one-dim tokens at levels 5, 7 and 8, q = 16; values and
+   indices bit-identical (NaN for NaN), two calls bit-identical;
 15. rfsq_eval_path: ResidualFSQ(dim=4, levels=[8, 5, 5, 5],
    num_quantizers=8).eval() on (2048, 2048, 4), eval_fused 'auto' (one
    launch) against 'off' (none), the decode from indices; the two-group
@@ -84,7 +90,9 @@ prints one JSON line per phase:
    0 held against the CPU;
 17. rfsq_times: CUDA events at the main ResidualFSQ shape: the kernel, its
    plain version and bound, the eval forward on 'auto' and 'off' with a
-   torch.profiler breakdown of each;
+   torch.profiler breakdown of each, the 'auto' forward's time beyond the
+   kernel's, and the opcode counts of the main instantiation's SASS (no
+   IEEE division's range check and no call may appear);
 18. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
@@ -156,6 +164,8 @@ LFQ_DESIGNS = {
 
 RFSQ_SOURCE = 'vqtpu_torch/kernels/csrc/residual_fsq_fused.cu'
 RFSQ_REPLACES = 'vqtpu/kernels/residual_fsq_fused.py:70 _kernel'
+RFSQ_DESIGN = ('no IEEE division on the proven route (Markstein correction from the reciprocals), bracket from '
+               'one FFMA.SAT, integer index where proven, constants in the parameter bank, two tokens a thread')
 # ResidualFSQ(dim=4, levels=[8, 5, 5, 5], num_quantizers=8).eval() on
 # (2048, 2048, 4) f32 (benchmarks/composites_tpu.py:136-140,
 # benchmarks/rfsq_fused_tpu.py:17-18): levels, q, leading shape
@@ -244,6 +254,37 @@ def ptxas_entries(log: str, marker: str) -> dict:
     return dict(entries=entries, wgmma_lines=wgmma)
 
 
+def sass_functions(name: str) -> dict[str, list[str]]:
+    """The SASS instructions of each function in the built library of
+    csrc/<name>.cu, from `cuobjdump -sass` (beside nvcc)."""
+    from pathlib import Path
+
+    from vqtpu_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name('cuobjdump')
+    out = subprocess.run([str(tool), '-sass', str(_build.library_path(name))], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    functions: dict[str, list[str]] = {}
+    current = None
+    for line in out.splitlines():
+        header = re.match(r'\s*Function : (\S+)', line)
+        if header:
+            current = functions.setdefault(header.group(1), [])
+            continue
+        instr = re.match(r'\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;', line)
+        if instr and current is not None:
+            current.append(instr.group(1))
+    return functions
+
+
+def sass_opcodes(instructions: list[str]) -> dict[str, int]:
+    """Count of each opcode (its modifiers kept, its predicate dropped)."""
+    counts: dict[str, int] = {}
+    for ins in instructions:
+        op = re.sub(r'^@!?U?P[T0-9]+\s+', '', ins).split()[0]
+        counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
 def phase_device():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -272,6 +313,10 @@ def phase_device():
         ptxas[f'lfq_sweep_{sweep}'] = entries
         check(len(entries['entries']) == 24,
               f"sweep {sweep.upper()} is built for every d <= 24 ({len(entries['entries'])})")
+    # K9: every d <= 8 x q <= 16 instantiation and the general one
+    ptxas['residual_fsq_kernel'] = ptxas_entries(_build.build_log('residual_fsq_fused'), 'residual_fsq_eval_kernel')
+    check(len(ptxas['residual_fsq_kernel']['entries']) == 8 * 16 + 1,
+          f"K9 is built for every d <= 8, q <= 16 and the general case ({len(ptxas['residual_fsq_kernel']['entries'])})")
     emit('device', kind=kind, count=count, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -280,11 +325,14 @@ def phase_device():
 
 
 def check_no_spill(ptxas: dict) -> None:
-    """The four LFQ sweeps and the fused train step's statistics kernels
-    must not spill (checked at the end of the run, so that a spill does not
-    hide the other phases' numbers)."""
-    for key in ('lfq_sweep_a', 'lfq_sweep_b', 'lfq_sweep_c', 'lfq_sweep_d', 'train_fused_stats'):
-        spilled = {k: v for k, v in ptxas[key]['entries'].items() if v.get('spill_bytes', 1) != 0}
+    """The four LFQ sweeps, the fused train step's statistics kernels and
+    K9's fixed instantiations (d <= 8, q <= 16) must not spill (checked at
+    the end of the run, so that a spill does not hide the other phases'
+    numbers)."""
+    for key in ('lfq_sweep_a', 'lfq_sweep_b', 'lfq_sweep_c', 'lfq_sweep_d', 'train_fused_stats',
+                'residual_fsq_kernel'):
+        spilled = {k: v for k, v in ptxas[key]['entries'].items()
+                   if v.get('spill_bytes', 1) != 0 and 'ILi0ELi0E' not in k}
         check(not spilled, f'{key} spills no register {spilled}')
 
 
@@ -1636,36 +1684,66 @@ def rfsq_layer_shares(idx, ref, q):
     return [float((idx[..., i] == ref[..., i]).float().mean()) for i in range(q)]
 
 
-def compare_rfsq(case, levels, q, lead, device, seed):
-    """K9 against its plain version on the card, same inputs. Bit-identical
-    values and indices are the bar; a case that misses it is held to the
-    bar of tests/test_residual_fsq_fused.py (layers at scale > 1e-2 exact,
-    values within two deepest quanta) and reported with its shares."""
+def rfsq_bits_equal(got, want) -> bool:
+    """Bit for bit, NaN where the other is NaN."""
+    if got.dtype == torch.float32:
+        nan = got.isnan()
+        return torch.equal(nan, want.isnan()) and torch.equal(got.view(torch.int32)[~nan],
+                                                              want.view(torch.int32)[~nan])
+    return torch.equal(got, want)
+
+
+def compare_rfsq(case, levels, q, lead, device, seed, x=None, scales=None):
+    """K9 against its plain version on the card, same inputs (`rfsq_input`
+    from the seed, unless x is given; the module's scales, unless given):
+    values and indices bit for bit, NaN for NaN, two calls bit-identical."""
     from vqtpu_torch import ResidualFSQ
-    from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval, fused_residual_fsq_eval_plain
+    from vqtpu_torch.kernels.residual_fsq_fused import (
+        fused_residual_fsq_eval, fused_residual_fsq_eval_plain, kernel_plan,
+    )
     m = ResidualFSQ(levels=list(levels), num_quantizers=q, device=device)
     kw = dict(levels=tuple(levels), clamp=m.soft_clamp_input_value, num_quantizers=q)
-    x = rfsq_input(levels, lead, device, seed)
-    got = fused_residual_fsq_eval(x, m._scales(), **kw)
-    again = fused_residual_fsq_eval(x, m._scales(), **kw)
-    plain = fused_residual_fsq_eval_plain(x, m._scales(), **kw)
+    plan = kernel_plan(tuple(levels), tuple(m.soft_clamp_input_value), q)
+    x = rfsq_input(levels, lead, device, seed) if x is None else x
+    scales = m._scales() if scales is None else scales
+    got = fused_residual_fsq_eval(x, scales, **kw)
+    again = fused_residual_fsq_eval(x, scales, **kw)
+    plain = fused_residual_fsq_eval_plain(x, scales, **kw)
     sync(device)
-    check(got[1].dtype == torch.int32 and got[1].shape == (*lead, q) and got[0].shape == x.shape,
+    check(got[1].dtype == torch.int32 and got[1].shape == (*x.shape[:-1], q) and got[0].shape == x.shape,
           f'{case}: output shapes')
-    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), f'{case}: two kernel calls bit-identical')
-    values_equal = torch.equal(got[0], plain[0])
-    indices_equal = torch.equal(got[1], plain[1])
-    err = float((got[0] - plain[0]).abs().max()) if x.numel() else 0.0
+    check(rfsq_bits_equal(got[0], again[0]) and rfsq_bits_equal(got[1], again[1]),
+          f'{case}: two kernel calls bit-identical')
+    values_equal = rfsq_bits_equal(got[0], plain[0])
+    indices_equal = rfsq_bits_equal(got[1], plain[1])
+    finite = got[0].isfinite() & plain[0].isfinite()
+    err = float((got[0] - plain[0])[finite].abs().max()) if bool(finite.any()) else 0.0
     shares = rfsq_layer_shares(got[1], plain[1], q)
-    if not (values_equal and indices_equal):
-        for i, share in enumerate(shares):
-            if min(levels) ** -i > 1e-2:
-                check(share == 1.0, f'{case}: layer {i} (scale > 1e-2) indices equal the plain version ({shares})')
-        check(err <= 2 * deepest_quantum(levels, q), f'{case}: values within two deepest quanta ({err})')
-    emit('rfsq_kernel_vs_plain', case=case, levels=list(levels), q=q, shape=list(x.shape), values_bit_identical=values_equal,
+    emit('rfsq_kernel_vs_plain', case=case, levels=list(levels), q=q, shape=list(x.shape),
+         exact_division=plan.exact_division, integer_index=plan.integer_index,
+         index_error_bound=plan.index_error_bound, values_bit_identical=values_equal,
          indices_bit_identical=indices_equal, index_share_equal_per_layer=shares, max_abs_err=err,
          bit_identical_calls=True)
+    check(values_equal and indices_equal, f'{case}: values and indices bit-identical to the plain version '
+                                          f'(max |err| {err}, index shares {shares})')
     return dict(bit_identical=values_equal and indices_equal, max_abs_err=err)
+
+
+def rfsq_special_input(device, n=1 << 20, seed=57):
+    """(n, 4) tokens at 1.5 sigma with a quarter of their entries replaced by
+    infinite, huge, tiny (the IEEE route), NaN and signed-zero values."""
+    rng = np.random.default_rng(seed)
+    x = (1.5 * rng.standard_normal((n, 4))).astype(np.float32)
+    special = np.array([np.inf, -np.inf, 3e38, -3.4e38, 1e30, -1e20, 0.0, -0.0, 1e-40, -1e-45, 2.0 ** -100,
+                        2.0 ** -79, 2.0 ** -80, np.nan, 1.0, -1.0], np.float32)
+    x.reshape(-1)[rng.choice(x.size, x.size // 4, replace=False)] = np.resize(special, x.size // 4)
+    return torch.from_numpy(x).to(device)
+
+
+def binade_input(device):
+    """Every f32 value in [1, 2) and in [-2, -1) as a one-dim token: 2^24 tokens."""
+    ones = (torch.arange(1 << 23, dtype=torch.int32, device=device) | (127 << 23)).view(torch.float32)
+    return torch.cat([ones, -ones])[:, None]
 
 
 def phase_rfsq_kernel_vs_plain(device):
@@ -1680,8 +1758,26 @@ def phase_rfsq_kernel_vs_plain(device):
         'lead_2x999': ((8, 5, 5, 5), 8, (2, 999)),
         'd9_general': ((5,) * 9, 5, (300, 1000)),
         'q17_general': ((8, 5, 5, 5), 17, (300, 1000)),
+        # a non-dyadic step (2 / 6), a deep stack, and beyond the integer
+        # index proof (prod(levels) = 2^22: the digit by the division sequence)
+        'l777_q8': ((7, 7, 7), 8, (2048, 1024)),
+        'l5555_q16': ((5, 5, 5, 5), 16, (2048, 1024)),
+        'l256_256_64_q3': ((256, 256, 64), 3, (2048, 1024)),
     }
     results = {case: compare_rfsq(case, *args, device, 50 + i) for i, (case, args) in enumerate(cases.items())}
+    special = rfsq_special_input(device)
+    results['large_infinite_tiny_nan'] = compare_rfsq('large_infinite_tiny_nan', levels, q, None, device, None,
+                                                      x=special)
+    # scales that are not the module's: every token takes the IEEE route
+    from vqtpu_torch.kernels.residual_fsq_fused import canonical_scales
+    other = canonical_scales(levels, q).to(device) * 1.1
+    other[-2], other[-1] = 1e-38, 2.0 ** -120
+    results['ieee_route_other_scales'] = compare_rfsq('ieee_route_other_scales', levels, q, None, device, None,
+                                                      x=special, scales=other)
+    binade = binade_input(device)
+    for level in (5, 7, 8):
+        results[f'binade_l{level}_q16'] = compare_rfsq(f'binade_l{level}_q16', (level,), 16, None, device, None,
+                                                       x=binade)
     return results
 
 
@@ -1911,6 +2007,28 @@ def rfsq_bound_ms(n, d, q):
                 bytes_term_ms=bytes_ms, ops_term_ms=ops_ms)
 
 
+def rfsq_sass_counts(d, q) -> dict:
+    """Opcode counts of K9's (d, q) instantiation from `cuobjdump -sass`. An
+    IEEE division by `__fdiv_rn` compiles to an FCHK (its range check) and a
+    call of its slow path; the parent kernel had 2 d q + d of each. Neither
+    route has one now: the exact route divides by the Markstein sequence and
+    the IEEE route by `ieee_quotient` (f64 DFMA, no call), so the count of
+    both must be 0. FFMA.SAT counts the exact route's (dim, layer) pairs:
+    two index routes x two tokens a thread x d q. Scalar global loads are the
+    IEEE route's (its constants, in loops that are not unrolled) and the
+    exact route's one check of the scales; the exact route reads its
+    constants from the parameter bank (ULDC, or operands c[0x0][...])."""
+    funcs = sass_functions('residual_fsq_fused')
+    name = next(k for k in funcs if f'residual_fsq_eval_kernelILi{d}ELi{q}E' in k)
+    ops = sass_opcodes(funcs[name])
+    calls = sum(n for op, n in ops.items() if op.startswith('CALL'))
+    check(ops.get('FCHK', 0) == 0 and calls == 0,
+          f"K9 ({d}, {q}): no IEEE division subroutine and no call ({ops.get('FCHK', 0)} FCHK, {calls} CALL)")
+    return dict(function=name, instructions=sum(ops.values()), fchk=ops.get('FCHK', 0), calls=calls,
+                exact_route_pairs_ffma_sat=ops.get('FFMA.SAT', 0), exact_route_pairs=2 * 2 * d * q,
+                scalar_global_loads=ops.get('LDG.E.CONSTANT', 0), opcodes=ops)
+
+
 def phase_rfsq_times(sizes, smi):
     from vqtpu_torch import ResidualFSQ
     from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval, fused_residual_fsq_eval_plain
@@ -1959,6 +2077,7 @@ def phase_rfsq_times(sizes, smi):
     fwd_mean = {r: sum(t) / len(t) for r, t in fwd.items()}
     kernel_ms = (ka + kb) / 2
     bound = rfsq_bound_ms(n, d, q)
+    sass = rfsq_sass_counts(d, q)
     emit('rfsq_times', shape=dict(tokens=n, d=d, q=q, levels=list(levels)), card=smi, reps=reps,
          kernel_ms=kernel_ms, kernel_ms_runs=[ka, kb], plain_ms=(pa + pb) / 2, plain_ms_runs=[pa, pb], **bound,
          kernel_share_of_bound=bound['bound_ms'] / kernel_ms,
@@ -1966,13 +2085,15 @@ def phase_rfsq_times(sizes, smi):
                                        "'off' loop, its composition in PyTorch's elementwise kernels",
          forward_ms=fwd_mean, forward_ms_runs=fwd, tokens_per_s={r: n / (t / 1e3) for r, t in fwd_mean.items()},
          launches_per_forward=launches, peak_allocated_bytes=peak,
-         kernel_share_of_auto_forward=kernel_ms / fwd_mean['auto'], profile_forward=profiles,
+         kernel_share_of_auto_forward=kernel_ms / fwd_mean['auto'],
+         auto_forward_minus_kernel_ms=fwd_mean['auto'] - kernel_ms, sass_main=sass, profile_forward=profiles,
          profile_note="torch.profiler records no device event in a window whose only kernel is K9 (launched "
                       "through ctypes); kernel_share_of_auto_forward is K9's CUDA-event time over the forward's",
          bound_basis='H100 SXM at 700 W: 3.35 TB/s, 67 TFLOP/s f32')
     return dict(ms=kernel_ms, plain_ms=(pa + pb) / 2, bound_ms=bound['bound_ms'], bound_by=bound['bound_by'],
                 library_ms=None, composition_ms=fwd_mean['off'], forward_ms_auto=fwd_mean['auto'],
-                forward_ms_off=fwd_mean['off'], launches_per_forward=launches)
+                forward_ms_off=fwd_mean['off'], auto_forward_minus_kernel_ms=fwd_mean['auto'] - kernel_ms,
+                launches_per_forward=launches, instructions_in_code=sass['instructions'])
 
 
 def main() -> int:
@@ -2127,8 +2248,9 @@ def main() -> int:
         'library_ms_note': "no single PyTorch call computes the chain; composition_ms is the 'off' loop's "
                            'eval forward',
         'ms_of': 'one call at 4,194,304 tokens, d = 4, q = 8 (the main ResidualFSQ shape)',
-        'check': 'values and indices bit-identical to the plain version on the card (or layers at scale > 1e-2 '
-                 "exact and values within two deepest quanta), two calls bit-identical; 'auto' against 'off' "
+        'design': RFSQ_DESIGN,
+        'check': 'values and indices bit-identical to the plain version on the card (NaN for NaN) in every case, '
+                 "a whole binade at levels 5, 7 and 8 included, two calls bit-identical; 'auto' against 'off' "
                  'and the decode from indices',
         'power_limit': smi,
     }]}), flush=True)

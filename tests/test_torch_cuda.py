@@ -501,6 +501,11 @@ RFSQ_CASES = {
     'd9_q5_general': ((5, 5, 5, 5, 5, 5, 5, 5, 5), 5, (3000,)),
     'd4_q17_general': ((8, 5, 5, 5), 17, (3000,)),
     'd1_q1': ((3,), 1, (7,)),
+    # a non-dyadic step (2 / 6), a deep stack, and a configuration beyond the
+    # integer index proof (prod(levels) = 2^22: the digit by the division sequence)
+    'l777_q8': ((7, 7, 7), 8, (4096,)),
+    'l5555_q16': ((5, 5, 5, 5), 16, (4096,)),
+    'l256_256_64_q3': ((256, 256, 64), 3, (4096,)),
 }
 
 
@@ -528,6 +533,64 @@ def test_rfsq_kernel_matches_plain_bit_for_bit(card, case):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     assert torch.equal(got[1], want[1]), float((got[1] != want[1]).float().mean())
     assert torch.equal(got[0], want[0]), float((got[0] - want[0]).abs().max())
+
+
+def _rfsq_bits_equal(got, want):
+    """Bit for bit, NaN where the other is NaN."""
+    if got.dtype == torch.float32:
+        nan = got.isnan()
+        return torch.equal(nan, want.isnan()) and torch.equal(got.view(torch.int32)[~nan],
+                                                              want.view(torch.int32)[~nan])
+    return torch.equal(got, want)
+
+
+def _rfsq_hold(x, levels, q, scales=None):
+    m = vqtpu_torch.ResidualFSQ(levels=list(levels), num_quantizers=q, device=x.device)
+    kw = dict(levels=levels, clamp=m.soft_clamp_input_value, num_quantizers=q)
+    scales = m._scales() if scales is None else scales
+    got = trf.fused_residual_fsq_eval(x, scales, **kw)
+    again = trf.fused_residual_fsq_eval(x, scales, **kw)
+    want = trf.fused_residual_fsq_eval_plain(x, scales, **kw)
+    torch.cuda.synchronize()
+    for a, b in ((got[0], again[0]), (got[1], again[1]), (got[0], want[0]), (got[1], want[1])):
+        assert _rfsq_bits_equal(a, b), float((a != b).float().mean())
+
+
+def test_rfsq_kernel_on_large_infinite_and_tiny_inputs(card):
+    """Infinite, huge, tiny (the IEEE route), NaN and signed-zero inputs
+    among random ones: bit for bit, NaN for NaN."""
+    levels, q = (8, 5, 5, 5), 8
+    rng = np.random.default_rng(11)
+    x = 1.5 * rng.standard_normal((4096, 4)).astype(np.float32)
+    special = np.array([np.inf, -np.inf, 3e38, -3.4e38, 1e30, -1e20, 0.0, -0.0, 1e-40, -1e-45, 2.0 ** -100,
+                        2.0 ** -79, 2.0 ** -80, np.nan, 1.0, -1.0], np.float32)
+    x.reshape(-1)[rng.choice(x.size, 2048, replace=False)] = np.resize(special, 2048)
+    _rfsq_hold(torch.from_numpy(x).to(card), levels, q)
+
+
+def test_rfsq_kernel_ieee_route_with_other_scales(card):
+    """Scales that are not the module's take the IEEE route for every token
+    (the wrapper's proofs were made for the module's): bit for bit on the
+    same inputs as the special-value test, with scales 1.1x the module's and
+    the two deepest layers' at 1e-38 and 2^-120 (quotients near the top of
+    the f32 range, and the overflow to infinity of the clip's input)."""
+    levels, q = (8, 5, 5, 5), 8
+    rng = np.random.default_rng(12)
+    x = 1.5 * rng.standard_normal((4096, 4)).astype(np.float32)
+    x.reshape(-1)[rng.choice(x.size, 512, replace=False)] = np.resize(
+        np.array([np.inf, -np.inf, 3e38, 0.0, -0.0, 1e-40, np.nan, 2.0 ** -100], np.float32), 512)
+    m = vqtpu_torch.ResidualFSQ(levels=list(levels), num_quantizers=q, device=card)
+    scales = m._scales() * 1.1
+    scales[-2], scales[-1] = 1e-38, 2.0 ** -120
+    _rfsq_hold(torch.from_numpy(x).to(card), levels, q, scales=scales)
+
+
+@pytest.mark.parametrize('level', (5, 7, 8))
+def test_rfsq_kernel_on_a_whole_binade(card, level):
+    """Every f32 value in [1, 2) and in [-2, -1) as a one-dim token (2^24
+    tokens), 16 layers: bit for bit."""
+    ones = (torch.arange(1 << 23, dtype=torch.int32, device=card) | (127 << 23)).view(torch.float32)
+    _rfsq_hold(torch.cat([ones, -ones])[:, None], (level,), 16)
 
 
 def test_rfsq_kernel_rejects_what_it_does_not_take(card):
