@@ -93,7 +93,31 @@ prints one JSON line per phase:
    torch.profiler breakdown of each, the 'auto' forward's time beyond the
    kernel's, and the opcode counts of the main instantiation's SASS (no
    IEEE division's range check and no call may appear);
-18. the {"kernels": [...]} line.
+18. rvq_eval_path: ResidualVQ(dim=256, num_quantizers=8,
+   codebook_size=1024).eval() on (32, 2048, 256): one K1 launch a layer,
+   each layer's indices on that layer's input against the kernel's plain
+   version on the CPU (near-ties only) and the CPU's -cdist route (K1's
+   pick no worse in float64 but for near-ties), the whole model against the
+   same weights on the CPU's -cdist route, the output the sum of the
+   looked-up rows and the decode bit for bit; GroupedResidualVQ(dim=256, groups=2, num_quantizers=4) on the same
+   input, one launch a layer and group;
+19. rvq_beam_path: the same weights with beam_size=4 on 8192 tokens, no
+   kernel launch, indices against the beam search in float64 (a path may
+   differ only with a near-tie on its search); beam_size=1 is the greedy
+   forward;
+20. rvq_train_path: the same configuration with quantize_dropout=True, 3
+   training steps at dropout index 5 per train_fused route: K4 once a layer
+   a step on 'on' (dropped layers included), K1 on 'off'; step 0 identical
+   on both routes; every kept layer held to the plain selection and to one
+   float64 EMA step, the dropped layers' codebooks unchanged;
+21. rvq_flagship_train: the RQ-VAE of examples/autoencoder_rvq.py (8
+   layers, kmeans init, one shared codebook, stochastic codes), 50 AdamW
+   steps, step 0 against the CPU with the same noise and kmeans rows; no
+   kernel in training, K1 once a layer in the trained model's eval forward;
+22. rvq_times: CUDA events: the eval forward and K1 on one layer against
+   its 3xTF32 bound, the beam forward, a training step per route and a
+   flagship step;
+23. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -2096,6 +2120,548 @@ def phase_rfsq_times(sizes, smi):
                 launches_per_forward=launches, instructions_in_code=sass['instructions'])
 
 
+# -- ResidualVQ and GroupedResidualVQ: K1 and K4 once per layer -----------------------
+
+# ResidualVQ(dim=256, num_quantizers=8, codebook_size=1024) on (32, 2048, 256)
+# f32, 65,536 tokens (benchmarks/rvq_overhead_tpu.py:32,53-54): b, n, d, q, c
+RVQ_MAIN = (32, 2048, 256, 8, 1024)
+# the beam search at 8192 tokens, beam 4 (vqtpu/composite/residual_vq.py:231-233): b, n, beam
+RVQ_BEAM = (4, 2048, 4)
+# the quantize-dropout index of rvq_train_path: layers 6 and 7 are dropped
+RVQ_DROP = 5
+
+
+def rvq_input(lead, d, device, seed):
+    x = np.random.default_rng(seed).standard_normal((*lead, d), dtype=np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def rvq_scaled_codebooks(model, seed):
+    """Codebooks of random rows at the scale a trained residual stack has:
+    layer l's rows N(0, 1) * 0.25 * 0.7^l, so that every layer's candidates
+    differ in score by far more than rounding (the constructor's uniform
+    rows are some 0.003 in each dim, and leave every candidate of a beam
+    within 1e-5 of the others in score)."""
+    gen = torch.Generator(device='cpu').manual_seed(seed)
+    with torch.no_grad():
+        for layer, vq in enumerate(model.layers):
+            embed = vq._codebook.embed
+            rows = torch.randn(embed.shape, generator=gen) * (0.25 * 0.7 ** layer)
+            embed.copy_(rows)
+            vq._codebook.embed_avg.copy_(rows)
+
+
+def rvq_with_layer_inputs(model, x, **kw):
+    """One forward of a ResidualVQ, and each layer's input (its residual),
+    detached: (outputs, [input of layer 0, ...])."""
+    inputs = []
+    handles = [layer.register_forward_pre_hook(lambda m, args: inputs.append(args[0].detach().clone()))
+               for layer in model.layers]
+    try:
+        out = model(x, **kw)
+    finally:
+        for h in handles:
+            h.remove()
+    return out, inputs
+
+
+def k1_picks_worse(x, embed, bias, idx_k1, idx_other, rel=1e-5):
+    """Tokens where K1's pick scores below another selection's pick in
+    float64 by more than the near-tie margin of selection_disagreements."""
+    a, b = idx_k1.reshape(-1).long(), idx_other.reshape(-1).long()
+    differ = (a != b).nonzero().reshape(-1)
+    if differ.numel() == 0:
+        return 0
+    xd = x.reshape(-1, x.shape[-1])[differ].double()
+    ea, eb = embed[a[differ]].double(), embed[b[differ]].double()
+    sa = (xd * ea).sum(-1) + bias[a[differ]].double()
+    sb = (xd * eb).sum(-1) + bias[b[differ]].double()
+    xn = xd.norm(dim=-1)
+    scale = torch.stack([sa.abs(), sb.abs(), xn * ea.norm(dim=-1), xn * eb.norm(dim=-1)]).amax(0)
+    return int((sb - sa > rel * scale).sum())
+
+
+def rvq_layers_vs_plain(model, idx, inputs, device):
+    """Each layer's K1 selection on that layer's input against two CPU
+    selections: the kernel's plain version (the same formulation), equal
+    but for near-ties; and the JAX package's formulation (argmax of
+    -cdist_sq, the `use_pallas=False` route), whose f32 rounding of
+    ||x||^2 can exceed the near-tie margin when ||x|| >> ||e||, so there K1's
+    pick must score no worse in float64 but for near-ties. Returns the
+    per-layer reports and the second selection's indices."""
+    from vqtpu_torch.kernels.distance import (
+        nearest_code_plain, nearest_code_xla, selection_bias, selection_disagreements,
+    )
+    reports, xla_idx = [], []
+    for layer, (vq, xl) in enumerate(zip(model.layers, inputs)):
+        embed = vq.codebook
+        bias = selection_bias(embed, 'euclidean')
+        xs = xl.reshape(-1, xl.shape[-1])
+        picks = idx[..., layer].reshape(-1)
+        plain = nearest_code_plain(xs.cpu(), embed.cpu(), bias.cpu()).to(device)
+        r = selection_disagreements(xs, embed, bias, picks, plain)
+        check(r['non_tie'] == 0, f'layer {layer}: indices disagree with the CPU plain version beyond near-ties {r}')
+        xla = nearest_code_xla(xs.cpu(), embed.cpu()).to(device)
+        worse = k1_picks_worse(xs, embed, bias, picks, xla)
+        check(worse == 0, f'layer {layer}: {worse} K1 picks score below the CPU -cdist route\'s beyond near-ties')
+        r['vs_cdist_route'] = dict(disagree=int((picks != xla).sum()), k1_worse=worse)
+        reports.append(r)
+        xla_idx.append(xla)
+    return reports, torch.stack(xla_idx, -1)
+
+
+def phase_rvq_eval_path(device):
+    """ResidualVQ(dim=256, num_quantizers=8, codebook_size=1024).eval() on
+    65,536 tokens: one K1 launch a layer; each layer's indices against the
+    CPU selections on that layer's input (rvq_layers_vs_plain), and the
+    whole model against the same weights on the CPU's -cdist route
+    (use_pallas=False); the output the sum of the looked-up rows and the
+    decode bit for bit; then GroupedResidualVQ(dim=256, groups=2,
+    num_quantizers=4, codebook_size=1024) on the same input."""
+    from vqtpu_torch import GroupedResidualVQ, ResidualVQ
+    b, n, d, q, c = RVQ_MAIN
+    torch.manual_seed(90)
+    rvq = ResidualVQ(dim=d, num_quantizers=q, codebook_size=c, device=device).eval()
+    rvq_scaled_codebooks(rvq, 89)
+    x = rvq_input((b, n), d, device, 91)
+    reset_all_launches()
+    with torch.no_grad():
+        (out, idx, losses), inputs = rvq_with_layer_inputs(rvq, x)
+    sync(device)
+    launches = all_launches()
+    check(launches['nearest_code'] == q and sum(launches.values()) == q,
+          f'the eval forward launched K1 once a layer and nothing else {launches}')
+    check(out.shape == x.shape and idx.shape == (b, n, q) and idx.dtype == torch.int32 and losses.shape == (q,),
+          'ResidualVQ output shapes')
+    rows_sum = None
+    for layer, codebook in enumerate(rvq.codebooks):
+        rows = codebook[idx[..., layer].long()]
+        rows_sum = rows if rows_sum is None else rows_sum + rows
+    check(torch.equal(out, rows_sum), 'the output is the sum of the looked-up rows')
+    with torch.no_grad():
+        decoded = rvq.get_output_from_indices(idx)
+    check(torch.equal(decoded, out), 'get_output_from_indices(indices) equals the forward bit for bit')
+    reports, layer_cpu = rvq_layers_vs_plain(rvq, idx, inputs, device)
+
+    # the whole model on the CPU's -cdist route: a token may differ only
+    # from a layer where the two selections on the same input differ
+    cpu = ResidualVQ(dim=d, num_quantizers=q, codebook_size=c, use_pallas=False, device='cpu').eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in rvq.state_dict().items()})
+    with torch.no_grad():
+        _, cpu_idx, _ = cpu(x.cpu())
+    differ = (cpu_idx.to(device) != idx).reshape(-1, q)
+    tokens_differ = differ.any(-1)
+    first = differ.float().argmax(-1)
+    flat, flat_cpu = idx.reshape(-1, q), layer_cpu.reshape(-1, q)
+    at_first = flat.gather(1, first[:, None]) != flat_cpu.gather(1, first[:, None])
+    unexplained = int((tokens_differ & ~at_first[:, 0]).sum())
+    check(unexplained == 0, f'{unexplained} tokens differ from the CPU model without a layer selection to explain it')
+    del cpu, inputs
+
+    grouped = GroupedResidualVQ(dim=d, groups=2, num_quantizers=4, codebook_size=c, device=device).eval()
+    reset_all_launches()
+    with torch.no_grad():
+        gq, gidx, _ = grouped(x)
+    sync(device)
+    grouped_launches = all_launches()
+    check(grouped_launches['nearest_code'] == 8 and sum(grouped_launches.values()) == 8,
+          f'GroupedResidualVQ launched K1 once a layer and group {grouped_launches}')
+    with torch.no_grad():
+        check(torch.equal(grouped.get_output_from_indices(gidx), gq), 'grouped decode equals the forward')
+    emit('rvq_eval_path', model=f'ResidualVQ(dim={d}, num_quantizers={q}, codebook_size={c}).eval()',
+         input=list(x.shape), launches=launches['nearest_code'], launches_all=launches,
+         per_layer_vs_cpu=reports, tokens_differing_from_cpu_cdist_model=int(tokens_differ.sum()),
+         grouped_model=f'GroupedResidualVQ(dim={d}, groups=2, num_quantizers=4, codebook_size={c}).eval()',
+         grouped_launches=grouped_launches['nearest_code'], output_is_sum_of_rows=True, decode_bit_for_bit=True)
+    return rvq, x, launches['nearest_code'], grouped_launches['nearest_code']
+
+
+def beam_search_reference64(x, codebooks, beam, weights, rel=1e-5):
+    """The beam search of ResidualVQ in float64, independent of the port:
+    each beam's `beam` nearest codes, scored by the running score minus the
+    weighted MSE of the candidate to the beam's residual, the best `beam`
+    kept (stable order), then the best beam. x (N, d), codebooks [(c, d)] ->
+    (indices (N, q), score (N,), the smallest relative margin a near-tie
+    could flip (N,): between the k-th and (k+1)-th candidate of a beam,
+    the beam-th and next score at a prune, the best and second beam)."""
+    n, d = x.shape
+    r = x.double()[:, None, :]
+    scores = torch.zeros(n, 1, dtype=torch.float64, device=x.device)
+    paths = torch.zeros(n, 1, 0, dtype=torch.long, device=x.device)
+    margin = torch.full((n,), float('inf'), dtype=torch.float64, device=x.device)
+
+    def gap(a, b):
+        return (a - b).abs() / torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+
+    for layer, (e, w) in enumerate(zip(codebooks, weights)):
+        e = e.double()
+        j = r.shape[1]
+        d2 = (r ** 2).sum(-1, keepdim=True) - 2 * r @ e.T + (e ** 2).sum(-1)      # (N, j, c)
+        near, cand = torch.sort(d2, dim=-1, stable=True)
+        margin = torch.minimum(margin, gap(near[..., beam], near[..., beam - 1]).amin(-1))
+        cand = cand[..., :beam]                                                   # (N, j, k)
+        rows = e[cand]                                                            # (N, j, k, d)
+        loss = ((rows - r[:, :, None, :]) ** 2).mean(-1)
+        s = (scores[:, :, None] - w * loss).reshape(n, j * beam)
+        new_r = (r[:, :, None, :] - rows).reshape(n, j * beam, d)
+        new_paths = torch.cat((paths[:, :, None, :].expand(n, j, beam, layer), cand[..., None]), -1)
+        new_paths = new_paths.reshape(n, j * beam, layer + 1)
+        if j * beam > beam:
+            ranked, order = torch.sort(s, dim=-1, descending=True, stable=True)
+            margin = torch.minimum(margin, gap(ranked[:, beam - 1], ranked[:, beam]))
+            keep = order[:, :beam]
+            scores = ranked[:, :beam]
+            r = new_r.gather(1, keep[..., None].expand(n, beam, d))
+            paths = new_paths.gather(1, keep[..., None].expand(n, beam, layer + 1))
+        else:
+            scores, r, paths = s, new_r, new_paths
+    ranked, order = torch.sort(scores, dim=-1, descending=True, stable=True)
+    margin = torch.minimum(margin, gap(ranked[:, 0], ranked[:, 1]))
+    best = order[:, 0]
+    return paths[torch.arange(n, device=x.device), best], ranked[:, 0], margin
+
+
+def phase_rvq_beam_path(rvq, device, rel=1e-5):
+    """ResidualVQ(dim=256, num_quantizers=8, codebook_size=1024,
+    beam_size=4).eval() on 8192 tokens, the eval model's weights (its
+    codebooks from rvq_scaled_codebooks): no kernel
+    launch (the beam materializes its distances); indices against the beam
+    search in float64, equal but for tokens with a near-tie on their search;
+    beam_size=1 gives the greedy forward."""
+    from vqtpu_torch import ResidualVQ
+    b, n, beam = RVQ_BEAM
+    _, _, d, q, c = RVQ_MAIN
+    model = ResidualVQ(dim=d, num_quantizers=q, codebook_size=c, beam_size=beam, device=device).eval()
+    model.load_state_dict(rvq.state_dict())
+    x = rvq_input((b, n), d, device, 95)
+    reset_all_launches()
+    with torch.no_grad():
+        out, idx, losses = model(x)
+    sync(device)
+    launches = all_launches()
+    check(sum(launches.values()) == 0, f'the beam forward launched no kernel {launches}')
+    check(out.shape == x.shape and idx.shape == (b, n, q) and losses.shape == (q,), 'beam output shapes')
+    ref_idx, ref_score, margin = beam_search_reference64(x.reshape(-1, d), list(model.codebooks), beam,
+                                                         model.beam_score_weights)
+    differ = (idx.reshape(-1, q).long() != ref_idx).any(-1)
+    near_tie = margin <= rel
+    unexplained = int((differ & ~near_tie).sum())
+    check(unexplained == 0, f'{unexplained} beam paths differ from float64 without a near-tie on their search')
+    # the port's paths scored in float64 against the reference's best
+    r64 = x.reshape(-1, d).double()
+    own = torch.zeros_like(ref_score)
+    for layer, (cb, w) in enumerate(zip(model.codebooks, model.beam_score_weights)):
+        rows = cb.double()[idx.reshape(-1, q)[:, layer].long()]
+        own -= w * ((rows - r64) ** 2).mean(-1)
+        r64 = r64 - rows
+    score_gap = ((own - ref_score) / ref_score.abs()).abs()
+    rows_sum = sum(cb[idx[..., layer].long()] for layer, cb in enumerate(model.codebooks))
+    check(bool(torch.allclose(out, rows_sum, atol=1e-5)), 'the beam output is the sum of its rows')
+
+    reset_all_launches()
+    with torch.no_grad():
+        _, one_idx, _ = model(x, beam_size=1)
+    sync(device)
+    greedy_launches = all_launches()['nearest_code']
+    with torch.no_grad():
+        _, greedy_idx, _ = rvq(x)
+    check(torch.equal(one_idx, greedy_idx) and greedy_launches == q,
+          f'beam_size=1 gives the greedy forward, one K1 launch a layer ({greedy_launches})')
+    with torch.no_grad():
+        greedy_mse = float(((rvq.get_output_from_indices(greedy_idx) - x) ** 2).mean())
+    beam_mse = float(((out - x) ** 2).mean())
+    emit('rvq_beam_path', model=f'ResidualVQ(dim={d}, num_quantizers={q}, codebook_size={c}, beam_size={beam}).eval()',
+         input=list(x.shape), launches=launches, tokens=b * n, paths_differing_from_float64=int(differ.sum()),
+         near_tie_tokens=int(near_tie.sum()), unexplained=unexplained,
+         max_rel_score_gap_of_differing_paths=float(score_gap[differ].max()) if bool(differ.any()) else 0.0,
+         beam_mse=beam_mse, greedy_mse=greedy_mse,
+         beam_size_one_launches=greedy_launches, beam_size_one_is_greedy=True)
+    return model, x
+
+
+def phase_rvq_train_path(device, sizes):
+    """ResidualVQ(dim=256, num_quantizers=8, codebook_size=1024,
+    quantize_dropout=True).train() on 65,536 tokens, dropout index 5, 3
+    forward + backward steps with train_fused='on' and a twin with 'off'
+    from the same state: K4 once a layer a step on 'on', K1 on 'off'; step 0
+    identical on both routes; each route's kept layers every step held to
+    the plain selection and to one float64 EMA step from their own indices
+    and state; the dropped layers' codebooks unchanged."""
+    from vqtpu_torch import ResidualVQ
+    from vqtpu_torch.kernels.distance import nearest_code_plain, selection_bias, selection_disagreements
+    b, n, d, q, c = RVQ_MAIN
+    torch.manual_seed(92)
+    models = {route: ResidualVQ(dim=d, num_quantizers=q, codebook_size=c, quantize_dropout=True,
+                                train_fused=route, device=device).train() for route in ('on', 'off')}
+    models['off'].load_state_dict(models['on'].state_dict())
+    gen = np.random.default_rng(93)
+    batches = [torch.from_numpy(gen.standard_normal((b, n, d), dtype=np.float32)).to(device)
+               for _ in range(sizes['train_steps'])]
+    decay, eps = models['on'].layers[0]._codebook.decay, models['on'].layers[0]._codebook.eps
+    runs, ema_share, loss_err = {}, 0.0, 0.0
+    for route, model in models.items():
+        reset_all_launches()
+        steps = []
+        for s, batch in enumerate(batches):
+            prev = [(vq.codebook.clone(), vq._codebook.cluster_size[0].clone(), vq._codebook.embed_avg[0].clone())
+                    for vq in model.layers]
+            xg = batch.clone().requires_grad_()
+            (out, idx, losses), inputs = rvq_with_layer_inputs(model, xg, rand_quantize_dropout_index=RVQ_DROP)
+            (out.square().mean() + losses.sum()).backward()
+            sync(device)
+            check(bool(torch.isfinite(xg.grad).all()), f'{route} step {s}: x.grad is finite')
+            for layer, (vq, (embed0, cs0, ea0), xl) in enumerate(zip(model.layers, prev, inputs)):
+                cb = vq._codebook
+                if layer > RVQ_DROP:
+                    check(bool((idx[..., layer] == -1).all()) and float(losses[layer].detach()) == 0.0,
+                          f'{route} step {s} layer {layer}: dropped (index -1, loss 0)')
+                    check(torch.equal(vq.codebook, embed0) and torch.equal(cb.cluster_size[0], cs0)
+                          and torch.equal(cb.embed_avg[0], ea0), f'{route} step {s} layer {layer}: codebook unchanged')
+                    continue
+                xs = xl.reshape(-1, d)
+                il = idx[..., layer].reshape(-1)
+                bias = selection_bias(embed0, 'euclidean')
+                r = selection_disagreements(xs, embed0, bias, il, nearest_code_plain(xs, embed0, bias))
+                check(r['non_tie'] == 0, f'{route} step {s} layer {layer}: indices vs the plain selection {r}')
+                loss64 = float((xs.double() - embed0[il.long()].double()).square().mean())
+                err = abs(float(losses[layer].detach()) - loss64) / loss64
+                check(err <= 1e-5, f'{route} step {s} layer {layer}: loss within 1e-5 of float64 ({err})')
+                loss_err = max(loss_err, err)
+                cs, ea, cs_bound, ea_bound = ema_step_reference(xs, il, cs0, ea0, decay)
+                smoothed, _ = smoothed_sizes(cb.cluster_size[0], eps)
+                e_ref = cb.embed_avg[0].double() / smoothed[:, None]
+                for name, got, ref, bound in (('cluster_size', cb.cluster_size[0], cs, cs_bound),
+                                              ('embed_avg', cb.embed_avg[0], ea, ea_bound),
+                                              ('embed', vq.codebook, e_ref, 8 * U32 * e_ref.abs())):
+                    share = float(((got.double() - ref).abs() / bound.clamp_min(1e-300)).max())
+                    check(share <= 1.0, f'{route} step {s} layer {layer}: {name} within the f32 bound of one '
+                                        f'float64 EMA step ({share})')
+                    ema_share = max(ema_share, share)
+            steps.append(dict(idx=idx, out=out.detach(), losses=losses.detach(),
+                              grad=xg.grad if s == 0 else None,
+                              cluster_size=[vq._codebook.cluster_size.clone() for vq in model.layers] if s == 0 else None))
+            del inputs, xg
+        runs[route] = dict(steps=steps, launches=all_launches())
+    on, off = runs['on'], runs['off']
+    steps_n = len(batches)
+    check(on['launches']['train_fused'] == q * steps_n and on['launches']['nearest_code'] == 0,
+          f"'on' launched K4 once a layer a step, dropped layers included, and no K1 {on['launches']}")
+    check(off['launches']['nearest_code'] == q * steps_n and off['launches']['train_fused'] == 0,
+          f"'off' launched K1 once a layer a step and no K4 {off['launches']}")
+    a, b0 = on['steps'][0], off['steps'][0]
+    for name in ('idx', 'out', 'losses', 'grad'):
+        check(torch.equal(a[name], b0[name]), f'step 0: the routes give the same {name}')
+    check(all(torch.equal(x_, y_) for x_, y_ in zip(a['cluster_size'], b0['cluster_size'])),
+          'step 0: the routes give the same cluster sizes')
+    flips = [int((x_['idx'] != y_['idx']).sum()) for x_, y_ in zip(on['steps'], off['steps'])]
+    emit('rvq_train_path', model=f'ResidualVQ(dim={d}, num_quantizers={q}, codebook_size={c}, '
+                                 'quantize_dropout=True).train()',
+         input=list(batches[0].shape), steps=steps_n, dropout_index=RVQ_DROP,
+         launches_on=on['launches'], launches_off=off['launches'],
+         losses_on=[t['losses'].tolist() for t in on['steps']], losses_off=[t['losses'].tolist() for t in off['steps']],
+         index_flips_between_routes_per_step=flips, step0_identical=['indices', 'output', 'losses', 'x.grad',
+                                                                     'cluster_size'],
+         ema_step_share_of_bound=ema_share, loss_rel_err_vs_float64=loss_err, dropped_layers_unchanged=True)
+    return models, batches[0], on['launches']['train_fused'] // steps_n, off['launches']['nearest_code'] // steps_n
+
+
+def phase_rvq_flagship_train(device, sizes):
+    """The RQ-VAE of examples/autoencoder_rvq.py (BASELINE.json config 4):
+    SimpleQuantizeAutoEncoder(ResidualVQ(dim=32, num_quantizers=8,
+    codebook_size=256, kmeans_init=True, shared_codebook=True,
+    stochastic_sample_codes=True, sample_codebook_temp=0.1), dim=32), 50
+    AdamW steps at batch 256. Step 0 against the same weights on the CPU,
+    with the gumbel noise and kmeans' rows given to both; no kernel in
+    training (stochastic codes take the distance path); the eval forward
+    after training launches K1 once a layer."""
+    import vqtpu_torch.codebook.kmeans as tkmeans
+    import vqtpu_torch.core.sampling as tsampling
+    from vqtpu_torch import ResidualVQ, SimpleQuantizeAutoEncoder
+    from vqtpu_torch.core.metrics import codebook_perplexity
+    alpha = 10.0    # examples/autoencoder_rvq.py
+    q = 8
+
+    def build(dev):
+        return SimpleQuantizeAutoEncoder(
+            ResidualVQ(dim=32, num_quantizers=q, codebook_size=256, kmeans_init=True, shared_codebook=True,
+                       stochastic_sample_codes=True, sample_codebook_temp=0.1, device=dev),
+            dim=32, device=dev,
+        ).train()
+
+    def loss_of(model, x):
+        out, idx, cmt = model(x)
+        rec = (out.clamp(-1, 1) - x).abs().mean()
+        return rec + alpha * cmt.sum(), rec, idx
+
+    torch.manual_seed(96)
+    model = build(device)
+    ref = build('cpu')
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    rng = np.random.default_rng(97)
+    images = [rng.random((sizes['images'], 28, 28, 1), dtype=np.float32) for _ in range(sizes['flagship_steps'])]
+
+    # step 0 on both devices, with the same noise (drawn on the CPU, call by
+    # call on each side) and the same kmeans rows
+    calls = {'n': 0}
+    draw_noise, draw_means = tsampling.gumbel_noise, tkmeans.sample_means
+
+    def same_noise(gen, shape, device=None):
+        calls['n'] += 1
+        return draw_noise(torch.Generator().manual_seed(1000 + calls['n']), shape).to(device)
+
+    def same_means(gen, samples, mask, num):
+        rows = torch.from_numpy(np.random.default_rng(98).integers(0, samples.shape[1], num)).to(samples.device)
+        return samples[:, rows]
+
+    tsampling.gumbel_noise, tkmeans.sample_means = same_noise, same_means
+    try:
+        x = torch.from_numpy(images[0])
+        reset_all_launches()
+        loss, rec, idx = loss_of(model, x.to(device))
+        loss.backward()
+        sync(device)
+        step0_launches = all_launches()
+        draws = [calls['n']]
+        calls['n'] = 0
+        ref_loss, ref_rec, ref_idx = loss_of(ref, x)
+        ref_loss.backward()
+        draws.append(calls['n'])
+    finally:
+        tsampling.gumbel_noise, tkmeans.sample_means = draw_noise, draw_means
+    check(draws == [q, q], f'each side drew the noise once a layer {draws}')
+    agree = float((idx.cpu() == ref_idx).float().mean())
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    cb, rcb = model.quantizer.layers[0]._codebook, ref.quantizer.layers[0]._codebook
+    embed_err = float((cb.embed.cpu() - rcb.embed).abs().max() / rcb.embed.abs().max())
+    check(agree >= 0.99 and loss_rel <= 1e-3,
+          f'flagship step 0 matches the CPU (index agreement {agree}, loss {loss_rel})')
+    grad_err = 0.0
+    if agree == 1.0:
+        for (name, p), (_, rp) in zip(model.named_parameters(), ref.named_parameters()):
+            err = float((p.grad.cpu() - rp.grad).abs().max() / rp.grad.abs().max().clamp_min(1e-30))
+            grad_err = max(grad_err, err)
+        check(grad_err <= 1e-3 and embed_err <= 1e-4,
+              f'flagship step 0: gradients and the shared codebook match the CPU ({grad_err}, {embed_err})')
+    check(all(layer._codebook is cb for layer in model.quantizer.layers), 'one codebook shared by every layer')
+    opt.step()
+    opt.zero_grad()
+
+    losses, recs = [loss.item()], [rec.item()]
+    reset_all_launches()
+    for step in range(1, len(images)):
+        loss, rec, idx = loss_of(model, torch.from_numpy(images[step]).to(device))
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.item())
+        recs.append(rec.item())
+    sync(device)
+    train_launches = all_launches()
+    check(sum(step0_launches.values()) == 0 and sum(train_launches.values()) == 0,
+          f'training takes the distance path, no kernel ({step0_launches}, {train_launches})')
+    check(all(np.isfinite(losses)), 'flagship losses are finite')
+    first, last = float(np.mean(recs[:5])), float(np.mean(recs[-5:]))
+    check(last < first, f'the reconstruction loss falls ({first} -> {last})')
+    model.eval()
+    reset_all_launches()
+    with torch.no_grad():
+        recon, eval_idx, _ = model(torch.from_numpy(images[0]).to(device))
+    sync(device)
+    eval_launches = all_launches()
+    check(eval_launches['nearest_code'] == q and sum(eval_launches.values()) == q,
+          f'the trained flagship eval forward launched K1 once a layer {eval_launches}')
+    check(bool(torch.isfinite(recon).all()) and eval_idx.shape == (sizes['images'], 49, q), 'flagship eval output')
+    emit('rvq_flagship_train',
+         model='SimpleQuantizeAutoEncoder(ResidualVQ(dim=32, num_quantizers=8, codebook_size=256, kmeans_init=True, '
+               'shared_codebook=True, stochastic_sample_codes=True, sample_codebook_temp=0.1), dim=32)',
+         optimizer='AdamW(lr=3e-4, weight_decay=1e-4)', input=[sizes['images'], 28, 28, 1], steps=len(images),
+         loss='|clip(out) - x|.mean() + 10 * commit.sum()', loss_first=losses[0], loss_last=losses[-1],
+         rec_mean_first5=first, rec_mean_last5=last, train_launches=train_launches, eval_launches=eval_launches,
+         step0_vs_cpu=dict(index_agreement=agree, loss_rel_err=loss_rel, shared_embed_rel_err=embed_err,
+                           grad_max_rel_err=grad_err),
+         codebook_perplexity_per_layer=[float(codebook_perplexity(eval_idx[..., i], 256)) for i in range(q)])
+    return model, eval_launches['nearest_code']
+
+
+def phase_rvq_times(rvq, x, beam_model, xb, train_models, train_x, sizes, smi):
+    """CUDA events at the slice's shapes: the ResidualVQ eval forward, K1 on
+    one layer's operands against its 3xTF32 bound, their share, a profile of
+    the forward; the beam forward; a training step per route; a flagship
+    AdamW step."""
+    from vqtpu_torch import ResidualVQ, SimpleQuantizeAutoEncoder
+    from vqtpu_torch.kernels.distance import quantize_lookup
+    b, n, d, q, c = RVQ_MAIN
+    tokens = b * n
+    reps = sizes['rvq_reps']
+
+    def forward():
+        with torch.no_grad():
+            rvq(x)
+
+    layer0 = x.reshape(-1, d).contiguous()
+    embed = rvq.layers[0]._codebook.embed[0].contiguous()
+
+    def k1():
+        quantize_lookup(layer0, embed)
+
+    fa = cuda_ms(forward, reps)
+    ka, kb = cuda_ms(k1, 2 * reps), cuda_ms(k1, 2 * reps)
+    fb = cuda_ms(forward, reps)
+    fwd_ms, k1_ms = (fa + fb) / 2, (ka + kb) / 2
+    bound, bound_by = selection_bound_tc_ms(tokens, c, d)
+    profile = profile_device(forward, 3)
+
+    def beam():
+        with torch.no_grad():
+            beam_model(xb)
+    beam_ms = cuda_ms(beam, sizes['rvq_beam_reps'], warmup=1)
+    beam_profile = profile_device(beam, 1)
+
+    train_x = train_x.clone().requires_grad_()
+
+    def train_step(model):
+        def run():
+            out, _, losses = model(train_x, rand_quantize_dropout_index=RVQ_DROP)
+            (out.square().mean() + losses.sum()).backward()
+        return run
+    step_ms = {route: [] for route in train_models}
+    for route in ('on', 'off', 'off', 'on'):
+        step_ms[route].append(cuda_ms(train_step(train_models[route]), sizes['rvq_step_reps'], warmup=1))
+
+    torch.manual_seed(99)
+    flagship = SimpleQuantizeAutoEncoder(
+        ResidualVQ(dim=32, num_quantizers=8, codebook_size=256, kmeans_init=True, shared_codebook=True,
+                   stochastic_sample_codes=True, sample_codebook_temp=0.1, device='cuda'),
+        dim=32, device='cuda').train()
+    opt = torch.optim.AdamW(flagship.parameters(), lr=3e-4, weight_decay=1e-4)
+    imgs = torch.from_numpy(np.random.default_rng(100).random((sizes['images'], 28, 28, 1), dtype=np.float32)).cuda()
+
+    def flagship_step():
+        out, _, cmt = flagship(imgs)
+        ((out.clamp(-1, 1) - imgs).abs().mean() + 10.0 * cmt.sum()).backward()
+        opt.step()
+        opt.zero_grad()
+    flagship_ms = cuda_ms(flagship_step, sizes['rvq_step_reps'], warmup=2)
+    step_mean = {r: sum(t) / len(t) for r, t in step_ms.items()}
+    emit('rvq_times', card=smi, shape=dict(tokens=tokens, d=d, q=q, c=c), reps=reps,
+         forward_ms=fwd_ms, forward_ms_runs=[fa, fb], vectors_per_s=tokens / (fwd_ms / 1e3),
+         k1_layer_ms=k1_ms, k1_layer_ms_runs=[ka, kb], k1_layer_bound_ms=bound, k1_bound_by=bound_by,
+         k1_share_of_bound=bound / k1_ms, k1_forward_ms=q * k1_ms, k1_forward_bound_ms=q * bound,
+         k1_share_of_forward=q * k1_ms / fwd_ms, forward_outside_k1_ms=fwd_ms - q * k1_ms,
+         profile_forward=profile,
+         profile_note='K1 is launched through ctypes, and torch.profiler may show no event of it; '
+                      'k1_share_of_forward is CUDA-event time',
+         beam_model=f'beam_size={RVQ_BEAM[2]} on {RVQ_BEAM[0] * RVQ_BEAM[1]} tokens', beam_forward_ms=beam_ms,
+         profile_beam_forward=beam_profile,
+         train_step_ms=step_mean, train_step_ms_runs=step_ms, train_step='forward + backward, loss mean(q^2) + '
+         f'losses.sum(), dropout index {RVQ_DROP}',
+         flagship_step_ms=flagship_ms, flagship_step='AdamW step of the RQ-VAE at batch 256',
+         bound_basis='H100 SXM at 700 W: 495 TFLOP/s dense TF32 (3 products), 3.35 TB/s')
+    return dict(rvq_forward_ms=fwd_ms, rvq_k1_layer_ms=k1_ms, rvq_k1_layer_bound_ms=bound,
+                rvq_beam_forward_ms=beam_ms, rvq_train_step_ms=step_mean, rvq_flagship_step_ms=flagship_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -2130,6 +2696,9 @@ def main() -> int:
         'lfq_step_reps': 3,
         'rfsq_reps': 50,
         'rfsq_plain_reps': 5,
+        'rvq_reps': 10,
+        'rvq_beam_reps': 3,
+        'rvq_step_reps': 3,
     }
 
     kind, count, smi, ptxas = phase_device()
@@ -2165,6 +2734,12 @@ def main() -> int:
     rfsq_launches, rfsq_grouped_launches = phase_rfsq_eval_path(device)
     phase_fsq_train_path(device, sizes)
     rfsq_times = phase_rfsq_times(sizes, smi)
+    rvq, rvq_x, rvq_launches, grouped_rvq_launches = phase_rvq_eval_path(device)
+    beam_model, beam_x = phase_rvq_beam_path(rvq, device)
+    rvq_train_models, rvq_train_x, rvq_on_launches, rvq_off_launches = phase_rvq_train_path(device, sizes)
+    rvq_flagship, rvq_flagship_launches = phase_rvq_flagship_train(device, sizes)
+    rvq_times = phase_rvq_times(rvq, rvq_x, beam_model, beam_x, rvq_train_models, rvq_train_x, sizes, smi)
+    del rvq, rvq_x, beam_model, beam_x, rvq_train_models, rvq_train_x, rvq_flagship
     check_no_spill(ptxas)
 
     print(json.dumps({'kernels': [{
@@ -2176,6 +2751,12 @@ def main() -> int:
         'launches': main_launches,
         'launches_flagship': flagship_launches,
         'launches_train_off_route': off_route_launches,
+        'launches_rvq_eval': rvq_launches,
+        'launches_grouped_rvq_eval': grouped_rvq_launches,
+        'launches_rvq_train_off_per_step': rvq_off_launches,
+        'launches_rvq_flagship_eval': rvq_flagship_launches,
+        'rvq_layer_ms': rvq_times['rvq_k1_layer_ms'],
+        'rvq_layer_bound_ms': rvq_times['rvq_k1_layer_bound_ms'],
         'max_abs_err': selection['main']['max_score_gap'],
         'max_abs_err_of': 'float64 score gap between the kernel and plain picks at the main shape',
         'design': KERNEL_DESIGN,
@@ -2195,6 +2776,7 @@ def main() -> int:
         'replaces': TRAIN_REPLACES,
         'launches': train_launches,
         'launches_flagship_train': flagship_train_launches,
+        'launches_rvq_train_on_per_step': rvq_on_launches,
         'max_abs_err': train_err,
         'max_abs_err_of': 'max |esum - float64 sum| at the main shape (indices and rows are exact)',
         'design': TRAIN_DESIGN,

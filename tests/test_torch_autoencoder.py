@@ -78,15 +78,18 @@ def test_conv_parts_match_jax(part):
 
 
 def test_autoencoder_training_forward_not_ported():
-    """The training forward is ported (test_autoencoder_training_step_matches_jax);
-    the quantizer features it still lacks raise through the model and name
-    themselves, and a state that lacks a part is refused."""
+    """The training forward is ported (test_autoencoder_training_step_matches_jax),
+    and the quantizer's forward kwargs pass through the model: a per-token
+    codebook, and given codes, which return (reconstruction, cross
+    entropy) (held against the JAX package in test_torch_vq_distances.py);
+    a state that lacks a part is refused."""
     _, tm = _flagship()
     tm.train()
-    for kwargs, feature in ((dict(topk=2), 'topk='),
-                            (dict(codebook_transform_fn=lambda e: e), 'codebook_transform_fn=')):
-        with pytest.raises(NotImplementedError, match=feature):
-            tm(torch.zeros(2, 28, 28, 1), **kwargs)
+    x = torch.zeros(2, 28, 28, 1)
+    recon, idx, loss = tm(x, codebook_transform_fn=lambda e: e[:, None, None].expand(1, 2, 49, *e.shape[1:]))
+    assert recon.shape == x.shape and idx.shape == (2, 49) and float(loss.detach()) >= 0.0
+    recon, ce = tm(x, indices=torch.zeros(2, 49, dtype=torch.long))
+    assert recon.shape == x.shape and bool(torch.isfinite(ce))
     with pytest.raises(KeyError, match='decoder'):
         load_vqtpu_state(tm, {k: v for k, v in jax_state(_flagship()[0]).items() if k != 'decoder'})
 

@@ -667,3 +667,77 @@ def test_fsq_on_card_matches_cpu(card):
     got, got_idx = fsq(xs.to(card))
     want, want_idx = fsq.cpu()(xs)
     assert torch.equal(got_idx.cpu(), want_idx) and torch.equal(got.cpu(), want)
+
+
+# -- ResidualVQ and GroupedResidualVQ: K1 and K4 per layer --------------------------
+
+
+def _rvq_pair(card, route, **kw):
+    torch.manual_seed(20)
+    models = [vqtpu_torch.ResidualVQ(**kw, train_fused=r, device=card) for r in route]
+    for m in models[1:]:
+        m.load_state_dict(models[0].state_dict())
+    return models
+
+
+def test_rvq_launches_per_layer(card):
+    """An eval forward launches K1 once per layer; a training step K4 once
+    per layer on 'on' (and the default 'auto'), dropped layers included, and
+    K1 once per layer on 'off'; GroupedResidualVQ once per layer and group."""
+    kw = dict(dim=64, num_quantizers=4, codebook_size=128, quantize_dropout=True)
+    on, off, auto = _rvq_pair(card, ('on', 'off', 'auto'), **kw)
+    x = torch.randn(4, 256, 64, device=card, requires_grad=True)
+    launches = {}
+    for name, model, mode in (('eval', on, 'eval'), ('on', on, 'train'), ('off', off, 'train'),
+                              ('auto', auto, 'train')):
+        getattr(model, mode)()
+        td.nearest_code.launches = ttf.fused_train_quantize.launches = 0
+        q, idx, losses = model(x, rand_quantize_dropout_index=1)
+        if mode == 'train':
+            (q.square().mean() + losses.sum()).backward()
+        torch.cuda.synchronize()
+        launches[name] = (td.nearest_code.launches, ttf.fused_train_quantize.launches)
+    assert launches == {'eval': (4, 0), 'on': (0, 4), 'off': (4, 0), 'auto': (0, 4)}, launches
+    grouped = vqtpu_torch.GroupedResidualVQ(dim=64, groups=2, num_quantizers=4, codebook_size=128,
+                                            device=card).eval()
+    td.nearest_code.launches = 0
+    with torch.no_grad():
+        q, idx, _ = grouped(x.detach())
+        assert torch.equal(grouped.get_output_from_indices(idx), q)
+    assert td.nearest_code.launches == 8 and idx.shape == (2, 4, 256, 4)
+
+
+def test_rvq_training_routes_identical_at_step_zero(card):
+    """K4 runs K1's tile with its rows: from one state the 'on' and 'off'
+    routes pick the same indices at every layer of the first step and give
+    the same output."""
+    on, off = _rvq_pair(card, ('on', 'off'), dim=64, num_quantizers=4, codebook_size=128)
+    x = torch.randn(4, 512, 64, device=card)
+    out = [m.train()(x) for m in (on, off)]
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][2], out[1][2])
+
+
+def test_rvq_beam_ranking_ignores_tf32_setting(card):
+    """The beam's distances are full f32 whatever the matmul precision
+    setting: under 'high' (TF32) the beam indices equal those under
+    'highest', and the setting is left as it was."""
+    torch.manual_seed(21)
+    rvq = vqtpu_torch.ResidualVQ(dim=64, num_quantizers=4, codebook_size=256, beam_size=4, device=card).eval()
+    x = torch.randn(2, 1024, 64, device=card)
+    before = torch.get_float32_matmul_precision()
+    try:
+        out = {}
+        for precision in ('highest', 'high'):
+            torch.set_float32_matmul_precision(precision)
+            td.nearest_code.launches = 0
+            with torch.no_grad():
+                out[precision] = rvq(x)
+            assert td.nearest_code.launches == 0
+            assert torch.get_float32_matmul_precision() == precision
+        assert torch.equal(out['high'][1], out['highest'][1])
+        assert torch.equal(out['high'][0], out['highest'][0])
+    finally:
+        torch.set_float32_matmul_precision(before)
+        torch.backends.cuda.matmul.allow_tf32 = False

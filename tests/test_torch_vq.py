@@ -174,32 +174,42 @@ def test_vq_return_loss_breakdown_and_bf16_input():
 
 
 def test_vq_training_forward_not_ported():
-    """The training forward is ported (tests/test_torch_vq_train.py); the
-    features it still lacks raise in both modes and name themselves."""
+    """The training forward is ported (tests/test_torch_vq_train.py), and so
+    are the distance-materializing features (held against the JAX package
+    in tests/test_torch_vq_distances.py), in both modes; the codebook
+    features still to port raise and name themselves."""
     _, tvq = _pair(dict(dim=16, codebook_size=32))
     x = torch.zeros(2, 4, 16)
     for mode in ('train', 'eval'):
         getattr(tvq, mode)()
-        for kwargs, feature in (
-            (dict(indices=torch.zeros(2, 4, dtype=torch.long)), 'indices='),
-            (dict(topk=2), 'topk='),
-            (dict(codebook_transform_fn=lambda e: e), 'codebook_transform_fn='),
-        ):
-            with pytest.raises(NotImplementedError, match=feature):
-                tvq(x, **kwargs)
+        q, idx, loss = tvq(x, topk=2)
+        assert q.shape == (2, 4, 2, 16) and idx.shape == loss.shape == (2, 4, 2)
+        q, ce = tvq(x, indices=torch.zeros(2, 4, dtype=torch.long))
+        assert q.shape == x.shape and bool(torch.isfinite(ce))
+        q, idx, _ = tvq(x, codebook_transform_fn=lambda e: e[:, None, None].expand(1, 2, 4, 32, 16))
+        assert q.shape == x.shape and idx.shape == (2, 4)
     tvq.train()
     q, idx, loss = tvq(x)
     assert q.shape == x.shape and float(loss) >= 0.0
 
-    cb = Codebook(16, 8, device='cpu')
-    for mode in ('train', 'eval'):
-        getattr(cb, mode)()
-        with pytest.raises(NotImplementedError, match='need_distances'):
-            cb(torch.zeros(3, 16))
-        with pytest.raises(NotImplementedError, match='stochastic'):
-            cb(torch.zeros(3, 16), need_distances=False, stochastic=True)
-    with pytest.raises(NotImplementedError, match='stat_precision'):
-        Codebook(16, 8, stat_precision='default', device='cpu')
+    for kwargs, feature in (
+        (dict(learnable_codebook=True), 'learnable_codebook'),
+        (dict(affine_param=True), 'affine_param'),
+        (dict(vq_bridge=lambda e: e), 'vq_bridge'),
+        (dict(sync_axis='data'), 'sync_axis'),
+        (dict(code_axis='code'), 'code_axis'),
+        (dict(stat_precision='default'), 'stat_precision'),
+    ):
+        with pytest.raises(NotImplementedError, match=feature):
+            Codebook(16, 8, device='cpu', **kwargs)
+    # the distance path of a bare codebook: distances (h, n, c) beside the
+    # fast path's None, and the same indices
+    cb = Codebook(16, 8, device='cpu').eval()
+    z = torch.randn(3, 16)
+    q_fast, i_fast, none = cb(z, need_distances=False)
+    q_dist, i_dist, dist = cb(z)
+    assert none is None and dist.shape == (1, 3, 8)
+    assert torch.equal(i_fast, i_dist) and torch.equal(q_fast, q_dist)
     # a kmeans_init codebook initialises on its first forward, in eval too,
     # as the JAX package does (held against it in test_torch_vq_train.py)
     cb = Codebook(16, 8, kmeans_init=True, device='cpu').eval()
@@ -215,12 +225,8 @@ def test_vq_training_forward_not_ported():
     (dict(learnable_codebook=True, ema_update=False), 'learnable_codebook'),
     (dict(affine_param=True), 'affine_param'),
     (dict(in_place_codebook_optimizer=object()), 'in_place_codebook_optimizer'),
-    (dict(stochastic_sample_codes=True), 'stochastic'),
-    (dict(straight_through=True), 'gumbel'),
     (dict(orthogonal_reg_weight=0.1), 'orthogonal_reg_weight'),
     (dict(directional_reparam=True, threshold_ema_dead_code=2), 'directional_reparam'),
-    (dict(commitment_use_cross_entropy_loss=True), 'commitment_use_cross_entropy_loss'),
-    (dict(codebook_diversity_loss_weight=0.1), 'codebook_diversity_loss_weight'),
     (dict(stat_precision='default'), 'stat_precision'),
 ))
 def test_vq_out_of_slice_features_raise(kwargs, feature):

@@ -11,7 +11,15 @@ accum_embed_avg) and runs both forwards:
   batch. With `train_fused='on'`, or 'auto' on the card, selection, lookup
   and batch statistics run in one fused kernel (`fused_train_quantize`);
   otherwise ('off', or 'auto' on the CPU) the selection kernel with its row
-  copy (`quantize_lookup`) and `code_statistics_plain`.
+  copy (`quantize_lookup`) and `code_statistics_plain`;
+- the distance-materializing path, for callers that need the (N, c)
+  distances (cross-entropy and diversity losses), stochastic or gumbel
+  straight-through sampling, top-k candidates or a per-token codebook
+  (`codebook_transform_fn`): -cdist (euclidean) or the cosine dot in plain
+  torch, full f32 on the card whatever the TF32 setting, then
+  `gumbel_sample_fn`; rows by gather in eval and by the differentiable
+  one-hot product in training. The JAX package computes this path outside
+  any Pallas kernel too.
 
 Buffers are updated in place under `torch.no_grad()` from detached tensors,
 so no graph is kept on them from step to step. Random draws (kmeans init,
@@ -26,12 +34,13 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..core.sampling import masked_sample_vectors
+from ..core.sampling import gumbel_sample, masked_sample_vectors
 from ..core.utils import (
-    append_dims_to, default, l2norm, laplace_smoothing, pack_tokens, resolve_device, uniform_init,
+    append_dims_to, cdist, default, full_f32_matmul, l2norm, laplace_smoothing, pack_tokens,
+    resolve_device, uniform_init,
 )
 from ..kernels.distance import (
-    gather_codes_per_head, nearest_code_xla, quantize_lookup,
+    gather_codes, gather_codes_per_head, nearest_code_xla, quantize_lookup,
 )
 from ..kernels.train_fused import code_statistics_plain, fused_train_quantize
 from . import kmeans as kmeans_module
@@ -105,9 +114,12 @@ class Codebook(nn.Module):
         device: str | torch.device | None = None,
     ):
         """`use_pallas=False` selects with the JAX package's XLA formulation
-        in plain torch instead of the kernels. `sync_kmeans`,
-        `gumbel_sample_fn` and `sample_codebook_temp` belong to paths not
-        ported yet and are accepted for the JAX signature."""
+        in plain torch instead of the kernels. `gumbel_sample_fn` (default
+        `core.sampling.gumbel_sample`) picks codes from the distances on the
+        distance-materializing path, with `self.generator` for its noise
+        and `sample_codebook_temp` as its temperature. `sync_kmeans` belongs
+        to the data-parallel path, not ported yet, and is accepted for the
+        JAX signature."""
         super().__init__()
         for feature, used in (
             ('sync_axis', sync_axis is not None),
@@ -139,6 +151,8 @@ class Codebook(nn.Module):
         self.use_pallas = use_pallas
         self.quantize_tier = quantize_tier
         self.train_fused = train_fused
+        self.gumbel_sample_fn = default(gumbel_sample_fn, gumbel_sample)
+        self.sample_codebook_temp = sample_codebook_temp
         self.threshold_ema_dead_code = threshold_ema_dead_code
         self.has_dead_code_replacement = threshold_ema_dead_code > 0
         self.reset_cluster_size = default(reset_cluster_size, threshold_ema_dead_code)
@@ -404,33 +418,37 @@ class Codebook(nn.Module):
         stochastic: bool = False,
         straight_through_onehot: bool = False,
         dist_precision=None,
-    ) -> tuple[torch.Tensor, torch.Tensor, None]:
-        """Quantize (h?, b, n, d) tokens -> (quantize, indices int32, None).
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+        """Quantize (h?, b, n, d) tokens -> (quantize, indices int32,
+        distances or None).
 
-        The quantized rows are detached codebook rows: the EMA codebook
-        takes no gradient. In training mode (and with `update_usage`, and
-        without `freeze_codebook`) the batch updates the EMA state; `mask`
-        (b, n) weights those statistics. `sample_codebook_temp` and
-        `dist_precision` only act on the distance-materializing paths,
-        which are not ported yet.
+        With `need_distances=False` and none of `topk`, `stochastic` (in
+        training), `straight_through_onehot` or `codebook_transform_fn`, the
+        kernels select and look up without forming the distances, and the
+        third value is None. Otherwise the distances (h, b, n, c) are the
+        third value (with the head dim even for a (b, n, d) input, as in the
+        JAX package), `topk=k` adds a candidate dim k before d in quantize
+        and last in the indices, and `codebook_transform_fn(embed)` gives a
+        per-token codebook (h, b, n, c, d).
+
+        The quantized rows are detached codebook rows, except that in
+        training the distance path looks them up by the one-hot product,
+        which carries the gumbel straight-through gradient to the
+        distances. The EMA codebook itself takes no gradient. In training
+        mode (and with `update_usage`, without `freeze_codebook` and without
+        `topk`) the batch updates the EMA state; `mask` (b, n) weights those
+        statistics. `dist_precision` is the JAX package's matmul precision
+        knob: the distances here are always full f32.
         """
-        for feature, used in (
-            ('need_distances=True (the distance-materializing path)', need_distances),
-            ('topk=', topk is not None),
-            ('codebook_transform_fn=', codebook_transform_fn is not None),
-            ('stochastic sampling', stochastic),
-            ('gumbel straight-through sampling', straight_through_onehot),
-        ):
-            if used:
-                raise not_ported(feature)
         ema_update = default(ema_update, self.ema_update)
+        sample_codebook_temp = default(sample_codebook_temp, self.sample_codebook_temp)
 
         needs_codebook_dim = x.ndim < 4
         x = x.float()
         if needs_codebook_dim:
             x = x[None]
-        flatten, unpack = pack_tokens(x)                          # (h, N, d)
-        flatten = flatten.detach().contiguous()
+        tokens, unpack = pack_tokens(x)                           # (h, N, d)
+        flatten = tokens.detach().contiguous()
         h, num_tokens = flatten.shape[:2]
         if self.embed.shape[0] != h:
             raise ValueError(f'{h} head groups of tokens for {self.embed.shape[0]} codebooks')
@@ -443,14 +461,22 @@ class Codebook(nn.Module):
         embed = self.embed
         metric = 'cosine' if self.use_cosine_sim else 'euclidean'
         update = self.training and update_usage and not freeze_codebook
-        fused_stats = None
+        use_stochastic = (self.training and stochastic and sample_codebook_temp is not None
+                          and sample_codebook_temp > 0)
+        fast_path = (not need_distances and not use_stochastic and not straight_through_onehot
+                     and topk is None and codebook_transform_fn is None)
+        batch_stats = None
+        dist = embed_onehot = None
 
-        if update and self.use_pallas and self._train_fused_active(flatten.device.type):
+        if not fast_path:
+            embed_ind, quantize, dist, embed_onehot = self._distance_select(
+                tokens, embed, sample_codebook_temp, topk, codebook_transform_fn)
+        elif update and self.use_pallas and self._train_fused_active(flatten.device.type):
             weights = None if flat_mask is None else flat_mask.float().contiguous()
             embed_ind, quantize, bins, esum = fused_train_quantize(
                 flatten, embed, metric, weights
             )
-            fused_stats = (bins, esum)
+            batch_stats = (bins, esum)
         elif not self.training and self.quantize_tier == 'bf16':
             embed_ind, quantize = quantize_lookup(flatten, embed, metric, tier='bf16')
         elif self.use_pallas:
@@ -460,10 +486,14 @@ class Codebook(nn.Module):
             embed_ind = nearest_code_xla(flatten, embed, metric)
             quantize = gather_codes_per_head(embed, embed_ind)
 
-        if update:
-            if fused_stats is not None:
+        if update and topk is None:
+            if embed_onehot is not None:
+                # as in the JAX package: the sampler's one-hot, whose
+                # straight-through form is 1 or 0 only to within an ulp
+                batch_stats = self._onehot_statistics(flatten, embed_onehot, flat_mask)
+            if batch_stats is not None:
                 self.update_codebook_from_stats(
-                    flatten, *fused_stats, mask=flat_mask, ema_update_weight=ema_update_weight,
+                    flatten, *batch_stats, mask=flat_mask, ema_update_weight=ema_update_weight,
                     accum_ema_update=accum_ema_update, ema_update=ema_update,
                 )
             else:
@@ -477,4 +507,65 @@ class Codebook(nn.Module):
         if needs_codebook_dim:
             quantize = quantize[0]
             embed_ind = embed_ind[0]
-        return quantize, embed_ind, None
+        return quantize, embed_ind, None if dist is None else unpack(dist)
+
+    @torch.no_grad()
+    def _onehot_statistics(self, flatten, embed_onehot, mask):
+        """(h, N, d) tokens and their (h, N, c) one-hot -> (bins (h, c), esum
+        (h, c, d)), tokens where `mask` (h, N) is False counting for
+        nothing; the product in full f32."""
+        w = embed_onehot.detach().float()
+        if mask is not None:
+            w = w * mask[..., None]
+        with full_f32_matmul(flatten.device):
+            return w.sum(1), w.transpose(1, 2) @ flatten
+
+    def _distance_select(self, tokens, embed, temperature, topk, codebook_transform_fn):
+        """The distance-materializing path: (h, N, d) tokens (carrying their
+        gradient) -> (indices (h, N[, k]) int32, rows (h, N[, k], d),
+        distances (h, N, c), the sampler's one-hot (h, N[, k], c)).
+
+        Distances are -cdist (euclidean) or the dot (cosine), against the
+        codebook or the per-token codebook of `codebook_transform_fn`; the
+        codes come from `gumbel_sample_fn`. Rows: in eval an exact gather
+        (the JAX package's one-hot product at HIGHEST is the same values);
+        in training the one-hot product in full f32, which is exact for a
+        0/1 one-hot and differentiable through a straight-through one."""
+        h, num_tokens, d = tokens.shape
+        # the graph keeps the codebook as it was: the EMA update writes the
+        # buffer in place before the backward pass
+        embed = embed.clone()
+        transformed = None
+        with full_f32_matmul(tokens.device):
+            if codebook_transform_fn is not None:
+                transformed = codebook_transform_fn(embed)               # (h, b, n, c, d)
+                transformed = transformed.reshape(h, num_tokens, *transformed.shape[-2:])
+                if self.use_cosine_sim:
+                    transformed = l2norm(transformed)
+                    dist = (transformed @ tokens[..., None])[..., 0]      # (h, N, c)
+                else:
+                    diff = tokens[..., None, :] - transformed
+                    dist = -torch.sqrt((diff ** 2).sum(-1).clamp_min(1e-12))
+            elif self.use_cosine_sim:
+                dist = tokens @ embed.transpose(-1, -2)
+            else:
+                dist = -cdist(tokens, embed)
+
+            embed_ind, embed_onehot = self.gumbel_sample_fn(
+                self.generator, dist, temperature=temperature, training=self.training, topk=topk,
+            )
+            c = dist.shape[-1]
+            if transformed is not None:
+                if self.training:
+                    onehot = embed_onehot.reshape(h, num_tokens, -1, c)
+                    quantize = onehot @ transformed                       # (h, N, K, d)
+                else:
+                    ind = embed_ind.reshape(h, num_tokens, -1, 1).long().expand(-1, -1, -1, d)
+                    quantize = transformed.gather(2, ind)
+                quantize = quantize.reshape(*embed_ind.shape, d)
+            elif self.training:
+                onehot = embed_onehot.reshape(h, -1, c)
+                quantize = (onehot @ embed).reshape(*embed_ind.shape, d)
+            else:
+                quantize = torch.stack([gather_codes(embed[i], embed_ind[i]) for i in range(h)])
+        return embed_ind, quantize, dist, embed_onehot

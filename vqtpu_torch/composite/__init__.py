@@ -2,3 +2,4 @@
 
 from .residual_fsq import GroupedResidualFSQ, ResidualFSQ
 from .residual_lfq import GroupedResidualLFQ, ResidualLFQ
+from .residual_vq import GroupedResidualVQ, ResidualVQ

@@ -8,6 +8,7 @@ the CPU, and never quietly on the CPU when the card is missing.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Any, Callable
 
 import torch
@@ -19,6 +20,14 @@ def exists(val: Any) -> bool:
 
 def default(val, d):
     return val if val is not None else d
+
+
+def first(it):
+    return it[0]
+
+
+def cast_tuple(t, length: int = 1) -> tuple:
+    return t if isinstance(t, tuple) else ((t,) * length)
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -91,6 +100,28 @@ def cdist_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y2 = (y ** 2).sum(-1)
     xy = x @ y.transpose(-1, -2)
     return x2[..., :, None] - 2.0 * xy + y2[..., None, :]
+
+
+def cdist(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Euclidean pairwise distances with a floor: sqrt(max(cdist_sq, eps))."""
+    return torch.sqrt(cdist_sq(x, y).clamp_min(eps))
+
+
+@contextmanager
+def full_f32_matmul(device: torch.device):
+    """Run the float32 matrix products inside in full f32 on a CUDA device,
+    whatever `torch.backends.cuda.matmul.allow_tf32` (or
+    `torch.set_float32_matmul_precision('high')`) says outside: a TF32
+    product would round the operands to 10 mantissa bits and move near-tied
+    rankings. A no-op on the CPU, whose f32 products are f32."""
+    if device.type != 'cuda' or not torch.backends.cuda.matmul.allow_tf32:
+        yield
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = True
 
 
 def lens_to_mask(lens: torch.Tensor, max_length: int) -> torch.Tensor:

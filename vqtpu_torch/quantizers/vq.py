@@ -7,13 +7,17 @@ feature-map layouts, masks and lengths, both quantize tiers, decoding from
 indices; in training the EMA codebook update (kmeans init, dead-code
 expiry, accumulated and weighted EMA, the fused train kernel under
 `train_fused='on'`), the rotation trick or straight-through gradient, and
-the MSE commitment loss. The distance-materializing features, the
-learnable-codebook family and distributed codebooks raise
-NotImplementedError that names them.
+the MSE commitment loss. The distance-materializing features run too:
+stochastic codes, gumbel straight-through (`straight_through`), the
+cross-entropy commitment loss, the codebook diversity loss, `indices=`
+(cross entropy against given codes), `topk=` candidates and
+`codebook_transform_fn=`. The learnable-codebook family and distributed
+codebooks raise NotImplementedError that names them.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
@@ -21,9 +25,10 @@ from torch import nn
 
 from ..codebook.codebook import Codebook, not_ported
 from ..core.layout import to_tokens
-from ..core.ste import rotate_to, straight_through
+from ..core.sampling import gumbel_sample
+from ..core.ste import rotate_to, straight_through as straight_through_estimator
 from ..core.utils import (
-    append_dims_to, default, exists, lens_to_mask, masked_mean, resolve_device,
+    append_dims_to, default, entropy, exists, lens_to_mask, masked_mean, resolve_device,
 )
 from ..kernels.distance import gather_codes
 
@@ -33,6 +38,18 @@ class LossBreakdown(NamedTuple):
     codebook_diversity: torch.Tensor
     orthogonal_reg: torch.Tensor
     inplace_optimize: torch.Tensor
+
+
+def _cross_entropy_ignore_index(
+    logits: torch.Tensor, targets: torch.Tensor, ignore_index: int = -1
+) -> torch.Tensor:
+    """Mean cross entropy of (..., c) logits against (...) targets over the
+    entries whose target is not `ignore_index`."""
+    valid = targets != ignore_index
+    safe_targets = torch.where(valid, targets, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe_targets[..., None])[..., 0]
+    return masked_mean(nll, valid)
 
 
 class VectorQuantize(nn.Module):
@@ -116,13 +133,13 @@ class VectorQuantize(nn.Module):
             ('orthogonal_reg_weight (it makes the codebook learnable)', orthogonal_reg_weight > 0),
             ('affine_param', affine_param),
             ('in_place_codebook_optimizer', in_place_codebook_optimizer is not None),
-            ('stochastic_sample_codes (stochastic sampling)', stochastic_sample_codes),
-            ('straight_through (gumbel sampling)', straight_through),
-            ('commitment_use_cross_entropy_loss (needs distances)', commitment_use_cross_entropy_loss),
-            ('codebook_diversity_loss_weight (needs distances)', codebook_diversity_loss_weight > 0),
         ):
             if used:
                 raise not_ported(feature)
+        rotation_trick = default(rotation_trick, dim > 1)
+        if straight_through and rotation_trick:
+            raise ValueError('straight_through (gumbel) and rotation_trick exclude each other; '
+                             'pass rotation_trick=False')
         if quantize_tier not in ('exact', 'bf16'):
             raise ValueError(f"quantize_tier must be 'exact' or 'bf16', got {quantize_tier!r}")
         device = resolve_device(device)
@@ -157,12 +174,17 @@ class VectorQuantize(nn.Module):
 
         self.has_commitment_loss = commitment_weight > 0.0
         self.commitment_weight = commitment_weight
-        self.rotation_trick = default(rotation_trick, dim > 1)
+        self.commitment_use_cross_entropy_loss = commitment_use_cross_entropy_loss
+        self.has_codebook_diversity_loss = codebook_diversity_loss_weight > 0.0
+        self.codebook_diversity_loss_weight = codebook_diversity_loss_weight
+        self.codebook_diversity_temperature = codebook_diversity_temperature
+        self.rotation_trick = rotation_trick
+        self.straight_through_gumbel = straight_through
+        self.stochastic_sample_codes = stochastic_sample_codes
         self.route_gradients_to_input = route_gradients_to_input
         self.freeze_codebook = freeze_codebook
 
         # orthogonal_reg_active_codes_only, orthogonal_reg_max_codes,
-        # codebook_diversity_temperature, sample_codebook_temp, approx_topk,
         # directional_reparam_variance, sync_affine_param, the affine decays,
         # sync_update_v and manual_in_place_optimizer_update belong to
         # features not ported yet and are accepted for the JAX signature
@@ -177,6 +199,9 @@ class VectorQuantize(nn.Module):
             threshold_ema_dead_code=threshold_ema_dead_code,
             ema_update=default(ema_update, True),
             manual_ema_update=manual_ema_update,
+            sample_codebook_temp=sample_codebook_temp,
+            gumbel_sample_fn=partial(gumbel_sample, stochastic=stochastic_sample_codes,
+                                     straight_through=straight_through, approx_topk=approx_topk),
             use_cosine_sim=use_cosine_sim,
             use_pallas=use_pallas,
             stat_precision=stat_precision,
@@ -347,6 +372,20 @@ class VectorQuantize(nn.Module):
         x = self.maybe_split_heads_from_input(x)
         self._codebook.expire_codes_(x)
 
+    # -- losses --------------------------------------------------------------------
+
+    def _calculate_ce_loss(self, distances: torch.Tensor, codes: torch.Tensor, batch: int) -> torch.Tensor:
+        """Cross entropy between the distance logits (h, B, n, c) and code
+        indices ((b, n), or (b, n, h) with heads); -1 entries are ignored."""
+        if self.heads == 1:
+            logits = distances[0]                                     # (b, n, c)
+        elif self.separate_codebook_per_head:
+            logits = distances.permute(1, 2, 0, 3)                    # (b, n, h, c)
+        else:
+            d0 = distances[0].reshape(batch, self.heads, *distances.shape[2:])
+            logits = d0.permute(0, 2, 1, 3)                           # (b, n, h, c)
+        return _cross_entropy_ignore_index(logits, codes)
+
     # -- forward -------------------------------------------------------------------
 
     def forward(
@@ -368,24 +407,25 @@ class VectorQuantize(nn.Module):
         """x -> (quantized, indices int32, loss).
 
         In training mode the EMA codebook takes this batch's statistics (not
-        with `freeze_codebook`), the quantized output carries the rotation
-        trick's gradient to x (or the straight-through one with
-        rotation_trick=False), and the loss is the weighted MSE commitment
-        loss; in eval the loss is 0. Masked positions (`mask`, or `lens` as
-        lengths) return zeros, or the input with
+        with `freeze_codebook` or `topk`), the quantized output carries the
+        rotation trick's gradient to x (or the straight-through one with
+        rotation_trick=False), and the loss is the weighted commitment loss
+        (MSE, or cross entropy against the chosen codes) plus the weighted
+        codebook diversity loss; in eval the loss is 0. Masked positions
+        (`mask`, or `lens` as lengths) return zeros, or the input with
         return_zeros_for_masked_padding=False, and index -1, and add nothing
-        to the statistics or the loss. sample_codebook_temp and
-        dist_precision only act on distance-materializing paths, which are
-        not ported.
-        """
-        for feature, used in (
-            ('indices= (cross-entropy loss against given codes)', exists(indices)),
-            ('topk= (beam candidates)', exists(topk)),
-            ('codebook_transform_fn= (implicit codebooks)', exists(codebook_transform_fn)),
-        ):
-            if used:
-                raise not_ported(feature)
+        to the statistics or the loss.
 
+        `indices=` returns (quantized, cross entropy of the distances
+        against those codes, -1 ignored) instead. `topk=k` returns k
+        candidates: quantized (..., k, dim), indices and loss (..., k), the
+        loss a per-candidate MSE against the input in eval and training.
+        For a (b, n, d) input the JAX package returns batch element 0's
+        candidates only, (n, k, d); this returns all of them, (b, n, k, d).
+        `codebook_transform_fn(embed)` gives a per-token codebook (1, b, n,
+        c, d). `dist_precision` is the JAX package's TPU precision knob:
+        the distances are full f32 here whatever it says.
+        """
         orig_input = x
         orig_dtype = x.dtype
         freeze_codebook = default(freeze_codebook, self.freeze_codebook)
@@ -403,29 +443,90 @@ class VectorQuantize(nn.Module):
         if exists(mask) and (self.accept_image_fmap or self.accept_3d_fmap):
             raise ValueError('masks are not supported on feature maps')
 
+        return_loss = exists(indices)
         batch = x.shape[0]
         tokens, layout = self._normalize_input_layout(x)
         x = self.codebook_input(tokens)
 
-        quantize, embed_ind, _ = self._codebook(
-            x, mask=mask, freeze_codebook=freeze_codebook,
-            ema_update_weight=ema_update_weight, accum_ema_update=accum_ema_update,
-            ema_update=ema_update, need_distances=False,
+        need_distances = (
+            return_loss
+            or topk is not None
+            or codebook_transform_fn is not None
+            or (self.training and self.has_codebook_diversity_loss)
+            or (self.training and self.has_commitment_loss and self.commitment_use_cross_entropy_loss)
+            or (self.training and self.stochastic_sample_codes)
+            or (self.training and self.straight_through_gumbel)
         )
+        # the codebook sees (b, N) tokens: extra token dims (a beam's
+        # candidates) share their position's mask
+        codebook_mask = mask
+        if exists(mask) and tokens.shape[1] != mask.shape[1]:
+            codebook_mask = mask[:, :, None].expand(*mask.shape, tokens.shape[1] // mask.shape[1])
+            codebook_mask = codebook_mask.reshape(batch, -1)
 
-        commit_loss = torch.zeros((), dtype=torch.float32, device=quantize.device)
-        loss = commit_loss
+        quantize, embed_ind, distances = self._codebook(
+            x, sample_codebook_temp=sample_codebook_temp, mask=codebook_mask,
+            freeze_codebook=freeze_codebook, codebook_transform_fn=codebook_transform_fn,
+            ema_update_weight=ema_update_weight, accum_ema_update=accum_ema_update,
+            ema_update=ema_update if ema_update is None else (ema_update and topk is None),
+            topk=topk, need_distances=need_distances, stochastic=self.stochastic_sample_codes,
+            straight_through_onehot=self.straight_through_gumbel, dist_precision=dist_precision,
+        )
+        if distances is not None and self.heads == 1 and not layout.moved_channel:
+            # the JAX package's layout: a channel-last input keeps its token dims
+            distances = distances.reshape(1, batch, *layout.spatial, distances.shape[-1])
+
+        zero = torch.zeros((), dtype=torch.float32, device=quantize.device)
+        commit_loss = codebook_diversity_loss = zero
+        x32 = x.float()
         if self.training:
-            x32 = x.float()
             commit_quantize = quantize.detach()
+            xq = x32 if topk is None else x32[..., None, :].expand(*x32.shape[:-1], topk, x32.shape[-1])
             if self.route_gradients_to_input:
                 if self.rotation_trick:
-                    quantize = rotate_to(x32, quantize)
+                    quantize = rotate_to(xq, quantize)
                 else:
-                    quantize = straight_through(x32, quantize)
+                    quantize = straight_through_estimator(xq, quantize)
+
+        if return_loss:
+            ce = self._calculate_ce_loss(distances, indices, batch)
+            return self._finalize_quantize(quantize, batch, layout, only_one, orig_dtype), ce
+
+        if self.heads > 1:
+            embed_ind = self._reshape_indices_from_heads(embed_ind, batch)
+        embed_ind = layout.restore_indices(embed_ind)
+
+        def candidate_mse(q):
+            """(b, N, k, d) candidates -> (b, *spatial, k) MSE against the
+            unprojected input, 0 at masked positions."""
+            target = tokens.float()[..., None, :].expand(q.shape)
+            mse = layout.restore_indices(((q.float() - target) ** 2).mean(-1))
+            if exists(mask):
+                mse = torch.where(append_dims_to(mask, mse.ndim), mse, 0.0)
+            return mse
+
+        loss = zero
+        if not self.training and topk is not None and self.has_commitment_loss:
+            # per-candidate MSE, so that an eval beam search can score its beams
+            loss = candidate_mse(quantize) * self.commitment_weight
+
+        if self.training:
+            if self.has_codebook_diversity_loss:
+                prob = torch.softmax(distances * self.codebook_diversity_temperature, dim=-1)
+                avg_prob = prob.reshape(-1, *prob.shape[-2:]).mean(0)
+                codebook_diversity_loss = -entropy(avg_prob).mean()
+                loss = loss + codebook_diversity_loss * self.codebook_diversity_loss_weight
 
             if self.has_commitment_loss:
-                if exists(mask):
+                if self.commitment_use_cross_entropy_loss:
+                    ce_indices = embed_ind
+                    if exists(mask):
+                        ce_mask = mask[..., None] if self.heads > 1 else mask
+                        ce_indices = torch.where(ce_mask, ce_indices, -1)
+                    commit_loss = self._calculate_ce_loss(distances, ce_indices, batch)
+                elif topk is not None:
+                    commit_loss = candidate_mse(commit_quantize)
+                elif exists(mask):
                     # as in the JAX package: against the unprojected input
                     # when its shape allows, else the codebook-space input
                     target = (
@@ -443,18 +544,11 @@ class VectorQuantize(nn.Module):
                     commit_loss = masked_mean(err, loss_mask)
                 else:
                     commit_loss = ((commit_quantize - x32) ** 2).mean()
-                loss = commit_loss * self.commitment_weight
+                loss = loss + commit_loss * self.commitment_weight
 
-        if self.heads > 1:
-            embed_ind = self._reshape_indices_from_heads(embed_ind, batch)
-            quantize = self._merge_heads(quantize, batch)
-        embed_ind = layout.restore_indices(embed_ind)
-
-        quantize = layout.restore(self.project_out(quantize))
+        quantize = self._finalize_quantize(quantize, batch, layout, only_one, orig_dtype)
         if only_one:
-            quantize = quantize[:, 0]
             embed_ind = embed_ind[:, 0]
-        quantize = quantize.to(orig_dtype)
 
         if exists(mask):
             if self.return_zeros_for_masked_padding:
@@ -465,6 +559,8 @@ class VectorQuantize(nn.Module):
                 qmask = mask[:, None, :]        # quantize is (b, d, n)
             else:
                 qmask = append_dims_to(mask, quantize.ndim)
+            if quantize.ndim > masked_out_value.ndim:                 # topk candidates
+                masked_out_value = masked_out_value[..., None, :].expand(quantize.shape)
             quantize = torch.where(qmask, quantize, masked_out_value.to(quantize.dtype))
             embed_ind = torch.where(
                 append_dims_to(mask, embed_ind.ndim), embed_ind, -1
@@ -472,5 +568,13 @@ class VectorQuantize(nn.Module):
 
         if not return_loss_breakdown:
             return quantize, embed_ind, loss
-        zero = torch.zeros((), dtype=torch.float32, device=quantize.device)
-        return quantize, embed_ind, loss, LossBreakdown(commit_loss, zero, zero, zero)
+        return quantize, embed_ind, loss, LossBreakdown(commit_loss, codebook_diversity_loss, zero, zero)
+
+    def _finalize_quantize(self, quantize, batch, layout, only_one, orig_dtype):
+        """Merge heads, project out, restore the input's layout and dtype."""
+        if self.heads > 1:
+            quantize = self._merge_heads(quantize, batch)
+        quantize = layout.restore(self.project_out(quantize))
+        if only_one:
+            quantize = quantize[:, 0]
+        return quantize.to(orig_dtype)

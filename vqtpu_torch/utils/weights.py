@@ -15,8 +15,11 @@ attribute names, so the trees line up. Layouts converted:
 A `rngs` entry (flax's RNG streams) has no torch counterpart and is
 skipped. Any other key the module does not have, and any parameter or
 persistent buffer the state does not give, raises KeyError. A submodule
-that holds neither may be missing from the state: flax leaves out a module
-whose only state is an RNG stream it shares with another.
+may be missing from the state when every parameter and persistent buffer
+under it was filled under another path, or when it holds none: flax stores
+a module that two parents share (a ResidualVQ's shared codebook) once,
+under its first path, and leaves out a module whose only state is an RNG
+stream it shares with another.
 """
 
 from __future__ import annotations
@@ -50,12 +53,25 @@ def _copy(target: torch.Tensor, value, key: str) -> None:
 
 def load_vqtpu_state(module: nn.Module, state: Mapping, prefix: str = '') -> None:
     """Fill `module` in place from the JAX model's state (see module doc)."""
+    filled: set[int] = set()
+    absent: list[tuple[str, nn.Module]] = []
+    _load(module, state, prefix, filled, absent)
+    missing = [path for path, child in absent
+               if any(id(t) not in filled for t in child.state_dict(keep_vars=True).values())]
+    if missing:
+        raise KeyError(f'state gives no value for {", ".join(missing)}')
+
+
+def _load(module: nn.Module, state: Mapping, prefix: str, filled: set[int],
+          absent: list[tuple[str, nn.Module]]) -> None:
+    """Fill `module` from `state`, adding the id of every tensor it fills to
+    `filled` and every child the state leaves out to `absent`."""
     rules = _LEAF_RULES.get(type(module))
     tensors = dict(module.named_parameters(recurse=False))
     tensors.update((name, t) for name, t in module.named_buffers(recurse=False)
                    if name not in module._non_persistent_buffers_set)
     children = dict(module.named_children())
-    filled = set()
+    given = set()
 
     for key, value in state.items():
         key = str(key)                       # nnx.List children are keyed 0, 1, ...
@@ -66,20 +82,22 @@ def load_vqtpu_state(module: nn.Module, state: Mapping, prefix: str = '') -> Non
             name, convert = rules[key]
             value = np.asarray(value)
             _copy(tensors[name], convert(value) if convert else value, path)
-            filled.add(name)
         elif rules is None and key in tensors:
-            _copy(tensors[key], value, path)
-            filled.add(key)
+            name = key
+            _copy(tensors[name], value, path)
         elif rules is None and key in children:
             if not isinstance(value, Mapping):
                 raise KeyError(f'{path}: state holds an array where the module has a submodule')
-            load_vqtpu_state(children[key], value, path + '.')
-            filled.add(key)
+            _load(children[key], value, path + '.', filled, absent)
+            given.add(key)
+            continue
         else:
             raise KeyError(f'{path}: no such parameter, buffer or submodule in the torch module')
+        filled.add(id(tensors[name]))
+        given.add(name)
 
-    stateless = {name for name, child in children.items() if not child.state_dict()}
-    expected = set(tensors) | (set() if rules is not None else set(children) - stateless)
-    missing = sorted(expected - filled)
+    missing = sorted(set(tensors) - given)
     if missing:
         raise KeyError(f'state gives no value for {", ".join(prefix + m for m in missing)}')
+    if rules is None:
+        absent.extend((prefix + name, child) for name, child in children.items() if name not in given)
