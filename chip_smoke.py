@@ -117,7 +117,38 @@ prints one JSON line per phase:
 22. rvq_times: CUDA events: the eval forward and K1 on one layer against
    its 3xTF32 bound, the beam forward, a training step per route and a
    flagship step;
-23. the {"kernels": [...]} line.
+23. code_sums: K4's statistics by sorted code alone (`code_sums`), the
+   backward of the learnable lookup (`lookup_with_code_grad`), at the
+   learnable step's shape and the DiVeQ stack's, against float64 (within
+   the f32 summation bound) and two calls bit-identical; the lookup's
+   codebook gradient likewise; times against index_add_ and the bound;
+24. learnable_path: the README's VectorQuantize(dim=256, codebook_size=512,
+   learnable_codebook=True, ema_update=False, in_place_codebook_optimizer=
+   Adam(lr=1e-3)) on (1024, 1024, 256): K1 three times and code_sums twice a
+   step, a twin step bit-identical, the in-place Adam step within its f32
+   bound of float64 from K1's selection, the final indices against the
+   plain selection (near-ties only), the commitment loss and the codebook's
+   gradient against float64; times with K1's and code_sums' shares;
+25. ortho_path: orthogonal_reg_weight=10, orthogonal_reg_max_codes=128 on
+   an EMA codebook (with and without active_codes_only): K1 once, no K4,
+   K1's indices against the plain selection (near-ties only), the EMA state
+   against a float64 EMA step, the loss against float64 on the same drawn
+   codes;
+26. affine_path: affine_param=True, one step per train_fused route: K4 on
+   'on', K1 on 'off', the same indices, each route's batch sums within the
+   f32 bound of float64 sums of the mapped tokens;
+27. fvq_flagship: the FVQ autoencoder (examples/autoencoder_fvq.py: a
+   MiniEncoder bridge, in-place SGD), step 0 against the CPU, 50 AdamW
+   steps, its code utilization reported;
+28. qinco_path: ResidualVQ(dim=256, num_quantizers=8, codebook_size=1024,
+   implicit_neural_codebook=True): an eval forward on 1024 tokens and its
+   decode; a training step on 256 tokens, step 0 against a CPU copy that
+   takes the card's picks (output, losses, x.grad, every MLP and codebook
+   gradient); every layer's pick within 1e-5 of the float64 best on 256
+   eval tokens and the 256 training tokens;
+29. diveq_rvq_path: ResidualVQ(..., diveq=True) on (32, 2048, 256), one step:
+   K1 and code_sums once a layer, each layer against the plain selection;
+30. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -139,6 +170,7 @@ import re
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -1679,8 +1711,9 @@ def all_launches() -> dict:
     from vqtpu_torch.kernels import lfq_entropy as tle
     from vqtpu_torch.kernels.distance import nearest_code
     from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval
-    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    from vqtpu_torch.kernels.train_fused import code_sums, fused_train_quantize
     return dict(nearest_code=nearest_code.launches, train_fused=fused_train_quantize.launches,
+                code_sums=code_sums.launches,
                 **{f'lfq_sweep_{k}': f.launches for k, f in tle.SWEEPS.items()},
                 residual_fsq_fused=fused_residual_fsq_eval.launches)
 
@@ -1689,8 +1722,8 @@ def reset_all_launches() -> None:
     from vqtpu_torch.kernels import lfq_entropy as tle
     from vqtpu_torch.kernels.distance import nearest_code
     from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval
-    from vqtpu_torch.kernels.train_fused import fused_train_quantize
-    for f in (nearest_code, fused_train_quantize, fused_residual_fsq_eval, *tle.SWEEPS.values()):
+    from vqtpu_torch.kernels.train_fused import code_sums, fused_train_quantize
+    for f in (nearest_code, fused_train_quantize, code_sums, fused_residual_fsq_eval, *tle.SWEEPS.values()):
         f.launches = 0
 
 
@@ -2662,6 +2695,701 @@ def phase_rvq_times(rvq, x, beam_model, xb, train_models, train_x, sizes, smi):
                 rvq_beam_forward_ms=beam_ms, rvq_train_step_ms=step_mean, rvq_flagship_step_ms=flagship_ms)
 
 
+# -- the learnable-codebook slice: paths 1-6 ---------------------------------------
+
+# the README's learnable VectorQuantize on the shape of
+# benchmarks/train_step_tpu.py:19: batch, tokens, dim, codes
+LEARN_MAIN = (1024, 1024, 256, 512)
+# QINCo ResidualVQ (README.md:235-237): layers, dim, codes
+QINCO_MAIN = (8, 256, 1024)
+CODE_SUMS_REPLACES = 'vqtpu/kernels/train_fused.py:61'
+CODE_SUMS_DESIGN = ("train_fused.cu's statistics by sorted code (passes a-f) on the rows' gradients: a stable "
+                    'counting sort by code, then warps over pieces of 64 tokens in token order; no float atomic')
+
+
+def code_sums_bound_ms(n: int, c: int, d: int) -> tuple[float, str]:
+    """Least time for the per-code sums of (n, d) rows: reading the rows and
+    their n int32 codes once and writing (c, d) sums and (c,) counts once,
+    or the n d adds at the f32 peak."""
+    bytes_ms = 4 * (n * d + n + c * d + c) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n * d / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
+
+
+def code_sums_check(case, g, idx, c):
+    """code_sums on CUDA rows `g` (n, d) and their codes against a float64
+    per-code sum (within the f32 summation bound) and the plain version
+    (index_put_), two calls bit-identical; returns the report."""
+    from vqtpu_torch.kernels.train_fused import code_statistics_plain, code_sums
+    before = code_sums.launches
+    bins, esum = code_sums(g, idx, c)
+    bins2, esum2 = code_sums(g, idx, c)
+    sync(g.device)
+    check(code_sums.launches == before + 2, f'{case}: code_sums launched its kernel twice')
+    check(torch.equal(bins, bins2) and torch.equal(esum, esum2), f'{case}: two calls bit-identical')
+    ref = stats_reference(g[None], idx[None], c, None)
+    check(torch.equal(bins.double(), ref[2][0]), f'{case}: bins are the exact counts')
+    err, share = esum_within_bound(esum[None], ref)
+    check(share <= 1.0, f'{case}: sums within the f32 summation bound of float64 ({share})')
+    pbins, pesum = code_statistics_plain(g[None], idx[None], c)
+    plain_err, plain_share = esum_within_bound(pesum, ref)
+    return dict(case=case, rows=list(g.shape), codes=c, max_abs_err=err, share_of_bound=share,
+                plain_max_abs_err=plain_err, plain_share_of_bound=plain_share, bit_identical=True)
+
+
+def phase_code_sums(device, sizes):
+    """K4's statistics as the backward of the learnable lookup
+    (`code_sums`, `lookup_with_code_grad`) at the learnable path's shape,
+    codes from K1 on a codebook of data rows, and at the DiVeQ stack's
+    (65,536 rows, 1024 codes): against float64 and the plain version, two
+    calls bit-identical; the lookup's codebook gradient against a float64
+    per-code sum and bit-identical across two backward passes; times of the
+    kernel, the plain version, index_add_ and the bound."""
+    from vqtpu_torch.kernels.distance import quantize_lookup
+    from vqtpu_torch.kernels.train_fused import code_statistics_plain, code_sums, lookup_with_code_grad
+    b, t, d, c = sizes['learn_main']
+    n = b * t
+    x_main = torch.from_numpy(np.random.default_rng(39).standard_normal((n, d), dtype=np.float32)).to(device)
+    e_main = data_rows_codebook(x_main, c)
+    idx, _ = quantize_lookup(x_main, e_main)
+    g = torch.from_numpy(np.random.default_rng(40).standard_normal((n, d), dtype=np.float32)).to(device)
+    reports = [code_sums_check('learnable main shape', g, idx, c)]
+    small = sizes['code_sums_rvq']
+    gi = torch.from_numpy(np.random.default_rng(41).integers(0, small[1], small[0]).astype(np.int32)).to(device)
+    reports.append(code_sums_check('DiVeQ stack shape', g[:small[0]].contiguous(), gi, small[1]))
+
+    # the lookup: rows from K1, the codebook's gradient by code_sums
+    grads = []
+    for _ in range(2):
+        e = e_main.clone().requires_grad_()
+        li, rows = lookup_with_code_grad(x_main, e)
+        (rows * g).sum().backward()
+        grads.append(e.grad)
+    sync(device)
+    check(torch.equal(li, idx), 'the learnable lookup selects as quantize_lookup')
+    check(torch.equal(grads[0], grads[1]), 'the learnable codebook gradient is bit-identical across two calls')
+    err, share = esum_within_bound(grads[0][None], stats_reference(g[None], idx[None], c, None))
+    check(share <= 1.0, f'the lookup gradient within the f32 bound of a float64 per-code sum ({share})')
+
+    reps = sizes['reps']
+    lib = torch.zeros(c, d, device=device)
+    idx64 = idx.long()
+
+    def kernel():
+        code_sums(g, idx, c)
+
+    def plain():
+        code_statistics_plain(g[None], idx[None], c)
+
+    def library():
+        lib.zero_().index_add_(0, idx64, g)
+    launches = code_sums.launches
+    ka = cuda_ms(kernel, reps)
+    pa = cuda_ms(plain, reps)
+    la = cuda_ms(library, reps)
+    kb = cuda_ms(kernel, reps)
+    code_sums.launches = launches
+    bound, bound_by = code_sums_bound_ms(n, c, d)
+    ms = (ka + kb) / 2
+    emit('code_sums', cases=reports, lookup_grad=dict(max_abs_err=err, share_of_bound=share, bit_identical=True),
+         ms=ms, ms_runs=[ka, kb], plain_ms=pa, library_ms=la, library='index_add_ (index_select backward)',
+         bound_ms=bound, bound_by=bound_by, share_of_bound=bound / ms, shape=dict(n=n, c=c, d=d))
+    return dict(ms=ms, plain_ms=pa, library_ms=la, bound_ms=bound, bound_by=bound_by,
+                max_abs_err=max(r['max_abs_err'] for r in reports), lookup_max_abs_err=err)
+
+
+def learnable_step(model, x, g, **kw):
+    """One training forward + backward with the cotangent g on the output;
+    returns (x.grad, quantized, indices, loss, breakdown)."""
+    xg = x.clone().requires_grad_()
+    q, idx, loss, breakdown = model(xg, return_loss_breakdown=True, **kw)
+    ((q * g).sum() + loss).backward()
+    return xg.grad, q.detach(), idx, loss.detach(), [float(t.detach()) for t in breakdown]
+
+
+def rel_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+
+
+def timed_step(step, reps, warmup=1) -> dict:
+    """A step's mean CUDA-event time, and a device profile of one step."""
+    ms = cuda_ms(step, reps, warmup=warmup)
+    return dict(step_ms=ms, profile=profile_device(step, 1))
+
+
+def commit_grad_reference(embed, x, idx, c):
+    """float64 codebook gradient of the MSE commitment loss mean((e[idx] -
+    x)^2) over (n, d) tokens, and its f32 bound (the terms' rounding and
+    their summation by code)."""
+    n, d = x.shape
+    terms = 2.0 * (embed.double()[idx.long()] - x.double()) / (n * d)
+    g = torch.zeros(c, d, dtype=torch.float64, device=x.device).index_add_(0, idx.long(), terms)
+    gabs = torch.zeros_like(g).index_add_(0, idx.long(), terms.abs())
+    count = torch.bincount(idx.long(), minlength=c).double()
+    return g, (count[:, None] + MERGE_PARTIALS + 4) * U32 * gabs
+
+
+def adam_step_reference(embed0, x, idx, c, lr):
+    """The in-place optimizer's first Adam step in float64 from the inner
+    selection: g = the per-code sum of 2 (e - x) / numel over the tokens of
+    each code, the update lr g / (|g| + 1e-8) (Adam's first step with its
+    bias corrections), and a bound on the f32 step's error: g's f32
+    summation error moves the update by at most 2 lr |dg| / (|g| + 1e-8),
+    and the step rounds the codebook entry."""
+    g, dg = commit_grad_reference(embed0, x, idx, c)
+    ref = embed0.double() - lr * g / (g.abs() + 1e-8)
+    bound = (2 * lr * dg / (g.abs() + 1e-8)).clamp(max=2 * lr) + 4 * U32 * (embed0.double().abs() + lr)
+    return ref, bound
+
+
+def phase_learnable_path(device, sizes, code_sums_ms):
+    """Path 1: the README's VectorQuantize(dim=256, codebook_size=512,
+    learnable_codebook=True, ema_update=False, in_place_codebook_optimizer=
+    Adam(lr=1e-3)) on (1024, 1024, 256): one training step launches K1 three
+    times (the forward, the inner step's forward, the forward after the
+    inner step) and code_sums twice (the inner gradient, the outer
+    backward); a twin from the same seed gives the same step bit for bit;
+    the in-place Adam step held to float64 from K1's selection, the final
+    indices to the plain selection on the stepped codebook (near-ties
+    only), the commitment loss and the codebook's gradient to float64; then
+    times."""
+    from vqtpu_torch import VectorQuantize
+    from vqtpu_torch.kernels.distance import nearest_code_plain, quantize_lookup, selection_bias, \
+        selection_disagreements
+    b, n, d, c = sizes['learn_main']
+    lr = 1e-3
+
+    def build():
+        torch.manual_seed(21)
+        return VectorQuantize(dim=d, codebook_size=c, learnable_codebook=True, ema_update=False,
+                              in_place_codebook_optimizer=lambda p: torch.optim.Adam(p, lr=lr),
+                              device=device).train()
+    vq, twin = build(), build()
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32) * 1e-3).to(device)
+    xs = x.reshape(-1, d)
+    embed0 = vq.codebook.detach().clone()
+    idx0, _ = quantize_lookup(xs, embed0)
+    reset_all_launches()
+    gx, q, idx, loss, br = learnable_step(vq, x, g)
+    sync(device)
+    launches = all_launches()
+    check(launches['nearest_code'] == 3 and launches['code_sums'] == 2 and launches['train_fused'] == 0,
+          f'the learnable step launched K1 three times and code_sums twice {launches}')
+    gx2, q2, idx2, _, br2 = learnable_step(twin, x, g)
+    sync(device)
+    cb, cb2 = vq._codebook.embed, twin._codebook.embed
+    check(torch.equal(cb.grad, cb2.grad) and torch.equal(cb.detach(), cb2.detach()) and torch.equal(idx, idx2)
+          and torch.equal(gx, gx2) and br == br2, 'two learnable steps from one state are bit-identical')
+    check(bool(torch.isfinite(gx).all()) and bool(torch.isfinite(cb.grad).all()), 'finite gradients')
+    del twin, gx2, q2
+
+    embed1 = cb.detach()[0]
+    ref, bound = adam_step_reference(embed0, xs, idx0, c, lr)
+    adam_share = float(((embed1.double() - ref).abs() / bound).max())
+    check(adam_share <= 1.0, f'the in-place Adam step within its f32 bound of float64 ({adam_share})')
+    moved = int((embed1 != embed0).any(-1).sum())
+    check(moved == int(idx0.unique().numel()), f'the Adam step moved the {moved} codes the batch chose')
+    bias1 = selection_bias(embed1, 'euclidean')
+    r = selection_disagreements(xs, embed1, bias1, idx.reshape(-1), nearest_code_plain(xs, embed1, bias1))
+    check(r['non_tie'] == 0, f'the final indices against the plain selection {r}')
+    loss64 = float((embed1.double()[idx.reshape(-1).long()] - xs.double()).square().mean())
+    loss_err = abs(br[0] - loss64) / loss64
+    check(loss_err <= 1e-5, f'the commitment loss within 1e-5 of float64 ({loss_err})')
+    gref, gbound = commit_grad_reference(embed1, xs, idx.reshape(-1), c)
+    grad_share = float(((cb.grad[0].double() - gref).abs() / gbound.clamp_min(1e-300)).max())
+    check(grad_share <= 1.0, f'the codebook gradient within its f32 bound of float64 ({grad_share})')
+
+    def step():
+        learnable_step(vq, x, g)
+    reset_all_launches()
+    t = timed_step(step, sizes['step_reps'])
+    per_step = {k: v // (sizes['step_reps'] + 2) for k, v in all_launches().items() if v}
+    k1_ms = cuda_ms(lambda: quantize_lookup(xs, embed1), sizes['reps'])
+    t.update(k1_ms=k1_ms, k1_share=3 * k1_ms / t['step_ms'], code_sums_ms=code_sums_ms,
+             code_sums_share=2 * code_sums_ms / t['step_ms'])
+    emit('learnable_path', model='VectorQuantize(dim=256, codebook_size=512, learnable_codebook=True, '
+                                 'ema_update=False, in_place_codebook_optimizer=Adam(lr=1e-3))',
+         input=[b, n, d], launches=launches, launches_per_timed_step=per_step, loss=float(loss), breakdown=br,
+         adam_step_share_of_bound=adam_share, codes_moved=moved, final_indices_vs_plain=r,
+         commit_loss_rel_err=loss_err, codebook_grad_share_of_bound=grad_share,
+         bit_identical_twin=True, peak_gib=torch.cuda.max_memory_allocated() / 2**30, **t)
+    return launches, t
+
+
+def ortho_loss_reference(embed, ids, active):
+    """Eq. (2) in float64 over the codebook rows `ids` (h, c, d), with the
+    active-code mask (c,) or None."""
+    e = embed.double()[:, ids]
+    normed = e / e.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+    h = e.shape[0]
+    if active is None:
+        n_codes = float(e.shape[1])
+    else:
+        mask = active[ids].double()
+        normed = normed * mask[None, :, None]
+        n_codes = max(float(mask.sum()), 1.0)
+    cos = normed @ normed.transpose(-1, -2)
+    return float((cos ** 2).sum() / (h * n_codes ** 2) - 1.0 / n_codes)
+
+
+def phase_ortho_path(device, sizes):
+    """Path 2: VectorQuantize(dim=256, codebook_size=512,
+    orthogonal_reg_weight=10, orthogonal_reg_max_codes=128), with and
+    without orthogonal_reg_active_codes_only, one EMA training step on
+    (1024, 1024, 256): the codebook a parameter that the EMA writes, so K4
+    is off and K1 selects (one launch), the statistics plain; K1's indices
+    against the plain selection (near-ties only), the EMA state against one
+    float64 EMA step from them, the orthogonal loss against float64 on the
+    updated codebook with the same drawn codes, and no gradient to the
+    EMA-written codebook (the JAX package's rule)."""
+    from vqtpu_torch import VectorQuantize
+    from vqtpu_torch.kernels.distance import nearest_code_plain, selection_bias, selection_disagreements
+    from vqtpu_torch.quantizers.vq import orthogonal_reg_code_ids
+    b, n, d, c = sizes['learn_main']
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32) * 1e-3).to(device)
+    xs = x.reshape(-1, d)
+    out = {}
+    for active in (False, True):
+        torch.manual_seed(24)
+        vq = VectorQuantize(dim=d, codebook_size=c, orthogonal_reg_weight=10.0, orthogonal_reg_max_codes=128,
+                            orthogonal_reg_active_codes_only=active, device=device).train()
+        cb = vq._codebook
+        embed0, cs0, ea0 = vq.codebook.detach().clone(), cb.cluster_size[0].clone(), cb.embed_avg[0].clone()
+        rng_state = cb.generator.get_state()
+        reset_all_launches()
+        gx, _, idx, loss, br = learnable_step(vq, x, g)
+        sync(device)
+        launches = all_launches()
+        check(launches['nearest_code'] == 1 and launches['train_fused'] == 0 and launches['code_sums'] == 0,
+              f'the orthogonal EMA step selected with K1 alone {launches}')
+        il = idx.reshape(-1)
+        bias0 = selection_bias(embed0, 'euclidean')
+        r = selection_disagreements(xs, embed0, bias0, il, nearest_code_plain(xs, embed0, bias0))
+        check(r['non_tie'] == 0, f'active={active}: indices against the plain selection {r}')
+        cs, ea, cs_bound, ea_bound = ema_step_reference(xs, il, cs0, ea0, cb.decay)
+        ema_share = max(float(((cb.cluster_size[0].double() - cs).abs() / cs_bound.clamp_min(1e-300)).max()),
+                        float(((cb.embed_avg[0].double() - ea).abs() / ea_bound.clamp_min(1e-300)).max()))
+        check(ema_share <= 1.0, f'active={active}: the EMA state within its f32 bound of float64 ({ema_share})')
+        gen = torch.Generator(device=device)
+        gen.set_state(rng_state)
+        mask = torch.zeros(c, dtype=torch.bool, device=device)
+        mask[il.long()] = True
+        ids = orthogonal_reg_code_ids(gen, c, 128, mask if active else None)
+        ortho64 = ortho_loss_reference(cb.embed.detach(), ids, mask if active else None)
+        ortho_err = abs(br[2] - ortho64) / abs(ortho64)
+        check(ortho_err <= 1e-4, f'active={active}: the orthogonal loss within 1e-4 of float64 ({ortho_err})')
+        check(cb.embed.grad is None, f'active={active}: no gradient reaches the EMA-written codebook')
+        check(bool(torch.isfinite(gx).all()), 'finite x.grad')
+
+        def step():
+            learnable_step(vq, x, g)
+        t = timed_step(step, sizes['step_reps'])
+        out[f'active_codes_only={active}'] = dict(launches=launches, loss=float(loss), breakdown=br,
+                                                  indices_vs_plain=r, ema_share_of_bound=ema_share,
+                                                  ortho_rel_err_vs_float64=ortho_err, **t)
+        del vq
+    emit('ortho_path', model='VectorQuantize(dim=256, codebook_size=512, orthogonal_reg_weight=10, '
+                             'orthogonal_reg_max_codes=128[, orthogonal_reg_active_codes_only=True])',
+         input=[b, n, d], runs=out)
+    return out
+
+
+def phase_affine_path(device, sizes):
+    """Path 3: VectorQuantize(dim=256, codebook_size=512, affine_param=True),
+    one EMA training step on (1024, 1024, 256) per train_fused route from
+    the same state: 'on' launches K4 once (statistics of raw x, then the
+    exact post-transform), 'off' K1 once (statistics of the mapped x); the
+    same indices bit for bit (K1's tile on the same operands), and each
+    route's batch sums within the f32 summation bound of a float64 sum of
+    the mapped tokens."""
+    from vqtpu_torch import VectorQuantize
+    b, n, d, c = sizes['learn_main']
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32) * 0.5 + 0.2).to(device)
+    g = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32) * 1e-3).to(device)
+    runs = {}
+    for route in ('on', 'off'):
+        torch.manual_seed(26)
+        vq = VectorQuantize(dim=d, codebook_size=c, affine_param=True, train_fused=route, device=device).train()
+        cb = vq._codebook
+        seen = {}
+        apply = cb._apply_batch_stats
+
+        def record(cluster_size, embed_sum, *args, _apply=apply, _seen=seen):
+            _seen['bins'], _seen['esum'] = cluster_size.clone(), embed_sum.clone()
+            return _apply(cluster_size, embed_sum, *args)
+        cb._apply_batch_stats = record
+        reset_all_launches()
+        gx, _, idx, loss, br = learnable_step(vq, x, g)
+        sync(device)
+        del cb._apply_batch_stats
+        launches = all_launches()
+        want = dict(on=(0, 1), off=(1, 0))[route]
+        check((launches['nearest_code'], launches['train_fused']) == want,
+              f"'{route}': K1 and K4 launches {launches}")
+        # float64 sums of the mapped tokens, from the statistics the step used
+        scale = (cb.codebook_variance.double().clamp_min(1e-5).sqrt()
+                 / cb.batch_variance.double().clamp_min(1e-5).sqrt())[0]
+        bmean, cmean = cb.batch_mean.double()[0], cb.codebook_mean.double()[0]
+        xs = x.reshape(-1, d)
+        mapped = (xs.double() - bmean) * scale + cmean
+        esum64, asum64, count = (t_[0] for t_ in stats_reference(mapped[None], idx.reshape(1, -1), c, None))
+        raw_abs = stats_reference(xs[None], idx.reshape(1, -1), c, None)[1][0]
+        # the summation's rounding, and a few roundings of each mapped term
+        # (or of the kernel's post-transform s esum + bins t)
+        bound = (count[:, None] + MERGE_PARTIALS + 4) * U32 * (
+            asum64 + scale * raw_abs + count[:, None] * (cmean.abs() + scale * bmean.abs()))
+        err = (seen['esum'][0].double() - esum64).abs()
+        share = float((err / bound.clamp_min(1e-300)).max())
+        check(share <= 1.0, f"'{route}': batch sums within the f32 bound of float64 ({share})")
+        check(torch.equal(seen['bins'][0].double(), count), f"'{route}': bins are the exact counts")
+
+        def step():
+            learnable_step(vq, x, g)
+        runs[route] = dict(idx=idx, esum=seen['esum'], launches=launches, loss=float(loss), breakdown=br,
+                           esum_max_abs_err=float(err.max()), esum_share_of_bound=share,
+                           **timed_step(step, sizes['step_reps']))
+        del vq
+    check(torch.equal(runs['on']['idx'], runs['off']['idx']), "'on' and 'off' select the same codes bit for bit")
+    route_err = float((runs['on']['esum'] - runs['off']['esum']).abs().max())
+    emit('affine_path', model='VectorQuantize(dim=256, codebook_size=512, affine_param=True)', input=[b, n, d],
+         on_vs_off_esum_max_abs_err=route_err,
+         runs={r: {k: v for k, v in run.items() if k not in ('idx', 'esum')} for r, run in runs.items()})
+    return {r: run['launches'] for r, run in runs.items()}, {r: run['step_ms'] for r, run in runs.items()}
+
+
+def phase_fvq_flagship(device, sizes):
+    """Path 4: the FVQ autoencoder of examples/autoencoder_fvq.py,
+    SimpleQuantizeAutoEncoder(VectorQuantize(dim=32, codebook_size=256,
+    vq_bridge=MiniEncoder(dim=256, input_dim=32, depth=1, heads=4),
+    learnable_codebook=True, ema_update=False, rotation_trick=False,
+    in_place_codebook_optimizer=SGD(lr=1e-3))), batch 256: step 0 against
+    the CPU from the same weights, then AdamW steps; the code utilization
+    is reported (the configuration collapses in both frameworks,
+    PARITY_FVQ.json) and not gated."""
+    from vqtpu_torch import SimpleQuantizeAutoEncoder, VectorQuantize
+    from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+    from vqtpu_torch.models import MiniEncoder
+
+    def build(dev):
+        return SimpleQuantizeAutoEncoder(VectorQuantize(
+            dim=32, codebook_size=256, vq_bridge=MiniEncoder(dim=256, input_dim=32, depth=1, heads=4, device=dev),
+            learnable_codebook=True, ema_update=False, rotation_trick=False,
+            in_place_codebook_optimizer=lambda p: torch.optim.SGD(p, lr=1e-3), device=dev), dim=32, device=dev).train()
+
+    def loss_of(model, x):
+        recon, idx, cmt = model(x)
+        return (recon.clamp(-1, 1) - x).abs().mean() + 10.0 * cmt, idx
+
+    torch.manual_seed(27)
+    model = build(device)
+    ref = build('cpu')
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(28)
+    images = [rng.random((sizes['images'], 28, 28, 1), dtype=np.float32) for _ in range(sizes['flagship_steps'])]
+    x = torch.from_numpy(images[0])
+    cbm = model.quantizer._codebook
+    with torch.no_grad():
+        z = model.encoder(x.to(device)).reshape(-1, 32)
+    reset_all_launches()
+    loss, idx = loss_of(model, x.to(device))
+    loss.backward()
+    sync(device)
+    with torch.no_grad():
+        # the codebook the last selection ran against: after the inner step
+        sel = cbm.vq_bridge(cbm.embed)[0]
+    launches = all_launches()
+    check(launches['nearest_code'] == 3 and launches['code_sums'] == 2,
+          f'an FVQ step launched K1 three times and code_sums twice {launches}')
+    ref_loss, ref_idx = loss_of(ref, x)
+    ref_loss.backward()
+    r = selection_disagreements(z, sel, selection_bias(sel, 'euclidean'), idx.reshape(-1), ref_idx.reshape(-1).to(device))
+    check(r['non_tie'] == 0, f'FVQ step 0: indices disagree with the CPU beyond ties {r}')
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(loss_rel <= 1e-4, f'FVQ step 0: loss as on the CPU ({loss_rel})')
+    param_err = max(rel_err(p.detach().cpu(), rp.detach()) for (_, p), (_, rp) in
+                    zip(cbm.named_parameters(), ref.quantizer._codebook.named_parameters()))
+    check(r['disagree'] > 0 or param_err <= 1e-5, f'FVQ step 0: the in-place SGD step as on the CPU ({param_err})')
+    # each parameter's error over its largest gradient, or 1e-4 of the
+    # model's when that is smaller: the attention's key bias takes a gradient
+    # that is 0 in exact arithmetic (a softmax ignores a constant added to
+    # all of a query's logits), rounding alone on either device
+    scale = max(float(rp.grad.abs().max()) for rp in ref.parameters() if rp.grad is not None)
+    grad_errs = {name: float((p.grad.cpu().double() - rp.grad.double()).abs().max()
+                             / max(float(rp.grad.abs().max()), 1e-4 * scale))
+                 for (name, p), (_, rp) in zip(model.named_parameters(), ref.named_parameters())
+                 if rp.grad is not None}
+    grad_name = max(grad_errs, key=grad_errs.get)
+    grad_err = grad_errs[grad_name]
+    if grad_err > 1e-3:
+        emit('fvq_step0_grads', rel_err=grad_errs, ref_max={name: float(rp.grad.abs().max()) for name, rp in
+                                                              ref.named_parameters() if rp.grad is not None},
+             disagree=r['disagree'], codes=int(idx.unique().numel()))
+    check(r['disagree'] > 0 or grad_err <= 1e-3, f'FVQ step 0: gradients as on the CPU ({grad_name}: {grad_err})')
+    del ref
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    opt.step()
+    opt.zero_grad()
+    losses, used = [loss.item()], []
+    for step in range(1, len(images)):
+        loss, idx = loss_of(model, torch.from_numpy(images[step]).to(device))
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.item())
+        used.append(int(idx.unique().numel()))
+    sync(device)
+    check(all(np.isfinite(losses)), 'FVQ losses are finite')
+    imgs = torch.from_numpy(images[-1]).to(device)
+
+    def step():
+        loss_of(model, imgs)[0].backward()
+        opt.step()
+        opt.zero_grad()
+    t = timed_step(step, sizes['step_reps'], warmup=2)
+    emit('fvq_flagship', model='SimpleQuantizeAutoEncoder(VectorQuantize(dim=32, codebook_size=256, '
+                               'vq_bridge=MiniEncoder(dim=256, input_dim=32, depth=1, heads=4), learnable_codebook=True, '
+                               'ema_update=False, rotation_trick=False, in_place_codebook_optimizer=SGD(lr=1e-3)))',
+         optimizer='AdamW(lr=3e-4, weight_decay=1e-4)', input=[sizes['images'], 28, 28, 1], steps=len(images),
+         launches_step0=launches, loss_first=losses[0], loss_last=losses[-1],
+         codes_used_first=used[0], codes_used_last=used[-1],
+         utilization_note='reported, not gated: PARITY_FVQ.json records the collapse in both frameworks',
+         step0_vs_cpu=dict(loss_rel_err=loss_rel, codebook_params_rel_err=param_err, grad_max_rel_err=grad_err, **r),
+         **t)
+    return launches, t['step_ms']
+
+
+def qinco_float64_picks(model, x, idx):
+    """For each QINCo layer, on tokens x (t, d) with the card's picks idx (t,
+    q): the float64 distance of the layer's pick and of its best code, from
+    the float64 copy `model` (on the CPU) and the picks of the layers before
+    (so each layer is judged on the input the card gave it)."""
+    x = x.double()
+    quantized = torch.zeros_like(x)
+    gaps = []
+    with torch.no_grad():
+        for q, vq in enumerate(model.layers):
+            codes = vq._codebook.embed[0]
+            residual = x - quantized
+            if q == 0:
+                cand = codes[None].expand(x.shape[0], *codes.shape)
+            else:
+                cand = model.mlps[q - 1](codes, condition=quantized[None])[0]       # (t, c, d)
+            dist = (residual[:, None] - cand).norm(dim=-1)                           # (t, c)
+            pick = idx[:, q].long()
+            picked = dist.gather(1, pick[:, None])[:, 0]
+            best = dist.min(1).values
+            gaps.append(((picked - best) / best.clamp_min(1e-30)))
+            quantized = quantized + cand[torch.arange(x.shape[0]), pick]
+    return torch.stack(gaps, 1)
+
+
+@contextmanager
+def forced_qinco_picks(model, idx):
+    """Inside, the ResidualVQ `model` (on the CPU) takes the codes `idx` (b,
+    n, q), the card's picks, in place of its own: layer 0 through
+    `lookup_with_code_grad` (its rows by gather, whose backward sums by
+    code), layers 1-(q-1) through each codebook's `gumbel_sample_fn` (a 0/1
+    one-hot, as the sampler gives without stochastic codes). So the step-0
+    comparison does not hinge on a near-tie flipping between the devices;
+    the picks themselves are held to float64 apart. Yields the count, per
+    layer, of tokens whose own pick differed."""
+    import vqtpu_torch.codebook.codebook as codebook_module
+    from vqtpu_torch.core.sampling import one_hot_float
+    flips = [0] * len(model.layers)
+    lookup = codebook_module.lookup_with_code_grad
+
+    def layer0(flatten, embed, metric='euclidean'):
+        own, _ = lookup(flatten, embed, metric)
+        forced = idx[..., 0].reshape(own.shape).to(own.dtype)
+        flips[0] += int((own != forced).sum())
+        rows = embed.gather(-2, forced.long()[..., None].expand(*forced.shape, embed.shape[-1]))
+        return forced, rows
+
+    def sampler(layer):
+        def pick(generator, dist, **kw):
+            own = dist.argmax(-1)
+            forced = idx[..., layer].reshape(own.shape).to(torch.int32)
+            flips[layer] += int((own != forced).sum())
+            return forced, one_hot_float(forced, dist.shape[-1], dist.dtype)
+        return pick
+
+    samplers = [vq._codebook.gumbel_sample_fn for vq in model.layers]
+    codebook_module.lookup_with_code_grad = layer0
+    for layer, vq in enumerate(model.layers):
+        if layer:
+            vq._codebook.gumbel_sample_fn = sampler(layer)
+    try:
+        yield flips
+    finally:
+        codebook_module.lookup_with_code_grad = lookup
+        for vq, fn in zip(model.layers, samplers):
+            vq._codebook.gumbel_sample_fn = fn
+
+
+def phase_qinco_path(device, sizes):
+    """Path 5: ResidualVQ(dim=256, num_quantizers=8, codebook_size=1024,
+    implicit_neural_codebook=True): an eval forward on 1024 tokens and one
+    training step on 256. Layer 0 selects with K1 (one launch a forward),
+    layers 1-7 on the distance path against per-token codebooks of 1024 x
+    256 (no kernel); the backward sums layer 0's rows by code (code_sums).
+    Held: each layer's pick within 1e-5 relative of the float64 best (a
+    near-tie), judged on a float64 copy on the CPU, on 256 of the eval
+    tokens and on all 256 training tokens; the decode of the eval indices
+    to 1e-4; and the training step against a CPU copy of the same state
+    that takes the card's picks (`forced_qinco_picks`): the output to 1e-5
+    and the losses and x.grad to 1e-4 of their largest entry, every
+    parameter's gradient (MLPs and codebooks) to 1e-3 of its largest entry,
+    or of 1e-4 of the model's largest when that is smaller, as in
+    fvq_flagship (f32 sums over the tokens in another order on each
+    device)."""
+    from vqtpu_torch import ResidualVQ
+    q, d, c = QINCO_MAIN
+    eval_tokens, train_tokens, cpu_tokens = sizes['qinco_tokens']
+    torch.manual_seed(29)
+    model = ResidualVQ(dim=d, num_quantizers=q, codebook_size=c, implicit_neural_codebook=True, device=device)
+    rvq_scaled_codebooks(model, seed=30)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((1, eval_tokens, d), dtype=np.float32) * 0.5).to(device)
+    model.eval()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    with torch.no_grad():
+        out, idx, _ = model(x)
+    sync(device)
+    eval_launches = all_launches()
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(eval_launches['nearest_code'] == 1, f'the QINCo eval forward launched K1 once (layer 0) {eval_launches}')
+    check(bool(torch.isfinite(out).all()), 'finite QINCo output')
+    with torch.no_grad():
+        decoded = model.get_output_from_indices(idx)
+    decode_err = float((decoded - out).abs().max())
+    check(decode_err <= 1e-4, f'the QINCo decode matches the eval output ({decode_err})')
+    ref = ResidualVQ(dim=d, num_quantizers=q, codebook_size=c, implicit_neural_codebook=True, device='cpu')
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+
+    def forward():
+        with torch.no_grad():
+            model(x)
+    eval_t = timed_step(forward, sizes['rvq_step_reps'])
+
+    model.train()
+    xt = x[:, :train_tokens].contiguous()
+    gt = torch.from_numpy(rng.standard_normal(xt.shape, dtype=np.float32) * 1e-3).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+
+    def train_step():
+        xg = xt.clone().requires_grad_()
+        o, i, losses = model(xg)
+        ((o * gt).sum() + losses.sum()).backward()
+        return xg.grad, o.detach(), i, losses.detach()
+    gx, out_t, idx_t, losses_t = train_step()
+    sync(device)
+    train_launches = all_launches()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(train_launches['nearest_code'] == 1 and train_launches['code_sums'] == 1,
+          f'the QINCo training step: K1 and code_sums once (layer 0) {train_launches}')
+    check(bool(torch.isfinite(gx).all()) and all(bool(torch.isfinite(p.grad).all())
+                                                   for p in model.parameters() if p.grad is not None),
+          'finite QINCo gradients')
+    check(all(p.grad is not None for p in model.mlps.parameters()), 'every QINCo MLP takes a gradient')
+
+    # step 0 against the CPU copy, under the card's picks
+    started = time.perf_counter()
+    ref.train()
+    xr = xt.cpu().requires_grad_()
+    with forced_qinco_picks(ref, idx_t.cpu()) as flips:
+        out_r, idx_r, losses_r = ref(xr)
+        ((out_r * gt.cpu()).sum() + losses_r.sum()).backward()
+    check(torch.equal(idx_r, idx_t.cpu()), 'the CPU copy took the card\'s picks')
+    out_err = rel_err(out_t.cpu(), out_r.detach())
+    losses_err = rel_err(losses_t.cpu(), losses_r.detach())
+    gx_err = rel_err(gx.cpu(), xr.grad)
+    scale = max(float(rp.grad.abs().max()) for rp in ref.parameters() if rp.grad is not None)
+    grad_errs = {name: float((p.grad.cpu().double() - rp.grad.double()).abs().max()
+                             / max(float(rp.grad.abs().max()), 1e-4 * scale))
+                 for (name, p), (_, rp) in zip(model.named_parameters(), ref.named_parameters())
+                 if rp.grad is not None}
+    check(set(grad_errs) == {name for name, p in model.named_parameters() if p.grad is not None},
+          'the card and the CPU copy give gradients to the same parameters')
+    grad_name = max(grad_errs, key=grad_errs.get)
+    step0 = dict(output_rel_err=out_err, losses_rel_err=losses_err, x_grad_rel_err=gx_err,
+                 grad_max_rel_err=grad_errs[grad_name], grad_max_rel_err_of=grad_name,
+                 cpu_own_pick_flips=flips, cpu_s=time.perf_counter() - started)
+    check(out_err <= 1e-5, f'QINCo step 0: the output as on the CPU ({step0})')
+    check(losses_err <= 1e-4 and gx_err <= 1e-4, f'QINCo step 0: losses and x.grad as on the CPU ({step0})')
+    check(grad_errs[grad_name] <= 1e-3, f'QINCo step 0: every gradient as on the CPU ({step0})')
+    del out_r, losses_r, xr
+
+    # the card's picks against the float64 best, eval tokens and training tokens
+    started = time.perf_counter()
+    ref64 = ref.double()
+    eval_gaps = qinco_float64_picks(ref64, x[0, -cpu_tokens:].cpu(), idx[0, -cpu_tokens:].cpu())
+    train_gaps = qinco_float64_picks(ref64, xt[0].cpu(), idx_t[0].cpu())
+    worst = dict(eval=float(eval_gaps.max()), train=float(train_gaps.max()),
+                 cpu_s=time.perf_counter() - started)
+    check(max(worst['eval'], worst['train']) <= 1e-5,
+          f'QINCo picks within 1e-5 of the float64 best on every layer ({worst})')
+    del ref, ref64
+
+    model.zero_grad()
+    train_t = timed_step(lambda: train_step(), sizes['rvq_step_reps'])
+    emit('qinco_path', model=f'ResidualVQ(dim={d}, num_quantizers={q}, codebook_size={c}, '
+                             'implicit_neural_codebook=True)',
+         eval_tokens=eval_tokens, train_tokens=train_tokens, float64_checked_tokens=dict(
+             eval=cpu_tokens, train=train_tokens),
+         cut='tokens only: the per-token codebook is (N, 1024, 256) f32, 1 GiB at N = 1024; training keeps '
+             'every MLP activation of 7 layers for the backward',
+         eval_launches=eval_launches, train_launches=train_launches, float64_worst_pick_gap=worst,
+         decode_max_abs_err=decode_err, step0_vs_cpu=step0, eval_peak_gib=eval_peak, train_peak_gib=train_peak,
+         eval=eval_t, train=train_t)
+    return eval_launches, train_launches, eval_t['step_ms'], train_t['step_ms']
+
+
+def phase_diveq_rvq_path(device, sizes):
+    """Path 6: ResidualVQ(dim=256, num_quantizers=8, codebook_size=1024,
+    diveq=True) on (32, 2048, 256), one training step: K1 once a layer and
+    code_sums once a layer in the backward; each layer's indices against
+    the plain selection on that layer's input; finite gradients to x and
+    every codebook; then times."""
+    from vqtpu_torch import ResidualVQ
+    b, n, d, q, c = RVQ_MAIN
+    torch.manual_seed(32)
+    model = ResidualVQ(dim=d, num_quantizers=q, codebook_size=c, diveq=True, device=device).train()
+    rvq_scaled_codebooks(model, seed=33)
+    rng = np.random.default_rng(34)
+    x = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32) * 0.5).to(device)
+    g = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32) * 1e-3).to(device)
+    reset_all_launches()
+    xg = x.clone().requires_grad_()
+    (out, idx, losses), inputs = rvq_with_layer_inputs(model, xg)
+    ((out * g).sum() + losses.sum()).backward()
+    sync(device)
+    launches = all_launches()
+    check(launches['nearest_code'] == q and launches['code_sums'] == q and launches['train_fused'] == 0,
+          f'the DiVeQ step launched K1 and code_sums once a layer {launches}')
+    with torch.no_grad():
+        reports, _ = rvq_layers_vs_plain(model, idx, inputs, device)
+    check(bool(torch.isfinite(xg.grad).all()), 'finite x.grad')
+    check(all(vq._codebook.embed.grad is not None and bool(torch.isfinite(vq._codebook.embed.grad).all())
+              for vq in model.layers), 'every DiVeQ codebook takes a finite gradient')
+    del inputs
+
+    def step():
+        xs = x.clone().requires_grad_()
+        o, _, ls = model(xs)
+        ((o * g).sum() + ls.sum()).backward()
+    t = timed_step(step, sizes['rvq_step_reps'])
+    emit('diveq_rvq_path', model=f'ResidualVQ(dim={d}, num_quantizers={q}, codebook_size={c}, diveq=True)',
+         input=[b, n, d], launches=launches, layers_vs_plain=reports, **t)
+    return launches, t['step_ms']
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -2699,6 +3427,10 @@ def main() -> int:
         'rvq_reps': 10,
         'rvq_beam_reps': 3,
         'rvq_step_reps': 3,
+        'learn_main': LEARN_MAIN,
+        'code_sums_rvq': (RVQ_MAIN[0] * RVQ_MAIN[1], RVQ_MAIN[4]),
+        # QINCo: eval tokens, training tokens, eval tokens checked in float64 on the CPU
+        'qinco_tokens': (1024, 256, 256),
     }
 
     kind, count, smi, ptxas = phase_device()
@@ -2740,6 +3472,13 @@ def main() -> int:
     rvq_flagship, rvq_flagship_launches = phase_rvq_flagship_train(device, sizes)
     rvq_times = phase_rvq_times(rvq, rvq_x, beam_model, beam_x, rvq_train_models, rvq_train_x, sizes, smi)
     del rvq, rvq_x, beam_model, beam_x, rvq_train_models, rvq_train_x, rvq_flagship
+    code_sums_times = phase_code_sums(device, sizes)
+    learn_launches, learn_times = phase_learnable_path(device, sizes, code_sums_times['ms'])
+    ortho = phase_ortho_path(device, sizes)
+    affine_launches, affine_ms = phase_affine_path(device, sizes)
+    fvq_launches, fvq_ms = phase_fvq_flagship(device, sizes)
+    qinco_eval_launches, qinco_train_launches, qinco_eval_ms, qinco_train_ms = phase_qinco_path(device, sizes)
+    diveq_launches, diveq_ms = phase_diveq_rvq_path(device, sizes)
     check_no_spill(ptxas)
 
     print(json.dumps({'kernels': [{
@@ -2755,6 +3494,13 @@ def main() -> int:
         'launches_grouped_rvq_eval': grouped_rvq_launches,
         'launches_rvq_train_off_per_step': rvq_off_launches,
         'launches_rvq_flagship_eval': rvq_flagship_launches,
+        'launches_learnable_step': learn_launches['nearest_code'],
+        'launches_ortho_step': {k: v['launches']['nearest_code'] for k, v in ortho.items()},
+        'launches_affine_off_step': affine_launches['off']['nearest_code'],
+        'launches_fvq_step': fvq_launches['nearest_code'],
+        'launches_qinco_eval': qinco_eval_launches['nearest_code'],
+        'launches_qinco_train_step': qinco_train_launches['nearest_code'],
+        'launches_diveq_rvq_step': diveq_launches['nearest_code'],
         'rvq_layer_ms': rvq_times['rvq_k1_layer_ms'],
         'rvq_layer_bound_ms': rvq_times['rvq_k1_layer_bound_ms'],
         'max_abs_err': selection['main']['max_score_gap'],
@@ -2777,6 +3523,7 @@ def main() -> int:
         'launches': train_launches,
         'launches_flagship_train': flagship_train_launches,
         'launches_rvq_train_on_per_step': rvq_on_launches,
+        'launches_affine_on_step': affine_launches['on']['train_fused'],
         'max_abs_err': train_err,
         'max_abs_err_of': 'max |esum - float64 sum| at the main shape (indices and rows are exact)',
         'design': TRAIN_DESIGN,
@@ -2834,6 +3581,34 @@ def main() -> int:
         'check': 'values and indices bit-identical to the plain version on the card (NaN for NaN) in every case, '
                  "a whole binade at levels 5, 7 and 8 included, two calls bit-identical; 'auto' against 'off' "
                  'and the decode from indices',
+        'power_limit': smi,
+    }, {
+        'name': 'code_sums',
+        'route': 'cuda',
+        'source': TRAIN_SOURCE,
+        'replaces': CODE_SUMS_REPLACES,
+        'replaces_note': "K4's statistics half, run alone as the backward of the learnable lookup; on the TPU that "
+                         "backward is XLA's scatter-add (the gather's VJP, vqtpu/codebook/codebook.py:1028)",
+        'launches': learn_launches['code_sums'],
+        'launches_fvq_step': fvq_launches['code_sums'],
+        'launches_qinco_train_step': qinco_train_launches['code_sums'],
+        'launches_diveq_rvq_step': diveq_launches['code_sums'],
+        'max_abs_err': code_sums_times['max_abs_err'],
+        'max_abs_err_of': 'max |sums - float64 per-code sum| over the code_sums cases (each within the f32 '
+                          'summation bound)',
+        'ms': code_sums_times['ms'],
+        'plain_ms': code_sums_times['plain_ms'],
+        'bound_ms': code_sums_times['bound_ms'],
+        'bound_by': code_sums_times['bound_by'],
+        'library_ms': code_sums_times['library_ms'],
+        'library': 'index_add_ (the backward of index_select)',
+        'ms_of': 'the per-code sums of 2^20 rows of 256 against 512 codes (the learnable step\'s shape)',
+        'design': CODE_SUMS_DESIGN,
+        'step_ms': dict(learnable=learn_times['step_ms'], ortho={k: v['step_ms'] for k, v in ortho.items()},
+                        affine=affine_ms, fvq=fvq_ms, qinco_eval=qinco_eval_ms, qinco_train=qinco_train_ms,
+                        diveq_rvq=diveq_ms),
+        'check': 'bins exact, sums within the f32 summation bound of float64, two calls bit-identical; the '
+                 'learnable codebook gradient bit-identical across two calls and two steps',
         'power_limit': smi,
     }]}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind, 'count': count}}),

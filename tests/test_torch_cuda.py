@@ -741,3 +741,136 @@ def test_rvq_beam_ranking_ignores_tf32_setting(card):
     finally:
         torch.set_float32_matmul_precision(before)
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# -- the learnable family: K1's rows with their codebook gradient (code_sums) ----
+
+
+def _float64_code_sums(g, idx, c):
+    """(h, n, d) rows and (h, n) codes -> (h, c, d) float64 sums, and the
+    sums of |g| for the f32 bound."""
+    h, n, d = g.shape
+    flat = (idx.long() + torch.arange(h, device=g.device)[:, None] * c).reshape(-1)
+    out = torch.zeros(h * c, d, dtype=torch.float64, device=g.device)
+    absum = torch.zeros_like(out)
+    out.index_put_((flat,), g.reshape(-1, d).double(), accumulate=True)
+    absum.index_put_((flat,), g.reshape(-1, d).double().abs(), accumulate=True)
+    counts = torch.bincount(flat, minlength=h * c).double()
+    return out.reshape(h, c, d), absum.reshape(h, c, d), counts.reshape(h, c)
+
+
+@pytest.mark.parametrize('shape', ((20000, 512, 256), (3, 1000, 257, 40), (300, 130, 96), (4099, 1024, 3)))
+def test_learnable_lookup_codebook_grad(card, shape):
+    """The learnable lookup: K1's rows, and a codebook gradient that is the
+    float64 per-code sum of the rows' gradients within the f32 summation
+    bound, bit-identical across two backward passes, with one code_sums
+    launch each."""
+    x, e = _operands(shape, 'euclidean', card)
+    g = torch.randn(x.shape, device=card)
+    c = e.shape[-2]
+    grads = []
+    for _ in range(2):
+        before = (td.nearest_code.launches, ttf.code_sums.launches)
+        ec = e.clone().requires_grad_()
+        idx, rows = ttf.lookup_with_code_grad(x, ec)
+        (rows * g).sum().backward()
+        torch.cuda.synchronize()
+        assert (td.nearest_code.launches - before[0], ttf.code_sums.launches - before[1]) == (1, 1)
+        grads.append(ec.grad)
+    assert torch.equal(grads[0], grads[1])
+    want_idx, want_rows = td.quantize_lookup(x, e)
+    assert torch.equal(idx, want_idx) and torch.equal(rows, want_rows)
+    heads = (lambda t: t) if x.ndim == 3 else (lambda t: t[None])
+    ref, absum, counts = _float64_code_sums(heads(g), heads(idx), c)
+    bound = (counts[..., None] + 128) * 2.0 ** -24 * absum
+    assert bool(((heads(grads[0]).double() - ref).abs() <= bound).all())
+
+
+def test_code_sums_matches_plain_and_rejects(card):
+    """code_sums against the plain version (index_put_) and float64, with
+    weights; what the kernel does not take raises."""
+    rng = np.random.default_rng(3)
+    g = torch.from_numpy(rng.standard_normal((2, 5000, 64), dtype=np.float32)).to(card)
+    idx = torch.from_numpy(rng.integers(0, 300, (2, 5000)).astype(np.int32)).to(card)
+    w = torch.from_numpy((rng.random((2, 5000)) > 0.4).astype(np.float32)).to(card)
+    bins, esum = ttf.code_sums(g, idx, 300, w)
+    pbins, pesum = ttf.code_statistics_plain(g, idx, 300, w)
+    torch.cuda.synchronize()
+    assert torch.equal(bins, pbins)
+    torch.testing.assert_close(esum, pesum, rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError, match='int32'):
+        ttf.code_sums(g, idx.long(), 300)
+    with pytest.raises(ValueError, match='contiguous'):
+        ttf.code_sums(g.transpose(0, 1).contiguous().transpose(0, 1), idx, 300)
+
+
+def test_learnable_vq_step_is_deterministic(card):
+    """Two learnable steps with the in-place Adam from one state give the
+    same bits: indices, codebook, its gradient and x.grad; K1 three times
+    and code_sums twice a step, no K4."""
+    out = []
+    for _ in range(2):
+        torch.manual_seed(5)
+        vq = vqtpu_torch.VectorQuantize(dim=64, codebook_size=256, learnable_codebook=True, ema_update=False,
+                                        in_place_codebook_optimizer=lambda p: torch.optim.Adam(p, lr=1e-3),
+                                        device=card).train()
+        x = torch.from_numpy(np.random.default_rng(6).standard_normal((4, 2000, 64), dtype=np.float32))
+        xc = x.to(card).requires_grad_()
+        before = (td.nearest_code.launches, ttf.code_sums.launches, ttf.fused_train_quantize.launches)
+        q, idx, loss = vq(xc)
+        (q.square().mean() + loss).backward()
+        torch.cuda.synchronize()
+        after = (td.nearest_code.launches, ttf.code_sums.launches, ttf.fused_train_quantize.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (3, 2, 0)
+        out.append((idx, vq._codebook.embed.detach().clone(), vq._codebook.embed.grad, xc.grad))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_affine_param_routes_agree(card):
+    """affine_param on K4 ('on': raw-x statistics, then the post-transform)
+    against 'off' (statistics of the mapped x): the same indices, and the
+    EMA state to f32 summation rounding."""
+    models = {}
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((4, 3000, 64), dtype=np.float32) + 0.3).to(card)
+    for route in ('on', 'off'):
+        torch.manual_seed(8)
+        vq = vqtpu_torch.VectorQuantize(dim=64, codebook_size=256, affine_param=True, train_fused=route,
+                                        device=card).train()
+        before = (td.nearest_code.launches, ttf.fused_train_quantize.launches)
+        _, idx, _ = vq(x)
+        torch.cuda.synchronize()
+        launched = (td.nearest_code.launches - before[0], ttf.fused_train_quantize.launches - before[1])
+        assert launched == ((0, 1) if route == 'on' else (1, 0))
+        models[route] = (vq, idx)
+    (on, idx_on), (off, idx_off) = models['on'], models['off']
+    assert torch.equal(idx_on, idx_off)
+    for name in ('cluster_size', 'batch_mean', 'batch_variance', 'codebook_mean', 'codebook_variance'):
+        assert torch.equal(getattr(on._codebook, name), getattr(off._codebook, name)), name
+    torch.testing.assert_close(on._codebook.embed_avg, off._codebook.embed_avg, rtol=1e-5, atol=1e-6)
+
+
+def test_qinco_layer_matches_cpu(card):
+    """A QINCo ResidualVQ on the card against the same weights on the CPU:
+    the indices, the output and, in training, the gradients."""
+    torch.manual_seed(9)
+    kw = dict(dim=32, num_quantizers=3, codebook_size=64, implicit_neural_codebook=True)
+    m = vqtpu_torch.ResidualVQ(**kw, device=card)
+    ref = vqtpu_torch.ResidualVQ(**kw, device='cpu')
+    ref.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal((2, 50, 32), dtype=np.float32))
+    for mode in ('eval', 'train'):
+        getattr(m, mode)()
+        getattr(ref, mode)()
+        xc = x.to(card).requires_grad_()
+        xr = x.clone().requires_grad_()
+        q, idx, losses = m(xc)
+        q_ref, idx_ref, losses_ref = ref(xr)
+        assert torch.equal(idx.cpu(), idx_ref)
+        torch.testing.assert_close(q.detach().cpu(), q_ref.detach(), rtol=1e-5, atol=1e-5)
+        if mode == 'train':
+            (q.square().mean() + losses.sum()).backward()
+            (q_ref.square().mean() + losses_ref.sum()).backward()
+            torch.testing.assert_close(xc.grad.cpu(), xr.grad, rtol=1e-4, atol=1e-6)
+            for (name, p), (_, pr) in zip(m.named_parameters(), ref.named_parameters()):
+                assert _max_rel(p.grad.cpu(), pr.grad.double()) <= 1e-4, name

@@ -412,8 +412,15 @@ def test_non_uniform_codebooks_are_a_tuple():
     (dict(diveq=True), 'diveq'),
 ))
 def test_learnable_residual_features_raise(kwargs, feature):
-    with pytest.raises(NotImplementedError, match=feature):
-        vqtpu_torch.ResidualVQ(**BASE, device='cpu', **kwargs)
+    """QINCo and DiVeQ are ported (held against the JAX package in
+    tests/test_torch_residual_vq_qinco.py): they build and train; heads
+    still raise."""
+    tm = vqtpu_torch.ResidualVQ(**BASE, device='cpu', **kwargs).train()
+    x = torch.randn(2, 5, BASE['dim'], requires_grad=True)
+    q, idx, losses = tm(x)
+    (q.sum() + losses.sum()).backward()
+    assert q.shape == x.shape and idx.shape == (2, 5, BASE['num_quantizers'])
+    assert all(layer._codebook.embed.grad is not None for layer in tm.layers), feature
     with pytest.raises(ValueError, match='multi-headed'):
         vqtpu_torch.ResidualVQ(**BASE, heads=2, device='cpu')
 

@@ -11,7 +11,7 @@ import torch
 from flax import nnx
 
 from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
-from vqtpu_torch.utils.weights import _LEAF_RULES
+from vqtpu_torch.utils.weights import leaf_rules
 
 # share of tokens allowed to flip at a near-tie (see assert_indices_tie_equal)
 MAX_TIE_SHARE = 1e-3
@@ -45,7 +45,7 @@ def torch_layout_grads(module, grads, prefix: str = '') -> dict:
     names and layouts, with the layout rules of load_vqtpu_state (Linear and
     Conv kernels transposed, other parameters as they are):
     {torch parameter name: numpy array}."""
-    rules = _LEAF_RULES.get(type(module))
+    rules = leaf_rules(module)
     children = dict(module.named_children())
     params = dict(module.named_parameters(recurse=False))
     out = {}

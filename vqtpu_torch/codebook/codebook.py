@@ -1,8 +1,9 @@
-"""The EMA codebook (counterpart of vqtpu/codebook/codebook.py).
+"""The codebook (counterpart of vqtpu/codebook/codebook.py).
 
-Holds the codebook state as buffers with the JAX package's names and shapes
-(embed (h, c, d), embed_avg, cluster_size, initted, accum_cluster_size,
-accum_embed_avg) and runs both forwards:
+Holds the codebook state with the JAX package's names and shapes (embed
+(h, c, d), embed_avg, cluster_size, initted, accum_cluster_size,
+accum_embed_avg, and with `affine_param` the batch and codebook means and
+variances with their `*_initted` flags) and runs both forwards:
 
 - eval: nearest-code selection and the exact row lookup, on the exact or
   the bf16 tier;
@@ -21,10 +22,20 @@ accum_embed_avg) and runs both forwards:
   one-hot product in training. The JAX package computes this path outside
   any Pallas kernel too.
 
-Buffers are updated in place under `torch.no_grad()` from detached tensors,
-so no graph is kept on them from step to step. Random draws (kmeans init,
-dead-code replacement) come from `self.generator`, a `torch.Generator` on
-the module's device seeded from torch's global generator at construction.
+A learnable codebook (`learnable_codebook=True`) keeps `embed` as an
+`nn.Parameter`: its looked-up rows carry their gradient to it (on the card
+the selection kernel picks the rows, and the backward sums their gradients
+by code in `kernels.train_fused.code_sums`), and the fused train kernel is
+never taken for it. `vq_bridge` (a module or function) maps the whole
+codebook before selection, and `affine_param` maps it to the batch's
+running mean and variance (https://arxiv.org/abs/2203.01941); both belong
+to learnable or EMA codebooks as in the JAX package.
+
+Buffers (and the EMA's writes to a learnable `embed`) are updated in place
+under `torch.no_grad()` from detached tensors, so no graph is kept on them
+from step to step. Random draws (kmeans init, dead-code replacement) come
+from `self.generator`, a `torch.Generator` on the module's device seeded
+from torch's global generator at construction.
 """
 
 from __future__ import annotations
@@ -32,22 +43,28 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.sampling import gumbel_sample, masked_sample_vectors
 from ..core.utils import (
-    append_dims_to, cdist, default, full_f32_matmul, l2norm, laplace_smoothing, pack_tokens,
+    append_dims_to, cdist, default, l2norm, laplace_smoothing, matmul_tf32, pack_tokens,
     resolve_device, uniform_init,
 )
 from ..kernels.distance import (
     gather_codes, gather_codes_per_head, nearest_code_xla, quantize_lookup,
 )
-from ..kernels.train_fused import code_statistics_plain, fused_train_quantize
+from ..kernels.train_fused import code_statistics_plain, fused_train_quantize, lookup_with_code_grad
 from . import kmeans as kmeans_module
 
 
 def not_ported(feature: str) -> NotImplementedError:
     return NotImplementedError(f'{feature} is not ported to vqtpu_torch yet')
+
+
+# stat_precision: the JAX package's matmul precision of the statistics.
+# 'highest' sums in f32; 'high' and 'default' mean TF32 products on a GPU
+STAT_PRECISIONS = ('highest', 'high', 'default')
 
 
 def _expand_mask(mask: torch.Tensor, num_heads: int, num_tokens: int) -> torch.Tensor:
@@ -117,21 +134,28 @@ class Codebook(nn.Module):
         in plain torch instead of the kernels. `gumbel_sample_fn` (default
         `core.sampling.gumbel_sample`) picks codes from the distances on the
         distance-materializing path, with `self.generator` for its noise
-        and `sample_codebook_temp` as its temperature. `sync_kmeans` belongs
-        to the data-parallel path, not ported yet, and is accepted for the
-        JAX signature."""
+        and `sample_codebook_temp` as its temperature.
+
+        `stat_precision`, the JAX package's precision of the matmul that
+        sums the batch statistics into the EMA state: 'highest' (the
+        default) sums exact f32 rows by code, on the card in the fused
+        kernel or `index_put_`; 'high' and 'default' form the one-hot
+        product, which on the card runs in TF32 (what both mean for JAX on
+        a GPU; f32 on the CPU) and keeps off the fused kernel, as in JAX.
+        `sync_kmeans` and `sync_affine_param` belong to the data-parallel
+        path, not ported yet, and are accepted for the JAX signature."""
         super().__init__()
         for feature, used in (
             ('sync_axis', sync_axis is not None),
             ('code_axis', code_axis is not None),
-            ('learnable_codebook', learnable_codebook),
-            ('affine_param', affine_param),
-            ('vq_bridge', vq_bridge is not None),
-            (f'stat_precision={stat_precision!r} (only the exact f32 statistics are)',
-             stat_precision != 'highest'),
         ):
             if used:
                 raise not_ported(feature)
+        stat_precision = str(stat_precision).lower()
+        if stat_precision not in STAT_PRECISIONS:
+            raise ValueError(f'stat_precision must be one of {STAT_PRECISIONS}, got {stat_precision!r}')
+        if affine_param and use_cosine_sim:
+            raise ValueError('affine param is only compatible with euclidean codebook')
         if quantize_tier not in ('exact', 'bf16'):
             raise ValueError(f"quantize_tier must be 'exact' or 'bf16', got {quantize_tier!r}")
         if train_fused not in ('auto', 'on', 'off'):
@@ -151,6 +175,15 @@ class Codebook(nn.Module):
         self.use_pallas = use_pallas
         self.quantize_tier = quantize_tier
         self.train_fused = train_fused
+        self.stat_precision = stat_precision
+        self.learnable_codebook = learnable_codebook
+        self.vq_bridge = vq_bridge
+        self.affine_param = affine_param
+        self.affine_param_batch_decay = affine_param_batch_decay
+        self.affine_param_codebook_decay = affine_param_codebook_decay
+        # (h, c) rows that the last forward which updated usage overwrote
+        # (None: none); see embed_after_forward
+        self.rewritten_rows = None
         self.gumbel_sample_fn = default(gumbel_sample_fn, gumbel_sample)
         self.sample_codebook_temp = sample_codebook_temp
         self.threshold_ema_dead_code = threshold_ema_dead_code
@@ -165,12 +198,22 @@ class Codebook(nn.Module):
             if use_cosine_sim:
                 embed = l2norm(embed)
 
-        self.register_buffer('embed', embed)
+        if learnable_codebook:
+            self.embed = nn.Parameter(embed)
+        else:
+            self.register_buffer('embed', embed)
         self.register_buffer('embed_avg', embed.clone())
         self.register_buffer('cluster_size', torch.ones(shape[:2], device=device))
         self.register_buffer('initted', torch.tensor(not kmeans_init, device=device))
         self.register_buffer('accum_cluster_size', torch.zeros(shape[:2], device=device))
         self.register_buffer('accum_embed_avg', torch.zeros(shape, device=device))
+        if affine_param:
+            stat_shape = (num_codebooks, 1, dim)
+            for which in ('batch', 'codebook'):
+                self.register_buffer(f'{which}_mean', torch.zeros(stat_shape, device=device))
+                self.register_buffer(f'{which}_variance', torch.ones(stat_shape, device=device))
+                self.register_buffer(f'{which}_mean_initted', torch.tensor(False, device=device))
+                self.register_buffer(f'{which}_variance_initted', torch.tensor(False, device=device))
 
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
@@ -194,6 +237,85 @@ class Codebook(nn.Module):
             return device_type == 'cuda'
         return self.train_fused == 'on'
 
+    def _embed_value(self) -> torch.Tensor:
+        """The codebook this forward selects from. A learnable one, while
+        gradients are recorded, as a copy that carries the gradient to
+        `embed`: the forward may overwrite `embed` in place after selecting
+        (the EMA update, expired codes), and a graph that kept `embed`
+        itself would then refuse its backward."""
+        if self.learnable_codebook and torch.is_grad_enabled():
+            return self.embed.clone()
+        return self.embed
+
+    def _mark_rewritten(self, rows: torch.Tensor | None = None):
+        """Record that the forward overwrote codebook rows: `rows` (h, c),
+        or all of them."""
+        if rows is None:
+            rows = torch.ones(self.embed.shape[:2], dtype=torch.bool, device=self.embed.device)
+        self.rewritten_rows = rows if self.rewritten_rows is None else self.rewritten_rows | rows
+
+    def embed_after_forward(self) -> torch.Tensor:
+        """The codebook as the last forward that updated usage left it. The
+        rows it overwrote (the EMA update, kmeans init, expired codes) take
+        no gradient; the others carry it to a learnable `embed`. That is the
+        JAX package's rule: there a write inside the forward replaces the
+        parameter's traced value with a constant."""
+        embed = self.embed
+        if self.rewritten_rows is None:
+            return embed
+        if bool(self.rewritten_rows.all()):
+            return embed.detach()
+        return torch.where(self.rewritten_rows[..., None], embed.detach(), embed)
+
+    # -- affine statistics ---------------------------------------------------
+
+    @torch.no_grad()
+    def _update_with_decay(self, name: str, new_value: torch.Tensor, decay: float):
+        var = getattr(self, name)
+        flag = getattr(self, name + '_initted')
+        var.copy_(torch.where(flag, var * decay + new_value * (1.0 - decay), new_value))
+        flag.fill_(True)
+
+    @torch.no_grad()
+    def update_affine(self, flatten: torch.Tensor, embed: torch.Tensor, mask: torch.Tensor | None = None):
+        """Fold the codebook's per-dim mean and variance over its codes (in
+        training) and the batch's over its tokens where `mask` (h, N) is
+        True (in either mode, as in the JAX package) into their EMAs."""
+        embed = embed.detach().reshape(embed.shape[0], -1, embed.shape[-1])
+        if self.training:
+            decay = self.affine_param_codebook_decay
+            self._update_with_decay('codebook_mean', embed.mean(-2, keepdim=True), decay)
+            self._update_with_decay('codebook_variance', embed.var(-2, keepdim=True, unbiased=False), decay)
+        if mask is not None:
+            w = mask.float()[..., None]                                 # (h, N, 1)
+            count = w.sum(-2, keepdim=True)
+            batch_mean = (flatten * w).sum(-2, keepdim=True) / count.clamp_min(1.0)
+            var_numer = (((flatten - batch_mean) ** 2) * w).sum(-2, keepdim=True)
+        else:
+            count = torch.full((flatten.shape[0], 1, 1), float(flatten.shape[1]), device=flatten.device)
+            batch_mean = flatten.sum(-2, keepdim=True) / count.clamp_min(1.0)
+            var_numer = ((flatten - batch_mean) ** 2).sum(-2, keepdim=True)
+        self._update_with_decay('batch_mean', batch_mean, self.affine_param_batch_decay)
+        self._update_with_decay('batch_variance', var_numer / count.clamp_min(1.0),
+                                self.affine_param_batch_decay)
+
+    def _affine_stds(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The codebook's and the batch's std per dim, (h, 1, d) each."""
+        return (torch.sqrt(self.codebook_variance.clamp_min(1e-5)),
+                torch.sqrt(self.batch_variance.clamp_min(1e-5)))
+
+    def _affine_scale(self) -> torch.Tensor:
+        """s = codebook std / batch std, per dim (h, 1, d)."""
+        codebook_std, batch_std = self._affine_stds()
+        return codebook_std / batch_std
+
+    def _affine_to_batch(self, embed: torch.Tensor) -> torch.Tensor:
+        codebook_std, batch_std = self._affine_stds()
+        return (embed - self.codebook_mean) * (batch_std / codebook_std) + self.batch_mean
+
+    def _affine_to_codebook(self, flatten: torch.Tensor) -> torch.Tensor:
+        return (flatten - self.batch_mean) * self._affine_scale() + self.codebook_mean
+
     # -- kmeans init ---------------------------------------------------------
 
     @torch.no_grad()
@@ -210,6 +332,7 @@ class Codebook(nn.Module):
         self.embed_avg.copy_(embed_sum)
         self.cluster_size.copy_(cluster_size)
         self.initted.fill_(True)
+        self._mark_rewritten()
 
     # -- EMA update machinery ------------------------------------------------
 
@@ -225,6 +348,7 @@ class Codebook(nn.Module):
     def update_ema(self):
         """embed <- laplace-smoothed embed_avg / cluster_size."""
         self.embed.copy_(self._normalized_embed(self.embed_avg, self.cluster_size))
+        self._mark_rewritten()
 
     def _ema_inplace(self, name: str, accum_name: str, new: torch.Tensor, weight):
         """old <- lerp(old, new + pending accum, (1 - decay) * weight); drains
@@ -246,11 +370,17 @@ class Codebook(nn.Module):
     ):
         """Fold this batch's cluster sizes and embedding sums into the EMA
         statistics, from (h, N) tokens and their indices; tokens where
-        `mask` (h, N) is False count for nothing."""
-        weights = None if mask is None else mask.float()
-        bins, embed_sum = code_statistics_plain(
-            flatten.detach().float(), embed_ind, self.codebook_size, weights
-        )
+        `mask` (h, N) is False count for nothing. With `affine_param` the
+        tokens are first mapped to the codebook's statistics."""
+        flatten = flatten.detach().float()
+        if self.stat_precision != 'highest':
+            onehot = F.one_hot(embed_ind.long(), self.codebook_size).float()
+            bins, embed_sum = self._onehot_statistics(flatten, onehot, mask)
+        else:
+            if self.affine_param:
+                flatten = self._affine_to_codebook(flatten)
+            weights = None if mask is None else mask.float()
+            bins, embed_sum = code_statistics_plain(flatten, embed_ind, self.codebook_size, weights)
         self._apply_batch_stats(bins, embed_sum, ema_update_weight, accum_ema_update)
 
     @torch.no_grad()
@@ -306,6 +436,7 @@ class Codebook(nn.Module):
         replace_mask = batch_mask & has_valid                          # (h, c)
 
         self.embed.copy_(torch.where(replace_mask[..., None], sampled, self.embed))
+        self._mark_rewritten(replace_mask)
         self.cluster_size.copy_(
             torch.where(replace_mask, self.reset_cluster_size, self.cluster_size))
         self.embed_avg.copy_(torch.where(
@@ -431,14 +562,18 @@ class Codebook(nn.Module):
         and last in the indices, and `codebook_transform_fn(embed)` gives a
         per-token codebook (h, b, n, c, d).
 
-        The quantized rows are detached codebook rows, except that in
+        The quantized rows are codebook rows (after `vq_bridge` and the
+        affine map): an EMA codebook's are detached, a learnable one's carry
+        their gradient to `embed` and the bridge (not on the bf16 tier). In
         training the distance path looks them up by the one-hot product,
-        which carries the gumbel straight-through gradient to the
-        distances. The EMA codebook itself takes no gradient. In training
-        mode (and with `update_usage`, without `freeze_codebook` and without
-        `topk`) the batch updates the EMA state; `mask` (b, n) weights those
-        statistics. `dist_precision` is the JAX package's matmul precision
-        knob: the distances here are always full f32.
+        which also carries the gumbel straight-through gradient to the
+        distances. In training mode (and with `update_usage`, without
+        `freeze_codebook` and without `topk`) the batch updates the EMA
+        state and expires dead codes; `mask` (b, n) weights those
+        statistics. With `affine_param` every forward also folds the batch's
+        mean and variance into their EMAs (and in training the codebook's).
+        `dist_precision` is the JAX package's matmul precision knob: the
+        distances here are always full f32.
         """
         ema_update = default(ema_update, self.ema_update)
         sample_codebook_temp = default(sample_codebook_temp, self.sample_codebook_temp)
@@ -453,12 +588,20 @@ class Codebook(nn.Module):
         if self.embed.shape[0] != h:
             raise ValueError(f'{h} head groups of tokens for {self.embed.shape[0]} codebooks')
         flat_mask = None if mask is None else _expand_mask(mask, h, num_tokens)
+        if update_usage:
+            self.rewritten_rows = None
 
         if self.kmeans_init:
             # as in the JAX package, in either mode: a no-op once initted
             self.init_embed_(flatten, mask=flat_mask)
+        if self.affine_param:
+            self.update_affine(flatten, self.embed, mask=flat_mask)
 
-        embed = self.embed
+        embed = self._embed_value()
+        if self.vq_bridge is not None:
+            embed = self.vq_bridge(embed).contiguous()
+        if self.affine_param:
+            embed = self._affine_to_batch(embed)
         metric = 'cosine' if self.use_cosine_sim else 'euclidean'
         update = self.training and update_usage and not freeze_codebook
         use_stochastic = (self.training and stochastic and sample_codebook_temp is not None
@@ -471,19 +614,28 @@ class Codebook(nn.Module):
         if not fast_path:
             embed_ind, quantize, dist, embed_onehot = self._distance_select(
                 tokens, embed, sample_codebook_temp, topk, codebook_transform_fn)
-        elif update and self.use_pallas and self._train_fused_active(flatten.device.type):
+        elif update and self._fused_train_eligible() and self._train_fused_active(flatten.device.type):
             weights = None if flat_mask is None else flat_mask.float().contiguous()
             embed_ind, quantize, bins, esum = fused_train_quantize(
                 flatten, embed, metric, weights
             )
+            if self.affine_param:
+                # the kernel summed raw x; the map to the codebook's
+                # statistics, x s + t per dim, distributes over the sums
+                # exactly: sum w (x s + t) = s (sum w x) + t (sum w)
+                scale = self._affine_scale()
+                esum = scale * esum + bins[..., None] * (self.codebook_mean - self.batch_mean * scale)
             batch_stats = (bins, esum)
         elif not self.training and self.quantize_tier == 'bf16':
-            embed_ind, quantize = quantize_lookup(flatten, embed, metric, tier='bf16')
+            embed_ind, quantize = quantize_lookup(flatten, embed.detach(), metric, tier='bf16')
+        elif self.use_pallas and embed.requires_grad:
+            # the selection kernel's rows, whose backward sums by code
+            embed_ind, quantize = lookup_with_code_grad(flatten, embed, metric)
         elif self.use_pallas:
             # on the card, selection and row copy in one kernel launch
             embed_ind, quantize = quantize_lookup(flatten, embed, metric)
         else:
-            embed_ind = nearest_code_xla(flatten, embed, metric)
+            embed_ind = nearest_code_xla(flatten, embed.detach(), metric)
             quantize = gather_codes_per_head(embed, embed_ind)
 
         if update and topk is None:
@@ -509,15 +661,27 @@ class Codebook(nn.Module):
             embed_ind = embed_ind[0]
         return quantize, embed_ind, None if dist is None else unpack(dist)
 
+    def _fused_train_eligible(self) -> bool:
+        """Whether the fused train kernel may take this codebook's training
+        forward, as in the JAX package: its rows carry no gradient (no
+        learnable codebook, no bridge), and its statistics are the exact
+        ones."""
+        return (self.use_pallas and not self.learnable_codebook and self.vq_bridge is None
+                and self.stat_precision == 'highest')
+
     @torch.no_grad()
     def _onehot_statistics(self, flatten, embed_onehot, mask):
         """(h, N, d) tokens and their (h, N, c) one-hot -> (bins (h, c), esum
         (h, c, d)), tokens where `mask` (h, N) is False counting for
-        nothing; the product in full f32."""
+        nothing, mapped first to the codebook's statistics with
+        `affine_param`; the product in full f32, or TF32 on the card with a
+        `stat_precision` other than 'highest'."""
         w = embed_onehot.detach().float()
         if mask is not None:
             w = w * mask[..., None]
-        with full_f32_matmul(flatten.device):
+        if self.affine_param:
+            flatten = self._affine_to_codebook(flatten)
+        with matmul_tf32(flatten.device, allow=self.stat_precision != 'highest'):
             return w.sum(1), w.transpose(1, 2) @ flatten
 
     def _distance_select(self, tokens, embed, temperature, topk, codebook_transform_fn):
@@ -536,7 +700,7 @@ class Codebook(nn.Module):
         # buffer in place before the backward pass
         embed = embed.clone()
         transformed = None
-        with full_f32_matmul(tokens.device):
+        with matmul_tf32(tokens.device, allow=False):
             if codebook_transform_fn is not None:
                 transformed = codebook_transform_fn(embed)               # (h, b, n, c, d)
                 transformed = transformed.reshape(h, num_tokens, *transformed.shape[-2:])

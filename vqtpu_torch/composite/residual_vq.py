@@ -19,29 +19,85 @@ left (SoundStream's residual quantization), with:
   then the best beam (the first on ties) is taken; in training the EMA
   update replays each layer's input with the chosen indices;
 - `quant_grad_frac`: the share of the gradient that flows from a layer's
-  output into the next layer's residual.
+  output into the next layer's residual;
+- QINCo (`implicit_neural_codebook`, https://arxiv.org/abs/2401.14732):
+  layers 2..N quantize against a per-token codebook, an MLP of their
+  learnable codebook and the sum of the layers before them
+  (`codebook_transform_fn`), in a forward, a beam search and the decode;
+- DiVeQ (`diveq`): learnable codebooks whose rows take the full gradient
+  (no commitment loss, no estimator per layer), and one directional
+  reparameterization of the summed output against the input.
 
 Each layer runs VectorQuantize's path: on the card one selection kernel
-launch (K1) per layer in eval, one fused train kernel launch (K4) per layer
-in an EMA training step, and the distance-materializing path (no kernel)
-for beam search and stochastic codes. QINCo (`implicit_neural_codebook`)
-and DiVeQ (`diveq`) make the codebook learnable, which is not ported yet;
-they raise NotImplementedError.
+launch (K1) per layer in eval and in a learnable (DiVeQ) training step, one
+fused train kernel launch (K4) per layer in an EMA training step, and the
+distance-materializing path (no kernel) for beam search, stochastic codes
+and QINCo.
 """
 
 from __future__ import annotations
 
 import math
 from collections.abc import Sequence
+from functools import partial
 
 import torch
 from torch import nn
 
-from ..codebook.codebook import not_ported
 from ..core.sampling import topk_first
-from ..core.ste import frac_gradient
+from ..core.ste import directional_reparam, frac_gradient
 from ..core.utils import cast_tuple, default, exists, first, resolve_device
 from ..quantizers.vq import VectorQuantize
+
+
+class _SiluBlock(nn.Module):
+    def __init__(self, dim: int, dim_hidden: int, *, device: str | torch.device | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.lin1 = nn.Linear(dim, dim_hidden, device=device)
+        self.lin2 = nn.Linear(dim_hidden, dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.lin2(nn.functional.silu(self.lin1(x)))
+
+
+class MLP(nn.Module):
+    """QINCo's implicit-neural-codebook MLP: (codes, condition) ->
+    per-token codes, proj_in of the concatenation [condition, code], then
+    `depth` residual SiLU blocks, and an l2 norm with `l2norm_output`."""
+
+    def __init__(self, dim: int, dim_hidden: int | None = None, depth: int = 4,
+                 l2norm_output: bool = False, *, device: str | torch.device | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        dim_hidden = default(dim_hidden, dim)
+        self.proj_in = nn.Linear(2 * dim, dim, device=device)
+        self.layers = nn.ModuleList(_SiluBlock(dim, dim_hidden, device=device) for _ in range(depth))
+        self.l2norm_output = l2norm_output
+
+    def forward(self, codes: torch.Tensor, *, condition: torch.Tensor) -> torch.Tensor:
+        """codes (h, c, d) or (c, d), condition (b, ..., d) -> (h, b, n, c,
+        d), or (b, n, c, d) for (c, d) codes, n the product of the
+        condition's middle dims.
+
+        proj_in is applied as the sum of its two halves, the condition's
+        per token and the codes' once, which equals the product with the
+        (b, n, c, 2d) concatenation the JAX package forms, to f32 rounding,
+        without it."""
+        one_headed = codes.ndim == 2
+        if one_headed:
+            codes = codes[None]
+        d = codes.shape[-1]
+        cond = condition.reshape(condition.shape[0], -1, condition.shape[-1])
+        w_cond, w_codes = self.proj_in.weight.split(d, dim=1)
+        from_cond = cond @ w_cond.T                                          # (b, n, d)
+        from_codes = codes @ w_codes.T + self.proj_in.bias                   # (h, c, d)
+        x = from_cond[None, :, :, None, :] + from_codes[:, None, None, :, :]
+        for block in self.layers:
+            x = block(x) + x
+        if self.l2norm_output:
+            x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-6)
+        return x[0] if one_headed else x
 
 
 def _batch_select(t: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -80,7 +136,8 @@ class ResidualVQ(nn.Module):
         **vq_kwargs,
     ):
         """`device` as for VectorQuantize; `rngs` must be None (seed torch
-        with torch.manual_seed). Other kwargs go to every layer.
+        with torch.manual_seed). Other kwargs go to every layer; `mlp_kwargs`
+        to QINCo's MLPs (dim_hidden, depth).
         `beam_score_precision` is the JAX package's TPU precision knob for
         the beam's distances; here they are always full f32 (the 'deterministic'
         setting), and the value is kept for the signature."""
@@ -89,10 +146,6 @@ class ResidualVQ(nn.Module):
             raise TypeError('rngs is a flax RNG stream; seed torch with torch.manual_seed instead')
         if heads != 1:
             raise ValueError('residual vq is not compatible with multi-headed codes')
-        if implicit_neural_codebook:
-            raise not_ported('implicit_neural_codebook (QINCo, a learnable codebook)')
-        if diveq:
-            raise not_ported('diveq (DiVeQ, a learnable codebook)')
         if num_quantizers is None and not isinstance(codebook_size, tuple):
             raise ValueError('give num_quantizers, or codebook_size as a tuple of per-layer sizes')
         device = resolve_device(device)
@@ -105,8 +158,16 @@ class ResidualVQ(nn.Module):
         self.has_projections = requires_projection
         self.accept_image_fmap = accept_image_fmap
 
+        self.implicit_neural_codebook = implicit_neural_codebook
+        if implicit_neural_codebook:
+            vq_kwargs.update(learnable_codebook=True, ema_update=False)
         if shared_codebook:
             vq_kwargs.update(manual_ema_update=True, manual_in_place_optimizer_update=True)
+        # DiVeQ (figure 1, https://openreview.net/forum?id=KRVnpTbx7R)
+        self.diveq = diveq
+        if diveq:
+            vq_kwargs.update(ema_update=False, learnable_codebook=True, route_gradients_to_input=False,
+                             commitment_weight=0.0)
 
         codebook_sizes = cast_tuple(codebook_size, num_quantizers)
         num_quantizers = default(num_quantizers, len(codebook_sizes))
@@ -128,7 +189,7 @@ class ResidualVQ(nn.Module):
         self.quantize_dropout_cutoff_index = quantize_dropout_cutoff_index
         self.quantize_dropout_multiple_of = quantize_dropout_multiple_of
         self.vq_is_ema_updating = first(self.layers).ema_update
-        self.quant_grad_frac = quant_grad_frac
+        self.quant_grad_frac = quant_grad_frac if not diveq else 1.0
 
         if eval_beam_size is not None and beam_size is None:
             raise ValueError('eval_beam_size needs beam_size')
@@ -140,14 +201,24 @@ class ResidualVQ(nn.Module):
         self.beam_score_weights = tuple(float(w) for w in weights)
         self.beam_score_precision = beam_score_precision
 
-        # a shared codebook: every layer holds the one Codebook module
+        # QINCo's MLPs, for layers 2..N
+        self.mlps = nn.ModuleList(
+            MLP(dim=codebook_dim, l2norm_output=first(self.layers).use_cosine_sim, device=device,
+                **(mlp_kwargs or {}))
+            for _ in range(num_quantizers - 1)
+        ) if implicit_neural_codebook else None
+
+        # a shared codebook: every layer holds the one Codebook module, and
+        # its in-place optimizer
         self.shared_codebook = shared_codebook
         if shared_codebook:
             if not self.uniform_codebook_size:
                 raise ValueError('a shared codebook needs one codebook size for every layer')
             shared = first(self.layers)._codebook
+            shared_opt = first(self.layers).in_place_codebook_optimizer
             for vq in self.layers[1:]:
                 vq._codebook = shared
+                vq.in_place_codebook_optimizer = shared_opt
 
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
@@ -165,6 +236,11 @@ class ResidualVQ(nn.Module):
         if not self.uniform_codebook_size:
             return tuple(codebooks)
         return torch.stack(codebooks)
+
+    def _layer_mlps(self) -> tuple:
+        """Each layer's QINCo MLP, None for the first layer and without
+        QINCo."""
+        return (None, *self.mlps) if self.implicit_neural_codebook else (None,) * self.num_quantizers
 
     # -- decode -------------------------------------------------------------------
 
@@ -185,11 +261,21 @@ class ResidualVQ(nn.Module):
         ind = ind.masked_fill(dropout_mask, 0)
         bf16_tier = self.layers[0].quantize_tier == 'bf16'
         all_codes = []
-        for q, codes in enumerate(self.codebooks):
-            if bf16_tier:
-                # the bf16 tier quantizes to the bf16-rounded rows
-                codes = codes.to(torch.bfloat16).float()
-            all_codes.append(codes[ind[..., q]])
+        quantized_out = 0.0
+        for q, (codes, mlp) in enumerate(zip(self.codebooks, self._layer_mlps())):
+            layer_ind = ind[..., q]                                         # (b, n)
+            if mlp is not None:
+                # QINCo: the row of the per-token codebook of this layer
+                transformed = mlp(codes, condition=quantized_out)           # (b, n, c, d)
+                pick = layer_ind[..., None, None].expand(*layer_ind.shape, 1, transformed.shape[-1])
+                layer_codes = transformed.gather(-2, pick)[..., 0, :]
+            else:
+                if bf16_tier:
+                    # the bf16 tier quantizes to the bf16-rounded rows
+                    codes = codes.to(torch.bfloat16).float()
+                layer_codes = codes[layer_ind]
+            all_codes.append(layer_codes)
+            quantized_out = quantized_out + layer_codes
         all_codes = torch.stack(all_codes)                                  # (q, b, n, d)
         all_codes = all_codes.masked_fill(dropout_mask.movedim(-1, 0)[..., None], 0.0)
         return all_codes.reshape(self.num_quantizers, *lead_shape, -1)
@@ -263,13 +349,14 @@ class ResidualVQ(nn.Module):
         residual = x
         all_indices, all_losses, ce_losses, layer_inputs = [], [], [], []
 
-        for quantizer_index, vq in enumerate(self.layers):
+        for quantizer_index, (vq, mlp) in enumerate(zip(self.layers, self._layer_mlps())):
             keep = dropout_index is None or quantizer_index <= dropout_index
             layer_inputs.append(residual)
             out = vq(
                 residual, mask=mask,
                 indices=indices[..., quantizer_index] if return_loss else None,
                 sample_codebook_temp=sample_codebook_temp, freeze_codebook=freeze_codebook,
+                codebook_transform_fn=None if mlp is None else partial(mlp, condition=quantized_out),
                 ema_update_weight=None if dropout_index is None else float(keep),
             )
             if return_loss:
@@ -291,12 +378,15 @@ class ResidualVQ(nn.Module):
             codebook = first(self.layers)._codebook
             if self.vq_is_ema_updating:
                 codebook.update_ema()
+                first(self.layers).update_in_place_optimizer()
             if self.accept_image_fmap:
                 pool = torch.cat([t.movedim(1, -1).reshape(t.shape[0], -1, t.shape[1]) for t in layer_inputs], 1)
             else:
                 pool = torch.cat([t.reshape(t.shape[0], -1, t.shape[-1]) for t in layer_inputs], 1)
             codebook.expire_codes_(codebook.transform_input(pool)[None])
 
+        if self.diveq:
+            quantized_out = directional_reparam(x, quantized_out, generator=self.generator)
         if self.project_out is not None:
             quantized_out = self.project_out(quantized_out)
         if return_loss:
@@ -326,11 +416,12 @@ class ResidualVQ(nn.Module):
         all_losses = torch.zeros(*prec, 1, 0, dtype=torch.float32, device=x.device)
         all_residuals = torch.zeros(*prec, 1, 0, d, dtype=x.dtype, device=x.device)
 
-        for quantizer_index, vq in enumerate(self.layers):
+        for quantizer_index, (vq, mlp) in enumerate(zip(self.layers, self._layer_mlps())):
             all_residuals = torch.cat((all_residuals, residual[..., None, :]), -2)   # (..., j, L+1, d)
             quantized, embed_indices, loss = vq(
                 residual, mask=mask, sample_codebook_temp=sample_codebook_temp,
                 freeze_codebook=freeze_codebook, topk=k, dist_precision=self.beam_score_precision,
+                codebook_transform_fn=None if mlp is None else partial(mlp, condition=quantized_out),
             )                                  # quantized (..., j, k, d); indices, loss (..., j, k)
             if dropout_index is not None and quantizer_index > dropout_index:
                 quantized = torch.zeros_like(quantized)
@@ -390,8 +481,11 @@ class ResidualVQ(nn.Module):
                 shared_layer = first(self.layers)
                 if self.vq_is_ema_updating:
                     shared_layer._codebook.update_ema()
+                    shared_layer.update_in_place_optimizer()
                 shared_layer.expire_codes_(x)
 
+        if self.diveq:
+            quantized_out = directional_reparam(x, quantized_out, generator=self.generator)
         if self.project_out is not None:
             quantized_out = self.project_out(quantized_out)
         ret = (quantized_out, all_indices, all_losses)

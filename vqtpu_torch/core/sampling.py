@@ -6,7 +6,10 @@ two frameworks cannot share a random stream, so the tests hand both sides
 the same indices by replacing these functions. `gumbel_noise` is the draw of
 `gumbel_sample` (the code sampler of the distance-materializing path, which
 looks it up at call time, as the JAX package's does) and of LFQ's token
-subsample, `bernoulli_and_uniform` the draw of FSQ's noise dropout.
+subsample, `bernoulli_and_uniform` the draw of FSQ's noise dropout,
+`normal_noise` the draw of DiVeQ (`core.ste.directional_reparam`) and
+`random_permutation` that of the orthogonal loss's code subset
+(VectorQuantize's `orthogonal_reg_max_codes`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,16 @@ def gumbel_noise(generator: torch.Generator, shape, device=None) -> torch.Tensor
     u = torch.rand(shape, generator=generator, device=device)
     tiny = torch.finfo(u.dtype).tiny
     return -torch.log(-torch.log(u.clamp(tiny, 1.0 - 2 ** -24)))
+
+
+def normal_noise(generator: torch.Generator, shape, device=None) -> torch.Tensor:
+    """Standard normal noise of `shape`."""
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def random_permutation(generator: torch.Generator, n: int, device=None) -> torch.Tensor:
+    """A uniform random permutation of range(n), int64."""
+    return torch.randperm(n, generator=generator, device=device)
 
 
 def topk_first(t: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -7,8 +7,11 @@ gradient to the input, with `detach` where the JAX package writes
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from . import sampling
 from .utils import l2norm, safe_div
 
 
@@ -79,3 +82,28 @@ def rotate_to(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     )
     rotated = rotated_tgt * safe_div(norm_tgt, norm_src).detach()
     return rotated.reshape(*lead_shape, d)
+
+
+def directional_reparam(
+    src: torch.Tensor,
+    tgt: torch.Tensor,
+    noise_variance: float = 5e-3,
+    *,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """DiVeQ's directional reparameterization (figure 1 of
+    https://openreview.net/forum?id=KRVnpTbx7R): src plus the error
+    direction tgt - src, noised, unit-normalized and detached, scaled by the
+    error's norm, which carries the gradient to both src and tgt.
+
+    The standard normal noise is `noise` when given (of tgt's shape), else
+    drawn from `generator` by `core.sampling.normal_noise`, which is looked
+    up at call time."""
+    error_dir = tgt - src
+    error_dir_norm = torch.linalg.vector_norm(error_dir, dim=-1, keepdim=True)
+    if noise is None:
+        noise = sampling.normal_noise(generator, error_dir.shape, device=error_dir.device)
+    noised_dir = error_dir + math.sqrt(noise_variance) * noise.to(error_dir.dtype)
+    unit_noised_dir = l2norm(noised_dir).detach()
+    return src + unit_noised_dir * error_dir_norm

@@ -108,20 +108,35 @@ def cdist(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 
 @contextmanager
-def full_f32_matmul(device: torch.device):
-    """Run the float32 matrix products inside in full f32 on a CUDA device,
-    whatever `torch.backends.cuda.matmul.allow_tf32` (or
-    `torch.set_float32_matmul_precision('high')`) says outside: a TF32
-    product would round the operands to 10 mantissa bits and move near-tied
-    rankings. A no-op on the CPU, whose f32 products are f32."""
-    if device.type != 'cuda' or not torch.backends.cuda.matmul.allow_tf32:
+def matmul_tf32(device: torch.device, allow: bool):
+    """Run the float32 matrix products inside in TF32 when `allow` (10
+    mantissa bits a product, f32 sums: what the JAX package's DEFAULT and
+    HIGH matmul precisions mean on a GPU), else in full f32, on a CUDA
+    device, whatever `torch.backends.cuda.matmul.allow_tf32` (or
+    `torch.set_float32_matmul_precision('high')`) says outside. Full f32 is
+    what selection needs: a TF32 product would round the operands to 10
+    mantissa bits and move near-tied rankings. A no-op on the CPU, whose f32
+    products are f32."""
+    if device.type != 'cuda' or torch.backends.cuda.matmul.allow_tf32 == allow:
         yield
         return
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = allow
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = not allow
+
+
+def orthogonal_loss_fn(t: torch.Tensor) -> torch.Tensor:
+    """Eq. (2) of https://arxiv.org/abs/2112.00384 over (h, n, d) codebooks:
+    the mean squared cosine similarity of every pair of rows of a head
+    (each row with itself included), less 1/n, averaged over the heads. The
+    products run in full f32 on the card."""
+    h, n = t.shape[:2]
+    normed = l2norm(t)
+    with matmul_tf32(t.device, allow=False):
+        cosine_sim = normed @ normed.transpose(-1, -2)
+    return (cosine_sim ** 2).sum() / (h * n ** 2) - (1.0 / n)
 
 
 def lens_to_mask(lens: torch.Tensor, max_length: int) -> torch.Tensor:

@@ -775,6 +775,22 @@ int vqtpu_train_fused_f32(const float* x, const float* e, const float* bias, con
   return launch_sorted_stats(x, idx, w, bins, esum, stats, h, n, c, d, s, 63);
 }
 
+// The statistics by sorted code alone, for indices chosen elsewhere: the
+// backward of a looked-up row of a learnable codebook, whose gradient is
+// the sum by code of the rows' gradients (x), in token order within a code,
+// so two calls give the same bits. x (h, n, d), idx (h, n) int32 in [0, c),
+// w (h, n) or null; bins (h, c), esum (h, c, d); scratch of
+// vqtpu_code_sums_scratch_floats(h, n, c, d) floats. The same limits as
+// vqtpu_train_fused_f32.
+long long vqtpu_code_sums_scratch_floats(long long h, long long n, long long c, long long d) {
+  return static_cast<long long>(sort_layout(h, n, c, d, sort_plan(h, n, c)).floats);
+}
+
+int vqtpu_code_sums_f32(const float* x, const int32_t* idx, const float* w, float* bins, float* esum,
+                        float* scratch, long long h, long long n, long long c, long long d, void* stream) {
+  return launch_sorted_stats(x, idx, w, bins, esum, scratch, h, n, c, d, static_cast<cudaStream_t>(stream), 63);
+}
+
 // The replaced step (f32 FMA tile, then the split statistics), same
 // arguments.
 int vqtpu_train_fused_f32_simt(const float* x, const float* e, const float* bias, const float* w,

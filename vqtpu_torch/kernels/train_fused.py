@@ -15,6 +15,15 @@ route (`train_fused='auto'|'off'`). It sums with `index_put_(...,
 accumulate=True)`: on the card that is PyTorch's sort-based accumulation,
 deterministic and in f32 whatever the TF32 setting, and it never forms the
 (n, c) one-hot.
+
+`code_sums` is the kernel's statistics alone, for indices chosen elsewhere:
+on the card the passes by sorted code of csrc/train_fused.cu. It is the
+backward of `lookup_with_code_grad`, the row lookup of a learnable codebook:
+the selection kernel picks the codes and copies their rows, and the
+codebook's gradient is the sum by code of the rows' gradients, in token
+order within a code, so two backward passes give the same bits
+(`index_select`'s own backward, `index_add_`, sums with float atomics in
+an order that changes from run to run).
 """
 
 from __future__ import annotations
@@ -24,7 +33,9 @@ import ctypes
 import torch
 
 from . import _build
-from .distance import _check_kernel_operands, gather_codes_per_head, nearest_code_plain, selection_bias
+from .distance import (
+    _check_kernel_operands, gather_codes_per_head, nearest_code_plain, quantize_lookup, selection_bias,
+)
 
 
 def code_statistics_plain(
@@ -74,6 +85,10 @@ def _kernel_library() -> ctypes.CDLL:
     lib.vqtpu_train_fused_stage.restype = ctypes.c_int
     lib.vqtpu_train_fused_scratch_floats.argtypes = [ctypes.c_longlong] * 4
     lib.vqtpu_train_fused_scratch_floats.restype = ctypes.c_longlong
+    lib.vqtpu_code_sums_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    lib.vqtpu_code_sums_f32.restype = ctypes.c_int
+    lib.vqtpu_code_sums_scratch_floats.argtypes = [ctypes.c_longlong] * 4
+    lib.vqtpu_code_sums_scratch_floats.restype = ctypes.c_longlong
     lib.vqtpu_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vqtpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -209,3 +224,100 @@ def fused_train_quantize(
 
 
 fused_train_quantize.launches = 0
+
+
+def _code_sums_cuda(x, idx, codebook_size, weights):
+    """code_sums through csrc/train_fused.cu's statistics by sorted code;
+    counts the launch."""
+    squeeze = x.ndim == 2
+    if squeeze:
+        x, idx = x[None], idx[None]
+    if x.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f'code_sums takes float32 x and int32 indices, got {x.dtype} and {idx.dtype}')
+    if idx.device != x.device:
+        raise ValueError(f'indices are on {idx.device}, x on {x.device}')
+    if x.ndim != 3 or tuple(idx.shape) != tuple(x.shape[:2]):
+        raise ValueError(f'indices {tuple(idx.shape)} do not match tokens {tuple(x.shape)}')
+    if not (x.is_contiguous() and idx.is_contiguous()):
+        raise ValueError('code_sums needs contiguous x and indices')
+    if weights is not None:
+        weights = _check_weights(weights, x)
+    h, n, d = x.shape
+    c = codebook_size
+    if not (1 <= h <= 65535) or c * d >= 2**31 or n >= 2**31:
+        raise ValueError(f'{h} heads of {n} tokens and a codebook of {c} x {d} are out of the kernel range')
+    dev = x.device
+    bins = torch.empty((h, c), device=dev)
+    esum = torch.empty((h, c, d), device=dev)
+    if n == 0:
+        bins.zero_()
+        esum.zero_()
+    else:
+        lib = _kernel_library()
+        scratch = torch.empty(lib.vqtpu_code_sums_scratch_floats(h, n, c, d), device=dev)
+        with torch.cuda.device(dev):
+            err = lib.vqtpu_code_sums_f32(
+                x.data_ptr(), idx.data_ptr(), None if weights is None else weights.data_ptr(),
+                bins.data_ptr(), esum.data_ptr(), scratch.data_ptr(), h, n, c, d,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f'code_sums kernel launch failed: {lib.vqtpu_cuda_error_string(err).decode()} ({err})')
+        code_sums.launches += 1
+    return (bins[0], esum[0]) if squeeze else (bins, esum)
+
+
+def code_sums(
+    x: torch.Tensor, idx: torch.Tensor, codebook_size: int,
+    weights: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, d) or (h, n, d) rows, their int32 codes in [0, c) -> (bins (h?,
+    c), esum (h?, c, d)): the weighted count and the weighted sum of the
+    rows of each code, as `code_statistics_plain` gives them.
+
+    CUDA tensors launch the statistics by sorted code of
+    csrc/train_fused.cu (f32 and contiguous, or it raises; deterministic)
+    and count the call in `code_sums.launches`; CPU tensors take
+    `code_statistics_plain`."""
+    if x.device.type == 'cpu':
+        if x.ndim == 2:
+            bins, esum = code_statistics_plain(x[None], idx[None], codebook_size,
+                                               None if weights is None else weights[None])
+            return bins[0], esum[0]
+        return code_statistics_plain(x, idx, codebook_size, weights)
+    if x.device.type != 'cuda':
+        raise ValueError(f'code_sums runs on CUDA or CPU tensors, not {x.device}')
+    return _code_sums_cuda(x, idx, codebook_size, weights)
+
+
+code_sums.launches = 0
+
+
+class _LookupWithCodeGrad(torch.autograd.Function):
+    """quantize_lookup whose rows carry their gradient to the codebook."""
+
+    @staticmethod
+    def forward(ctx, x, embed, metric):
+        idx, rows = quantize_lookup(x, embed, metric)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(idx)
+        ctx.codebook_size = embed.shape[-2]
+        return idx, rows
+
+    @staticmethod
+    def backward(ctx, grad_idx, grad_rows):
+        idx, = ctx.saved_tensors
+        _, grad_embed = code_sums(grad_rows.float().contiguous(), idx, ctx.codebook_size)
+        return None, grad_embed, None
+
+
+def lookup_with_code_grad(
+    x: torch.Tensor, embed: torch.Tensor, metric: str = 'euclidean'
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_lookup(x, embed, metric)` -> (indices int32, rows), with the
+    rows differentiable with respect to `embed`: the backward pass gives
+    the codebook the sum, by code, of the rows' gradients (`code_sums`,
+    deterministic on the card). (n, d) or (h, n, d) tokens against (c, d)
+    or (h, c, d) codes. No gradient reaches x, whose only part in the
+    result is the choice of codes."""
+    return _LookupWithCodeGrad.apply(x, embed, metric)

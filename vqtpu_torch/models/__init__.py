@@ -1,3 +1,4 @@
-"""Example models around the quantizers."""
+"""Example models around the quantizers, and the FVQ bridge."""
 
 from .autoencoder import ConvDecoder, ConvEncoder, SimpleQuantizeAutoEncoder
+from .transformer import EncoderBlock, MiniEncoder

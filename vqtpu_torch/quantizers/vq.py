@@ -1,22 +1,31 @@
 """VectorQuantize (counterpart of vqtpu/quantizers/vq.py).
 
 The constructor takes the JAX module's kwargs. This port runs the eval
-(serving) forward and the EMA training forward: projections, heads with
+(serving) forward and the training forward: projections, heads with
 shared or separate codebooks, cosine similarity, channel-first / image / 3D
 feature-map layouts, masks and lengths, both quantize tiers, decoding from
 indices; in training the EMA codebook update (kmeans init, dead-code
 expiry, accumulated and weighted EMA, the fused train kernel under
-`train_fused='on'`), the rotation trick or straight-through gradient, and
-the MSE commitment loss. The distance-materializing features run too:
-stochastic codes, gumbel straight-through (`straight_through`), the
-cross-entropy commitment loss, the codebook diversity loss, `indices=`
-(cross entropy against given codes), `topk=` candidates and
-`codebook_transform_fn=`. The learnable-codebook family and distributed
-codebooks raise NotImplementedError that names them.
+`train_fused='on'`, the affine re-parameterization `affine_param`), the
+rotation trick, straight-through or DiVeQ (`directional_reparam`) gradient,
+`sync_update_v`, and the MSE commitment loss. The distance-materializing
+features run too: stochastic codes, gumbel straight-through
+(`straight_through`), the cross-entropy commitment loss, the codebook
+diversity loss, `indices=` (cross entropy against given codes), `topk=`
+candidates and `codebook_transform_fn=`.
+
+The learnable family: `learnable_codebook` (the codebook a parameter that
+the commitment loss trains), `vq_bridge` (a module over the whole codebook,
+FVQ), the orthogonal regularization (`orthogonal_reg_weight`, over all
+codes, the active ones or `orthogonal_reg_max_codes` of them) and the
+in-place codebook optimizer. Distributed codebooks (`sync_axis`,
+`sync_codebook`, `sync_affine_param`, `code_axis`) raise
+NotImplementedError that names them.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import partial
 from typing import Callable, NamedTuple
 
@@ -24,11 +33,16 @@ import torch
 from torch import nn
 
 from ..codebook.codebook import Codebook, not_ported
+from ..core import sampling
 from ..core.layout import to_tokens
 from ..core.sampling import gumbel_sample
-from ..core.ste import rotate_to, straight_through as straight_through_estimator
+from ..core.ste import (
+    directional_reparam as directional_reparam_estimator, rotate_to,
+    straight_through as straight_through_estimator,
+)
 from ..core.utils import (
-    append_dims_to, default, entropy, exists, lens_to_mask, masked_mean, resolve_device,
+    append_dims_to, default, entropy, exists, l2norm, lens_to_mask, masked_mean, matmul_tf32,
+    orthogonal_loss_fn, resolve_device,
 )
 from ..kernels.distance import gather_codes
 
@@ -50,6 +64,38 @@ def _cross_entropy_ignore_index(
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, safe_targets[..., None])[..., 0]
     return masked_mean(nll, valid)
+
+
+def orthogonal_reg_code_ids(
+    generator: torch.Generator, codebook_size: int, max_codes: int,
+    active: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The `max_codes` codes the orthogonal loss keeps: a uniform random
+    subset, or, given the (c,) bool `active` codes, the active codes first
+    (a gumbel top-k biased to them, the JAX package's static-shape draw).
+    The draws come from `core.sampling.random_permutation` and
+    `gumbel_noise`, looked up at call time."""
+    device = generator.device
+    if active is None:
+        return sampling.random_permutation(generator, codebook_size, device=device)[:max_codes]
+    scores = torch.where(active, 0.0, -1e9) + sampling.gumbel_noise(generator, (codebook_size,), device=device)
+    return sampling.topk_first(scores, max_codes)[1].long()
+
+
+@contextmanager
+def _state_discarded(module: nn.Module, generator: torch.Generator):
+    """Undo, on exit, every change to `module`'s buffers and to the state
+    of `generator` made inside."""
+    buffers = dict(module.named_buffers())
+    saved = {name: b.clone() for name, b in buffers.items()}
+    rng = generator.get_state()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for name, b in buffers.items():
+                b.copy_(saved[name])
+        generator.set_state(rng)
 
 
 class VectorQuantize(nn.Module):
@@ -114,32 +160,58 @@ class VectorQuantize(nn.Module):
         and must be None: initial values come from torch's global generator
         (seed it with torch.manual_seed). `use_pallas=False` selects the
         JAX package's XLA formulation (`nearest_code_xla`) in plain torch
-        instead of the kernel."""
+        instead of the kernel.
+
+        `in_place_codebook_optimizer`: a callable that takes the codebook's
+        parameters (`embed` and the bridge's) and returns a
+        `torch.optim.Optimizer` over them, as in upstream lucidrains (the
+        JAX package takes an optax transformation). It is called once, here.
+        Each training forward then takes one step of it on the MSE between
+        the quantized rows and the (detached) input and quantizes again;
+        with `manual_in_place_optimizer_update` the step's gradients
+        accumulate until `update_in_place_optimizer()`. The step leaves the
+        `.grad` of every codebook parameter as it found it, so the outer
+        backward sees only its own gradient; unlike the JAX package's, the
+        outer gradient is not differentiated through the inner step.
+
+        `stat_precision`: see Codebook ('highest', 'high' or 'default')."""
         super().__init__()
         if rngs is not None:
             raise TypeError(
                 'rngs is a flax RNG stream; seed torch with torch.manual_seed instead'
             )
-        learnable_codebook = default(
-            learnable_codebook, directional_reparam or vq_bridge is not None
-        )
+        if isinstance(sync_codebook, str):
+            sync_axis = sync_codebook
         for feature, used in (
             ('sync_axis', sync_axis is not None),
             ('sync_codebook', bool(sync_codebook)),
             ('code_axis', code_axis is not None),
-            ('vq_bridge', vq_bridge is not None),
-            ('directional_reparam (DiVeQ, a learnable codebook)', directional_reparam),
-            ('learnable_codebook', learnable_codebook),
-            ('orthogonal_reg_weight (it makes the codebook learnable)', orthogonal_reg_weight > 0),
-            ('affine_param', affine_param),
-            ('in_place_codebook_optimizer', in_place_codebook_optimizer is not None),
+            ('sync_affine_param', sync_affine_param),
         ):
             if used:
                 raise not_ported(feature)
-        rotation_trick = default(rotation_trick, dim > 1)
-        if straight_through and rotation_trick:
-            raise ValueError('straight_through (gumbel) and rotation_trick exclude each other; '
-                             'pass rotation_trick=False')
+        # the interdependent defaults, as in the JAX package
+        ema_update = default(ema_update, not directional_reparam and vq_bridge is None)
+        learnable_codebook = default(learnable_codebook, directional_reparam or vq_bridge is not None)
+        rotation_trick = default(rotation_trick, not directional_reparam and dim > 1)
+        for refused, message in (
+            (use_cosine_sim and learnable_codebook,
+             'cosine sim distance codebook not compatible with learnable codebook yet'),
+            (sum(map(bool, (straight_through, rotation_trick, directional_reparam))) > 1,
+             'straight_through (gumbel), rotation_trick and directional_reparam exclude each other; '
+             'pass rotation_trick=False'),
+            (directional_reparam and threshold_ema_dead_code == 0,
+             'periodic dead code replacement should be enabled when directional reparam method is turned on'),
+            (straight_through and learnable_codebook,
+             'gumbel straight through not allowed when learning the codebook'),
+            (ema_update and learnable_codebook, 'learnable codebook not compatible with EMA update'),
+            (vq_bridge is not None and not learnable_codebook, 'vq_bridge needs a learnable codebook'),
+            (vq_bridge is not None and ema_update, 'vq_bridge is not compatible with EMA update'),
+            (not 0 <= sync_update_v <= 1.0, 'sync_update_v must lie in [0, 1]'),
+            (sync_update_v > 0.0 and not learnable_codebook, 'learnable codebook must be turned on'),
+        ):
+            if refused:
+                raise ValueError(message)
         if quantize_tier not in ('exact', 'bf16'):
             raise ValueError(f"quantize_tier must be 'exact' or 'bf16', got {quantize_tier!r}")
         device = resolve_device(device)
@@ -172,7 +244,7 @@ class VectorQuantize(nn.Module):
         self.channel_last = channel_last
         self.return_zeros_for_masked_padding = return_zeros_for_masked_padding
 
-        self.has_commitment_loss = commitment_weight > 0.0
+        self.has_commitment_loss = commitment_weight > 0.0 and not directional_reparam
         self.commitment_weight = commitment_weight
         self.commitment_use_cross_entropy_loss = commitment_use_cross_entropy_loss
         self.has_codebook_diversity_loss = codebook_diversity_loss_weight > 0.0
@@ -183,11 +255,15 @@ class VectorQuantize(nn.Module):
         self.stochastic_sample_codes = stochastic_sample_codes
         self.route_gradients_to_input = route_gradients_to_input
         self.freeze_codebook = freeze_codebook
+        self.learnable_codebook = learnable_codebook
+        self.directional_reparam = directional_reparam
+        self.directional_reparam_variance = directional_reparam_variance
+        self.sync_update_v = sync_update_v
+        self.has_codebook_orthogonal_loss = orthogonal_reg_weight > 0.0
+        self.orthogonal_reg_weight = orthogonal_reg_weight
+        self.orthogonal_reg_active_codes_only = orthogonal_reg_active_codes_only
+        self.orthogonal_reg_max_codes = orthogonal_reg_max_codes
 
-        # orthogonal_reg_active_codes_only, orthogonal_reg_max_codes,
-        # directional_reparam_variance, sync_affine_param, the affine decays,
-        # sync_update_v and manual_in_place_optimizer_update belong to
-        # features not ported yet and are accepted for the JAX signature
         self._codebook = Codebook(
             dim=codebook_dim,
             num_codebooks=heads if separate_codebook_per_head else 1,
@@ -197,8 +273,14 @@ class VectorQuantize(nn.Module):
             decay=decay,
             eps=eps,
             threshold_ema_dead_code=threshold_ema_dead_code,
-            ema_update=default(ema_update, True),
+            # the orthogonal loss makes the codebook a parameter, beside the EMA
+            learnable_codebook=self.has_codebook_orthogonal_loss or learnable_codebook,
+            ema_update=ema_update,
             manual_ema_update=manual_ema_update,
+            vq_bridge=vq_bridge,
+            affine_param=affine_param,
+            affine_param_batch_decay=affine_param_batch_decay,
+            affine_param_codebook_decay=affine_param_codebook_decay,
             sample_codebook_temp=sample_codebook_temp,
             gumbel_sample_fn=partial(gumbel_sample, stochastic=stochastic_sample_codes,
                                      straight_through=straight_through, approx_topk=approx_topk),
@@ -208,6 +290,17 @@ class VectorQuantize(nn.Module):
             quantize_tier=quantize_tier,
             train_fused=train_fused,
             device=device,
+        )
+
+        self.in_place_codebook_optimizer = (
+            None if in_place_codebook_optimizer is None
+            else in_place_codebook_optimizer(list(self._codebook.parameters()))
+        )
+        self.manual_in_place_optimizer_update = manual_in_place_optimizer_update
+        # the inner step's gradients that wait for update_in_place_optimizer
+        self._pending_inner_grads = (
+            [torch.zeros_like(p) for p in self._codebook.parameters()]
+            if in_place_codebook_optimizer is not None and manual_in_place_optimizer_update else None
         )
 
     # -- small helpers ---------------------------------------------------------
@@ -225,7 +318,8 @@ class VectorQuantize(nn.Module):
     def codebook(self, codes: torch.Tensor):
         if not self.separate_codebook_per_head:
             codes = codes[None]
-        self._codebook.embed.copy_(codes)
+        with torch.no_grad():
+            self._codebook.embed.copy_(codes)
 
     def project_in(self, x: torch.Tensor) -> torch.Tensor:
         if self.project_in_linear is None:
@@ -372,7 +466,92 @@ class VectorQuantize(nn.Module):
         x = self.maybe_split_heads_from_input(x)
         self._codebook.expire_codes_(x)
 
+    # -- the in-place codebook optimizer ------------------------------------------
+
+    def _step_in_place_optimizer(self, grads: list[torch.Tensor]):
+        """One step of the in-place optimizer on `grads`, one a codebook
+        parameter; the parameters' `.grad` are left as they were."""
+        params = list(self._codebook.parameters())
+        outer = [p.grad for p in params]
+        for p, g in zip(params, grads):
+            p.grad = g
+        try:
+            self.in_place_codebook_optimizer.step()
+        finally:
+            for p, g in zip(params, outer):
+                p.grad = g
+
+    def update_in_place_optimizer(self):
+        """Take the in-place optimizer's step on the gradients accumulated
+        since the last call (manual mode), and clear them."""
+        if self.in_place_codebook_optimizer is None or self._pending_inner_grads is None:
+            return
+        self._step_in_place_optimizer([g.clone() for g in self._pending_inner_grads])
+        for g in self._pending_inner_grads:
+            g.zero_()
+
+    def _inner_codebook_step(self, x: torch.Tensor, mask, codebook_kwargs: dict) -> torch.Tensor:
+        """The gradient of MSE(quantized, x) with respect to the codebook's
+        parameters, from a forward whose changes to the codebook's state
+        (its buffers, its generator) are discarded, as the JAX package
+        discards them; then the optimizer's step, or the gradients added to
+        the pending ones in manual mode. Returns the MSE."""
+        params = list(self._codebook.parameters())
+        target = x.detach().float()
+        with torch.enable_grad(), _state_discarded(self._codebook, self._codebook.generator):
+            q, _, _ = self._codebook(target, **{**codebook_kwargs, 'update_usage': False})
+            err = (q - target) ** 2
+            loss = err.mean() if mask is None else masked_mean(err, self._loss_mask(err, mask))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if self.manual_in_place_optimizer_update:
+            for pending, g in zip(self._pending_inner_grads, grads):
+                pending.add_(g)
+        else:
+            self._step_in_place_optimizer(grads)
+        return loss.detach()
+
     # -- losses --------------------------------------------------------------------
+
+    def _loss_mask(self, err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """A (b, n) mask broadcast against the codebook's (h, B, n, ...)
+        tokens with heads, the head factor of B = b * h repeating each
+        position's entry; the mask itself without heads."""
+        if self.heads == 1:
+            return mask
+        c, bh, n = err.shape[:3]
+        hh = bh // mask.shape[0]
+        return mask[None, :, None, :].expand(c, mask.shape[0], hh, n).reshape(c, bh, n)
+
+    def _orthogonal_reg_loss(self, embed_ind: torch.Tensor) -> torch.Tensor:
+        """Eq. (2) of https://arxiv.org/abs/2112.00384 on the codebook as the
+        forward left it (after its EMA update): over all codes, over the
+        codes in `embed_ind` (`orthogonal_reg_active_codes_only`), and over
+        `orthogonal_reg_max_codes` codes drawn by `orthogonal_reg_code_ids`
+        when the codebook has more."""
+        codebook = self._codebook.embed_after_forward()              # (h, c, d)
+        h, c, _ = codebook.shape
+        active = None
+        if self.orthogonal_reg_active_codes_only:
+            if self.heads > 1 and self.separate_codebook_per_head:
+                raise ValueError('orthogonal regularization for only active codes not compatible '
+                                 'with multi-headed with separate codebooks yet')
+            active = torch.zeros(c, dtype=torch.bool, device=codebook.device)
+            active[embed_ind.reshape(-1).long()] = True
+        max_codes = self.orthogonal_reg_max_codes
+        if max_codes is not None and c > max_codes:
+            ids = orthogonal_reg_code_ids(self._codebook.generator, c, max_codes, active)
+            codebook = codebook[:, ids]
+            if active is not None:
+                active = active[ids]
+        if active is None:
+            return orthogonal_loss_fn(codebook)
+        # eq. (2) over the active rows and columns only, at a static shape
+        normed = l2norm(codebook) * active[None, :, None]
+        with matmul_tf32(codebook.device, allow=False):
+            cosine_sim = normed @ normed.transpose(-1, -2)
+        n_active = active.sum().float().clamp_min(1.0)
+        return (cosine_sim ** 2).sum() / (h * n_active ** 2) - (1.0 / n_active)
 
     def _calculate_ce_loss(self, distances: torch.Tensor, codes: torch.Tensor, batch: int) -> torch.Tensor:
         """Cross entropy between the distance logits (h, B, n, c) and code
@@ -407,11 +586,13 @@ class VectorQuantize(nn.Module):
         """x -> (quantized, indices int32, loss).
 
         In training mode the EMA codebook takes this batch's statistics (not
-        with `freeze_codebook` or `topk`), the quantized output carries the
-        rotation trick's gradient to x (or the straight-through one with
-        rotation_trick=False), and the loss is the weighted commitment loss
-        (MSE, or cross entropy against the chosen codes) plus the weighted
-        codebook diversity loss; in eval the loss is 0. Masked positions
+        with `freeze_codebook` or `topk`), the in-place optimizer takes its
+        step, the quantized output carries the rotation trick's gradient to
+        x (or the straight-through one with rotation_trick=False, or
+        DiVeQ's), and the loss is the weighted commitment loss (MSE, or
+        cross entropy against the chosen codes; through it a learnable
+        codebook learns) plus the weighted codebook diversity and
+        orthogonal losses; in eval the loss is 0. Masked positions
         (`mask`, or `lens` as lengths) return zeros, or the input with
         return_zeros_for_masked_padding=False, and index -1, and add nothing
         to the statistics or the loss.
@@ -464,29 +645,44 @@ class VectorQuantize(nn.Module):
             codebook_mask = mask[:, :, None].expand(*mask.shape, tokens.shape[1] // mask.shape[1])
             codebook_mask = codebook_mask.reshape(batch, -1)
 
-        quantize, embed_ind, distances = self._codebook(
-            x, sample_codebook_temp=sample_codebook_temp, mask=codebook_mask,
+        codebook_kwargs = dict(
+            sample_codebook_temp=sample_codebook_temp, mask=codebook_mask,
             freeze_codebook=freeze_codebook, codebook_transform_fn=codebook_transform_fn,
             ema_update_weight=ema_update_weight, accum_ema_update=accum_ema_update,
             ema_update=ema_update if ema_update is None else (ema_update and topk is None),
             topk=topk, need_distances=need_distances, stochastic=self.stochastic_sample_codes,
             straight_through_onehot=self.straight_through_gumbel, dist_precision=dist_precision,
         )
+        quantize, embed_ind, distances = self._codebook(x, **codebook_kwargs)
+
+        zero = torch.zeros((), dtype=torch.float32, device=quantize.device)
+        inplace_optimize_loss = zero
+        if self.in_place_codebook_optimizer is not None and self.training and not freeze_codebook:
+            # one step on the codebook, then quantize again
+            inplace_optimize_loss = self._inner_codebook_step(x, codebook_mask, codebook_kwargs)
+            quantize, embed_ind, distances = self._codebook(x, **codebook_kwargs, update_usage=False)
         if distances is not None and self.heads == 1 and not layout.moved_channel:
             # the JAX package's layout: a channel-last input keeps its token dims
             distances = distances.reshape(1, batch, *layout.spatial, distances.shape[-1])
 
-        zero = torch.zeros((), dtype=torch.float32, device=quantize.device)
-        commit_loss = codebook_diversity_loss = zero
+        commit_loss = codebook_diversity_loss = orthogonal_reg_loss = zero
         x32 = x.float()
         if self.training:
-            commit_quantize = quantize.detach()
+            # a learnable codebook learns from the commitment loss
+            learning = self.learnable_codebook and not freeze_codebook
+            commit_quantize = quantize if learning else quantize.detach()
             xq = x32 if topk is None else x32[..., None, :].expand(*x32.shape[:-1], topk, x32.shape[-1])
             if self.route_gradients_to_input:
                 if self.rotation_trick:
                     quantize = rotate_to(xq, quantize)
+                elif self.directional_reparam:
+                    quantize = directional_reparam_estimator(
+                        xq, quantize, self.directional_reparam_variance, generator=self._codebook.generator)
                 else:
                     quantize = straight_through_estimator(xq, quantize)
+            if self.sync_update_v > 0.0:
+                # (21) of https://minyoungg.github.io/vqtorch/assets/draft_050523.pdf
+                quantize = quantize + self.sync_update_v * (quantize - quantize.detach())
 
         if return_loss:
             ce = self._calculate_ce_loss(distances, indices, batch)
@@ -535,16 +731,14 @@ class VectorQuantize(nn.Module):
                         else x32
                     )
                     err = (commit_quantize - target) ** 2
-                    loss_mask = mask
-                    if self.heads > 1:
-                        c, bh, n = err.shape[:3]
-                        hh = bh // mask.shape[0]
-                        loss_mask = mask[None, :, None, :].expand(c, mask.shape[0], hh, n)
-                        loss_mask = loss_mask.reshape(c, bh, n)
-                    commit_loss = masked_mean(err, loss_mask)
+                    commit_loss = masked_mean(err, self._loss_mask(err, mask))
                 else:
                     commit_loss = ((commit_quantize - x32) ** 2).mean()
                 loss = loss + commit_loss * self.commitment_weight
+
+            if self.has_codebook_orthogonal_loss:
+                orthogonal_reg_loss = self._orthogonal_reg_loss(embed_ind)
+                loss = loss + orthogonal_reg_loss * self.orthogonal_reg_weight
 
         quantize = self._finalize_quantize(quantize, batch, layout, only_one, orig_dtype)
         if only_one:
@@ -568,7 +762,8 @@ class VectorQuantize(nn.Module):
 
         if not return_loss_breakdown:
             return quantize, embed_ind, loss
-        return quantize, embed_ind, loss, LossBreakdown(commit_loss, codebook_diversity_loss, zero, zero)
+        return quantize, embed_ind, loss, LossBreakdown(
+            commit_loss, codebook_diversity_loss, orthogonal_reg_loss, inplace_optimize_loss)
 
     def _finalize_quantize(self, quantize, batch, layout, only_one, orig_dtype):
         """Merge heads, project out, restore the input's layout and dtype."""

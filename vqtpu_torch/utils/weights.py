@@ -6,6 +6,8 @@ array. Keys follow the module tree; the port uses the JAX package's
 attribute names, so the trees line up. Layouts converted:
 
   - nnx.Linear kernel (in, out)       -> nn.Linear weight (out, in)
+  - a leaf class's own `flax_leaf_rules` (below), such as the
+    MultiHeadAttention kernels of models.transformer's HeadsIn / HeadsOut
   - nnx.Conv kernel (H, W, I, O)      -> nn.Conv2d weight (O, I, H, W)
   - nnx.LayerNorm scale               -> nn.LayerNorm weight
   - codebook buffers, LFQ's orthogonal_rot, CosineSimLinear's
@@ -13,8 +15,12 @@ attribute names, so the trees line up. Layouts converted:
   - the integer keys of an nnx.List   -> the nn.ModuleList children '0', '1', ...
 
 A `rngs` entry (flax's RNG streams) has no torch counterpart and is
-skipped. Any other key the module does not have, and any parameter or
-persistent buffer the state does not give, raises KeyError. A submodule
+skipped. So are VectorQuantize's `in_place_codebook_optimizer` (optax's
+state) and `_pending_inner_grads` as long as every leaf under them is 0, the
+state before the first in-place step: the port's inner optimizer starts
+fresh and cannot take optax's state, so a state past that step raises.
+Any other key the module does not have, and any parameter or persistent
+buffer the state does not give, raises KeyError. A submodule
 may be missing from the state when every parameter and persistent buffer
 under it was filled under another path, or when it holds none: flax stores
 a module that two parents share (a ResidualVQ's shared codebook) once,
@@ -30,7 +36,13 @@ import numpy as np
 import torch
 from torch import nn
 
-# JAX leaf name -> (torch name, layout conversion) for the leaf modules
+# keys of optimizer state the port does not carry; they load only while
+# every leaf under them is 0
+_FRESH_ONLY = ('in_place_codebook_optimizer', '_pending_inner_grads')
+
+# JAX leaf name -> (torch name, layout conversion) for the leaf modules; a
+# module class of the port with a layout of its own declares it as the class
+# attribute `flax_leaf_rules`, in the same form
 _LEAF_RULES = {
     nn.Linear: {'kernel': ('weight', lambda a: a.T), 'bias': ('bias', None)},
     nn.Conv2d: {
@@ -39,6 +51,19 @@ _LEAF_RULES = {
     },
     nn.LayerNorm: {'scale': ('weight', None), 'bias': ('bias', None)},
 }
+
+
+def leaf_rules(module: nn.Module) -> dict | None:
+    """The layout rules of a leaf module ({JAX leaf name: (torch name,
+    conversion)}), or None for a module whose children and tensors keep
+    their names."""
+    return getattr(type(module), 'flax_leaf_rules', None) or _LEAF_RULES.get(type(module))
+
+
+def _all_zero(value) -> bool:
+    if isinstance(value, Mapping):
+        return all(_all_zero(v) for v in value.values())
+    return not np.any(np.asarray(value))
 
 
 def _copy(target: torch.Tensor, value, key: str) -> None:
@@ -66,7 +91,7 @@ def _load(module: nn.Module, state: Mapping, prefix: str, filled: set[int],
           absent: list[tuple[str, nn.Module]]) -> None:
     """Fill `module` from `state`, adding the id of every tensor it fills to
     `filled` and every child the state leaves out to `absent`."""
-    rules = _LEAF_RULES.get(type(module))
+    rules = leaf_rules(module)
     tensors = dict(module.named_parameters(recurse=False))
     tensors.update((name, t) for name, t in module.named_buffers(recurse=False)
                    if name not in module._non_persistent_buffers_set)
@@ -77,6 +102,11 @@ def _load(module: nn.Module, state: Mapping, prefix: str, filled: set[int],
         key = str(key)                       # nnx.List children are keyed 0, 1, ...
         path = prefix + key
         if key == 'rngs':
+            continue
+        if key in _FRESH_ONLY:
+            if not _all_zero(value):
+                raise ValueError(f'{path}: the in-place optimizer state is past its first step, '
+                                 'and the port does not carry it')
             continue
         if rules is not None and key in rules:
             name, convert = rules[key]
