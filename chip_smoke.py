@@ -148,7 +148,36 @@ prints one JSON line per phase:
    eval tokens and the 256 training tokens;
 29. diveq_rvq_path: ResidualVQ(..., diveq=True) on (32, 2048, 256), one step:
    K1 and code_sums once a layer, each layer against the plain selection;
-30. the {"kernels": [...]} line.
+30. simvq_path: SimVQ(dim=256, codebook_size=512, rotation_trick=True) on
+   (1024, 1024, 256): eval, one K1 launch, the indices against the plain
+   selection on the same implicit codebook, the rows bit-equal to its
+   rows, the decode from indices within 1e-5; 3 AdamW steps, one K1 and
+   one code_sums a step, the transform's gradient within the f32 summation
+   bound of float64 from the card's picks, a twin step bit-identical; then
+   the SimVQ autoencoder (examples/autoencoder_sim_vq.py), step 0 against
+   the CPU and 50 AdamW steps (simvq_autoencoder); times with K1's and
+   code_sums' shares;
+31. rsimvq_path: ResidualSimVQ(dim=256, num_quantizers=4, codebook_size=512)
+   on (32, 2048, 256): eval, K1 once a layer, each layer against the plain
+   selection on its own input, the decode from indices; one training step
+   with quantize dropout at index 2, K1 and code_sums once a layer, the
+   dropped layer zero with index -1; times;
+32. rpq_path: RandomProjectionQuantizer(dim=512, codebook_size=1024,
+   codebook_dim=256, num_codebooks=16) on (8, 1024, 512): one K1 launch over
+   the 16 heads (4096 wide, cosine), each head against the plain selection,
+   the cross entropy against given indices (no launch) against float64;
+   times;
+33. hq_path: the HierarchicalVQ autoencoder (examples/autoencoder_hq.py,
+   scales (1, 2, 4, 7), train_fused='on'): step 0 against the CPU with the
+   same kmeans and expiry rows, K4 once a scale a step, 50 AdamW steps, an
+   eval forward with K1 once a scale and its decode; times with the idle
+   share;
+34. zoo_path: the FSP autoencoder (examples/autoencoder_fsp.py, 50 AdamW
+   steps), LatentQuantize(levels=[5, 5, 8], dim=9) with an in-place SGD,
+   BinaryMapper(bits=8, deterministic_on_eval=True), each step 0 against
+   the CPU with the same draws and no kernel launched; Sequential(ConvEncoder,
+   SimVQ, ConvDecoder), one step against the CPU, K1 and code_sums once;
+35. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -3390,6 +3419,702 @@ def phase_diveq_rvq_path(device, sizes):
     return launches, t['step_ms']
 
 
+# -- the rest of the zoo: SimVQ, ResidualSimVQ, RPQ, HierarchicalVQ, FSP, LatentQuantize, BinaryMapper,
+# Sequential ----------------------------------------------------------------------------------------------
+
+# SimVQ(dim=256, codebook_size=512) (README.md:344) at the VQ main shape: b, n, d, c
+SIMVQ_MAIN = (1024, 1024, 256, 512)
+# ResidualSimVQ(dim=256, num_quantizers=4, codebook_size=512) (README.md:345): b, n, d, q, c
+RSIMVQ_MAIN = (32, 2048, 256, 4, 512)
+RSIMVQ_DROP = 2
+# RandomProjectionQuantizer(dim=512, codebook_size=1024, codebook_dim=256, num_codebooks=16), the
+# upstream vector-quantize-pytorch README's example: b, n, dim, c, codebook_dim, heads
+RPQ_MAIN = (8, 1024, 512, 1024, 256, 16)
+
+
+def implicit_grad_reference(model, x, idx):
+    """float64 gradient of SimVQ's commitment loss with respect to its
+    transform's weight, from the card's picks and the card's implicit
+    codebook, with its f32 bound. Only the loss's first term reaches the
+    weight (the rotation trick and the second term carry no gradient to the
+    rows): dW = G^T F, G the per-code sum of 2 (row - x) / numel
+    (`commit_grad_reference`, bounded there), F the frozen codebook; the
+    product adds the rounding of a c-term f32 sum."""
+    with torch.no_grad():
+        implicit = model.codebook.float()
+    c = implicit.shape[0]
+    g, gbound = commit_grad_reference(implicit, x, idx, c)
+    frozen = model.frozen_codebook.double()
+    ref = (g.T @ frozen) * model.commitment_weight
+    bound = (gbound.T @ frozen.abs() + (c + 2) * U32 * (g.abs().T @ frozen.abs())) * model.commitment_weight
+    return ref, bound
+
+
+def grads_vs_cpu(model, ref) -> tuple[str, float]:
+    """The parameter whose card gradient lies farthest from the CPU's, over
+    the larger of its largest CPU gradient and 1e-4 of the model's, and
+    that error."""
+    scale = max(float(rp.grad.abs().max()) for rp in ref.parameters() if rp.grad is not None)
+    errs = {name: float((p.grad.cpu().double() - rp.grad.double()).abs().max()
+                        / max(float(rp.grad.abs().max()), 1e-4 * scale))
+            for (name, p), (_, rp) in zip(model.named_parameters(), ref.named_parameters())
+            if rp.grad is not None}
+    name = max(errs, key=errs.get)
+    return name, errs[name]
+
+
+def layer_input_hooks(layers) -> tuple[list, list]:
+    """Forward pre-hooks that keep each layer's (detached) input."""
+    inputs = [None] * len(layers)
+
+    def keep(i):
+        def hook(module, args):
+            inputs[i] = args[0].detach()
+        return hook
+    return inputs, [layer.register_forward_pre_hook(keep(i)) for i, layer in enumerate(layers)]
+
+
+def simvq_vs_plain(model, xin, idx):
+    """A SimVQ layer's picks on its input against the plain selection on
+    its implicit codebook."""
+    from vqtpu_torch.kernels.distance import nearest_code_plain, selection_bias, selection_disagreements
+    with torch.no_grad():
+        implicit = model.codebook.float().contiguous()
+    xs = xin.reshape(-1, implicit.shape[-1]).float().contiguous()
+    bias = selection_bias(implicit, 'euclidean')
+    return selection_disagreements(xs, implicit, bias, idx.reshape(-1), nearest_code_plain(xs, implicit, bias))
+
+
+def phase_simvq_path(device, sizes):
+    """Path 1: SimVQ(dim=256, codebook_size=512, rotation_trick=True) on
+    (1024, 1024, 256). Eval: one K1 launch (selection and rows of the
+    implicit codebook), the indices against the plain selection on the same
+    implicit codebook (near-ties only), the rows bit-equal to the implicit
+    codebook's, the decode from indices (the transform over the gathered
+    frozen rows) within 1e-5 of the largest entry. Training, 3 AdamW steps:
+    one K1 and one code_sums a step, the transform's weight gradient within
+    the f32 summation bound of a float64 reference from the card's picks, a
+    twin step bit-identical. Then the SimVQ autoencoder of
+    examples/autoencoder_sim_vq.py, 50 AdamW steps, step 0 against the CPU;
+    then times."""
+    from vqtpu_torch import SimVQ, SimpleQuantizeAutoEncoder
+    from vqtpu_torch.kernels.distance import quantize_lookup, selection_bias, selection_disagreements
+    from vqtpu_torch.kernels.train_fused import code_sums
+    b, n, d, c = sizes['simvq_main']
+
+    def build():
+        torch.manual_seed(41)
+        return SimVQ(dim=d, codebook_size=c, rotation_trick=True, device=device)
+    model = build().eval()
+    rng = np.random.default_rng(42)
+    x = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32) * 1e-3).to(device)
+    xs = x.reshape(-1, d)
+    reset_all_launches()
+    with torch.no_grad():
+        q, idx, loss = model(x)
+    sync(device)
+    eval_launches = all_launches()
+    check(eval_launches['nearest_code'] == 1 and sum(eval_launches.values()) == 1,
+          f'a SimVQ eval forward launched K1 once {eval_launches}')
+    with torch.no_grad():
+        implicit = model.codebook
+        dec = model.indices_to_codes(idx)
+    r_eval = simvq_vs_plain(model, x, idx)
+    check(r_eval['non_tie'] == 0, f'SimVQ eval indices against the plain selection {r_eval}')
+    check(torch.equal(q.reshape(-1, d), implicit[idx.reshape(-1).long()]) and float(loss) == 0.0,
+          'SimVQ eval rows bit-equal to the implicit codebook rows, loss 0')
+    dec_err = float((dec - q).abs().max() / q.abs().max())
+    check(dec_err <= 1e-5, f'SimVQ decode from indices within 1e-5 of the output ({dec_err})')
+    del dec
+
+    model.train()
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    twin = build().train()
+    step_launches, checks = [], {}
+    for step in range(sizes['train_steps']):
+        reset_all_launches()
+        xg = x.clone().requires_grad_()
+        q, idx, loss = model(xg)
+        ((q * g).sum() + loss).backward()
+        sync(device)
+        step_launches.append(all_launches())
+        check(step_launches[-1]['nearest_code'] == 1 and step_launches[-1]['code_sums'] == 1
+              and sum(step_launches[-1].values()) == 2,
+              f'SimVQ step {step} launched K1 and code_sums once {step_launches[-1]}')
+        if step == 0:
+            weight = model.code_transform.weight
+            ref, bound = implicit_grad_reference(model, xs, idx.reshape(-1))
+            share = float(((weight.grad.double() - ref).abs() / bound.clamp_min(1e-300)).max())
+            check(share <= 1.0, f"SimVQ's transform gradient within its f32 bound of float64 ({share})")
+            r = simvq_vs_plain(model, x, idx)
+            check(r['non_tie'] == 0, f'SimVQ training indices against the plain selection {r}')
+            xt = x.clone().requires_grad_()
+            qt, idxt, losst = twin(xt)
+            ((qt * g).sum() + losst).backward()
+            sync(device)
+            check(torch.equal(idx, idxt) and torch.equal(q, qt) and torch.equal(xg.grad, xt.grad)
+                  and torch.equal(weight.grad, twin.code_transform.weight.grad),
+                  'two SimVQ steps from one state are bit-identical')
+            check(bool(torch.isfinite(xg.grad).all()), 'finite x.grad')
+            checks = dict(grad_share_of_bound=share, indices_vs_plain=r, loss=loss.item(), bit_identical_twin=True)
+            del twin, xt, qt, ref, bound
+        opt.step()
+        opt.zero_grad()
+    del xg, q
+
+    def step():
+        xt = x.clone().requires_grad_()
+        qt, _, lt = model(xt)
+        ((qt * g).sum() + lt).backward()
+    t = timed_step(step, sizes['step_reps'])
+    model.eval()
+    eval_ms = cuda_ms(lambda: model(x), sizes['reps'])
+    with torch.no_grad():
+        implicit = model.codebook.float().contiguous()
+        idx = model.lookup(xs)[0]
+    k1_ms = cuda_ms(lambda: quantize_lookup(xs, implicit), sizes['reps'])
+    sums_ms = cuda_ms(lambda: code_sums(g.reshape(-1, d), idx, c), sizes['reps'])
+    t.update(k1_ms=k1_ms, k1_share=k1_ms / t['step_ms'], code_sums_ms=sums_ms,
+             code_sums_share=sums_ms / t['step_ms'], eval_forward_ms=eval_ms, eval_k1_share=k1_ms / eval_ms)
+    emit('simvq_path', model=f'SimVQ(dim={d}, codebook_size={c}, rotation_trick=True)', input=[b, n, d],
+         eval_launches=eval_launches, eval_indices_vs_plain=r_eval, decode_rel_err=dec_err,
+         train_launches_per_step=step_launches, optimizer='AdamW(lr=3e-4, weight_decay=1e-4)', **checks, **t)
+    del model, x, g, xs, opt
+
+    # the SimVQ autoencoder (examples/autoencoder_sim_vq.py:17-21), alpha 10
+    def build_ae(dev):
+        return SimpleQuantizeAutoEncoder(SimVQ(dim=32, codebook_size=256, device=dev), dim=32, device=dev).train()
+
+    def loss_of(model, x):
+        recon, idx, cmt = model(x)
+        return (recon.clamp(-1, 1) - x).abs().mean() + 10.0 * cmt, idx
+
+    torch.manual_seed(43)
+    ae = build_ae(device)
+    ref = build_ae('cpu')
+    ref.load_state_dict({k: v.cpu() for k, v in ae.state_dict().items()})
+    rng = np.random.default_rng(44)
+    images = [rng.random((sizes['images'], 28, 28, 1), dtype=np.float32) for _ in range(sizes['flagship_steps'])]
+    x0 = torch.from_numpy(images[0])
+    with torch.no_grad():
+        z = ae.encoder(x0.to(device)).reshape(-1, 32)
+        implicit = ae.quantizer.codebook
+    reset_all_launches()
+    loss0, idx0 = loss_of(ae, x0.to(device))
+    loss0.backward()
+    sync(device)
+    ae_launches = all_launches()
+    check(ae_launches['nearest_code'] == 1 and ae_launches['code_sums'] == 1,
+          f'a SimVQ autoencoder step launched K1 and code_sums once {ae_launches}')
+    ref_loss, ref_idx = loss_of(ref, x0)
+    ref_loss.backward()
+    r = selection_disagreements(z, implicit, selection_bias(implicit, 'euclidean'), idx0.reshape(-1),
+                                ref_idx.reshape(-1).to(device))
+    check(r['non_tie'] == 0, f'SimVQ autoencoder step 0: indices against the CPU {r}')
+    loss_rel = abs(loss0.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(loss_rel <= 1e-4, f'SimVQ autoencoder step 0: loss as on the CPU ({loss_rel})')
+    grad_name, grad_err = grads_vs_cpu(ae, ref)
+    check(r['disagree'] > 0 or grad_err <= 1e-3,
+          f'SimVQ autoencoder step 0: gradients as on the CPU ({grad_name}: {grad_err})')
+    del ref
+    ae_opt = torch.optim.AdamW(ae.parameters(), lr=3e-4, weight_decay=1e-4)
+    ae_opt.step()
+    ae_opt.zero_grad()
+    losses, used = [loss0.item()], [int(idx0.unique().numel())]
+    for step in range(1, len(images)):
+        loss, idx = loss_of(ae, torch.from_numpy(images[step]).to(device))
+        loss.backward()
+        ae_opt.step()
+        ae_opt.zero_grad()
+        losses.append(loss.item())
+        used.append(int(idx.unique().numel()))
+    check(all(np.isfinite(losses)), 'SimVQ autoencoder losses are finite')
+    imgs = torch.from_numpy(images[-1]).to(device)
+
+    def ae_step():
+        loss_of(ae, imgs)[0].backward()
+        ae_opt.step()
+        ae_opt.zero_grad()
+    t_ae = timed_step(ae_step, sizes['step_reps'], warmup=2)
+    emit('simvq_autoencoder', model='SimpleQuantizeAutoEncoder(SimVQ(dim=32, codebook_size=256), dim=32)',
+         optimizer='AdamW(lr=3e-4, weight_decay=1e-4)', input=[sizes['images'], 28, 28, 1], steps=len(images),
+         launches_step0=ae_launches, loss_first=losses[0], loss_last=losses[-1], codes_used_first=used[0],
+         codes_used_last=used[-1], step0_vs_cpu=dict(loss_rel_err=loss_rel, grad_max_rel_err=grad_err,
+                                                      grad_worst=grad_name, **r), **t_ae)
+    return dict(eval=eval_launches, step=step_launches[0], ae_step=ae_launches), \
+        dict(step_ms=t['step_ms'], eval_ms=eval_ms, k1_ms=k1_ms, code_sums_ms=sums_ms, ae_step_ms=t_ae['step_ms'])
+
+
+def phase_rsimvq_path(device, sizes):
+    """Path 2: ResidualSimVQ(dim=256, num_quantizers=4, codebook_size=512)
+    on (32, 2048, 256). Eval: K1 once a layer, each layer's indices against
+    the plain selection on that layer's input (near-ties only), the decode
+    from indices within 1e-6 of the largest output entry (the same rows
+    summed in another order). With quantize_dropout=True, one training step
+    at dropout index 2: K1 and code_sums once a layer, dropped layers
+    included; the dropped layer's codes zero, its indices -1, its loss 0
+    and its transform's gradient exactly 0. Then times."""
+    from vqtpu_torch import ResidualSimVQ
+    b, n, d, q, c = sizes['rsimvq_main']
+    torch.manual_seed(45)
+    model = ResidualSimVQ(dim=d, num_quantizers=q, codebook_size=c, device=device).eval()
+    rng = np.random.default_rng(46)
+    x = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal((b, n, d), dtype=np.float32) * 1e-3).to(device)
+    inputs, hooks = layer_input_hooks(model.layers)
+    reset_all_launches()
+    with torch.no_grad():
+        out, idx, losses = model(x)
+    sync(device)
+    eval_launches = all_launches()
+    for h in hooks:
+        h.remove()
+    check(eval_launches['nearest_code'] == q and sum(eval_launches.values()) == q,
+          f'a ResidualSimVQ eval forward launched K1 once a layer {eval_launches}')
+    reports = [simvq_vs_plain(layer, xin, idx[..., i]) for i, (layer, xin) in enumerate(zip(model.layers, inputs))]
+    check(all(r['non_tie'] == 0 for r in reports), f'ResidualSimVQ layers against the plain selection {reports}')
+    del inputs
+    with torch.no_grad():
+        dec = model.get_output_from_indices(idx)
+    dec_err = float((dec - out).abs().max() / out.abs().max())
+    check(dec_err <= 1e-6, f'ResidualSimVQ decode from indices within 1e-6 ({dec_err})')
+    eval_ms = cuda_ms(lambda: model(x), sizes['rvq_reps'])
+
+    torch.manual_seed(47)
+    train = ResidualSimVQ(dim=d, num_quantizers=q, codebook_size=c, quantize_dropout=True, device=device).train()
+    reset_all_launches()
+    xg = x.clone().requires_grad_()
+    out, idx, losses, codes = train(xg, return_all_codes=True, rand_quantize_dropout_index=RSIMVQ_DROP)
+    ((out * g).sum() + losses.sum()).backward()
+    sync(device)
+    step_launches = all_launches()
+    check(step_launches['nearest_code'] == q and step_launches['code_sums'] == q
+          and sum(step_launches.values()) == 2 * q,
+          f'a ResidualSimVQ step launched K1 and code_sums once a layer {step_launches}')
+    kept, dropped = slice(0, RSIMVQ_DROP + 1), slice(RSIMVQ_DROP + 1, q)
+    check(bool((idx[..., dropped] == -1).all()) and bool((idx[..., kept] >= 0).all())
+          and bool((losses[dropped] == 0).all()) and bool((codes[dropped] == 0).all()),
+          'the dropped layers give index -1, loss 0 and zero codes')
+    check(all(bool((layer.code_transform.weight.grad == 0).all()) for layer in train.layers[dropped])
+          and all(float(layer.code_transform.weight.grad.abs().max()) > 0 for layer in train.layers[kept]),
+          "the dropped layers' transforms take a zero gradient, the kept ones a nonzero one")
+    check(bool(torch.isfinite(xg.grad).all()), 'finite x.grad')
+
+    def step():
+        xt = x.clone().requires_grad_()
+        o, _, ls = train(xt, rand_quantize_dropout_index=RSIMVQ_DROP)
+        ((o * g).sum() + ls.sum()).backward()
+    t = timed_step(step, sizes['rvq_step_reps'])
+    emit('rsimvq_path', model=f'ResidualSimVQ(dim={d}, num_quantizers={q}, codebook_size={c})', input=[b, n, d],
+         eval_launches=eval_launches, layers_vs_plain=reports, decode_rel_err=dec_err, eval_forward_ms=eval_ms,
+         dropout_index=RSIMVQ_DROP, step_launches=step_launches, **t)
+    return dict(eval=eval_launches, step=step_launches), dict(eval_ms=eval_ms, step_ms=t['step_ms'])
+
+
+def phase_rpq_path(device, sizes):
+    """Path 3: RandomProjectionQuantizer(dim=512, codebook_size=1024,
+    codebook_dim=256, num_codebooks=16) on (8, 1024, 512). As in the JAX
+    package (and upstream), its VectorQuantize takes codebook_dim = dim =
+    16 * 256 a head, so the heads are 4096 wide after a 4096 -> 65536
+    projection. The forward launches K1 once over all 16 heads (cosine);
+    each head's indices against the plain selection on the same
+    codebook-space input (near-ties only); the cross entropy against given
+    indices launches nothing and is held to float64 within 1e-5. Then
+    times, with K1 alone against its bound."""
+    from vqtpu_torch import RandomProjectionQuantizer
+    from vqtpu_torch.kernels.distance import nearest_code, nearest_code_plain, selection_bias, \
+        selection_disagreements
+    b, n, dim, c, cd, h = sizes['rpq_main']
+    torch.manual_seed(48)
+    model = RandomProjectionQuantizer(dim=dim, codebook_size=c, codebook_dim=cd, num_codebooks=h, device=device)
+    x = torch.from_numpy(np.random.default_rng(49).standard_normal((b, n, dim), dtype=np.float32)).to(device)
+    reset_all_launches()
+    with torch.no_grad():
+        idx = model(x)
+    sync(device)
+    launches = all_launches()
+    check(launches['nearest_code'] == 1 and sum(launches.values()) == 1,
+          f'an RPQ forward launched K1 once over its {h} heads {launches}')
+    check(tuple(idx.shape) == (b, n, h), f'RPQ indices of shape {tuple(idx.shape)}')
+    embed = model.vq._codebook.embed
+    with torch.no_grad():
+        t = torch.einsum('bnd,hde->bnhe', model.norm(x), model.rand_projs).reshape(b, n, -1)
+        xc = model.vq.codebook_input(t).reshape(h, b * n, -1).contiguous()
+    heads, non_tie = [], 0
+    for i in range(h):
+        bias = selection_bias(embed[i], 'cosine')
+        r = selection_disagreements(xc[i], embed[i], bias, idx[..., i].reshape(-1),
+                                    nearest_code_plain(xc[i], embed[i], bias))
+        heads.append(r['disagree'])
+        non_tie += r['non_tie']
+    check(non_tie == 0, f'RPQ heads against the plain selection (disagreements {heads})')
+    targets = idx.roll(1, dims=1)
+    reset_all_launches()
+    with torch.no_grad():
+        ce = model(x, indices=targets)
+    sync(device)
+    ce_launches = all_launches()
+    check(sum(ce_launches.values()) == 0, f'the RPQ cross entropy launched no kernel {ce_launches}')
+    nll = torch.zeros((), dtype=torch.float64, device=device)
+    for i in range(h):
+        logits = xc[i].double() @ embed[i].double().T
+        tgt = targets[..., i].reshape(-1).long()
+        nll += (torch.logsumexp(logits, -1) - logits.gather(-1, tgt[:, None])[:, 0]).sum()
+    ce64 = float(nll) / (b * n * h)
+    ce_err = abs(float(ce) - ce64) / abs(ce64)
+    check(ce_err <= 1e-5, f'the RPQ cross entropy within 1e-5 of float64 ({ce_err})')
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model(x), 3, warmup=1)
+        k1_ms = cuda_ms(lambda: nearest_code(xc, embed, 'cosine'), 5, warmup=1)
+    bound, by = selection_bound_tc_ms(h * b * n, c, xc.shape[-1])
+    emit('rpq_path', model=f'RandomProjectionQuantizer(dim={dim}, codebook_size={c}, codebook_dim={cd}, '
+                           f'num_codebooks={h})', input=[b, n, dim], head_width=int(xc.shape[-1]),
+         launches=launches, ce_launches=ce_launches, head_disagreements=heads, ce=float(ce), ce_rel_err=ce_err,
+         forward_ms=fwd_ms, k1_ms=k1_ms, k1_bound_ms=bound, k1_bound_by=by, k1_share_of_forward=k1_ms / fwd_ms,
+         k1_share_of_bound=bound / k1_ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return launches, dict(forward_ms=fwd_ms, k1_ms=k1_ms, k1_bound_ms=bound)
+
+
+def hq_autoencoder(dev, train_fused):
+    """The HierarchicalVQ autoencoder of examples/autoencoder_hq.py:21-45:
+    a conv encoder, HierarchicalVQ(dim=32, codebook_size=512, scales=(1, 2,
+    4, 7), kmeans_init=True, quant_resi=0.5, share_quant_resi=1) on the
+    channel-first feature map, a conv decoder."""
+    from vqtpu_torch import HierarchicalVQ
+    from vqtpu_torch.models.autoencoder import ConvDecoder, ConvEncoder
+
+    class HQAutoEncoder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.encoder = ConvEncoder(32, device=dev)
+            self.hq = HierarchicalVQ(dim=32, codebook_size=512, scales=(1, 2, 4, 7), accept_image_fmap=True,
+                                     kmeans_init=True, quant_resi=0.5, share_quant_resi=1,
+                                     train_fused=train_fused, device=dev)
+            self.decoder = ConvDecoder(32, device=dev)
+
+        def forward(self, x):
+            recon, indices, commit = self.hq(self.encoder(x).permute(0, 3, 1, 2))
+            return self.decoder(recon.permute(0, 2, 3, 1)), indices, commit
+    return HQAutoEncoder().train()
+
+
+def phase_hq_path(device, sizes):
+    """Path 4: the HierarchicalVQ autoencoder (examples/autoencoder_hq.py),
+    train_fused='on', batch 256: step 0 against the CPU from the same
+    weights with the same kmeans and expiry rows (each scale's picks on the
+    card against the CPU's, near-ties only on the card's own input and
+    codebook), K4 once a scale a step and no K1; 50 AdamW steps; then an
+    eval forward, K1 once a scale, its decode from indices within 1e-5;
+    times with the device's idle share."""
+    import vqtpu_torch.codebook.codebook as tcodebook
+    import vqtpu_torch.codebook.kmeans as tkmeans
+    from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+
+    def loss_of(model, x):
+        recon, idx, cmt = model(x)
+        return (recon.clamp(-1, 1) - x).abs().mean() + 10.0 * cmt, idx
+
+    torch.manual_seed(50)
+    model = hq_autoencoder(device, 'on')
+    ref = hq_autoencoder('cpu', 'on')
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(51)
+    images = [rng.random((sizes['images'], 28, 28, 1), dtype=np.float32) for _ in range(sizes['flagship_steps'])]
+
+    def rows(count, num):
+        return torch.from_numpy(np.random.default_rng(52 + count).integers(0, count, num))
+
+    draw_means, draw_rows, init = tkmeans.sample_means, tcodebook.masked_sample_vectors, tcodebook.Codebook.init_embed_
+    # each scale's codebook-space tokens on the card and the codebook its
+    # selection met (the first scale's after its kmeans init)
+    seen = []
+
+    def init_and_keep(self, flatten, mask=None):
+        init(self, flatten, mask)
+        if seen and seen[-1][1] is None:
+            seen[-1] = (seen[-1][0], self.embed.detach()[0].clone())
+
+    def keep_input(module, args):
+        tokens = args[0].detach().movedim(1, -1).reshape(-1, 32)
+        seen.append((tokens, module._codebook.embed.detach()[0].clone()
+                     if bool(module._codebook.initted) else None))
+    tkmeans.sample_means = lambda gen, s, mask, num: s[:, rows(s.shape[1], num).to(s.device)]
+    tcodebook.masked_sample_vectors = lambda gen, s, mask, num: s[rows(s.shape[0], num).to(s.device)]
+    tcodebook.Codebook.init_embed_ = init_and_keep
+    hook = model.hq.vq.register_forward_pre_hook(keep_input)
+    try:
+        x0 = torch.from_numpy(images[0])
+        reset_all_launches()
+        loss0, idx0 = loss_of(model, x0.to(device))
+        loss0.backward()
+        sync(device)
+        launches = all_launches()
+        hook.remove()
+        ref_loss, ref_idx = loss_of(ref, x0)
+        ref_loss.backward()
+    finally:
+        tkmeans.sample_means, tcodebook.masked_sample_vectors, tcodebook.Codebook.init_embed_ = \
+            draw_means, draw_rows, init
+    check(launches['train_fused'] == 4 and sum(launches.values()) == 4,
+          f'an HQ training step launched K4 once a scale {launches}')
+    scale_reports = [selection_disagreements(tokens, embed, selection_bias(embed, 'euclidean'), ti.reshape(-1),
+                                             ri.reshape(-1).to(device))
+                     for (tokens, embed), ti, ri in zip(seen, idx0, ref_idx)]
+    check(all(r['non_tie'] == 0 for r in scale_reports), f'HQ step 0: each scale against the CPU {scale_reports}')
+    loss_rel = abs(loss0.item() - ref_loss.item()) / abs(ref_loss.item())
+    check(loss_rel <= 1e-4, f'HQ step 0: loss as on the CPU ({loss_rel})')
+    grad_name, grad_err = grads_vs_cpu(model, ref)
+    disagree = sum(r['disagree'] for r in scale_reports)
+    check(disagree > 0 or grad_err <= 1e-3, f'HQ step 0: gradients as on the CPU ({grad_name}: {grad_err})')
+    del ref, seen
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    opt.step()
+    opt.zero_grad()
+    losses = [loss0.item()]
+    reset_all_launches()
+    for step in range(1, len(images)):
+        loss, _ = loss_of(model, torch.from_numpy(images[step]).to(device))
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.item())
+    train_launches = all_launches()
+    check(train_launches['train_fused'] == 4 * (len(images) - 1)
+          and sum(train_launches.values()) == train_launches['train_fused'],
+          f'K4 once a scale in every HQ step {train_launches}')
+    check(all(np.isfinite(losses)), 'HQ losses are finite')
+    imgs = torch.from_numpy(images[-1]).to(device)
+
+    def step():
+        loss_of(model, imgs)[0].backward()
+        opt.step()
+        opt.zero_grad()
+    t = timed_step(step, sizes['step_reps'], warmup=2)
+    model.eval()
+    reset_all_launches()
+    with torch.no_grad():
+        z = model.encoder(imgs).permute(0, 3, 1, 2)
+        recon, idx, _ = model.hq(z)
+        sync(device)
+        eval_launches = all_launches()
+        dec = model.hq.get_output_from_indices(idx)
+        eval_ms = cuda_ms(lambda: model(imgs), sizes['reps'])
+    check(eval_launches['nearest_code'] == 4 and sum(eval_launches.values()) == 4,
+          f'an HQ eval forward launched K1 once a scale {eval_launches}')
+    dec_err = float((dec - recon).abs().max() / recon.abs().max())
+    check(dec_err <= 1e-5, f'HQ decode from indices within 1e-5 ({dec_err})')
+    emit('hq_path', model='HQAutoEncoder(HierarchicalVQ(dim=32, codebook_size=512, scales=(1, 2, 4, 7), '
+                          "kmeans_init=True, quant_resi=0.5, share_quant_resi=1, train_fused='on'))",
+         optimizer='AdamW(lr=3e-4, weight_decay=1e-4)', input=[sizes['images'], 28, 28, 1], steps=len(images),
+         launches_step0=launches, launches_steps_1_49=train_launches, eval_launches=eval_launches,
+         step0_vs_cpu=dict(loss_rel_err=loss_rel, grad_max_rel_err=grad_err, grad_worst=grad_name,
+                           scales=scale_reports),
+         loss_first=losses[0], loss_last=losses[-1], decode_rel_err=dec_err, eval_forward_ms=eval_ms, **t)
+    return dict(step=launches, eval=eval_launches), dict(step_ms=t['step_ms'], eval_ms=eval_ms,
+                                                         idle=t['profile']['device_idle_share'])
+
+
+def step0_vs_cpu(name, build, loss_of, x, device, extra=None, before=None):
+    """One training step of `build(device)` and of a CPU twin with the same
+    weights: the card's launches, the loss within 1e-4, every parameter
+    gradient within 1e-3 of the larger of its largest CPU entry and 1e-4 of
+    the model's (unless `extra`, which compares the two steps' aux outputs,
+    reports picks that differ); `before()` runs before each side's
+    forward."""
+    torch.manual_seed(53)
+    model = build(device)
+    ref = build('cpu')
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    if before:
+        before()
+    reset_all_launches()
+    loss, aux = loss_of(model, x.to(device))
+    loss.backward()
+    sync(device)
+    launches = all_launches()
+    if before:
+        before()
+    ref_loss, ref_aux = loss_of(ref, x)
+    ref_loss.backward()
+    loss_rel = abs(loss.item() - ref_loss.item()) / max(abs(ref_loss.item()), 1e-30)
+    check(loss_rel <= 1e-4, f'{name} step 0: loss as on the CPU ({loss_rel})')
+    grad_name, grad_err = grads_vs_cpu(model, ref)
+    report = dict(launches=launches, loss=loss.item(), loss_rel_err=loss_rel, grad_max_rel_err=grad_err,
+                  grad_worst=grad_name)
+    if extra is not None:
+        report.update(extra(model, ref, aux, ref_aux))
+    check(grad_err <= 1e-3 or report.get('disagree', 0) > 0,
+          f'{name} step 0: gradients as on the CPU ({grad_name}: {grad_err})')
+    return model, report
+
+
+def phase_zoo_path(device, sizes):
+    """Path 5, no kernel: the FSP autoencoder (examples/autoencoder_fsp.py),
+    50 AdamW steps, step 0 against the CPU with the perturbation's uniform
+    draws given to both; LatentQuantize(levels=[5, 5, 8], dim=9) with an
+    in-place SGD, one step against the CPU (the level values after the
+    inner step within 1e-6); BinaryMapper(bits=8,
+    deterministic_on_eval=True), one training step against the CPU with the
+    same Bernoulli draws, and a deterministic eval; none of them launches a
+    kernel. Then Sequential(ConvEncoder, SimVQ, ConvDecoder): one step
+    against the CPU, K1 and code_sums once."""
+    import vqtpu_torch.core.sampling as tsampling
+    from vqtpu_torch import FSP, BinaryMapper, LatentQuantize, Sequential, SimVQ, SimpleQuantizeAutoEncoder
+    from vqtpu_torch.models.autoencoder import ConvDecoder, ConvEncoder
+    out = {}
+    draw_uniform, draw_bernoulli = tsampling.uniform_noise, tsampling.bernoulli
+    calls = {'n': 0}
+
+    def restart_draws():
+        calls['n'] = 0
+
+    def same_uniform(gen, shape, dtype=torch.float32, device=None):
+        calls['n'] += 1
+        u = torch.rand(tuple(shape), generator=torch.Generator().manual_seed(2000 + calls['n']), dtype=dtype)
+        return u.to(device)
+
+    def same_bernoulli(gen, prob):
+        u = torch.rand(tuple(prob.shape), generator=torch.Generator().manual_seed(3000), dtype=prob.dtype)
+        return u.to(prob.device) < prob
+
+    def mismatch_share(what):
+        def extra(model, ref, idx, ref_idx):
+            share = float((idx.cpu() != ref_idx).float().mean())
+            check(share <= 1e-3, f'{what} step 0: indices as on the CPU but at bin edges and near-ties ({share})')
+            return dict(index_mismatch_share=share)
+        return extra
+
+    # FSP autoencoder: levels (8, 6, 5), tanh, quantize_rate 0.5, var_tanh; loss rec + norm loss
+    def fsp_ae(dev):
+        return SimpleQuantizeAutoEncoder(FSP([8, 6, 5], dim=32, act_name='tanh', quantize_rate=0.5,
+                                             vector_norm='var_tanh', device=dev), dim=32, device=dev).train()
+
+    def fsp_loss(model, x):
+        recon, idx, norm_loss, _ = model(x)
+        return (recon.clamp(-1, 1) - x).abs().mean() + norm_loss, idx
+
+    rng = np.random.default_rng(54)
+    images = [rng.random((sizes['images'], 28, 28, 1), dtype=np.float32) for _ in range(sizes['flagship_steps'])]
+    tsampling.uniform_noise = same_uniform
+    try:
+        fsp, out['fsp_step0'] = step0_vs_cpu('FSP autoencoder', fsp_ae, fsp_loss, torch.from_numpy(images[0]),
+                                             device, mismatch_share('FSP'), before=restart_draws)
+        check(calls['n'] == 2, f'FSP drew its offsets and its mask ({calls["n"]} draws)')
+    finally:
+        tsampling.uniform_noise = draw_uniform
+    opt = torch.optim.AdamW(fsp.parameters(), lr=3e-4, weight_decay=1e-4)
+    opt.step()
+    opt.zero_grad()
+    losses = [out['fsp_step0']['loss']]
+    reset_all_launches()
+    for step in range(1, len(images)):
+        loss, _ = fsp_loss(fsp, torch.from_numpy(images[step]).to(device))
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.item())
+    sync(device)
+    check(sum(all_launches().values()) == 0 and sum(out['fsp_step0']['launches'].values()) == 0,
+          'the FSP autoencoder launched no kernel')
+    check(all(np.isfinite(losses)), 'FSP losses are finite')
+    imgs = torch.from_numpy(images[-1]).to(device)
+
+    def fsp_step():
+        fsp_loss(fsp, imgs)[0].backward()
+        opt.step()
+        opt.zero_grad()
+    t_fsp = timed_step(fsp_step, sizes['step_reps'], warmup=2)
+    out.update(fsp_steps=len(images), fsp_loss_first=losses[0], fsp_loss_last=losses[-1],
+               fsp_step_ms=t_fsp['step_ms'], fsp_idle_share=t_fsp['profile']['device_idle_share'])
+    del fsp, opt
+
+    # LatentQuantize(levels=[5, 5, 8], dim=9) (README.md:332) with an in-place SGD, channel-first input
+    def lq(dev):
+        return LatentQuantize(levels=[5, 5, 8], dim=9, device=dev,
+                              in_place_codebook_optimizer=lambda p: torch.optim.SGD(p, lr=0.1)).train()
+
+    def lq_loss(model, x):
+        o, idx, loss = model(x)
+        return (o * x).mean() + loss, idx
+
+    def lq_extra(model, ref, idx, ref_idx):
+        report = mismatch_share('LatentQuantize')(model, ref, idx, ref_idx)
+        err = max(float((v.detach().cpu() - rv.detach()).abs().max())
+                  for v, rv in zip(model.values_per_latent, ref.values_per_latent))
+        check(err <= 1e-6, f'LatentQuantize: the in-place SGD step as on the CPU ({err})')
+        return dict(report, values_err=err)
+    xl = torch.from_numpy(np.random.default_rng(55).standard_normal((64, 9, 32, 32), dtype=np.float32))
+    _, out['latent_step0'] = step0_vs_cpu('LatentQuantize', lq, lq_loss, xl, device, lq_extra)
+    check(sum(out['latent_step0']['launches'].values()) == 0, 'LatentQuantize launched no kernel')
+
+    # BinaryMapper(bits=8, deterministic_on_eval=True) (README.md:368), behind a learnable scale
+    class ScaledLogits(torch.nn.Module):
+        def __init__(self, dev):
+            super().__init__()
+            self.scale = torch.nn.Parameter(torch.ones(8, device=dev))
+            self.mapper = BinaryMapper(bits=8, deterministic_on_eval=True, device=dev)
+
+        def forward(self, x):
+            return self.mapper(x * self.scale, return_indices=True)
+
+    def bm_loss(model, x):
+        one_hot, idx, aux = model(x)
+        w = torch.linspace(-1, 1, 256, device=x.device)
+        return (one_hot * w).sum(-1).mean() + aux, (idx, one_hot.detach())
+
+    def bm_extra(model, ref, aux, ref_aux):
+        """The card's sigmoid may round an ulp from the CPU's: a bit may
+        differ only where its draw lies within 1e-6 of its probability; the
+        one-hots (with the soft-G estimator's value, one_hot + g - g) within
+        1e-6 where the codes agree."""
+        (idx, hot), (ref_idx, ref_hot) = aux, ref_aux
+        differ = idx.cpu() != ref_idx
+        u = torch.rand(xb.shape, generator=torch.Generator().manual_seed(3000))
+        near = ((u - torch.sigmoid(xb)).abs() < 1e-6).any(-1)
+        check(bool(near[differ].all()) and float(differ.float().mean()) <= 1e-3,
+              f'BinaryMapper step 0: {int(differ.sum())} codes differ from the CPU, not all at a drawn edge')
+        hot_err = float((hot.cpu()[~differ] - ref_hot[~differ]).abs().max())
+        check(hot_err <= 1e-6, f'BinaryMapper step 0: one-hots as on the CPU ({hot_err})')
+        return dict(disagree=int(differ.sum()), one_hot_err=hot_err)
+    xb = torch.from_numpy(np.random.default_rng(56).standard_normal((256, 1024, 8), dtype=np.float32) * 2)
+    tsampling.bernoulli = same_bernoulli
+    try:
+        bm, out['binary_mapper_step0'] = step0_vs_cpu('BinaryMapper', ScaledLogits, bm_loss, xb, device, bm_extra)
+    finally:
+        tsampling.bernoulli = draw_bernoulli
+    bm.eval()
+    reset_all_launches()
+    with torch.no_grad():
+        _, i1, _ = bm(xb.to(device))
+        _, i2, _ = bm(xb.to(device))
+        want = ((torch.sigmoid(xb.to(device)) > 0.5).long() * 2 ** torch.arange(8, device=device)).sum(-1)
+    check(torch.equal(i1, i2) and torch.equal(i1.long(), want), 'BinaryMapper eval is deterministic')
+    check(sum(out['binary_mapper_step0']['launches'].values()) == 0 and sum(all_launches().values()) == 0,
+          'BinaryMapper launched no kernel')
+
+    # Sequential(ConvEncoder, SimVQ, ConvDecoder)
+    def seq(dev):
+        return Sequential(ConvEncoder(32, device=dev), SimVQ(dim=32, codebook_size=256, device=dev),
+                          ConvDecoder(32, device=dev)).train()
+
+    def seq_loss(model, x):
+        recon, idx, cmt = model(x)
+        return (recon.clamp(-1, 1) - x).abs().mean() + 10.0 * cmt, idx
+
+    def seq_extra(model, ref, idx, ref_idx):
+        disagree = int((idx.cpu() != ref_idx).sum())
+        check(disagree <= 1e-3 * idx.numel(), f'Sequential step 0: {disagree} picks differ from the CPU')
+        return dict(disagree=disagree)
+    xs = torch.from_numpy(np.random.default_rng(57).random((sizes['images'], 28, 28, 1), dtype=np.float32))
+    _, out['sequential_step0'] = step0_vs_cpu('Sequential', seq, seq_loss, xs, device, seq_extra)
+    sl = out['sequential_step0']['launches']
+    check(sl['nearest_code'] == 1 and sl['code_sums'] == 1 and sum(sl.values()) == 2,
+          f'a Sequential(SimVQ) step launched K1 and code_sums once {sl}')
+    emit('zoo_path', **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -3431,6 +4156,9 @@ def main() -> int:
         'code_sums_rvq': (RVQ_MAIN[0] * RVQ_MAIN[1], RVQ_MAIN[4]),
         # QINCo: eval tokens, training tokens, eval tokens checked in float64 on the CPU
         'qinco_tokens': (1024, 256, 256),
+        'simvq_main': SIMVQ_MAIN,
+        'rsimvq_main': RSIMVQ_MAIN,
+        'rpq_main': RPQ_MAIN,
     }
 
     kind, count, smi, ptxas = phase_device()
@@ -3479,6 +4207,11 @@ def main() -> int:
     fvq_launches, fvq_ms = phase_fvq_flagship(device, sizes)
     qinco_eval_launches, qinco_train_launches, qinco_eval_ms, qinco_train_ms = phase_qinco_path(device, sizes)
     diveq_launches, diveq_ms = phase_diveq_rvq_path(device, sizes)
+    simvq_launches, simvq_ms = phase_simvq_path(device, sizes)
+    rsimvq_launches, rsimvq_ms = phase_rsimvq_path(device, sizes)
+    rpq_launches, rpq_ms = phase_rpq_path(device, sizes)
+    hq_launches, hq_ms = phase_hq_path(device, sizes)
+    zoo = phase_zoo_path(device, sizes)
     check_no_spill(ptxas)
 
     print(json.dumps({'kernels': [{
@@ -3501,6 +4234,17 @@ def main() -> int:
         'launches_qinco_eval': qinco_eval_launches['nearest_code'],
         'launches_qinco_train_step': qinco_train_launches['nearest_code'],
         'launches_diveq_rvq_step': diveq_launches['nearest_code'],
+        'launches_simvq_eval': simvq_launches['eval']['nearest_code'],
+        'launches_simvq_step': simvq_launches['step']['nearest_code'],
+        'launches_simvq_autoencoder_step': simvq_launches['ae_step']['nearest_code'],
+        'launches_rsimvq_eval': rsimvq_launches['eval']['nearest_code'],
+        'launches_rsimvq_step': rsimvq_launches['step']['nearest_code'],
+        'launches_rpq_forward': rpq_launches['nearest_code'],
+        'launches_hq_eval': hq_launches['eval']['nearest_code'],
+        'launches_sequential_simvq_step': zoo['sequential_step0']['launches']['nearest_code'],
+        'rpq_k1_ms': rpq_ms['k1_ms'],
+        'rpq_k1_bound_ms': rpq_ms['k1_bound_ms'],
+        'rpq_k1_of': '16 heads of 8192 tokens, d = 4096, c = 1024, cosine',
         'rvq_layer_ms': rvq_times['rvq_k1_layer_ms'],
         'rvq_layer_bound_ms': rvq_times['rvq_k1_layer_bound_ms'],
         'max_abs_err': selection['main']['max_score_gap'],
@@ -3524,6 +4268,7 @@ def main() -> int:
         'launches_flagship_train': flagship_train_launches,
         'launches_rvq_train_on_per_step': rvq_on_launches,
         'launches_affine_on_step': affine_launches['on']['train_fused'],
+        'launches_hq_step': hq_launches['step']['train_fused'],
         'max_abs_err': train_err,
         'max_abs_err_of': 'max |esum - float64 sum| at the main shape (indices and rows are exact)',
         'design': TRAIN_DESIGN,
@@ -3593,6 +4338,10 @@ def main() -> int:
         'launches_fvq_step': fvq_launches['code_sums'],
         'launches_qinco_train_step': qinco_train_launches['code_sums'],
         'launches_diveq_rvq_step': diveq_launches['code_sums'],
+        'launches_simvq_step': simvq_launches['step']['code_sums'],
+        'launches_simvq_autoencoder_step': simvq_launches['ae_step']['code_sums'],
+        'launches_rsimvq_step': rsimvq_launches['step']['code_sums'],
+        'launches_sequential_simvq_step': zoo['sequential_step0']['launches']['code_sums'],
         'max_abs_err': code_sums_times['max_abs_err'],
         'max_abs_err_of': 'max |sums - float64 per-code sum| over the code_sums cases (each within the f32 '
                           'summation bound)',
@@ -3606,7 +4355,8 @@ def main() -> int:
         'design': CODE_SUMS_DESIGN,
         'step_ms': dict(learnable=learn_times['step_ms'], ortho={k: v['step_ms'] for k, v in ortho.items()},
                         affine=affine_ms, fvq=fvq_ms, qinco_eval=qinco_eval_ms, qinco_train=qinco_train_ms,
-                        diveq_rvq=diveq_ms),
+                        diveq_rvq=diveq_ms, simvq=simvq_ms, rsimvq=rsimvq_ms, rpq_forward=rpq_ms['forward_ms'],
+                        hq=hq_ms, fsp_autoencoder=zoo['fsp_step_ms']),
         'check': 'bins exact, sums within the f32 summation bound of float64, two calls bit-identical; the '
                  'learnable codebook gradient bit-identical across two calls and two steps',
         'power_limit': smi,

@@ -874,3 +874,112 @@ def test_qinco_layer_matches_cpu(card):
             torch.testing.assert_close(xc.grad.cpu(), xr.grad, rtol=1e-4, atol=1e-6)
             for (name, p), (_, pr) in zip(m.named_parameters(), ref.named_parameters()):
                 assert _max_rel(p.grad.cpu(), pr.grad.double()) <= 1e-4, name
+
+
+def _copy_to_cpu(model, factory):
+    """A CPU twin of a card module built by `factory(device)`, with its state."""
+    twin = factory('cpu')
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return twin
+
+
+def test_simvq_launches_and_matches_cpu(card):
+    """SimVQ: K1 once a forward (selection and rows), code_sums once in the
+    backward, the transform's gradient as on the CPU from the same picks;
+    eval rows bit-equal to the implicit codebook's, the decode from indices
+    within 1e-6 of them (a Linear over one row or over c rows)."""
+    factory = lambda dev: vqtpu_torch.SimVQ(dim=64, codebook_size=256, device=dev)  # noqa: E731
+    torch.manual_seed(0)
+    model = factory(card)
+    cpu = _copy_to_cpu(model, factory)
+    x = torch.randn(4, 512, 64, device=card)
+    td.nearest_code.launches = ttf.code_sums.launches = 0
+    xg = x.clone().requires_grad_()
+    q, idx, loss = model(xg)
+    (q.square().mean() + loss).backward()
+    torch.cuda.synchronize()
+    assert (td.nearest_code.launches, ttf.code_sums.launches) == (1, 1)
+    xc = x.cpu().requires_grad_()
+    qc, idxc, lossc = cpu(xc)
+    (qc.square().mean() + lossc).backward()
+    with torch.no_grad():
+        implicit = model.codebook
+    r = td.selection_disagreements(x.reshape(-1, 64), implicit, td.selection_bias(implicit, 'euclidean'),
+                                   idx.reshape(-1), idxc.reshape(-1).to(card))
+    assert r['non_tie'] == 0, r
+    if r['disagree'] == 0:
+        w, wc = model.code_transform.weight.grad, cpu.code_transform.weight.grad
+        assert float((w.cpu() - wc).abs().max()) <= 1e-4 * float(wc.abs().max())
+        assert float((xg.grad.cpu() - xc.grad).abs().max()) <= 1e-4 * float(xc.grad.abs().max())
+    model.eval()
+    td.nearest_code.launches = 0
+    with torch.no_grad():
+        q, idx, _ = model(x)
+        assert td.nearest_code.launches == 1 and torch.equal(q, model.codebook[idx.long()])
+        assert float((model.indices_to_codes(idx) - q).abs().max()) <= 1e-6 * float(q.abs().max())
+
+
+def test_residual_simvq_launches_per_layer(card):
+    """ResidualSimVQ: K1 once a layer in eval and in a training step
+    (dropped layers included), code_sums once a layer in the backward."""
+    model = vqtpu_torch.ResidualSimVQ(dim=64, num_quantizers=4, codebook_size=128, quantize_dropout=True,
+                                      device=card)
+    x = torch.randn(4, 256, 64, device=card, requires_grad=True)
+    td.nearest_code.launches = ttf.code_sums.launches = 0
+    q, idx, losses = model(x, rand_quantize_dropout_index=1)
+    (q.square().mean() + losses.sum()).backward()
+    torch.cuda.synchronize()
+    assert (td.nearest_code.launches, ttf.code_sums.launches) == (4, 4)
+    assert (idx[..., 2:] == -1).all() and (idx[..., :2] >= 0).all()
+    model.eval()
+    td.nearest_code.launches = 0
+    with torch.no_grad():
+        q, idx, _ = model(x.detach())
+        dec = model.get_output_from_indices(idx)
+    assert td.nearest_code.launches == 4
+    assert float((dec - q).abs().max()) <= 1e-5 * float(q.abs().max())
+
+
+def test_rpq_one_launch_over_heads(card):
+    """RandomProjectionQuantizer: one K1 launch over every head (cosine),
+    each head against the plain selection (near-ties only); the cross
+    entropy against given indices launches none."""
+    model = vqtpu_torch.RandomProjectionQuantizer(dim=64, codebook_size=128, codebook_dim=32, num_codebooks=4,
+                                                  device=card)
+    x = torch.randn(2, 256, 64, device=card)
+    td.nearest_code.launches = 0
+    with torch.no_grad():
+        idx = model(x)
+        assert td.nearest_code.launches == 1 and idx.shape == (2, 256, 4)
+        t = torch.einsum('bnd,hde->bnhe', model.norm(x), model.rand_projs).reshape(2, 256, -1)
+        xc = model.vq.codebook_input(t)
+        embed = model.vq._codebook.embed
+        for h in range(4):
+            xh = xc[h].reshape(-1, xc.shape[-1]).contiguous()
+            bias = td.selection_bias(embed[h], 'cosine')
+            r = td.selection_disagreements(xh, embed[h], bias, idx[..., h].reshape(-1),
+                                           td.nearest_code_plain(xh, embed[h], bias))
+            assert r['non_tie'] == 0, r
+        ce = model(x, indices=idx)
+    assert td.nearest_code.launches == 1 and bool(torch.isfinite(ce))
+
+
+def test_hierarchical_vq_launches_per_scale(card):
+    """HierarchicalVQ: K1 once a scale in eval, K4 once a scale in an EMA
+    training step ('on'), the 1x1 and 2x2 scales under one tile included."""
+    model = vqtpu_torch.HierarchicalVQ(dim=32, codebook_size=512, scales=(1, 2, 4, 7), accept_image_fmap=True,
+                                       train_fused='on', device=card)
+    x = torch.randn(64, 32, 7, 7, device=card, requires_grad=True)
+    td.nearest_code.launches = ttf.fused_train_quantize.launches = 0
+    rec, idx, loss = model(x)
+    (rec.square().mean() + loss).backward()
+    torch.cuda.synchronize()
+    assert (td.nearest_code.launches, ttf.fused_train_quantize.launches) == (0, 4)
+    assert [tuple(i.shape) for i in idx] == [(64, s, s) for s in (1, 2, 4, 7)]
+    model.eval()
+    td.nearest_code.launches = 0
+    with torch.no_grad():
+        rec, idx, _ = model(x.detach())
+        dec = model.get_output_from_indices(idx)
+    assert td.nearest_code.launches == 4 and bool(torch.isfinite(rec).all())
+    assert float((dec - rec).abs().max()) <= 1e-5 * float(rec.abs().max())

@@ -64,16 +64,19 @@ def torch_layout_grads(module, grads, prefix: str = '') -> dict:
     return out
 
 
-def assert_grads_close(module, grads, rtol, atol):
+def assert_grads_close(module, grads, rtol, atol, none_is_zero=False):
     """Every parameter of the torch module has a .grad equal, to the
     tolerance, to the JAX gradient of the same parameter; the JAX tree
-    covers every parameter."""
+    covers every parameter. With `none_is_zero`, a parameter the backward
+    did not reach (.grad None) counts as a zero gradient: JAX gives zeros
+    where torch gives none."""
     want = torch_layout_grads(module, grads)
     params = dict(module.named_parameters())
     assert sorted(want) == sorted(params), (sorted(want), sorted(params))
     for name, p in params.items():
-        assert p.grad is not None, name
-        np.testing.assert_allclose(p.grad.numpy(), want[name], rtol=rtol, atol=atol, err_msg=name)
+        grad = torch.zeros_like(p) if none_is_zero and p.grad is None else p.grad
+        assert grad is not None, name
+        np.testing.assert_allclose(grad.numpy(), want[name], rtol=rtol, atol=atol, err_msg=name)
 
 
 def assert_indices_tie_equal(x, embed, metric, idx_a, idx_b):

@@ -19,21 +19,37 @@ GroupedResidualVQ (shared codebooks, quantize dropout, beam search, QINCo
 and DiVeQ; each layer on the selection kernel in eval and the fused train
 kernel in EMA training), LFQ with its entropy aux loss, ResidualLFQ and
 GroupedResidualLFQ, FSQ, ResidualFSQ and GroupedResidualFSQ (eval and
-training), and the flagship SimpleQuantizeAutoEncoder. Distributed
+training), the flagship SimpleQuantizeAutoEncoder, and the rest of the
+JAX package's quantizers: SimVQ and ResidualSimVQ (selection and rows on
+the selection kernel, the transform's gradient through the per-code sums),
+RandomProjectionQuantizer (the selection kernel over all heads),
+HierarchicalVQ (one VectorQuantize across scales), FSP, LatentQuantize,
+BinaryMapper and Sequential, with the codebook metrics. Distributed
 codebooks (torch.distributed) are not ported yet.
 """
 
+from .composite.hierarchical_vq import HierarchicalVQ
 from .composite.residual_fsq import GroupedResidualFSQ, ResidualFSQ
 from .composite.residual_lfq import GroupedResidualLFQ, ResidualLFQ
+from .composite.residual_sim_vq import ResidualSimVQ
 from .composite.residual_vq import GroupedResidualVQ, ResidualVQ
+from .composite.sequential import Sequential
+from .core.metrics import codebook_perplexity, codebook_utilization, ema_perplexity, ema_utilization
+from .quantizers.binary_mapper import BinaryMapper
+from .quantizers.fsp import FSP
 from .quantizers.fsq import FSQ
+from .quantizers.latent import LatentQuantize
 from .quantizers.lfq import LFQ
+from .quantizers.rpq import RandomProjectionQuantizer
+from .quantizers.sim_vq import SimVQ
 from .quantizers.vq import LossBreakdown, VectorQuantize
 from .models.autoencoder import SimpleQuantizeAutoEncoder
 from .utils.weights import load_vqtpu_state
 
 __all__ = [
-    'VectorQuantize', 'LossBreakdown', 'ResidualVQ', 'GroupedResidualVQ', 'LFQ', 'ResidualLFQ', 'GroupedResidualLFQ',
-    'FSQ', 'ResidualFSQ', 'GroupedResidualFSQ',
+    'VectorQuantize', 'LossBreakdown', 'ResidualVQ', 'GroupedResidualVQ', 'RandomProjectionQuantizer',
+    'FSQ', 'FSP', 'LFQ', 'ResidualLFQ', 'GroupedResidualLFQ', 'ResidualFSQ', 'GroupedResidualFSQ',
+    'LatentQuantize', 'SimVQ', 'ResidualSimVQ', 'BinaryMapper', 'HierarchicalVQ', 'Sequential',
+    'codebook_perplexity', 'codebook_utilization', 'ema_perplexity', 'ema_utilization',
     'SimpleQuantizeAutoEncoder', 'load_vqtpu_state',
 ]

@@ -20,11 +20,10 @@ needs a gradient, always loop.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
+from ..core.sampling import quantize_dropout_index
 from ..core.utils import resolve_device
 from ..kernels.residual_fsq_fused import fused_residual_fsq_eval, soft_clamp_plain
 from ..quantizers.fsq import FSQ
@@ -156,12 +155,8 @@ class ResidualFSQ(nn.Module):
         return eligible and (self.eval_fused == 'on' or x.device.type == 'cuda')
 
     def draw_dropout_index(self) -> int:
-        idx = int(torch.randint(self.quantize_dropout_cutoff_index, self.num_quantizers, (),
-                                generator=self.generator, device=self.generator.device))
-        mult = self.quantize_dropout_multiple_of
-        if mult != 1:
-            idx = min(math.ceil((idx + 1) / mult) * mult - 1, self.num_quantizers - 1)
-        return idx
+        return quantize_dropout_index(self.generator, self.quantize_dropout_cutoff_index, self.num_quantizers,
+                                      self.quantize_dropout_multiple_of)
 
     def forward(self, x: torch.Tensor, return_all_codes: bool = False,
                 rand_quantize_dropout_index: int | torch.Tensor | None = None):

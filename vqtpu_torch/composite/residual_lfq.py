@@ -15,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from ..core.sampling import quantize_dropout_index
 from ..core.utils import exists, resolve_device
 from ..quantizers.lfq import LFQ
 
@@ -96,12 +97,8 @@ class ResidualLFQ(nn.Module):
         return summed
 
     def draw_dropout_index(self) -> int:
-        idx = int(torch.randint(self.quantize_dropout_cutoff_index, self.num_quantizers, (),
-                                generator=self.generator, device=self.generator.device))
-        mult = self.quantize_dropout_multiple_of
-        if mult != 1:
-            idx = min(math.ceil((idx + 1) / mult) * mult - 1, self.num_quantizers - 1)
-        return idx
+        return quantize_dropout_index(self.generator, self.quantize_dropout_cutoff_index, self.num_quantizers,
+                                      self.quantize_dropout_multiple_of)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, return_all_codes: bool = False,
                 rand_quantize_dropout_index: int | torch.Tensor | None = None):

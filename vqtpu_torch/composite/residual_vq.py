@@ -37,14 +37,13 @@ and QINCo.
 
 from __future__ import annotations
 
-import math
 from collections.abc import Sequence
 from functools import partial
 
 import torch
 from torch import nn
 
-from ..core.sampling import topk_first
+from ..core.sampling import quantize_dropout_index, topk_first
 from ..core.ste import directional_reparam, frac_gradient
 from ..core.utils import cast_tuple, default, exists, first, resolve_device
 from ..quantizers.vq import VectorQuantize
@@ -297,12 +296,8 @@ class ResidualVQ(nn.Module):
     def draw_dropout_index(self) -> int:
         """A layer index uniform in [cutoff, num_quantizers), rounded up to
         the configured multiple (minus one)."""
-        idx = int(torch.randint(self.quantize_dropout_cutoff_index, self.num_quantizers, (),
-                                generator=self.generator, device=self.generator.device))
-        mult = self.quantize_dropout_multiple_of
-        if mult != 1:
-            idx = min(math.ceil((idx + 1) / mult) * mult - 1, self.num_quantizers - 1)
-        return idx
+        return quantize_dropout_index(self.generator, self.quantize_dropout_cutoff_index, self.num_quantizers,
+                                      self.quantize_dropout_multiple_of)
 
     # -- forward --------------------------------------------------------------------
 

@@ -7,12 +7,15 @@ the same indices by replacing these functions. `gumbel_noise` is the draw of
 `gumbel_sample` (the code sampler of the distance-materializing path, which
 looks it up at call time, as the JAX package's does) and of LFQ's token
 subsample, `bernoulli_and_uniform` the draw of FSQ's noise dropout,
-`normal_noise` the draw of DiVeQ (`core.ste.directional_reparam`) and
+`normal_noise` the draw of DiVeQ (`core.ste.directional_reparam`),
 `random_permutation` that of the orthogonal loss's code subset
-(VectorQuantize's `orthogonal_reg_max_codes`).
+(VectorQuantize's `orthogonal_reg_max_codes`), `uniform_noise` the two
+draws of FSP's perturbation and `bernoulli` BinaryMapper's bits.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -27,6 +30,17 @@ def gumbel_noise(generator: torch.Generator, shape, device=None) -> torch.Tensor
 def normal_noise(generator: torch.Generator, shape, device=None) -> torch.Tensor:
     """Standard normal noise of `shape`."""
     return torch.randn(shape, generator=generator, device=device)
+
+
+def uniform_noise(generator: torch.Generator, shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Uniform [0, 1) values of `shape`."""
+    return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+
+
+def bernoulli(generator: torch.Generator, prob: torch.Tensor) -> torch.Tensor:
+    """A boolean tensor of `prob`'s shape, each entry True with its
+    probability."""
+    return torch.rand(prob.shape, generator=generator, dtype=prob.dtype, device=prob.device) < prob
 
 
 def random_permutation(generator: torch.Generator, n: int, device=None) -> torch.Tensor:
@@ -93,6 +107,17 @@ def gumbel_sample(
     if topk is not None:
         pi = pi[..., None, :]
     return ind, one_hot + pi - pi.detach()
+
+
+def quantize_dropout_index(generator: torch.Generator, cutoff: int, num_quantizers: int,
+                           multiple_of: int = 1) -> int:
+    """The residual stacks' quantize-dropout draw: a layer index uniform in
+    [cutoff, num_quantizers), rounded up to a multiple of `multiple_of`
+    less one (at most the last layer)."""
+    idx = int(torch.randint(cutoff, num_quantizers, (), generator=generator, device=generator.device))
+    if multiple_of != 1:
+        idx = min(math.ceil((idx + 1) / multiple_of) * multiple_of - 1, num_quantizers - 1)
+    return idx
 
 
 def bernoulli_and_uniform(generator: torch.Generator, p: float, shape, dtype=torch.float32,

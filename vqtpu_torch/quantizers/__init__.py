@@ -1,5 +1,10 @@
 """Quantizer layers."""
 
+from .binary_mapper import BinaryMapper
+from .fsp import FSP
 from .fsq import FSQ
+from .latent import LatentQuantize
 from .lfq import LFQ, CosineSimLinear
+from .rpq import RandomProjectionQuantizer
+from .sim_vq import SimVQ
 from .vq import LossBreakdown, VectorQuantize

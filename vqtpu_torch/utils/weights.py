@@ -6,18 +6,24 @@ array. Keys follow the module tree; the port uses the JAX package's
 attribute names, so the trees line up. Layouts converted:
 
   - nnx.Linear kernel (in, out)       -> nn.Linear weight (out, in)
+    (SimVQ's code_transform, FSP's and LatentQuantize's projections)
   - a leaf class's own `flax_leaf_rules` (below), such as the
     MultiHeadAttention kernels of models.transformer's HeadsIn / HeadsOut
   - nnx.Conv kernel (H, W, I, O)      -> nn.Conv2d weight (O, I, H, W)
+    (HierarchicalVQ's Phi convolutions among them)
   - nnx.LayerNorm scale               -> nn.LayerNorm weight
   - codebook buffers, LFQ's orthogonal_rot, CosineSimLinear's
-    (in, out) weight                  -> copied as they are
+    (in, out) weight, SimVQ's frozen_codebook, the
+    RandomProjectionQuantizer's rand_projs, LatentQuantize's
+    values_per_latent (an nnx.List of per-dimension values, an
+    nn.ParameterList here)            -> copied as they are
   - the integer keys of an nnx.List   -> the nn.ModuleList children '0', '1', ...
 
 A `rngs` entry (flax's RNG streams) has no torch counterpart and is
-skipped. So are VectorQuantize's `in_place_codebook_optimizer` (optax's
-state) and `_pending_inner_grads` as long as every leaf under them is 0, the
-state before the first in-place step: the port's inner optimizer starts
+skipped. So are VectorQuantize's and LatentQuantize's
+`in_place_codebook_optimizer` (optax's state) and `_pending_inner_grads`
+as long as every leaf under them is 0, the state before the first
+in-place step: the port's inner optimizer starts
 fresh and cannot take optax's state, so a state past that step raises.
 Any other key the module does not have, and any parameter or persistent
 buffer the state does not give, raises KeyError. A submodule
