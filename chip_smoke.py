@@ -177,7 +177,30 @@ prints one JSON line per phase:
    BinaryMapper(bits=8, deterministic_on_eval=True), each step 0 against
    the CPU with the same draws and no kernel launched; Sequential(ConvEncoder,
    SimVQ, ConvDecoder), one step against the CPU, K1 and code_sums once;
-35. the {"kernels": [...]} line.
+35. dp_vq_train: DataParallelTrainer over VectorQuantize(dim=256,
+   codebook_size=512, decay=0.8, sync_axis='data', train_fused='on',
+   kmeans_init=True, threshold_ema_dead_code=2) behind a scalar gain, the
+   main batch (1024, 1024, 256) split 2 x (512, 1024, 256) over two gloo
+   ranks on the card (spawned processes): 3 steps with K4 once a rank a
+   step, then one step on 'off' (K1 once a rank, index_put_ statistics);
+   the ranks' codebooks bit-identical every step (gathered over gloo);
+   every step held to one process over the whole batch from the same state
+   (the same indices and cluster sizes, both within the f32 bound of one
+   float64 EMA step but for the codes the step expired); the step times of
+   two ranks time-sharing one card;
+36. dp_lfq_train: LFQ(dim=18, codebook_size=2**18, spherical=True,
+   entropy_loss_weight=0.1, entropy_fused='on', sync_axis='data') on
+   (8, 1024, 18) split over two gloo ranks: K5-K8 once a rank, the ranks'
+   sweeps one gbar, their dx and one process's within the LFQ bound of the
+   float64 plain sweeps with the cotangents each received, the mean aux and
+   x.grad over the world size against one process;
+37. dp_nccl1: the dp_vq_train step on a one-rank NCCL group: with kmeans
+   and expiry a finite codebook and K4 once; without them bit-identical to
+   the module without sync_axis;
+38. utils: timeit_chained on the VQ eval forward beside phase 5's time, a
+   torch.profiler trace holding an annotate label, and dp_vq_train's module
+   saved by rank 0 and restored here, its eval forward bit-equal;
+39. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -4115,6 +4138,492 @@ def phase_zoo_path(device, sizes):
     return out
 
 
+# -- data parallel (PR 12): two ranks on one card over gloo ---------------------
+
+# VectorQuantize(dim=256, codebook_size=512) on the main batch (1024, 1024,
+# 256), split over two ranks along the batch: b, n, d, c
+DP_MAIN = (1024, 1024, 256, 512)
+DP_WORLD = 2
+DP_VQ_KW = dict(dim=256, codebook_size=512, decay=0.8, kmeans_init=True, threshold_ema_dead_code=2)
+DP_STEPS = 3
+DP_JOIN_S = 600
+DP_DIR = 'build/chip_smoke_dp'
+
+
+def dp_run_world(body, name, world=DP_WORLD, backend='gloo', device='cuda', **kwargs):
+    """Spawn `world` processes on card 0 (or the CPU), each joining a
+    `backend` group through a rendezvous file under build/, and run
+    `body(rank, world, mesh, out_dir, device=device, **kwargs)` in each;
+    returns what each returned. A rank that fails or hangs fails the
+    phase."""
+    import multiprocessing as mp
+    import shutil
+    from pathlib import Path
+    out = Path(DP_DIR) / name
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=_dp_rank_main,
+                         args=(body, r, world, backend, str(out.resolve()), dict(kwargs, device=device)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_JOIN_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    check(not hung, f'{name}: ranks {hung} finished within {DP_JOIN_S} s')
+    errors = [(out / f'rank{r}.err').read_text() for r, p in enumerate(procs) if p.exitcode != 0]
+    check(not errors, f'{name}: every rank exited 0\n' + '\n'.join(errors))
+    return [torch.load(out / f'rank{r}.pt') for r in range(world)]
+
+
+def _dp_rank_main(body, rank, world, backend, out, kwargs):
+    import traceback
+    from datetime import timedelta
+    from pathlib import Path
+    import torch.distributed as dist
+    from vqtpu_torch.parallel import init_multihost, make_mesh
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        init_multihost(f'file://{out}/rendezvous', world, rank, [0] if kwargs['device'] == 'cuda' else None,
+                       backend=backend, timeout=timedelta(seconds=300))
+        try:
+            result = body(rank, world, make_mesh(('data',)), out, **kwargs)
+        finally:
+            dist.destroy_process_group()
+        torch.save(result, Path(out) / f'rank{rank}.pt')
+    except BaseException:
+        (Path(out) / f'rank{rank}.err').write_text(f'rank {rank}:\n{traceback.format_exc()}')
+        sys.exit(1)
+
+
+class GainVQ(torch.nn.Module):
+    """A scalar gain (1 at the start, so the first step quantizes the batch
+    exactly) before a VectorQuantize: the trainer's one parameter."""
+
+    def __init__(self, device, **vq_kwargs):
+        from vqtpu_torch import VectorQuantize
+        super().__init__()
+        self.gain = torch.nn.Parameter(torch.ones((), device=device))
+        self.vq = VectorQuantize(**vq_kwargs, device=device)
+
+    def forward(self, x):
+        return self.vq(x * self.gain)
+
+
+def dp_batch(step, device, shape):
+    """The global batch (b, n, d) of a step, made on the device from a seed
+    (the same on every rank)."""
+    gen = torch.Generator(device=device).manual_seed(1200 + step)
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def dp_gather(t, axis='data'):
+    """Every rank's `t`, stacked (gloo takes CUDA tensors)."""
+    from vqtpu_torch.parallel import collectives
+    return collectives.all_gather(t.contiguous()[None], axis)
+
+
+def dp_state(model):
+    cb = model.vq._codebook
+    return {k: getattr(cb, k).detach().clone() for k in ('embed', 'embed_avg', 'cluster_size')}
+
+
+def dp_vq_body(rank, world, mesh, out, route_steps, device, shape=DP_MAIN):
+    """Rank body of dp_vq_train: the trainer over GainVQ(sync_axis='data'),
+    kmeans init and expiry on; per step the K4 (or K1) launches on this
+    rank, the state gathered from both ranks, and on rank 0 the same step
+    of one process over the whole batch from the state before it."""
+    import torch.distributed as dist
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    from vqtpu_torch.parallel import DataParallelTrainer, global_batch
+    from vqtpu_torch.utils import save_checkpoint, state_dict
+    torch.manual_seed(0)                         # the same model and generators on every rank
+    b, n, d, c = shape
+    model = GainVQ(device, **dict(DP_VQ_KW, dim=d, codebook_size=c), sync_axis='data', train_fused='on').train()
+    picked = {}
+
+    def loss_fn(m, batch):
+        q, idx, loss = m(batch)
+        picked['idx'] = idx
+        return loss + q.square().mean()
+
+    # the state kmeans init leaves (inside step 0), which step 0's one-process run starts from
+    cb = model.vq._codebook
+    init = cb.init_embed_
+
+    def init_and_record(flatten, mask=None):
+        fresh = not bool(cb.initted)
+        init(flatten, mask)
+        if fresh:
+            picked['after_kmeans'] = state_dict(model)
+    cb.init_embed_ = init_and_record
+
+    steps = []
+    trainer = DataParallelTrainer(model, torch.optim.SGD(model.parameters(), lr=1e-3), loss_fn, mesh)
+    for route, s in route_steps:
+        model.vq._codebook.train_fused = route
+        full = dp_batch(s, device, (b, n, d))
+        local = global_batch(mesh, ('data',), full, device)
+        if rank != 0:
+            del full
+        before = state_dict(model)
+        nearest_code.launches = fused_train_quantize.launches = 0
+        dist.barrier()
+        sync(device)
+        t0 = time.perf_counter()
+        loss = trainer.step(local)
+        sync(device)
+        step_s = time.perf_counter() - t0
+        launches = dict(train_fused=fused_train_quantize.launches, nearest_code=nearest_code.launches)
+        if 'after_kmeans' in picked:
+            before = picked.pop('after_kmeans')
+        with mesh:
+            states = {k: dp_gather(v) for k, v in dp_state(model).items()}
+            idx = dp_gather(picked['idx']).reshape(-1)
+        step = dict(route=route, step=s, loss=float(loss), step_s=step_s, launches=launches,
+                    ranks_identical={k: bool(torch.equal(v[0], v[1])) for k, v in states.items()})
+        if rank == 0:
+            step.update(dp_vq_reference(model, before, full, idx, {k: v[0] for k, v in states.items()}, route,
+                                        device))
+            del full
+        steps.append(step)
+    result = dict(steps=steps)
+    if rank == 0:
+        # the trained module, saved and read back on the card by the utils phase
+        save_checkpoint(f'{out}/vq.pt', model.vq)
+        probe = dp_batch(99, device, (64, n, d))
+        model.eval()
+        with torch.no_grad():
+            q, idx, _ = model.vq(probe)
+        result['probe'] = dict(x=probe.cpu(), q=q.cpu(), idx=idx.cpu())
+    return result
+
+
+def dp_vq_reference(model, before, full, dp_idx, dp, route, device):
+    """One process, the same step over the whole batch from the state the
+    ranks started from: its indices, its EMA state, and both held to one
+    float64 EMA step from those indices and that state."""
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    from vqtpu_torch.utils import load_state_dict
+    d = full.shape[-1]
+    vq = model.vq
+    ref = GainVQ(device, **dict(DP_VQ_KW, dim=d, codebook_size=vq.codebook_size), train_fused=route).train()
+    load_state_dict(ref, before)
+    nearest_code.launches = fused_train_quantize.launches = 0
+    with torch.no_grad():
+        _, idx, _ = ref(full)
+    sync(device)
+    ref_launches = dict(train_fused=fused_train_quantize.launches, nearest_code=nearest_code.launches)
+    one = dp_state(ref)
+    idx = idx.reshape(-1)
+    cb = ref.vq._codebook
+    xs = (full * before['gain']).reshape(-1, d)
+    cs64, ea64, cs_bound, ea_bound = ema_step_reference(
+        xs, idx.long(), before['vq._codebook.cluster_size'][0], before['vq._codebook.embed_avg'][0], cb.decay)
+    # codes the step expired: their rows come from the batch's pooled draw,
+    # which the ranks and one process draw differently
+    expired = cs64 < cb.threshold_ema_dead_code
+    keep = ~expired
+    shares = {}
+    for name, state in (('dp', dp), ('one_process', one)):
+        smoothed, _ = smoothed_sizes(state['cluster_size'][0], cb.eps)
+        e_ref = state['embed_avg'][0].double() / smoothed[:, None]
+        for key, got, want, bound in (('cluster_size', state['cluster_size'][0], cs64, cs_bound),
+                                      ('embed_avg', state['embed_avg'][0], ea64, ea_bound),
+                                      ('embed', state['embed'][0], e_ref, 8 * U32 * e_ref.abs())):
+            share = float(((got.double() - want).abs() / bound.clamp_min(1e-300))[keep].max())
+            shares[f'{name}_{key}'] = share
+        check(bool((state['cluster_size'][0][expired] == cb.threshold_ema_dead_code).all()),
+              f'{name}: the expired codes were reset')
+    return dict(indices_equal_one_process=bool(torch.equal(dp_idx, idx)),
+                cluster_size_equal_one_process=bool(torch.equal(dp['cluster_size'], one['cluster_size'])),
+                embed_avg_max_abs_diff=float((dp['embed_avg'] - one['embed_avg']).abs().max()),
+                share_of_f32_bound=shares, expired=int(expired.sum()), one_process_launches=ref_launches)
+
+
+def phase_dp_vq_train():
+    """dp_vq_train: DataParallelTrainer over VectorQuantize(dim=256,
+    codebook_size=512, decay=0.8, sync_axis='data', train_fused='on',
+    kmeans_init=True, threshold_ema_dead_code=2) behind a scalar gain, the
+    main batch (1024, 1024, 256) split 2 x (512, 1024, 256) over two gloo
+    ranks on the card: 3 steps on 'on' (K4 once a rank a step), then one on
+    'off' (K1 and index_put_ once a rank); the ranks' codebooks
+    bit-identical every step; each step held to one process over the whole
+    batch from the same state (the same indices and cluster sizes; both
+    within the f32 bound of one float64 EMA step)."""
+    route_steps = [('on', s) for s in range(DP_STEPS)] + [('off', DP_STEPS)]
+    ranks = dp_run_world(dp_vq_body, 'dp_vq_train', route_steps=route_steps)
+    for r, res in enumerate(ranks):
+        for st in res['steps']:
+            want = dict(train_fused=1, nearest_code=0) if st['route'] == 'on' else dict(train_fused=0, nearest_code=1)
+            check(st['launches'] == want, f"rank {r} step {st['step']} ({st['route']}): launches {st['launches']}")
+            check(all(st['ranks_identical'].values()), f"step {st['step']}: ranks bit-identical {st['ranks_identical']}")
+    steps0 = ranks[0]['steps']
+    for st in steps0:
+        check(st['indices_equal_one_process'], f"step {st['step']}: indices equal one process's")
+        check(st['cluster_size_equal_one_process'], f"step {st['step']}: cluster_size equals one process's")
+        check(max(st['share_of_f32_bound'].values()) <= 1.0,
+              f"step {st['step']}: within the f32 bound of one float64 EMA step {st['share_of_f32_bound']}")
+        check(np.isfinite(st['loss']), f"step {st['step']}: finite loss")
+    b, n, d, c = DP_MAIN
+    emit('dp_vq_train', model=f'VectorQuantize(dim={d}, codebook_size={c}, decay=0.8, sync_axis=data, '
+                              'kmeans_init=True, threshold_ema_dead_code=2) behind a scalar gain',
+         trainer='DataParallelTrainer, SGD(lr=1e-3)', world=DP_WORLD, backend='gloo (both ranks on cuda:0)',
+         global_input=[b, n, d], per_rank_input=[b // DP_WORLD, n, d],
+         launches_per_rank_step={f"{st['route']}_{st['step']}": [r['steps'][i]['launches'] for r in ranks]
+                                 for i, st in enumerate(steps0)},
+         step_s_per_rank={f"{st['route']}_{st['step']}": [r['steps'][i]['step_s'] for r in ranks]
+                          for i, st in enumerate(steps0)},
+         step_s_note='two ranks time-sharing one card over gloo: a correctness run, not a data-parallel rate',
+         losses=[st['loss'] for st in steps0], expired=[st['expired'] for st in steps0],
+         embed_avg_max_abs_diff_vs_one_process=[st['embed_avg_max_abs_diff'] for st in steps0],
+         share_of_f32_bound=[st['share_of_f32_bound'] for st in steps0],
+         one_process_launches=[st['one_process_launches'] for st in steps0])
+    return ranks
+
+
+def dp_lfq_record(store):
+    """Wrap LFQ's `lfq_entropy_stats` so that each call's input, weights and
+    sweep arguments, the cotangents its outputs receive (entbar, gbar: the
+    inputs of sweeps C and D) and the gradient that reaches its input
+    (sweep D's dx) land in `store`. Returns the function that undoes it."""
+    import vqtpu_torch.quantizers.lfq as tlfq
+    stats = tlfq.lfq_entropy_stats
+
+    def recorded(x, w, **kw):
+        store.update(x=x.detach().clone(), w=w.detach().clone(), kw=kw)
+        x.register_hook(lambda g: store.update(dx=g.detach().clone()))
+        ent, avgp = stats(x, w, **kw)
+        ent.register_hook(lambda g: store.update(entbar=g.detach().clone()))
+        avgp.register_hook(lambda g: store.update(gbar=g.detach().clone()))
+        return ent, avgp
+    tlfq.lfq_entropy_stats = recorded
+
+    def undo():
+        tlfq.lfq_entropy_stats = stats
+    return undo
+
+
+def dp_lfq_body(rank, world, mesh, out, device, lead=8):
+    """Rank body of dp_lfq_train: one LFQ(sync_axis='data') training
+    forward and backward on this rank's half of the main LFQ batch; on rank
+    0 the same over the whole batch in one process, and for each run the
+    float64 plain sweeps on the whole batch with the cotangents that run's
+    sweeps received (the reference of the LFQ checks in use)."""
+    import torch.distributed as dist
+    from vqtpu_torch.parallel import global_batch
+    full = lfq_main_input(device)[:lead]
+    local = global_batch(mesh, ('data',), full, device).clone().requires_grad_()
+    lfq = dp_lfq_model(device, 'data')
+    rec = {}
+    undo = dp_lfq_record(rec)
+    try:
+        reset_all_launches()
+        with mesh:
+            _, idx, aux = lfq(local, inv_temperature=LFQ_INV_TEMP)
+            aux.backward()
+        sync(device)
+        launches = all_launches()
+        with mesh:
+            dx = dp_gather(rec['dx']).reshape(-1, full.shape[-1])
+            xs = dp_gather(rec['x']).reshape(-1, full.shape[-1])
+            entbar = dp_gather(rec['entbar']).reshape(-1)
+            gbars = dp_gather(rec['gbar'])
+            auxes = dp_gather(aux.detach())
+            idx = dp_gather(idx).reshape(full.shape[:-1])
+            x_grad = dp_gather(local.grad).reshape(full.shape)
+        # a second step, timed (host clock, both ranks started together)
+        again = local.detach().clone().requires_grad_()
+        dist.barrier()
+        sync(device)
+        t0 = time.perf_counter()
+        with mesh:
+            lfq(again, inv_temperature=LFQ_INV_TEMP)[2].backward()
+        sync(device)
+        result = dict(launches=launches, aux=float(aux.detach()), step_s=time.perf_counter() - t0)
+        if rank != 0:
+            return result
+        x = full.clone().requires_grad_()
+        _, ref_idx, ref_aux = dp_lfq_model(device, None)(x, inv_temperature=LFQ_INV_TEMP)
+        ref_aux.backward()
+    finally:
+        undo()
+    check(torch.equal(xs, rec['x']), 'the ranks\' sweep inputs are one process\'s')
+    check(torch.equal(gbars[0], gbars[1]), 'the ranks\' sweeps received one gbar (the psum\'s summed cotangent)')
+    w, kw = rec['w'], rec['kw']
+    result.update(aux_mean=float(auxes.mean()), aux_one_process=float(ref_aux.detach()),
+                  indices_equal=bool(torch.equal(idx, ref_idx)),
+                  x_grad_max_abs_diff=float((x_grad / world - x.grad).abs().max()),
+                  x_grad_max_abs=float(x.grad.abs().max()),
+                  gbar_max_rel_diff=float((gbars[0] / world - rec['gbar']).abs().max() / rec['gbar'].abs().max()))
+    for name, got, eb, gb in (('dp', dx, entbar, gbars[0]), ('one_process', rec['dx'], rec['entbar'], rec['gbar'])):
+        dx64 = lfq_sweep_outputs(xs.double(), w, kw, eb, gb, plain=True)['dx']
+        dx_plain = lfq_sweep_outputs(xs, w, kw, eb, gb, plain=True)['dx']
+        ref_max = float(dx64.abs().max())
+        plain_err = float((dx_plain.double() - dx64).abs().max())
+        result[name] = dict(dx_err=float((got.double() - dx64).abs().max()), dx_max_abs=ref_max,
+                            dx_plain_err=plain_err, dx_limit=max(2e-5 * ref_max, 4 * plain_err))
+    return result
+
+
+def dp_lfq_model(device, sync_axis):
+    from vqtpu_torch import LFQ
+    n, d = LFQ_MAIN
+    return LFQ(dim=d, codebook_size=1 << d, spherical=True, entropy_loss_weight=0.1, diversity_gamma=1.0,
+               entropy_fused='on', sync_axis=sync_axis, device=device).train()
+
+
+def phase_dp_lfq_train():
+    """dp_lfq_train: LFQ(dim=18, codebook_size=2**18, spherical=True,
+    entropy_loss_weight=0.1, entropy_fused='on', sync_axis='data') on the
+    main LFQ batch (8, 1024, 18), inv_temp 100, split 2 x (4, 1024, 18)
+    over two gloo ranks: K5-K8 once a rank, the psum between their
+    statistics and the codebook entropy, so that the ranks' sweeps C and D
+    receive one gbar. The sweeps' dx on every token (the ranks', and one
+    process's over the whole batch) within the LFQ bound in use of the
+    float64 plain sweeps on the whole batch with the cotangents that run
+    received: 2e-5 of the largest entry, or 4x the plain f32 sweeps'
+    error; the mean of the ranks' aux losses within
+    1e-5 of one process's, and x.grad over the world size within 1e-3 of
+    its largest entry (the rule that holds two routes to each other)."""
+    ranks = dp_run_world(dp_lfq_body, 'dp_lfq_train')
+    for r, res in enumerate(ranks):
+        check(all(res['launches'][f'lfq_sweep_{k}'] == 1 for k in 'abcd'),
+              f"rank {r}: each sweep launched once {res['launches']}")
+    r0 = ranks[0]
+    aux_rel = abs(r0['aux_mean'] - r0['aux_one_process']) / abs(r0['aux_one_process'])
+    grad_rel = r0['x_grad_max_abs_diff'] / r0['x_grad_max_abs']
+    check(r0['indices_equal'], 'the ranks\' indices equal one process\'s')
+    check(aux_rel <= 1e-5, f'the ranks\' mean aux within 1e-5 of one process ({aux_rel})')
+    for name in ('dp', 'one_process'):
+        e = r0[name]
+        check(e['dx_limit'] < 0.1 * e['dx_max_abs'], f"{name}: the dx limit bites ({e['dx_limit']}, {e['dx_max_abs']})")
+        check(e['dx_err'] <= e['dx_limit'], f"{name}: dx within the float64 bound ({e['dx_err']}, {e['dx_limit']})")
+    check(grad_rel <= 1e-3, f'x.grad / world within 1e-3 of one process\'s largest entry ({grad_rel})')
+    n, d = LFQ_MAIN
+    emit('dp_lfq_train', model=f'LFQ(dim={d}, codebook_size=2**{d}, spherical=True, entropy_loss_weight=0.1, '
+                               "entropy_fused='on', sync_axis='data')",
+         world=DP_WORLD, backend='gloo (both ranks on cuda:0)', global_input=[8, n // 8, d],
+         per_rank_input=[8 // DP_WORLD, n // 8, d], inv_temperature=LFQ_INV_TEMP,
+         launches_per_rank=[{k: r['launches'][f'lfq_sweep_{k}'] for k in 'abcd'} for r in ranks],
+         aux_per_rank=[r['aux'] for r in ranks], aux_one_process=r0['aux_one_process'], aux_rel_diff=aux_rel,
+         step_s_per_rank=[r['step_s'] for r in ranks],
+         step_s_note='the second step, two ranks time-sharing one card over gloo: not a data-parallel rate',
+         dx_vs_float64=dict(dp=r0['dp'], one_process=r0['one_process']), x_grad_rel_diff=grad_rel,
+         gbar_rel_diff_dp_over_world_vs_one_process=r0['gbar_max_rel_diff'])
+    return ranks
+
+
+def dp_nccl1_body(rank, world, mesh, out, device, shape=DP_MAIN):
+    """Rank body of dp_nccl1: the dp_vq_train step on a one-rank NCCL
+    group. With kmeans init and expiry it runs every collective of the
+    path (their pooled draw is a second draw by design, as in the JAX
+    package); without them it must equal the module without sync_axis, bit
+    for bit."""
+    import torch.distributed as dist
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    from vqtpu_torch.parallel import DataParallelTrainer
+    b, n, d, c = shape
+    full = dp_batch(0, device, (b, n, d))
+    picked = {}
+
+    def loss_fn(m, batch):
+        q, i, l = m(batch)
+        picked['idx'] = i
+        return l + q.square().mean()
+
+    def trained(kwargs, axis):
+        torch.manual_seed(0)
+        model = GainVQ(device, **dict(kwargs, dim=d, codebook_size=c), sync_axis=axis, train_fused='on').train()
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        fused_train_quantize.launches = 0
+        if axis is None:
+            opt.zero_grad()
+            loss_fn(model, full).backward()
+            opt.step()
+        else:
+            DataParallelTrainer(model, opt, loss_fn, mesh).step(full)
+        sync(device)
+        return dict(idx=picked['idx'], gain=model.gain.detach().clone(), launches=fused_train_quantize.launches,
+                    **dp_state(model))
+
+    full_path = trained(DP_VQ_KW, 'data')
+    plain_kw = dict(DP_VQ_KW, kmeans_init=False, threshold_ema_dead_code=0)
+    synced, plain = trained(plain_kw, 'data'), trained(plain_kw, None)
+    return dict(backend=dist.get_backend(), launches=[full_path['launches'], synced['launches']],
+                full_path_finite=all(bool(torch.isfinite(full_path[k]).all()) for k in ('embed', 'embed_avg')),
+                identical={k: bool(torch.equal(synced[k], plain[k]))
+                           for k in ('idx', 'gain', 'embed', 'embed_avg', 'cluster_size')})
+
+
+def phase_dp_nccl1():
+    """dp_nccl1: the dp_vq_train step on a one-rank NCCL group, so that the
+    collectives run over NCCL on the card: with kmeans init and expiry, K4
+    once and a finite codebook; without them, bit-identical to the module
+    without sync_axis."""
+    (res,) = dp_run_world(dp_nccl1_body, 'dp_nccl1', world=1, backend='nccl')
+    check(res['backend'] == 'nccl', f"the group runs NCCL ({res['backend']})")
+    check(res['launches'] == [1, 1], f"K4 once a step ({res['launches']})")
+    check(res['full_path_finite'], 'the kmeans and expiry step gives a finite codebook')
+    check(all(res['identical'].values()), f'the one-rank NCCL step equals the un-synced one {res["identical"]}')
+    emit('dp_nccl1', backend=res['backend'], world=1, identical_to_unsynced=res['identical'],
+         launches_train_fused=res['launches'])
+    return res
+
+
+def phase_utils(dp_ranks, forward_ms):
+    """utils: timeit_chained on the VQ eval forward at the main shape beside
+    phase 5's CUDA-event time of the same forward; a torch.profiler trace
+    holding an annotate label (the forward and a reduction; the profiler
+    records no device event of a kernel launched through ctypes), with its
+    events counted by category; the dp_vq_train module
+    saved by rank 0 and restored here, its eval forward bit-equal."""
+    import json as _json
+    from pathlib import Path
+    from vqtpu_torch import VectorQuantize
+    from vqtpu_torch.utils import annotate, restore_checkpoint, timeit_chained, trace
+    n, c, d = MAIN
+    torch.manual_seed(5)
+    vq = VectorQuantize(dim=d, codebook_size=c, device='cuda').eval()
+    xin = torch.from_numpy(np.random.default_rng(0).standard_normal((1024, n // 1024, d), dtype=np.float32)).cuda()
+    with torch.no_grad():
+        chained_s = timeit_chained(vq, xin, lo=2, hi=12)
+        logdir = Path(DP_DIR) / 'trace'
+        with trace(logdir):
+            with annotate('vqtpu_torch.vq_eval_forward'):
+                q, _, _ = vq(xin)
+                q.square().sum()
+            torch.cuda.synchronize()
+    events = _json.loads((logdir / 'trace.json').read_text())['traceEvents']
+    check(any(e.get('name') == 'vqtpu_torch.vq_eval_forward' for e in events), 'the trace holds the annotate label')
+    categories = {}
+    for e in events:
+        categories[str(e.get('cat'))] = categories.get(str(e.get('cat')), 0) + 1
+    del vq, xin
+
+    probe = dp_ranks[0]['probe']
+    restored = VectorQuantize(**DP_VQ_KW, sync_axis='data', device='cuda').eval()
+    restore_checkpoint(Path(DP_DIR) / 'dp_vq_train' / 'vq.pt', restored)
+    with torch.no_grad():
+        q, idx, _ = restored(probe['x'].cuda())
+    check(torch.equal(q.cpu(), probe['q']) and torch.equal(idx.cpu(), probe['idx']),
+          'the restored module\'s eval forward is bit-equal')
+    emit('utils', timeit_chained_ms=chained_s * 1e3, times_vq_forward_ms=forward_ms,
+         timeit_chained_of='VectorQuantize(dim=256, codebook_size=512).eval() on (1024, 1024, 256), slope of 2 and '
+                           '12 back-to-back calls, CUDA events',
+         trace_events=len(events), trace_event_categories=categories, checkpoint_round_trip='bit-equal')
+    return chained_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -4212,6 +4721,14 @@ def main() -> int:
     rpq_launches, rpq_ms = phase_rpq_path(device, sizes)
     hq_launches, hq_ms = phase_hq_path(device, sizes)
     zoo = phase_zoo_path(device, sizes)
+    # the data-parallel phases run in processes of their own on the card
+    torch.cuda.empty_cache()
+    dp_vq = phase_dp_vq_train()
+    dp_lfq = phase_dp_lfq_train()
+    phase_dp_nccl1()
+    phase_utils(dp_vq, times['vq_forward_ms'])
+    dp_vq_launches = {f"{st['route']}_step_{st['step']}": [r['steps'][i]['launches'] for r in dp_vq]
+                      for i, st in enumerate(dp_vq[0]['steps'])}
     check_no_spill(ptxas)
 
     print(json.dumps({'kernels': [{
@@ -4242,6 +4759,8 @@ def main() -> int:
         'launches_rpq_forward': rpq_launches['nearest_code'],
         'launches_hq_eval': hq_launches['eval']['nearest_code'],
         'launches_sequential_simvq_step': zoo['sequential_step0']['launches']['nearest_code'],
+        'launches_dp_vq_off_step_per_rank': [[x['nearest_code'] for x in v] for k, v in dp_vq_launches.items()
+                                             if k.startswith('off')][0],
         'rpq_k1_ms': rpq_ms['k1_ms'],
         'rpq_k1_bound_ms': rpq_ms['k1_bound_ms'],
         'rpq_k1_of': '16 heads of 8192 tokens, d = 4096, c = 1024, cosine',
@@ -4269,6 +4788,8 @@ def main() -> int:
         'launches_rvq_train_on_per_step': rvq_on_launches,
         'launches_affine_on_step': affine_launches['on']['train_fused'],
         'launches_hq_step': hq_launches['step']['train_fused'],
+        'launches_dp_vq_step_per_rank': {k: [r['train_fused'] for r in v] for k, v in dp_vq_launches.items()
+                                         if k.startswith('on')},
         'max_abs_err': train_err,
         'max_abs_err_of': 'max |esum - float64 sum| at the main shape (indices and rows are exact)',
         'design': TRAIN_DESIGN,
@@ -4289,6 +4810,7 @@ def main() -> int:
         'launches': sum(lfq_main_launches.values()),
         'launches_by_sweep': lfq_main_launches,
         'launches_flagship_train': lfq_flagship_launches,
+        'launches_dp_lfq_step_per_rank': [{k: r['launches'][f'lfq_sweep_{k}'] for k in 'abcd'} for r in dp_lfq],
         'max_abs_err': lfq_errors['dx']['max_abs_err'],
         'max_abs_err_of': 'max |dx - float64 plain| at the main LFQ shape, inv_temp 100, '
                           "LFQ aux loss cotangents (errors of every output: phase lfq_kernels_vs_plain)",

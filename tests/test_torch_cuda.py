@@ -983,3 +983,18 @@ def test_hierarchical_vq_launches_per_scale(card):
         dec = model.get_output_from_indices(idx)
     assert td.nearest_code.launches == 4 and bool(torch.isfinite(rec).all())
     assert float((dec - rec).abs().max()) <= 1e-5 * float(rec.abs().max())
+
+
+def test_dp_vq_train_two_gloo_ranks(card, tmp_path):
+    """The data-parallel VQ step at a small size: two gloo ranks on one card
+    (tests/torch_dist.py), K4 once a rank a step, the ranks' codebooks
+    bit-identical every step, and from step 1 on one process over the whole
+    batch from the same state picks the same indices and cluster sizes."""
+    import torch_dist
+
+    ranks = torch_dist.run_world(torch_dist.vq_dp_card_body, tmp_path, steps=3)
+    for steps in ranks:
+        assert [st['launches'] for st in steps] == [1, 1, 1]
+        assert all(st['identical'] for st in steps)
+    for st in ranks[0][1:]:
+        assert st['one_process_indices'] and st['one_process_cluster_size']

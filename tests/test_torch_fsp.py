@@ -113,8 +113,12 @@ def test_no_projection_channel_first_matches_jax(injected_uniforms):
 
 
 def test_sync_axis_and_bad_arguments_raise():
-    with pytest.raises(NotImplementedError, match='sync_axis'):
-        vqtpu_torch.FSP(LEVELS, sync_axis='data', device='cpu')
+    # the global-batch moments are ported (tests/test_torch_parallel.py);
+    # every forward computes them, so it needs the axis bound, as in JAX
+    synced = vqtpu_torch.FSP(LEVELS, sync_axis='data', device='cpu')
+    assert synced.vector_norm.sync_axis == 'data'
+    with pytest.raises(NameError, match="unbound axis name: 'data'"):
+        synced(torch.randn(2, 3, len(LEVELS)))
     with pytest.raises(ValueError, match='quantize_rate'):
         vqtpu_torch.FSP(LEVELS, quantize_rate=1.5, device='cpu')
     with pytest.raises(ValueError, match='CDF'):

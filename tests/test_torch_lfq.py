@@ -208,13 +208,18 @@ def test_subsample_draws_only_weighted_tokens():
 
 def test_lfq_routes_and_refusals():
     """'auto' on the CPU takes the streamed route for chunked sizes and never
-    the fused one; the features that are not ported raise."""
+    the fused one; a synced LFQ needs its axis bound in training; bad
+    arguments raise."""
     tm = tlfq.LFQ(dim=18, codebook_size=2 ** 18, device='cpu')
     assert tlfq.entropy_route(tm.entropy_fused, 'cpu', tm.codebook_dim, 1 << 14) == 'streamed'
     assert tlfq.entropy_route('on', 'cpu', 8, None) == 'fused'
     assert tlfq.entropy_route('off', 'cpu', 8, 4) == 'streamed'
-    with pytest.raises(NotImplementedError, match='sync_axis'):
-        tlfq.LFQ(dim=8, codebook_size=2 ** 8, sync_axis='data', device='cpu')
+    # the distributed entropy is ported (tests/test_torch_parallel.py): its
+    # training forward needs the axis bound, its eval forward does not
+    synced = tlfq.LFQ(dim=8, codebook_size=2 ** 8, sync_axis='data', device='cpu')
+    synced.eval()(torch.randn(2, 3, 8))
+    with pytest.raises(NameError, match="unbound axis name: 'data'"):
+        synced.train()(torch.randn(2, 3, 8))
     with pytest.raises(TypeError, match='rngs'):
         tlfq.LFQ(dim=8, codebook_size=2 ** 8, rngs=nnx.Rngs(0), device='cpu')
     with pytest.raises(ValueError, match='power of 2'):

@@ -192,19 +192,22 @@ def test_vq_training_forward_not_ported():
     q, idx, loss = tvq(x)
     assert q.shape == x.shape and float(loss) >= 0.0
 
-    # the learnable family is ported (tests/test_torch_vq_learnable.py);
-    # the distributed codebooks still raise and name themselves
+    # the learnable family is ported (tests/test_torch_vq_learnable.py),
+    # and so is the data-parallel codebook (tests/test_torch_parallel.py):
+    # its eval forward runs outside a mesh, its training forward needs the
+    # axis bound; the row-sharded codebook still raises and names itself
     for kwargs in (dict(learnable_codebook=True), dict(affine_param=True), dict(vq_bridge=lambda e: e),
                    dict(stat_precision='default')):
         cb = Codebook(16, 8, device='cpu', **kwargs)
         q, idx, _ = cb(torch.randn(5, 16), need_distances=False)
         assert q.shape == (5, 16) and idx.shape == (5,)
-    for kwargs, feature in (
-        (dict(sync_axis='data'), 'sync_axis'),
-        (dict(code_axis='code'), 'code_axis'),
-    ):
-        with pytest.raises(NotImplementedError, match=feature):
-            Codebook(16, 8, device='cpu', **kwargs)
+    synced = Codebook(16, 8, sync_axis='data', device='cpu')
+    q, idx, _ = synced.eval()(torch.randn(5, 16), need_distances=False)
+    assert q.shape == (5, 16) and idx.shape == (5,)
+    with pytest.raises(NameError, match='data'):
+        synced.train()(torch.randn(5, 16), need_distances=False)
+    with pytest.raises(NotImplementedError, match='code_axis'):
+        Codebook(16, 8, device='cpu', code_axis='code')
     # the distance path of a bare codebook: distances (h, n, c) beside the
     # fast path's None, and the same indices
     cb = Codebook(16, 8, device='cpu').eval()
@@ -220,8 +223,10 @@ def test_vq_training_forward_not_ported():
     assert bool(cb.initted) and bool(cb.embed.abs().sum() > 0)
 
 
-# the distributed features, still out of the port's slices
-NOT_PORTED = ('sync_codebook', 'sync_axis', 'code_axis')
+# the row-sharded codebook, still out of the port's slices
+NOT_PORTED = ('code_axis',)
+# the data-parallel features: a training forward needs their axis bound
+DATA_PARALLEL = ('sync_codebook', 'sync_axis')
 
 
 @pytest.mark.parametrize('kwargs,feature', (
@@ -238,12 +243,21 @@ NOT_PORTED = ('sync_codebook', 'sync_axis', 'code_axis')
     (dict(stat_precision='default'), 'stat_precision'),
 ))
 def test_vq_out_of_slice_features_raise(kwargs, feature):
-    """The distributed features raise and name themselves; the learnable
-    family, once out of the slice, builds and trains (held against the JAX
-    package in tests/test_torch_vq_learnable.py)."""
+    """The row-sharded codebook raises and names itself; the data-parallel
+    features build, and their training forward outside a mesh raises as
+    JAX's unbound psum does (they train under a mesh in
+    tests/test_torch_parallel.py); the learnable family, once out of the
+    slice, builds and trains (held against the JAX package in
+    tests/test_torch_vq_learnable.py)."""
     if feature in NOT_PORTED:
         with pytest.raises(NotImplementedError, match=feature):
             vqtpu_torch.VectorQuantize(dim=16, codebook_size=8, device='cpu', **kwargs)
+        return
+    if feature in DATA_PARALLEL:
+        vq = vqtpu_torch.VectorQuantize(dim=16, codebook_size=8, device='cpu', **kwargs)
+        assert vq.sync_axis == 'data'
+        with pytest.raises(NameError, match="unbound axis name: 'data'"):
+            vq.train()(torch.randn(2, 4, 16))
         return
     vq = vqtpu_torch.VectorQuantize(dim=16, codebook_size=8, device='cpu', **kwargs).train()
     x = torch.randn(2, 4, 16, requires_grad=True)

@@ -403,9 +403,27 @@ def test_refused_combinations_raise_like_jax(case):
 
 @pytest.mark.parametrize('feature', ('sync_axis', 'sync_codebook', 'sync_affine_param', 'code_axis'))
 def test_distributed_kwargs_not_ported(feature):
+    """Only the row-sharded codebook (code_axis) is not ported: it raises by
+    name. The data-parallel kwargs build (they train under a mesh in
+    tests/test_torch_parallel.py); a training forward of a synced affine
+    codebook outside a mesh raises as JAX's unbound psum does, and
+    sync_affine_param without an axis syncs nothing."""
     value = {'sync_axis': 'data', 'sync_codebook': True, 'sync_affine_param': True, 'code_axis': 'code'}[feature]
-    with pytest.raises(NotImplementedError, match=feature):
-        TVQ(dim=DIM, codebook_size=CODES, device='cpu', **{feature: value})
+    if feature == 'code_axis':
+        with pytest.raises(NotImplementedError, match=feature):
+            TVQ(dim=DIM, codebook_size=CODES, device='cpu', **{feature: value})
+        return
+    kwargs = dict(affine_param=True, **{feature: value})
+    vq = TVQ(dim=DIM, codebook_size=CODES, device='cpu', **kwargs).train()
+    x = torch.randn(2, 4, DIM)
+    if feature == 'sync_affine_param':
+        assert vq.sync_axis is None
+        q, _, _ = vq(x)
+        assert q.shape == x.shape
+    else:
+        assert vq._codebook.sync_axis == 'data'
+        with pytest.raises(NameError, match="unbound axis name: 'data'"):
+            vq(x)
 
 
 BRIDGE_PARTS = {

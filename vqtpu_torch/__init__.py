@@ -1,7 +1,7 @@
 """vqtpu_torch — the PyTorch/CUDA port of vqtpu.
 
 The JAX package `vqtpu` is the reference; this package mirrors its layout
-(core, kernels, codebook, quantizers, composite, models, utils) with torch
+(core, kernels, codebook, quantizers, composite, parallel, models, utils) with torch
 modules. Its hot path runs on hand-written CUDA kernels for Hopper:
 nearest-code selection (kernels/csrc/nearest_code.cu), the fused training
 step (kernels/csrc/train_fused.cu), the LFQ entropy sweeps
@@ -24,8 +24,11 @@ JAX package's quantizers: SimVQ and ResidualSimVQ (selection and rows on
 the selection kernel, the transform's gradient through the per-code sums),
 RandomProjectionQuantizer (the selection kernel over all heads),
 HierarchicalVQ (one VectorQuantize across scales), FSP, LatentQuantize,
-BinaryMapper and Sequential, with the codebook metrics. Distributed
-codebooks (torch.distributed) are not ported yet.
+BinaryMapper and Sequential, with the codebook metrics. Data parallelism
+runs over torch.distributed (`parallel`: collectives named by mesh axis,
+the data-parallel trainer; the quantizers' `sync_axis`), and `utils` holds
+checkpointing, the import of upstream checkpoints and profiling. Row-sharded
+codebooks (`code_axis`) are not ported yet.
 """
 
 from .composite.hierarchical_vq import HierarchicalVQ

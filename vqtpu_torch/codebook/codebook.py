@@ -31,6 +31,16 @@ codebook before selection, and `affine_param` maps it to the batch's
 running mean and variance (https://arxiv.org/abs/2203.01941); both belong
 to learnable or EMA codebooks as in the JAX package.
 
+Data parallel (`sync_axis`, a mesh axis name; see `parallel.collectives`):
+the batch's counts and sums are psum'd over the axis before the EMA fold,
+whichever route computed them (the fused kernel's per-rank `bins`/`esum`
+or the plain statistics); kmeans init (with `sync_kmeans`) pools its
+candidates and psums its bins and sums; the affine batch moments psum
+with `sync_affine_param`; dead-code expiry pools every rank's candidate
+rows and draws the same replacement on every rank. The ranks' state stays
+bit-identical when they start identical and seed their generators alike.
+Row-sharded codebooks (`code_axis`) raise NotImplementedError.
+
 Buffers (and the EMA's writes to a learnable `embed`) are updated in place
 under `torch.no_grad()` from detached tensors, so no graph is kept on them
 from step to step. Random draws (kmeans init, dead-code replacement) come
@@ -55,6 +65,7 @@ from ..kernels.distance import (
     gather_codes, gather_codes_per_head, nearest_code_xla, quantize_lookup,
 )
 from ..kernels.train_fused import code_statistics_plain, fused_train_quantize, lookup_with_code_grad
+from ..parallel.collectives import psum
 from . import kmeans as kmeans_module
 
 
@@ -142,15 +153,13 @@ class Codebook(nn.Module):
         kernel or `index_put_`; 'high' and 'default' form the one-hot
         product, which on the card runs in TF32 (what both mean for JAX on
         a GPU; f32 on the CPU) and keeps off the fused kernel, as in JAX.
-        `sync_kmeans` and `sync_affine_param` belong to the data-parallel
-        path, not ported yet, and are accepted for the JAX signature."""
+
+        `sync_axis` names the data-parallel mesh axis (None: one replica);
+        `sync_kmeans` and `sync_affine_param` say whether kmeans init and
+        the affine batch moments sync over it too."""
         super().__init__()
-        for feature, used in (
-            ('sync_axis', sync_axis is not None),
-            ('code_axis', code_axis is not None),
-        ):
-            if used:
-                raise not_ported(feature)
+        if code_axis is not None:
+            raise not_ported('code_axis')
         stat_precision = str(stat_precision).lower()
         if stat_precision not in STAT_PRECISIONS:
             raise ValueError(f'stat_precision must be one of {STAT_PRECISIONS}, got {stat_precision!r}')
@@ -177,6 +186,9 @@ class Codebook(nn.Module):
         self.train_fused = train_fused
         self.stat_precision = stat_precision
         self.learnable_codebook = learnable_codebook
+        self.sync_axis = sync_axis
+        self.sync_kmeans = sync_kmeans
+        self.sync_affine_param = sync_affine_param
         self.vq_bridge = vq_bridge
         self.affine_param = affine_param
         self.affine_param_batch_decay = affine_param_batch_decay
@@ -286,18 +298,21 @@ class Codebook(nn.Module):
             decay = self.affine_param_codebook_decay
             self._update_with_decay('codebook_mean', embed.mean(-2, keepdim=True), decay)
             self._update_with_decay('codebook_variance', embed.var(-2, keepdim=True, unbiased=False), decay)
+        sync = self.sync_axis if self.sync_affine_param else None
         if mask is not None:
             w = mask.float()[..., None]                                 # (h, N, 1)
             count = w.sum(-2, keepdim=True)
-            batch_mean = (flatten * w).sum(-2, keepdim=True) / count.clamp_min(1.0)
-            var_numer = (((flatten - batch_mean) ** 2) * w).sum(-2, keepdim=True)
+            batch_sum = (flatten * w).sum(-2, keepdim=True)
         else:
+            w = None
             count = torch.full((flatten.shape[0], 1, 1), float(flatten.shape[1]), device=flatten.device)
-            batch_mean = flatten.sum(-2, keepdim=True) / count.clamp_min(1.0)
-            var_numer = ((flatten - batch_mean) ** 2).sum(-2, keepdim=True)
+            batch_sum = flatten.sum(-2, keepdim=True)
+        count = psum(count, sync).clamp_min(1.0)
+        batch_mean = psum(batch_sum, sync) / count
+        sq = (flatten - batch_mean) ** 2
+        var_numer = psum((sq if w is None else sq * w).sum(-2, keepdim=True), sync)
         self._update_with_decay('batch_mean', batch_mean, self.affine_param_batch_decay)
-        self._update_with_decay('batch_variance', var_numer / count.clamp_min(1.0),
-                                self.affine_param_batch_decay)
+        self._update_with_decay('batch_variance', var_numer / count, self.affine_param_batch_decay)
 
     def _affine_stds(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The codebook's and the batch's std per dim, (h, 1, d) each."""
@@ -326,6 +341,7 @@ class Codebook(nn.Module):
         embed, cluster_size = kmeans_module.kmeans(
             self.generator, flatten.detach(), self.codebook_size,
             num_iters=self.kmeans_iters, use_cosine_sim=self.use_cosine_sim, mask=mask,
+            sync_axis=self.sync_axis if self.sync_kmeans else None,
         )
         embed_sum = embed * cluster_size[..., None]
         self.embed.copy_(self._normalized_embed(embed_sum, cluster_size))
@@ -391,8 +407,11 @@ class Codebook(nn.Module):
         ema_update_weight=None,
         accum_ema_update: bool = False,
     ):
-        """Fold (h, c) counts and (h, c, d) sums into the EMA state, or into
-        the accumulators when `accum_ema_update`."""
+        """psum this rank's (h, c) counts and (h, c, d) sums over the data
+        axis, then fold them into the EMA state, or into the accumulators
+        when `accum_ema_update`."""
+        cluster_size = psum(cluster_size, self.sync_axis)
+        embed_sum = psum(embed_sum, self.sync_axis)
         if callable(ema_update_weight):
             ema_update_weight = ema_update_weight(embed_sum, cluster_size)
 
@@ -417,7 +436,10 @@ class Codebook(nn.Module):
     ):
         """Replace the codes flagged in `batch_mask` (h, c) with vectors drawn
         from the batch. As in the JAX package a candidate is drawn for every
-        slot and merged with `where`, so no host sync decides the draw."""
+        slot and merged with `where`, so no host sync decides the draw. With
+        `sync_axis` the candidates are drawn from every rank's (pooled with
+        `all_gather`), and a head is skipped only when no rank has a valid
+        token, so that every replica replaces the same rows."""
         if self.use_cosine_sim:
             batch_samples = l2norm(batch_samples)
         batch_samples = batch_samples.detach().float()
@@ -429,8 +451,9 @@ class Codebook(nn.Module):
             )
             for i in range(h)
         ])
+        sampled = kmeans_module.pool_candidates(self.generator, sampled, self.sync_axis)
         if seq_mask is not None:
-            has_valid = seq_mask.any(-1)[:, None]
+            has_valid = psum(seq_mask.any(-1)[:, None].float(), self.sync_axis) > 0
         else:
             has_valid = torch.ones(h, 1, dtype=torch.bool, device=batch_mask.device)
         replace_mask = batch_mask & has_valid                          # (h, c)

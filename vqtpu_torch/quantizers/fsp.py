@@ -9,7 +9,9 @@ No kernel: elementwise ops and batch reductions in PyTorch.
 
 The perturbation's two uniform draws (the offsets, then the mask) come
 from `self.generator` through `core.sampling.uniform_noise`, looked up at
-call time. Data-parallel moments (`sync_axis`) raise NotImplementedError.
+call time. With `sync_axis` (a mesh axis name; see `parallel.collectives`)
+VectorNorm's moments are those of the global batch: every sum is psum'd
+over the replicas.
 """
 
 from __future__ import annotations
@@ -21,9 +23,9 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..codebook.codebook import not_ported
 from ..core import sampling
 from ..core.utils import default, resolve_device
+from ..parallel.collectives import axis_size, psum
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -58,17 +60,18 @@ def build_cdf_act(act_name: str) -> tuple[Callable, Callable]:
     return _CDF_REGISTRY[act_name]
 
 
-def batch_stats(batch: torch.Tensor, eps: float = 1e-8):
+def batch_stats(batch: torch.Tensor, eps: float = 1e-8, sync_axis: str | None = None):
     """(n, d) -> per-dim mean, unbiased variance, skewness and excess
-    kurtosis."""
-    n = batch.shape[0]
-    mean = batch.sum(0) / n
+    kurtosis; with `sync_axis`, those of the global batch over the axis
+    (psum'd sums; every rank's n the same)."""
+    n = batch.shape[0] * axis_size(sync_axis)
+    mean = psum(batch.sum(0), sync_axis) / n
     centered = batch - mean
-    variance = (centered ** 2).sum(0) / max(n - 1, 1)
+    variance = psum((centered ** 2).sum(0), sync_axis) / max(n - 1, 1)
     std = torch.sqrt(variance).clamp_min(eps)
     z = centered / std
-    skewness = (z ** 3).sum(0) / n
-    kurtosis = (z ** 4).sum(0) / n - 3.0
+    skewness = psum((z ** 3).sum(0), sync_axis) / n
+    kurtosis = psum((z ** 4).sum(0), sync_axis) / n - 3.0
     return mean, variance, skewness, kurtosis
 
 
@@ -101,6 +104,7 @@ class VectorNorm(nn.Module):
         self.targets = (l1_target, l2_target, l3_target, l4_target)
         self.weights = (l1_weight, l2_weight, l3_weight, l4_weight)
         self.eps = eps
+        self.sync_axis = None          # set by FSP when data-parallel
 
     @classmethod
     def build(cls, name: str) -> 'VectorNorm':
@@ -109,7 +113,7 @@ class VectorNorm(nn.Module):
         return cls(**cls.PRESETS[name])
 
     def forward(self, z: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        moments = batch_stats(z, self.eps)
+        moments = batch_stats(z, self.eps, self.sync_axis)
         norm_loss = sum(((m - t) ** 2).mean() * w for m, t, w in zip(moments, self.targets, self.weights))
         return norm_loss, dict(zip(('mean', 'variance', 'skewness', 'kurtosis'), moments))
 
@@ -141,8 +145,6 @@ class FSP(nn.Module):
         super().__init__()
         if rngs is not None:
             raise TypeError('rngs is a flax RNG stream; seed torch with torch.manual_seed instead')
-        if sync_axis is not None:
-            raise not_ported('sync_axis')
         if not 0.0 <= quantize_rate <= 1.0:
             raise ValueError(f'quantize_rate must be in [0.0, 1.0], got {quantize_rate}')
         device = resolve_device(device)
@@ -164,6 +166,9 @@ class FSP(nn.Module):
         self.need_inv_act = need_inv_act
         self.quantize_rate = quantize_rate
         self.vector_norm = VectorNorm.build(vector_norm)
+        # data-parallel: the moments psum over this mesh axis
+        self.vector_norm.sync_axis = sync_axis
+        self.sync_axis = sync_axis
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
 

@@ -21,8 +21,16 @@ of K = 2^codebook_dim codes:
 `entropy_fused='auto'` takes the fused route when the tensors are on the
 card, the statistics are chunked and the sweeps take the codebook
 (codebook_dim <= 24); 'on' and 'off' force it (`entropy_route`). Masked tokens
-are weighted out, never dropped, as in the JAX package. Cross-replica sums
-(`sync_axis`) are not ported yet.
+are weighted out, never dropped, as in the JAX package.
+
+Data parallel (`sync_axis`, a mesh axis name; see `parallel.collectives`):
+the batch's average code distribution is psum'd over the axis, its
+numerator and its token weight, through the differentiable `psum` (whose
+backward sums the cotangent), on every route. On the fused route the
+sweeps run per rank on the rank's tokens, and the psum sits between their
+statistics and the codebook entropy, so the backward sweeps see the
+gradient of the global distribution. The per-sample entropy stays a mean
+over the rank's tokens, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,11 +42,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..codebook.codebook import not_ported
 from ..core.layout import to_tokens
 from ..core.sampling import gumbel_noise
 from ..core.utils import default, entropy as entropy_fn, l2norm, random_orthogonal, resolve_device
 from ..kernels.lfq_entropy import MAX_DIM, code_magnitude, lfq_entropy_stats
+from ..parallel.collectives import psum
 
 
 def entropy_route(mode: str, device_type: str, codebook_dim: int, chunk: int | None) -> str:
@@ -131,8 +139,6 @@ class LFQ(nn.Module):
         super().__init__()
         if rngs is not None:
             raise TypeError('rngs is a flax RNG stream; seed torch with torch.manual_seed instead')
-        if sync_axis is not None:
-            raise not_ported('sync_axis')
         if dim is None and codebook_size is None:
             raise ValueError('either dim or codebook_size must be specified for LFQ')
         if codebook_size is not None and not math.log2(codebook_size).is_integer():
@@ -212,6 +218,7 @@ class LFQ(nn.Module):
             raise ValueError(f'entropy_chunk_size must be a power of two <= codebook_size, got {entropy_chunk_size}')
         self.entropy_chunk_size = entropy_chunk_size
         self.entropy_fused = entropy_fused
+        self.sync_axis = sync_axis
 
     # -- bit codec (derived constants, never stored) -------------------------
 
@@ -296,7 +303,8 @@ class LFQ(nn.Module):
             avg_prob_num = (prob * weights[:, None, None]).sum(0)
 
         per_sample_entropy = ent_sum / (denom * flat.shape[1])
-        avg_prob = avg_prob_num / denom                                    # (c, K)
+        # the batch's average distribution, differentiably psum'd over the replicas
+        avg_prob = psum(avg_prob_num, self.sync_axis) / psum(denom, self.sync_axis)   # (c, K)
         codebook_entropy = entropy_fn(avg_prob, eps=1e-5).mean()
         return per_sample_entropy, codebook_entropy
 

@@ -18,8 +18,13 @@ The learnable family: `learnable_codebook` (the codebook a parameter that
 the commitment loss trains), `vq_bridge` (a module over the whole codebook,
 FVQ), the orthogonal regularization (`orthogonal_reg_weight`, over all
 codes, the active ones or `orthogonal_reg_max_codes` of them) and the
-in-place codebook optimizer. Distributed codebooks (`sync_axis`,
-`sync_codebook`, `sync_affine_param`, `code_axis`) raise
+in-place codebook optimizer.
+
+Data parallel: `sync_axis` (or `sync_codebook`: a string names the axis,
+True means 'data') psums the codebook's statistics over a mesh axis (see
+`codebook.Codebook`), with kmeans init (`sync_kmeans`) and the affine batch
+moments (`sync_affine_param`); the in-place optimizer's gradients are
+averaged over it (`pmean`). Row-sharded codebooks (`code_axis`) raise
 NotImplementedError that names them.
 """
 
@@ -45,6 +50,7 @@ from ..core.utils import (
     orthogonal_loss_fn, resolve_device,
 )
 from ..kernels.distance import gather_codes
+from ..parallel.collectives import pmean
 
 
 class LossBreakdown(NamedTuple):
@@ -180,16 +186,13 @@ class VectorQuantize(nn.Module):
             raise TypeError(
                 'rngs is a flax RNG stream; seed torch with torch.manual_seed instead'
             )
+        # sync_codebook: a string names the data axis, True means 'data'
         if isinstance(sync_codebook, str):
             sync_axis = sync_codebook
-        for feature, used in (
-            ('sync_axis', sync_axis is not None),
-            ('sync_codebook', bool(sync_codebook)),
-            ('code_axis', code_axis is not None),
-            ('sync_affine_param', sync_affine_param),
-        ):
-            if used:
-                raise not_ported(feature)
+        elif sync_codebook:
+            sync_axis = default(sync_axis, 'data')
+        if code_axis is not None:
+            raise not_ported('code_axis')
         # the interdependent defaults, as in the JAX package
         ema_update = default(ema_update, not directional_reparam and vq_bridge is None)
         learnable_codebook = default(learnable_codebook, directional_reparam or vq_bridge is not None)
@@ -259,6 +262,7 @@ class VectorQuantize(nn.Module):
         self.directional_reparam = directional_reparam
         self.directional_reparam_variance = directional_reparam_variance
         self.sync_update_v = sync_update_v
+        self.sync_axis = sync_axis
         self.has_codebook_orthogonal_loss = orthogonal_reg_weight > 0.0
         self.orthogonal_reg_weight = orthogonal_reg_weight
         self.orthogonal_reg_active_codes_only = orthogonal_reg_active_codes_only
@@ -270,6 +274,7 @@ class VectorQuantize(nn.Module):
             codebook_size=codebook_size,
             kmeans_init=kmeans_init,
             kmeans_iters=kmeans_iters,
+            sync_kmeans=sync_kmeans,
             decay=decay,
             eps=eps,
             threshold_ema_dead_code=threshold_ema_dead_code,
@@ -281,6 +286,8 @@ class VectorQuantize(nn.Module):
             affine_param=affine_param,
             affine_param_batch_decay=affine_param_batch_decay,
             affine_param_codebook_decay=affine_param_codebook_decay,
+            sync_axis=sync_axis,
+            sync_affine_param=sync_affine_param,
             sample_codebook_temp=sample_codebook_temp,
             gumbel_sample_fn=partial(gumbel_sample, stochastic=stochastic_sample_codes,
                                      straight_through=straight_through, approx_topk=approx_topk),
@@ -470,11 +477,12 @@ class VectorQuantize(nn.Module):
 
     def _step_in_place_optimizer(self, grads: list[torch.Tensor]):
         """One step of the in-place optimizer on `grads`, one a codebook
-        parameter; the parameters' `.grad` are left as they were."""
+        parameter, averaged over the data axis; the parameters' `.grad` are
+        left as they were."""
         params = list(self._codebook.parameters())
         outer = [p.grad for p in params]
         for p, g in zip(params, grads):
-            p.grad = g
+            p.grad = pmean(g, self.sync_axis)
         try:
             self.in_place_codebook_optimizer.step()
         finally:
