@@ -218,6 +218,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -4150,10 +4151,12 @@ DP_JOIN_S = 600
 DP_DIR = 'build/chip_smoke_dp'
 
 
-def dp_run_world(body, name, world=DP_WORLD, backend='gloo', device='cuda', **kwargs):
+def dp_run_world(body, name, world=DP_WORLD, backend='gloo', device='cuda', axes=('data',), mesh_shape=None,
+                 **kwargs):
     """Spawn `world` processes on card 0 (or the CPU), each joining a
     `backend` group through a rendezvous file under build/, and run
-    `body(rank, world, mesh, out_dir, device=device, **kwargs)` in each;
+    `body(rank, world, mesh, out_dir, device=device, **kwargs)` in each,
+    the mesh `axes` of `mesh_shape` (one axis over every rank by default);
     returns what each returned. A rank that fails or hangs fails the
     phase."""
     import multiprocessing as mp
@@ -4164,7 +4167,8 @@ def dp_run_world(body, name, world=DP_WORLD, backend='gloo', device='cuda', **kw
     out.mkdir(parents=True)
     ctx = mp.get_context('spawn')
     procs = [ctx.Process(target=_dp_rank_main,
-                         args=(body, r, world, backend, str(out.resolve()), dict(kwargs, device=device)))
+                         args=(body, r, world, backend, str(out.resolve()), tuple(axes), mesh_shape,
+                               dict(kwargs, device=device)))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -4182,7 +4186,7 @@ def dp_run_world(body, name, world=DP_WORLD, backend='gloo', device='cuda', **kw
     return [torch.load(out / f'rank{r}.pt') for r in range(world)]
 
 
-def _dp_rank_main(body, rank, world, backend, out, kwargs):
+def _dp_rank_main(body, rank, world, backend, out, axes, shape, kwargs):
     import traceback
     from datetime import timedelta
     from pathlib import Path
@@ -4194,7 +4198,7 @@ def _dp_rank_main(body, rank, world, backend, out, kwargs):
         init_multihost(f'file://{out}/rendezvous', world, rank, [0] if kwargs['device'] == 'cuda' else None,
                        backend=backend, timeout=timedelta(seconds=300))
         try:
-            result = body(rank, world, make_mesh(('data',)), out, **kwargs)
+            result = body(rank, world, make_mesh(axes, shape), out, **kwargs)
         finally:
             dist.destroy_process_group()
         torch.save(result, Path(out) / f'rank{rank}.pt')
@@ -4624,6 +4628,416 @@ def phase_utils(dp_ranks, forward_ms):
     return chained_s
 
 
+# -- row-sharded codebooks and group-parallel composites -------------------------
+
+# the JAX package's TP selection shape (benchmarks/tp_selection_tpu.py:35): n, c, d
+TP_SELECT = (1 << 17, 65536, 256)
+TP_BLOCKS = (2, 4, 8)
+# the README's row-sharded VectorQuantize (README.md:510-553) on a (2, 2)
+# ('data', 'code') mesh of gloo ranks on the card; global batch b, n, d and c
+TP_VQ_KW = dict(codebook_size=65536, sync_axis='data', code_axis='code', kmeans_init=True,
+                threshold_ema_dead_code=2)
+TP_TRAIN = (128, 1024, 256, 65536)
+TP_MESH = (('data', 'code'), (2, 2))
+TP_STEPS = 3
+# tp_vq_eval: tokens (b, n) of the eval forward on two ('code',) ranks
+TP_EVAL = (128, 1024)
+# GroupedResidualVQ(dim=256, groups=2, num_quantizers=4, codebook_size=1024) on
+# 65,536 tokens (benchmarks/grouped_median_tpu.py:21-26), and
+# GroupedResidualFSQ(dim=8, groups=2) with RFSQ_MAIN's levels and depth
+GP_VQ_KW = dict(dim=256, groups=2, num_quantizers=4, codebook_size=1024)
+GP_VQ_X = (32, 2048, 256)
+GP_FSQ_X = (2048, 2048, 8)
+
+
+def score_bound(x, e, bias, idx):
+    """float64 score of each token at its code and the worst-case bound a
+    3xTF32 score of it may carry: the dropped xs.es products and the split's
+    remainders (3 2^-22 of sum |x e|), the 3d additions of the products in
+    f32 on the tensor cores (up to 2^-23 each, as they may truncate), and
+    the bias's rounding."""
+    xd = x.double()
+    ed = e[idx.long()].double()
+    absdot = (xd * ed).abs().sum(-1)
+    score = (xd * ed).sum(-1) + bias[idx.long()].double()
+    bound = (6 * x.shape[-1] + 64) * U32 * (absdot + bias[idx.long()].double().abs())
+    return score, bound
+
+
+def phase_tp_select(device):
+    """tp_select: K1 with the winning score at the TP selection shape; the
+    codebook in 2, 4 and 8 row blocks, K1 on each, the winners reduced in
+    torch: indices and best scores bit-equal to unsharded K1, and the rows
+    of the sharded lookup (each block's rows with its dump row, summed)
+    bit-equal to codebook rows; K1 against its plain version; the CUDA-event
+    time of sharded_nearest_code on a one-rank gloo group beside K1."""
+    import tempfile
+    import torch.distributed as dist
+    from vqtpu_torch.kernels.distance import (
+        nearest_code, nearest_code_plain, selection_bias, selection_disagreements,
+    )
+    from vqtpu_torch.parallel import make_mesh, sharded_nearest_code
+    from vqtpu_torch.parallel.shard import _RowGather, local_or_dump
+    n, c, d = TP_SELECT
+    gen = torch.Generator(device=device).manual_seed(1300)
+    x = torch.randn(n, d, generator=gen, device=device)
+    e = torch.randn(c, d, generator=gen, device=device)
+    bias = selection_bias(e, 'euclidean')
+    nearest_code.launches = 0
+    idx = nearest_code(x, e)
+    idx_b, best = nearest_code(x, e, return_best=True)
+    sync(device)
+    check(torch.equal(idx, idx_b), 'tp_select: return_best picks the same indices')
+    score, bound = score_bound(x, e, bias, idx)
+    best_share = float(((best.double() - score).abs() / bound).max())
+    check(best_share <= 1.0, f'tp_select: best within the f32 bound of the float64 score ({best_share})')
+    plain = nearest_code_plain(x, e, bias)
+    vs_plain = selection_disagreements(x, e, bias, idx, plain)
+    check(vs_plain['non_tie'] == 0, f'tp_select: K1 and the plain version agree but for near-ties {vs_plain}')
+    blocks = {}
+    for world in TP_BLOCKS:
+        c_local = c // world
+        parts = [nearest_code(x, e[r * c_local:(r + 1) * c_local].contiguous(), return_best=True)
+                 for r in range(world)]
+        local_idx = torch.stack([p[0] for p in parts])
+        scores = torch.stack([p[1] for p in parts])
+        top = scores.max(0).values
+        win = (scores == top).int().argmax(0)            # the first rank that holds the best
+        gidx = (local_idx.gather(0, win[None])[0] + win * c_local).to(torch.int32)
+        rows = sum(_RowGather.apply(e[r * c_local:(r + 1) * c_local], local_or_dump(gidx, c_local, r * c_local))
+                   for r in range(world))
+        sync(device)
+        blocks[world] = dict(indices_bit_equal=bool(torch.equal(gidx, idx)),
+                             best_bit_equal=bool(torch.equal(top, best)),
+                             rows_bit_equal=bool(torch.equal(rows, e[idx.long()])))
+        check(all(blocks[world].values()), f'tp_select: {world} row blocks against unsharded K1 {blocks[world]}')
+    launches = nearest_code.launches
+    check(launches == 2 + sum(TP_BLOCKS), f'tp_select: K1 once a block ({launches})')
+    k1_ms = cuda_ms(lambda: nearest_code(x, e), 10)
+    k1_best_ms = cuda_ms(lambda: nearest_code(x, e, return_best=True), 10)
+    plain_ms = cuda_ms(lambda: nearest_code_plain(x, e, bias), 2, warmup=1)
+    os.makedirs(DP_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=DP_DIR) as tmp:
+        dist.init_process_group('gloo', init_method=f'file://{os.path.abspath(tmp)}/rendezvous', world_size=1, rank=0)
+        try:
+            mesh = make_mesh(('code',))
+            with mesh:
+                check(torch.equal(sharded_nearest_code(x, e, 'code'), idx), 'tp_select: world 1 equals K1')
+                sharded_ms = cuda_ms(lambda: sharded_nearest_code(x, e, 'code'), 10)
+        finally:
+            dist.destroy_process_group()
+    bound_ms, bound_by = selection_bound_tc_ms(n, c, d)
+    emit('tp_select', shape=[n, c, d], blocks=blocks, best_share_of_f32_bound=best_share, vs_plain=vs_plain,
+         launches=launches, k1_ms=k1_ms, k1_return_best_ms=k1_best_ms, plain_ms=plain_ms,
+         sharded_world1_ms=sharded_ms, sharded_world1_of='sharded_nearest_code on a one-rank gloo group: K1 '
+         'with its best, then pmax, pmin and psum through the host', tp_overhead_ms=sharded_ms - k1_ms,
+         bound_ms=bound_ms, bound_by=bound_by)
+    return dict(launches=launches, k1_ms=k1_ms, k1_return_best_ms=k1_best_ms, sharded_world1_ms=sharded_ms)
+
+
+def tp_leaves(model):
+    """The rank's rows of every sharded leaf of the model's codebook."""
+    cb = model.vq._codebook
+    return {k: getattr(cb, k).detach().clone() for k in ('embed', 'embed_avg', 'cluster_size')}
+
+
+def tp_vq_reference(before, after, full, tp_idx, device, kw):
+    """One process, the same step over the whole batch from the gathered
+    state the ranks started from: its indices, and the gathered state after
+    the step held to one float64 EMA step from those indices (the codes the
+    step expired aside: their rows come from the batch's draw)."""
+    from vqtpu_torch.utils import load_state_dict
+    d = full.shape[-1]
+    ref = GainVQ(device, **dict(kw, sync_axis=None, code_axis=None)).train()
+    load_state_dict(ref, before)
+    with torch.no_grad():
+        _, idx, _ = ref(full)
+    idx = idx.reshape(-1)
+    cb = ref.vq._codebook
+    xs = (full * before['gain']).reshape(-1, d)
+    cs64, ea64, cs_bound, ea_bound = ema_step_reference(
+        xs, tp_idx.long(), before['vq._codebook.cluster_size'][0], before['vq._codebook.embed_avg'][0], cb.decay)
+    expired = cs64 < cb.threshold_ema_dead_code
+    keep = ~expired
+    cs = after['vq._codebook.cluster_size'][0]
+    ea = after['vq._codebook.embed_avg'][0]
+    check(bool((cs[expired] == cb.threshold_ema_dead_code).all()), 'tp_vq_train: the expired codes were reset')
+    return dict(indices_equal_one_process=bool(torch.equal(tp_idx, idx)),
+                cluster_size_share_of_f32_bound=float(((cs.double() - cs64).abs() / cs_bound)[keep].max()),
+                embed_avg_share_of_f32_bound=float(((ea.double() - ea64).abs()
+                                                    / ea_bound.clamp_min(1e-300))[keep].max()),
+                expired=int(expired.sum()))
+
+
+def tp_vq_body(rank, world, mesh, out, device, shape=TP_TRAIN, steps=TP_STEPS, vq_kw=TP_VQ_KW):
+    """Rank body of tp_vq_train: TensorParallelTrainer over GainVQ with the
+    README's row-sharded VectorQuantize; per step this rank's K1, code_sums
+    and K4 launches, whether the two data ranks of this code shard hold
+    bit-identical rows, and (from step 1, after kmeans' draws) on rank 0 the
+    step of one process over the whole batch from the gathered state."""
+    import torch.distributed as dist
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.kernels.train_fused import code_sums, fused_train_quantize
+    from vqtpu_torch.parallel import TensorParallelTrainer, gathered_state_dict, global_batch
+    from vqtpu_torch.utils import save_checkpoint
+    torch.manual_seed(0)                         # the same model and generators on every rank
+    b, n, d, c = shape
+    kw = dict(vq_kw, dim=d, codebook_size=c)
+    model = GainVQ(device, **kw).train()
+    picked = {}
+
+    def loss_fn(m, batch):
+        q, idx, loss = m(batch)
+        picked['idx'] = idx
+        return loss + q.square().mean()
+
+    trainer = TensorParallelTrainer(model, torch.optim.SGD(model.parameters(), lr=1e-3), loss_fn, mesh)
+    rows = model.vq._codebook.embed.shape[-2]
+    result = dict(rows_per_rank=rows, coords=mesh.coords, steps=[])
+    for s in range(steps):
+        full = dp_batch(s, device, (b, n, d))
+        local = global_batch(mesh, ('data',), full, device)
+        before = gathered_state_dict(model, mesh) if s else None
+        nearest_code.launches = code_sums.launches = fused_train_quantize.launches = 0
+        dist.barrier()
+        sync(device)
+        t0 = time.perf_counter()
+        loss = trainer.step(local)
+        sync(device)
+        step_s = time.perf_counter() - t0
+        launches = dict(nearest_code=nearest_code.launches, code_sums=code_sums.launches,
+                        train_fused=fused_train_quantize.launches)
+        with mesh:
+            replicas = {k: dp_gather(v, 'data') for k, v in tp_leaves(model).items()}
+            idx = dp_gather(picked['idx'], 'data').reshape(-1)
+        step = dict(step=s, loss=float(loss), step_s=step_s, launches=launches,
+                    data_replicas_identical={k: bool(torch.equal(v[0], v[1])) for k, v in replicas.items()})
+        if s:
+            after = gathered_state_dict(model, mesh)
+            if rank == 0:
+                step.update(tp_vq_reference(before, after, full, idx, device, kw))
+            del after
+        del before, full
+        result['steps'].append(step)
+    save_checkpoint(f'{out}/vq.pt', model.vq, mesh=mesh)
+    return result
+
+
+def phase_tp_vq_train():
+    """tp_vq_train: the README's VectorQuantize(dim=256, codebook_size=65536,
+    sync_axis='data', code_axis='code', kmeans_init=True,
+    threshold_ema_dead_code=2) behind a scalar gain, under
+    TensorParallelTrainer on a (2, 2) ('data', 'code') mesh of four gloo
+    ranks on the card, global batch (128, 1024, 256): 3 steps, each rank
+    holding 32,768 rows and 2^16 tokens. K1 and code_sums once a rank a
+    step (kmeans' assignments besides at step 0), no K4; the two data ranks
+    of a code shard bit-identical every step; from step 1 the gathered
+    state held to one process over the whole batch."""
+    ranks = dp_run_world(tp_vq_body, 'tp_vq_train', world=4, axes=TP_MESH[0], mesh_shape=TP_MESH[1])
+    kmeans_iters = 10
+    for r in ranks:
+        check(r['rows_per_rank'] == TP_TRAIN[3] // TP_MESH[1][1], f"a rank holds its rows ({r['rows_per_rank']})")
+        for st in r['steps']:
+            extra = kmeans_iters if st['step'] == 0 else 0
+            check(st['launches'] == dict(nearest_code=1 + extra, code_sums=1 + extra, train_fused=0),
+                  f"tp_vq_train: K1 and code_sums once a rank a step ({st['launches']})")
+            check(all(st['data_replicas_identical'].values()),
+                  f"tp_vq_train: the data replicas of a shard are bit-identical {st['data_replicas_identical']}")
+    for st in ranks[0]['steps'][1:]:
+        check(st['indices_equal_one_process'], f"tp_vq_train step {st['step']}: the indices of one process")
+        check(st['cluster_size_share_of_f32_bound'] <= 1.0 and st['embed_avg_share_of_f32_bound'] <= 1.0,
+              f"tp_vq_train step {st['step']}: the EMA state within the f32 bound of a float64 step")
+    steps0 = ranks[0]['steps']
+    b, n, d, c = TP_TRAIN
+    emit('tp_vq_train', config='VectorQuantize(dim=256, ' + ', '.join(f'{k}={v!r}' for k, v in TP_VQ_KW.items())
+         + ') behind a scalar gain', trainer='TensorParallelTrainer, SGD(lr=1e-3)', mesh=dict(zip(*TP_MESH)),
+         backend='gloo (four ranks on cuda:0)', global_input=[b, n, d], per_rank_input=[b // 2, n, d],
+         rows_per_rank=c // 2,
+         launches_per_rank_step=[[r['steps'][i]['launches'] for r in ranks] for i in range(len(steps0))],
+         step_s_per_rank=[[r['steps'][i]['step_s'] for r in ranks] for i in range(len(steps0))],
+         step_s_note='four ranks time-sharing one card, every psum staged through the host by gloo: a '
+                     'correctness run, not a rate',
+         losses=[st['loss'] for st in steps0],
+         one_process=[{k: st[k] for k in ('indices_equal_one_process', 'cluster_size_share_of_f32_bound',
+                                          'embed_avg_share_of_f32_bound', 'expired')} for st in steps0[1:]])
+    return ranks
+
+
+def tp_eval_body(rank, world, mesh, out, device, ckpt, tokens=TP_EVAL, shape=TP_TRAIN):
+    """Rank body of tp_vq_eval: the trained module restored at rest from
+    its gathered checkpoint; tp_apply of its eval forward and decode on two
+    ('code',) ranks against its own unsharded eval; the bf16 tier the same
+    way; one sharded_vq EMA step against its plain version."""
+    from vqtpu_torch import VectorQuantize
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.kernels.train_fused import code_statistics_plain
+    from vqtpu_torch.parallel import init_sharded_codebook, sharded_ema_update, sharded_quantize, tp_apply
+    from vqtpu_torch.utils import restore_checkpoint
+    b, n = tokens
+    d, c = shape[2], shape[3]
+    torch.manual_seed(0)
+    vq = VectorQuantize(**dict(TP_VQ_KW, dim=d, codebook_size=c), device=device).eval()
+    restore_checkpoint(ckpt, vq)
+    x = dp_batch(50, device, (b, n, d))
+
+    def forward(m, x):
+        with torch.no_grad():
+            q, idx, _ = m(x)
+            return q, idx, m.get_output_from_indices(idx)
+
+    nearest_code.launches = 0
+    q, idx, dec = tp_apply(vq, mesh, forward, x)
+    sync(device)
+    launches = nearest_code.launches
+    with torch.no_grad():
+        q1, idx1, _ = vq(x)
+    out = dict(launches=launches, rows_restored=vq._codebook.embed.shape[-2],
+               indices_bit_equal=bool(torch.equal(idx, idx1)), rows_bit_equal=bool(torch.equal(q, q1)),
+               decode_bit_equal=bool(torch.equal(dec, q)))
+    vq.quantize_tier = vq._codebook.quantize_tier = 'bf16'
+    qb, ib, _ = tp_apply(vq, mesh, forward, x)
+    with torch.no_grad():
+        qb1, ib1, _ = vq(x)
+    out.update(bf16_indices_bit_equal=bool(torch.equal(ib, ib1)), bf16_rows_bit_equal=bool(torch.equal(qb, qb1)))
+    # one step of the sharded_vq engine on this rank's rows against the plain step on all of them
+    xs = x.reshape(-1, d)
+    e_full = vq._codebook.embed[0]
+    c_local = c // world
+    state = init_sharded_codebook(e_full[rank * c_local:(rank + 1) * c_local].clone())
+    nearest_code.launches = 0
+    with mesh:
+        sidx, sq = sharded_quantize(xs, state.embed, 'code')
+        new = sharded_ema_update(state, xs, sidx, code_axis='code', decay=0.99)
+    pidx = nearest_code(xs, e_full)
+    bins, esum = code_statistics_plain(xs[None], pidx[None], c)
+    cs = 1.0 + (bins[0] - 1.0) * (1.0 - 0.99)
+    ea = e_full + (esum[0] - e_full) * (1.0 - 0.99)
+    total = cs.sum()
+    embed = ea / ((cs + 1e-5) / (total + c * 1e-5) * total)[:, None]
+    window = slice(rank * c_local, (rank + 1) * c_local)
+    out.update(engine_indices_bit_equal=bool(torch.equal(sidx, pidx)),
+               engine_rows_bit_equal=bool(torch.equal(sq, e_full[pidx.long()])),
+               engine_cluster_size_bit_equal=bool(torch.equal(new.cluster_size, cs[window])),
+               engine_embed_avg_max_abs_err=float((new.embed_avg - ea[window]).abs().max()),
+               engine_embed_max_rel_err=float((new.embed - embed[window]).abs().max()
+                                              / embed[window].abs().max()),
+               engine_launches=nearest_code.launches)
+    return out
+
+
+def phase_tp_vq_eval():
+    """tp_vq_eval: tp_apply of the trained module's eval forward on two
+    ('code',) ranks at 2^17 tokens: K1 once a rank; indices, rows and the
+    decode bit-equal to the gathered module's unsharded eval; the bf16 tier
+    sharded bit-equal to unsharded; one sharded_vq EMA step against its
+    plain version (indices, rows and cluster sizes bit-equal; embed_avg
+    within 1e-5 absolute and embed within 1e-5 of its largest entry: the
+    sums and the laplace total are added in another order)."""
+    from pathlib import Path
+    ckpt = str((Path(DP_DIR) / 'tp_vq_train' / 'vq.pt').resolve())
+    ranks = dp_run_world(tp_eval_body, 'tp_vq_eval', world=2, axes=('code',), ckpt=ckpt)
+    for r in ranks:
+        check(r['launches'] == 1, f"tp_vq_eval: K1 once a rank ({r['launches']})")
+        check(r['rows_restored'] == TP_TRAIN[3], 'tp_vq_eval: the checkpoint holds the full codebook')
+        for key in ('indices_bit_equal', 'rows_bit_equal', 'decode_bit_equal', 'bf16_indices_bit_equal',
+                    'bf16_rows_bit_equal', 'engine_indices_bit_equal', 'engine_rows_bit_equal',
+                    'engine_cluster_size_bit_equal'):
+            check(r[key], f'tp_vq_eval: {key}')
+        check(r['engine_embed_avg_max_abs_err'] <= 1e-5 and r['engine_embed_max_rel_err'] <= 1e-5,
+              f"tp_vq_eval: the sharded_vq step within 1e-5 of its plain version {r}")
+    emit('tp_vq_eval', world=2, tokens=TP_EVAL[0] * TP_EVAL[1], launches_per_rank=[r['launches'] for r in ranks],
+         ranks=ranks)
+    return ranks
+
+
+def gp_body(rank, world, mesh, out, device, vq_kw=GP_VQ_KW, vq_x=GP_VQ_X, fsq_x=GP_FSQ_X):
+    """Rank body of gp_grouped: group_parallel_forward of
+    GroupedResidualVQ (eval, then one 'on' training step) and of
+    GroupedResidualFSQ (eval) against twins run serially on the same rank;
+    this rank's launches of K1, K4 and K9 in the parallel calls."""
+    from vqtpu_torch import GroupedResidualFSQ, GroupedResidualVQ
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    from vqtpu_torch.parallel import group_parallel_forward, group_parallel_output_from_indices
+
+    def twins(cls, **kw):
+        torch.manual_seed(0)
+        par = cls(**kw, device=device)
+        torch.manual_seed(0)
+        return par, cls(**kw, device=device)
+
+    def counts():
+        sync(device)
+        return dict(nearest_code=nearest_code.launches, train_fused=fused_train_quantize.launches,
+                    residual_fsq=fused_residual_fsq_eval.launches)
+
+    def zero():
+        nearest_code.launches = fused_train_quantize.launches = fused_residual_fsq_eval.launches = 0
+
+    out = {}
+    par, ser = twins(GroupedResidualVQ, **vq_kw, train_fused='on')
+    x = dp_batch(60, device, vq_x)
+    par.eval(), ser.eval()
+    with torch.no_grad():
+        zero()
+        q, idx, loss = group_parallel_forward(par, x, mesh)
+        out['vq_eval_launches'] = counts()
+        dec = group_parallel_output_from_indices(par, idx, mesh)
+        qs, is_, ls = ser(x)
+        out['vq_eval_bit_equal'] = bool(torch.equal(q, qs) and torch.equal(idx, is_) and torch.equal(loss, ls))
+        out['vq_decode_bit_equal'] = bool(torch.equal(dec, ser.get_output_from_indices(is_)))
+    par.train(), ser.train()
+    zero()
+    q, idx, loss = group_parallel_forward(par, x, mesh)
+    out['vq_train_launches'] = counts()
+    qs, is_, ls = ser(x)
+    out['vq_train_bit_equal'] = bool(torch.equal(q, qs) and torch.equal(idx, is_) and torch.equal(loss, ls))
+    sp, ss = par.state_dict(), ser.state_dict()
+    out['vq_train_states_equal'] = all(torch.equal(sp[k], ss[k]) for k in ss)
+    del par, ser, x, q, qs, dec
+    par, ser = twins(GroupedResidualFSQ, dim=fsq_x[-1], groups=2, levels=list(RFSQ_MAIN[0]),
+                     num_quantizers=RFSQ_MAIN[1])
+    par.eval(), ser.eval()
+    x = dp_batch(61, device, fsq_x)
+    with torch.no_grad():
+        zero()
+        q, idx = group_parallel_forward(par, x, mesh)
+        out['fsq_eval_launches'] = counts()
+        qs, is_ = ser(x)
+        out['fsq_eval_bit_equal'] = bool(torch.equal(q, qs) and torch.equal(idx, is_))
+        dec = group_parallel_output_from_indices(par, idx, mesh)
+        out['fsq_decode_bit_equal'] = bool(torch.equal(dec, ser.get_output_from_indices(is_)))
+    return out
+
+
+def phase_gp_grouped():
+    """gp_grouped: group_parallel_forward on two ('group',) gloo ranks of the
+    card. GroupedResidualVQ(dim=256, groups=2, num_quantizers=4,
+    codebook_size=1024) on (32, 2048, 256): eval bit-identical to the serial
+    forward with K1 once a layer a rank, and one 'on' training step with K4
+    once a layer a rank, the states equal to serial after the broadcast;
+    GroupedResidualFSQ(dim=8, groups=2) on (2048, 2048, 8): K9 once a rank,
+    bit-identical to serial; group_parallel_output_from_indices round
+    trips."""
+    ranks = dp_run_world(gp_body, 'gp_grouped', world=2, axes=('group',))
+    layers = GP_VQ_KW['num_quantizers']
+    for r in ranks:
+        check(r['vq_eval_launches'] == dict(nearest_code=layers, train_fused=0, residual_fsq=0),
+              f"gp_grouped: K1 once a layer a rank in eval ({r['vq_eval_launches']})")
+        check(r['vq_train_launches'] == dict(nearest_code=0, train_fused=layers, residual_fsq=0),
+              f"gp_grouped: K4 once a layer a rank in training ({r['vq_train_launches']})")
+        check(r['fsq_eval_launches'] == dict(nearest_code=0, train_fused=0, residual_fsq=1),
+              f"gp_grouped: K9 once a rank ({r['fsq_eval_launches']})")
+        for key in ('vq_eval_bit_equal', 'vq_decode_bit_equal', 'vq_train_bit_equal', 'vq_train_states_equal',
+                    'fsq_eval_bit_equal', 'fsq_decode_bit_equal'):
+            check(r[key], f'gp_grouped: {key}')
+    emit('gp_grouped', world=2, vq=dict(GP_VQ_KW, x=list(GP_VQ_X)),
+         fsq=dict(dim=GP_FSQ_X[-1], groups=2, levels=list(RFSQ_MAIN[0]), num_quantizers=RFSQ_MAIN[1],
+                  x=list(GP_FSQ_X)), ranks=ranks)
+    return ranks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -4727,6 +5141,12 @@ def main() -> int:
     dp_lfq = phase_dp_lfq_train()
     phase_dp_nccl1()
     phase_utils(dp_vq, times['vq_forward_ms'])
+    # row-sharded codebooks and group-parallel composites
+    tp_sel = phase_tp_select(device)
+    tp_train = phase_tp_vq_train()
+    tp_eval = phase_tp_vq_eval()
+    gp = phase_gp_grouped()
+    tp_train_launches = [[r['steps'][i]['launches'] for r in tp_train] for i in range(len(tp_train[0]['steps']))]
     dp_vq_launches = {f"{st['route']}_step_{st['step']}": [r['steps'][i]['launches'] for r in dp_vq]
                       for i, st in enumerate(dp_vq[0]['steps'])}
     check_no_spill(ptxas)
@@ -4761,6 +5181,13 @@ def main() -> int:
         'launches_sequential_simvq_step': zoo['sequential_step0']['launches']['nearest_code'],
         'launches_dp_vq_off_step_per_rank': [[x['nearest_code'] for x in v] for k, v in dp_vq_launches.items()
                                              if k.startswith('off')][0],
+        'launches_tp_select_blocks': tp_sel['launches'],
+        'launches_tp_vq_train_per_step_per_rank': [[x['nearest_code'] for x in st] for st in tp_train_launches],
+        'launches_tp_vq_eval_per_rank': [r['launches'] for r in tp_eval],
+        'launches_gp_grouped_rvq_eval_per_rank': [r['vq_eval_launches']['nearest_code'] for r in gp],
+        'tp_select_ms': dict(k1=tp_sel['k1_ms'], k1_return_best=tp_sel['k1_return_best_ms'],
+                             sharded_world1=tp_sel['sharded_world1_ms'],
+                             of=f'n, c, d = {list(TP_SELECT)}; sharded_world1 on a one-rank gloo group'),
         'rpq_k1_ms': rpq_ms['k1_ms'],
         'rpq_k1_bound_ms': rpq_ms['k1_bound_ms'],
         'rpq_k1_of': '16 heads of 8192 tokens, d = 4096, c = 1024, cosine',
@@ -4790,6 +5217,7 @@ def main() -> int:
         'launches_hq_step': hq_launches['step']['train_fused'],
         'launches_dp_vq_step_per_rank': {k: [r['train_fused'] for r in v] for k, v in dp_vq_launches.items()
                                          if k.startswith('on')},
+        'launches_gp_grouped_rvq_on_step_per_rank': [r['vq_train_launches']['train_fused'] for r in gp],
         'max_abs_err': train_err,
         'max_abs_err_of': 'max |esum - float64 sum| at the main shape (indices and rows are exact)',
         'design': TRAIN_DESIGN,
@@ -4836,6 +5264,7 @@ def main() -> int:
         'replaces': RFSQ_REPLACES.split()[0],
         'launches': rfsq_launches,
         'launches_grouped_two_groups': rfsq_grouped_launches,
+        'launches_gp_grouped_per_rank': [r['fsq_eval_launches']['residual_fsq'] for r in gp],
         'max_abs_err': max(r['max_abs_err'] for r in rfsq_cases.values()),
         'max_abs_err_of': 'max |quantized - plain version| over the rfsq_kernel_vs_plain cases '
                           f"({sum(r['bit_identical'] for r in rfsq_cases.values())} of {len(rfsq_cases)} "
@@ -4864,6 +5293,7 @@ def main() -> int:
         'launches_simvq_autoencoder_step': simvq_launches['ae_step']['code_sums'],
         'launches_rsimvq_step': rsimvq_launches['step']['code_sums'],
         'launches_sequential_simvq_step': zoo['sequential_step0']['launches']['code_sums'],
+        'launches_tp_vq_train_per_step_per_rank': [[x['code_sums'] for x in st] for st in tp_train_launches],
         'max_abs_err': code_sums_times['max_abs_err'],
         'max_abs_err_of': 'max |sums - float64 per-code sum| over the code_sums cases (each within the f32 '
                           'summation bound)',

@@ -998,3 +998,87 @@ def test_dp_vq_train_two_gloo_ranks(card, tmp_path):
         assert all(st['identical'] for st in steps)
     for st in ranks[0][1:]:
         assert st['one_process_indices'] and st['one_process_cluster_size']
+
+
+@pytest.mark.parametrize('metric', td.METRICS)
+@pytest.mark.parametrize('shape', ((300, 130, 96), (3, 1000, 257, 40), (4099, 1024, 256), (500, 300, 30)))
+def test_kernel_return_best_matches_plain(card, metric, shape):
+    """K1 with `return_best`: the same indices as without it, and the best
+    score within the worst-case bound of the float64 score at the chosen
+    code ((6d + 64) * 2^-24 of sum |x e| + |bias|: the split's remainders and
+    3d f32 additions that may truncate); the plain version's best is its own
+    score at its pick."""
+    x, e = _operands(shape, metric, card)
+    bias = td.selection_bias(e, metric)
+    idx = td.nearest_code(x, e, metric, bias)
+    got, best = td.nearest_code(x, e, metric, bias, return_best=True)
+    pidx, pbest = td.nearest_code_plain(x, e, bias, return_best=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, idx) and best.dtype == torch.float32 and best.shape == idx.shape
+    xd, ed, bd = x.double(), e.double(), bias.double()
+    if x.ndim == 2:
+        xd, ed, bd, got, best = xd[None], ed[None], bd[None], got[None], best[None]
+        pidx, pbest = pidx[None], pbest[None]
+    picked = ed.gather(1, got.long()[..., None].expand(*got.shape, ed.shape[-1]))
+    score = (xd * picked).sum(-1) + bd.gather(1, got.long())
+    bound = (6 * x.shape[-1] + 64) * 2.0 ** -24 * ((xd * picked).abs().sum(-1) + bd.gather(1, got.long()).abs())
+    assert bool(((best.double() - score).abs() <= bound).all())
+    pscore = (xd @ ed.transpose(-1, -2) + bd[:, None]).gather(-1, pidx.long()[..., None])[..., 0]
+    assert bool(((pbest.double() - pscore).abs() <= bound.max()).all())
+
+
+@pytest.mark.parametrize('world', (2, 4, 8))
+def test_simulated_shard_selection_matches_unsharded(card, world):
+    """The codebook in `world` row blocks, K1 with its best on each, the
+    winners reduced as `_global_winner_index` reduces them: indices and
+    best scores bit-equal to unsharded K1 (a column's score does not depend
+    on its block), rows of the sharded lookup bit-equal to codebook rows."""
+    from vqtpu_torch.parallel.shard import _RowGather, local_or_dump
+    x, e = _operands((20000, 4096, 256), 'euclidean', card)
+    e[4095] = e[0]                                    # a tie across the first and last block
+    x[:3] = e[0]
+    idx, best = td.nearest_code(x, e, return_best=True)
+    c_local = e.shape[0] // world
+    parts = [td.nearest_code(x, e[r * c_local:(r + 1) * c_local].contiguous(), return_best=True)
+             for r in range(world)]
+    scores = torch.stack([p[1] for p in parts])
+    top = scores.max(0).values
+    win = (scores == top).int().argmax(0)
+    got = (torch.stack([p[0] for p in parts]).gather(0, win[None])[0] + win * c_local).to(torch.int32)
+    rows = sum(_RowGather.apply(e[r * c_local:(r + 1) * c_local], local_or_dump(got, c_local, r * c_local))
+               for r in range(world))
+    torch.cuda.synchronize()
+    assert torch.equal(got, idx) and torch.equal(top, best)
+    assert torch.equal(got[:3], torch.zeros(3, dtype=torch.int32, device=card))
+    assert torch.equal(rows, e[idx.long()])
+
+
+def test_code_sums_with_a_dump_row(card):
+    """The statistics of a shard's rows: tokens of other shards' codes sent
+    to a dump row c_local, whose sums are dropped; the rest equal
+    code_statistics_plain of the shard's own tokens (bins exact, sums to
+    1e-5)."""
+    from vqtpu_torch.parallel.shard import local_or_dump
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((1, 30000, 64), dtype=np.float32)).to(card)
+    gidx = torch.from_numpy(rng.integers(0, 1024, (1, 30000)).astype(np.int32)).to(card)
+    c_local, row0 = 256, 512
+    local = local_or_dump(gidx, c_local, row0)
+    bins, esum = ttf.code_sums(x, local, c_local + 1)
+    mine = (gidx >= row0) & (gidx < row0 + c_local)
+    pbins, pesum = ttf.code_statistics_plain(x[mine][None], (gidx[mine] - row0)[None], c_local)
+    torch.cuda.synchronize()
+    assert torch.equal(bins[:, :c_local], pbins)
+    torch.testing.assert_close(esum[:, :c_local], pesum, rtol=1e-5, atol=1e-5)
+    assert float(bins[0, c_local]) == float((~mine).sum())
+
+
+def test_tp_vq_train_two_gloo_ranks(card, tmp_path):
+    """A row-sharded VectorQuantize on two ('code',) gloo ranks of one card
+    at a small size: K1 and code_sums once a rank a step, and the eval
+    forward equal to the unsharded module's."""
+    import torch_dist
+    ranks = torch_dist.run_world(torch_dist.tp_card_body, tmp_path, axes=('code',))
+    for r in ranks:
+        assert r['launches'] == [dict(nearest_code=1, code_sums=1)] * 3
+        assert r['eval_equal']

@@ -21,6 +21,7 @@ import vqtpu
 import vqtpu_torch
 from vqtpu_torch import load_vqtpu_state
 
+import torch_dist
 from torch_parity import assert_grads_close, assert_indices_tie_equal, jax_state, one_torch_thread  # noqa: F401
 
 DIM, CODES = 16, 32
@@ -115,9 +116,20 @@ def test_simvq_channel_first_and_custom_transform():
         torch.testing.assert_close(tm.indices_to_codes(idx), q, rtol=0, atol=0)
 
 
-def test_simvq_code_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match='code_axis'):
-        vqtpu_torch.SimVQ(dim=DIM, codebook_size=CODES, code_axis='code', device='cpu')
+def test_simvq_code_axis_is_not_ported(tmp_path):
+    """code_axis is ported (tests/test_torch_tp.py): outside a mesh binding
+    the axis SimVQ is the unsharded module; inside one, with its frozen
+    codebook not sharded, it raises."""
+    x = torch.randn(2, 5, DIM)
+    torch.manual_seed(0)
+    sharded = vqtpu_torch.SimVQ(dim=DIM, codebook_size=CODES, code_axis='code', device='cpu')
+    torch.manual_seed(0)
+    plain = vqtpu_torch.SimVQ(dim=DIM, codebook_size=CODES, device='cpu')
+    for got, want in zip(sharded(x), plain(x)):
+        assert torch.equal(got, want)
+    errors = torch_dist.code_axis_at_rest_raises_in_mesh(tmp_path, 'SimVQ', dim=DIM, codebook_size=CODES,
+                                                          code_axis='code')
+    assert all(f'{CODES} codebook rows inside a mesh' in e for e in errors), errors
 
 
 LAYERS = 3

@@ -24,6 +24,7 @@ import vqtpu_torch
 from vqtpu_torch import load_vqtpu_state
 from vqtpu_torch.codebook import Codebook
 
+import torch_dist
 from torch_parity import assert_indices_tie_equal, jax_state, one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -195,7 +196,9 @@ def test_vq_training_forward_not_ported():
     # the learnable family is ported (tests/test_torch_vq_learnable.py),
     # and so is the data-parallel codebook (tests/test_torch_parallel.py):
     # its eval forward runs outside a mesh, its training forward needs the
-    # axis bound; the row-sharded codebook still raises and names itself
+    # axis bound; so is the row-sharded codebook (tests/test_torch_tp.py):
+    # outside a mesh binding its axis it is the unsharded codebook, and a
+    # row shard there raises
     for kwargs in (dict(learnable_codebook=True), dict(affine_param=True), dict(vq_bridge=lambda e: e),
                    dict(stat_precision='default')):
         cb = Codebook(16, 8, device='cpu', **kwargs)
@@ -206,8 +209,17 @@ def test_vq_training_forward_not_ported():
     assert q.shape == (5, 16) and idx.shape == (5,)
     with pytest.raises(NameError, match='data'):
         synced.train()(torch.randn(5, 16), need_distances=False)
-    with pytest.raises(NotImplementedError, match='code_axis'):
-        Codebook(16, 8, device='cpu', code_axis='code')
+    torch.manual_seed(0)
+    sharded = Codebook(16, 8, device='cpu', code_axis='code').train()
+    torch.manual_seed(0)
+    plain = Codebook(16, 8, device='cpu').train()
+    z = torch.randn(5, 16)
+    for got, want in zip(sharded(z, need_distances=False)[:2], plain(z, need_distances=False)[:2]):
+        assert torch.equal(got, want)
+    assert torch.equal(sharded.embed, plain.embed) and torch.equal(sharded.cluster_size, plain.cluster_size)
+    sharded.embed.data = sharded.embed.data[:, :4].clone()
+    with pytest.raises(ValueError, match='4 codebook rows outside a mesh'):
+        sharded(z, need_distances=False)
     # the distance path of a bare codebook: distances (h, n, c) beside the
     # fast path's None, and the same indices
     cb = Codebook(16, 8, device='cpu').eval()
@@ -223,8 +235,8 @@ def test_vq_training_forward_not_ported():
     assert bool(cb.initted) and bool(cb.embed.abs().sum() > 0)
 
 
-# the row-sharded codebook, still out of the port's slices
-NOT_PORTED = ('code_axis',)
+# the row-sharded codebook: it needs its leaves sharded inside a mesh
+ROW_SHARDED = ('code_axis',)
 # the data-parallel features: a training forward needs their axis bound
 DATA_PARALLEL = ('sync_codebook', 'sync_axis')
 
@@ -242,16 +254,26 @@ DATA_PARALLEL = ('sync_codebook', 'sync_axis')
     (dict(directional_reparam=True, threshold_ema_dead_code=2), 'directional_reparam'),
     (dict(stat_precision='default'), 'stat_precision'),
 ))
-def test_vq_out_of_slice_features_raise(kwargs, feature):
-    """The row-sharded codebook raises and names itself; the data-parallel
+def test_vq_out_of_slice_features_raise(kwargs, feature, tmp_path):
+    """The row-sharded codebook trains outside a mesh as the unsharded one
+    does, and inside a mesh binding its axis, with its leaves not sharded,
+    raises (it trains sharded in tests/test_torch_tp.py); the data-parallel
     features build, and their training forward outside a mesh raises as
     JAX's unbound psum does (they train under a mesh in
     tests/test_torch_parallel.py); the learnable family, once out of the
     slice, builds and trains (held against the JAX package in
     tests/test_torch_vq_learnable.py)."""
-    if feature in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match=feature):
-            vqtpu_torch.VectorQuantize(dim=16, codebook_size=8, device='cpu', **kwargs)
+    if feature in ROW_SHARDED:
+        x = torch.randn(2, 4, 16)
+        torch.manual_seed(0)
+        vq = vqtpu_torch.VectorQuantize(dim=16, codebook_size=8, device='cpu', **kwargs).train()
+        torch.manual_seed(0)
+        plain = vqtpu_torch.VectorQuantize(dim=16, codebook_size=8, device='cpu').train()
+        for got, want in zip(vq(x), plain(x)):
+            assert torch.equal(got, want)
+        errors = torch_dist.code_axis_at_rest_raises_in_mesh(tmp_path, 'VectorQuantize', dim=16, codebook_size=8,
+                                                              **kwargs)
+        assert all('8 codebook rows inside a mesh' in e for e in errors), errors
         return
     if feature in DATA_PARALLEL:
         vq = vqtpu_torch.VectorQuantize(dim=16, codebook_size=8, device='cpu', **kwargs)

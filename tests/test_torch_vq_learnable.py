@@ -44,6 +44,7 @@ import vqtpu_torch.composite.residual_vq as tresidual
 import vqtpu_torch.models as tmodels
 import vqtpu_torch.models.transformer as ttransformer
 import vqtpu_torch.core.sampling as tsampling
+import torch_dist
 from vqtpu import VectorQuantize as JVQ
 from vqtpu.models import MiniEncoder as JMiniEncoder
 from vqtpu.models import SimpleQuantizeAutoEncoder as JAutoEncoder
@@ -402,16 +403,27 @@ def test_refused_combinations_raise_like_jax(case):
 
 
 @pytest.mark.parametrize('feature', ('sync_axis', 'sync_codebook', 'sync_affine_param', 'code_axis'))
-def test_distributed_kwargs_not_ported(feature):
-    """Only the row-sharded codebook (code_axis) is not ported: it raises by
-    name. The data-parallel kwargs build (they train under a mesh in
+def test_distributed_kwargs_not_ported(feature, tmp_path):
+    """Every distributed kwarg is ported. The row-sharded codebook (code_axis)
+    of a learnable, affine VectorQuantize trains outside a mesh as the
+    unsharded one does, and inside a mesh binding its axis, its leaves not
+    sharded, raises (it trains sharded in tests/test_torch_tp.py). The
+    data-parallel kwargs build (they train under a mesh in
     tests/test_torch_parallel.py); a training forward of a synced affine
     codebook outside a mesh raises as JAX's unbound psum does, and
     sync_affine_param without an axis syncs nothing."""
     value = {'sync_axis': 'data', 'sync_codebook': True, 'sync_affine_param': True, 'code_axis': 'code'}[feature]
     if feature == 'code_axis':
-        with pytest.raises(NotImplementedError, match=feature):
-            TVQ(dim=DIM, codebook_size=CODES, device='cpu', **{feature: value})
+        kwargs = dict(dim=DIM, codebook_size=CODES, affine_param=True, learnable_codebook=True, ema_update=False)
+        x = torch.randn(2, 4, DIM)
+        torch.manual_seed(0)
+        sharded = TVQ(**kwargs, code_axis='code', device='cpu').train()
+        torch.manual_seed(0)
+        plain = TVQ(**kwargs, device='cpu').train()
+        for got, want in zip(sharded(x), plain(x)):
+            assert torch.equal(got, want)
+        errors = torch_dist.code_axis_at_rest_raises_in_mesh(tmp_path, 'VectorQuantize', code_axis='code', **kwargs)
+        assert all(f'{CODES} codebook rows inside a mesh' in e for e in errors), errors
         return
     kwargs = dict(affine_param=True, **{feature: value})
     vq = TVQ(dim=DIM, codebook_size=CODES, device='cpu', **kwargs).train()

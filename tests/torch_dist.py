@@ -5,8 +5,9 @@ their ranks run. Imports torch and vqtpu_torch only: each rank is a fresh
 `run_world(body, tmp_path, **kwargs)` starts `world` processes, each of
 which joins a gloo process group through a rendezvous file in `tmp_path`
 (never a fixed port: the suite runs in several worker processes at once),
-builds the mesh `('data',)`, calls `body(rank, world, mesh, **kwargs)` and
-pickles what it returns. Every join has a timeout, so a hung rank fails
+builds the mesh (`axes` of `shape`; `('data',)` over every rank by
+default), calls `body(rank, world, mesh, **kwargs)` and pickles what it
+returns. Every join has a timeout, so a hung rank fails
 the test instead of holding the suite. Results are numpy arrays.
 """
 
@@ -25,12 +26,14 @@ import torch
 JOIN_TIMEOUT_S = 120
 
 
-def run_world(body, tmp_path, world: int = 2, timeout: float = JOIN_TIMEOUT_S, **kwargs) -> list:
+def run_world(body, tmp_path, world: int = 2, timeout: float = JOIN_TIMEOUT_S, axes=('data',), shape=None,
+              **kwargs) -> list:
     """[body's result on rank r for r in range(world)]."""
     tmp_path = Path(tmp_path)
     tmp_path.mkdir(parents=True, exist_ok=True)
     ctx = mp.get_context('spawn')
-    procs = [ctx.Process(target=_rank_main, args=(body, r, world, str(tmp_path), kwargs), daemon=True)
+    procs = [ctx.Process(target=_rank_main, args=(body, r, world, str(tmp_path), tuple(axes), shape, kwargs),
+                         daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -51,7 +54,7 @@ def run_world(body, tmp_path, world: int = 2, timeout: float = JOIN_TIMEOUT_S, *
     return results
 
 
-def _rank_main(body, rank, world, tmp, kwargs):
+def _rank_main(body, rank, world, tmp, axes, shape, kwargs):
     import torch.distributed as dist
 
     from vqtpu_torch.parallel import init_multihost, make_mesh
@@ -60,7 +63,7 @@ def _rank_main(body, rank, world, tmp, kwargs):
         torch.set_num_threads(1)
         init_multihost(f'file://{tmp}/rendezvous', world, rank, backend='gloo', timeout=timedelta(seconds=60))
         try:
-            out = body(rank, world, make_mesh(('data',)), **kwargs)
+            out = body(rank, world, make_mesh(axes, shape), **kwargs)
         finally:
             dist.destroy_process_group()
         with open(Path(tmp) / f'rank{rank}.pkl', 'wb') as f:
@@ -79,6 +82,8 @@ def shard(a: np.ndarray, rank: int, world: int) -> np.ndarray:
 def np_tree(t):
     """Tensors (in dicts, lists and tuples) -> numpy arrays."""
     if isinstance(t, torch.Tensor):
+        if t.dtype == torch.bfloat16:       # numpy has no bfloat16; its values are exact in f32
+            t = t.float()
         return t.detach().cpu().numpy()
     if isinstance(t, dict):
         return {k: np_tree(v) for k, v in t.items()}
@@ -381,3 +386,376 @@ def vq_dp_card_body(rank, world, mesh, *, steps, shape=(16, 256, 64), codes=128)
                                                                 one._codebook.cluster_size))
         out.append(step)
     return out
+
+
+# -- row-sharded (tensor-parallel) codebooks ---------------------------------------
+
+
+def inject_index_draws(tables: dict):
+    """Replace the port's index draws (`masked_sample_indices`, which the
+    unsharded row draws and the sharded windows both take) by
+    `tables['now'][(n, num)]`: the same global index vector wherever the
+    draw comes from. Returns the function that undoes it."""
+    import vqtpu_torch.codebook.kmeans as tkmeans
+    import vqtpu_torch.core.sampling as tsampling
+
+    def draw(generator, n, mask, num, device=None):
+        return torch.from_numpy(tables['now'][(n, num)]).to(device)
+
+    saved = (tsampling.masked_sample_indices, tkmeans.masked_sample_indices)
+    tsampling.masked_sample_indices = tkmeans.masked_sample_indices = draw
+
+    def undo():
+        tsampling.masked_sample_indices, tkmeans.masked_sample_indices = saved
+    return undo
+
+
+def _build(case):
+    """The module of a case: vqtpu_torch.<cls>(**kwargs) on the CPU from
+    torch seed `seed`, loaded from a JAX state when the case has one."""
+    import vqtpu_torch
+    from vqtpu_torch import load_vqtpu_state
+
+    torch.manual_seed(case.get('seed', 0))
+    module = getattr(vqtpu_torch, case['cls'])(**case['kwargs'], device='cpu')
+    if case.get('state') is not None:
+        load_vqtpu_state(module, case['state'])
+    return module.train(case.get('train', True))
+
+
+def _forward(module, x, call):
+    out = module(x, **call)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def run_case(case, mesh=None, rank=0, data_world=1, data_index=0):
+    """The steps of a case (each the forward on x, then with `gs` the
+    backward of sum(q * g) + the loss's sum): per step its outputs, x.grad
+    and, on one process, the first codebook's rows the selection used (after
+    kmeans init where it ran); with `decode`, that method of the module on
+    the step's indices (inside the mesh); at the end the full state, the
+    parameters' gradients (a row shard's gathered over its axis, partial
+    gradients psum'd) and, for a sharded run, whether every sharded leaf
+    held its rank's rows. With a mesh the module's codebooks are sharded for
+    the steps and gathered back after them, and the tokens are this data
+    rank's block."""
+    from contextlib import nullcontext
+
+    import vqtpu_torch.codebook.codebook as tcodebook
+    from vqtpu_torch.parallel import collectives
+    from vqtpu_torch.parallel import tp as ttp
+
+    module = _build(case)
+    bound = nullcontext() if mesh is None else mesh
+    codebooks = [m for m in module.modules() if isinstance(m, tcodebook.Codebook)]
+    used = {}
+    for cb in codebooks[:1]:
+        init = cb.init_embed_
+
+        def recording_init(flatten, mask=None, cb=cb, init=init):
+            init(flatten, mask)
+            used['embed'] = cb.embed.detach().clone()
+        cb.init_embed_ = recording_init
+    tables = {}
+    undo = inject_index_draws(tables) if case.get('index_tables') else None
+    sharded_rows = None
+    steps = []
+    try:
+        if mesh is not None:
+            ttp.shard_codebooks(module, mesh)
+            sharded_rows = all(t.shape[dim] == m.codebook_size // mesh.size(m.code_axis)
+                               for m, _, t, dim in ttp._leaves(module))
+        for s, x in enumerate(case['xs']):
+            if undo is not None:
+                tables['now'] = case['index_tables'][s]
+            x = shard(x, data_index, data_world)
+            tx = torch.from_numpy(x).requires_grad_(case.get('gs') is not None)
+            module.zero_grad(set_to_none=True)
+            if codebooks and mesh is None:
+                used['embed'] = codebooks[0].embed.detach().clone()
+            with bound:
+                out = _forward(module, tx, case.get('call', {}))
+                if case.get('gs') is not None:
+                    g = torch.from_numpy(shard(case['gs'][s], data_index, data_world))
+                    total = (out[0] * g).sum() + sum(o.sum() for o in out[2:] if o.is_floating_point())
+                    total.backward()
+                decoded = None
+                if case.get('decode'):
+                    with torch.no_grad():
+                        decoded = getattr(module, case['decode'])(out[1])
+            steps.append(np_tree(dict(out=list(out), x_grad=tx.grad, decoded=decoded,
+                                      embed_used=used.get('embed') if mesh is None else None)))
+        grads = {}
+        specs, axes = ttp.codebook_pspecs(module), ttp.codebook_axes(module)
+        if mesh is not None and case.get('gs') is not None:
+            with mesh:
+                ttp.psum_partial_grads(module)
+        for name, p in module.named_parameters():
+            if p.grad is None:
+                continue
+            g = p.grad.detach()
+            if mesh is not None and name in specs:
+                with mesh:
+                    g = collectives.all_gather_exact(g.contiguous(), axes[name], concat_axis=g.ndim - specs[name])
+            grads[name] = g
+        if mesh is not None:
+            ttp.gather_codebooks(module, mesh)
+    finally:
+        if undo is not None:
+            undo()
+    return dict(steps=steps, state=np_tree(dict(module.state_dict())), grads=np_tree(grads),
+                sharded_rows=sharded_rows)
+
+
+def tp_cases_body(rank, world, mesh, *, cases):
+    """Every case on this rank with the codebooks sharded over 'code' (and
+    the tokens over 'data' when the mesh has it)."""
+    data_world = mesh.size('data') if 'data' in mesh.axis_names else 1
+    data_index = mesh.index('data') if 'data' in mesh.axis_names else 0
+    return [run_case(case, mesh, rank, data_world, data_index) for case in cases]
+
+
+class AEModel(torch.nn.Module):
+    """Linear -> VectorQuantize(dim=32, codebook_size=256, **vq_kwargs) ->
+    Linear, the model of the JAX package's tensor-parallel trainer tests."""
+
+    def __init__(self, **vq_kwargs):
+        import vqtpu_torch
+        super().__init__()
+        self.enc = torch.nn.Linear(8, 32)
+        self.vq = vqtpu_torch.VectorQuantize(dim=32, codebook_size=256, device='cpu', **vq_kwargs)
+        self.dec = torch.nn.Linear(32, 8)
+
+    def forward(self, x):
+        q, idx, commit = self.vq(self.enc(x))
+        return self.dec(q), idx, commit
+
+
+def ae_loss(model, batch):
+    out, _, commit = model(batch)
+    return ((out - batch) ** 2).mean() + commit
+
+
+def _trainer(mesh, seed, optimizer=None, **vq_kwargs):
+    from vqtpu_torch.parallel import TensorParallelTrainer
+    torch.manual_seed(seed)
+    model = AEModel(sync_axis='data', code_axis='code', **vq_kwargs)
+    opt = (optimizer or (lambda p: torch.optim.Adam(p, lr=1e-2)))(model.parameters())
+    return model, TensorParallelTrainer(model, opt, ae_loss, mesh)
+
+
+def _engine_inputs(steps=20, n=64, c=32, d=16):
+    """20 steps of n tokens around 8 centres, and the initial codebook."""
+    g = np.random.default_rng(5)
+    centres = g.standard_normal((8, d)).astype(np.float32) * 3
+    xs = [(centres[g.integers(0, 8, n)] + 0.1 * g.standard_normal((n, d))).astype(np.float32) for _ in range(steps)]
+    return xs, g.standard_normal((c, d)).astype(np.float32)
+
+
+ENGINE_INPUTS = _engine_inputs()
+
+
+def engine_run(mesh, data_world, data_index):
+    """The sharded_vq engine over ENGINE_INPUTS on this rank: per step its
+    global indices and the mean squared quantization error over the data
+    axis; the state gathered over 'code' at the end."""
+    from vqtpu_torch.parallel import collectives, init_sharded_codebook, sharded_ema_update, sharded_quantize
+    xs, embed0 = ENGINE_INPUTS
+    c_local = embed0.shape[0] // mesh.size('code')
+    row0 = mesh.index('code') * c_local
+    state = init_sharded_codebook(torch.from_numpy(embed0[row0:row0 + c_local]).clone())
+    idxs, errors = [], []
+    with mesh:
+        for x in xs:
+            xl = torch.from_numpy(shard(x, data_index, data_world))
+            idx, q = sharded_quantize(xl, state.embed, 'code')
+            state = sharded_ema_update(state, xl, idx, code_axis='code', data_axis='data', decay=0.9)
+            idxs.append(idx)
+            errors.append(float(collectives.pmean(((q - xl) ** 2).mean(), 'data')))
+        full = {k: collectives.all_gather_exact(getattr(state, k).contiguous(), 'code')
+                for k in ('embed', 'embed_avg', 'cluster_size')}
+    return np_tree(dict(idx=idxs, errors=errors, state=full))
+
+
+def tp_trainer_body(rank, world, mesh, *, xs, ckpt_dir, cases):
+    """On a ('data', 'code') mesh: the cases (run_case, tokens over 'data');
+    TensorParallelTrainer with kmeans init and expiry (losses, whether the
+    data replicas of a code shard hold identical rows, the rows per rank);
+    with a learnable codebook (losses, whether the rows moved, whether the
+    optimizer's state holds the rank's rows); a checkpoint at step 3 of 5
+    resumed by a fresh model (both trajectories); tp_apply's eval forward
+    and decode on a model at rest."""
+    from vqtpu_torch.parallel import collectives, gather_codebooks, global_batch, tp_apply
+    from vqtpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    data_world, data_index = mesh.size('data'), mesh.index('data')
+    out = dict(cases=[run_case(case, mesh, rank, data_world, data_index) for case in cases],
+               engine=engine_run(mesh, data_world, data_index))
+
+    def replicated(model):
+        cb = model.vq._codebook
+        with mesh:
+            return all(bool(torch.equal(*collectives.all_gather(t.detach()[None], 'data')))
+                       for t in (cb.embed, cb.embed_avg, cb.cluster_size))
+
+    local = [global_batch(mesh, ('data',), x, device='cpu') for x in xs]
+    model, trainer = _trainer(mesh, 0, kmeans_init=True, threshold_ema_dead_code=0.5)
+    out['converge'] = dict(losses=[float(trainer.step(local[i % len(local)])) for i in range(15)],
+                           replicated=replicated(model), rows=model.vq._codebook.embed.shape[-2],
+                           initted=bool(model.vq._codebook.initted))
+
+    model, trainer = _trainer(mesh, 0, learnable_codebook=True, ema_update=False)
+    with mesh:
+        before = collectives.all_gather_exact(model.vq._codebook.embed.detach().clone(), 'code', concat_axis=1)
+    losses = [float(trainer.step(local[i % len(local)])) for i in range(10)]
+    gather_codebooks(model, mesh)
+    moments = [s for s in trainer.optimizer.state.values() if 'exp_avg' in s]
+    out['learnable'] = dict(losses=losses, moved=not torch.equal(before, model.vq._codebook.embed),
+                            moment_rows=sorted({tuple(s['exp_avg'].shape) for s in moments}))
+
+    # a checkpoint of the sharded model at step 3, resumed by a fresh model:
+    # SGD keeps no state, so the two trajectories must agree bit for bit
+    def sgd(p):
+        return torch.optim.SGD(p, lr=1e-2)
+    model_a, trainer_a = _trainer(mesh, 0, sgd, kmeans_init=True, threshold_ema_dead_code=0.5)
+    traj_a = [float(trainer_a.step(x)) for x in local[:3]]
+    path = f'{ckpt_dir}/tp.pt'
+    save_checkpoint(path, model_a, mesh=mesh)
+    # a checkpoint persists no generator (as in the JAX package): B takes
+    # A's expiry generator as it stood at the checkpoint
+    generator = model_a.vq._codebook.generator.get_state()
+    traj_a += [float(trainer_a.step(x)) for x in local[3:5]]
+    torch.manual_seed(1)
+    model_b = AEModel(sync_axis='data', code_axis='code', kmeans_init=True, threshold_ema_dead_code=0.5)
+    restore_checkpoint(path, model_b)
+    model_b.vq._codebook.generator.set_state(generator)
+    from vqtpu_torch.parallel import TensorParallelTrainer
+    trainer_b = TensorParallelTrainer(model_b, sgd(model_b.parameters()), ae_loss, mesh)
+    traj_b = [float(trainer_b.step(x)) for x in local[3:5]]
+    gather_codebooks(model_a, mesh)
+    gather_codebooks(model_b, mesh)
+    out['resume'] = dict(a=traj_a, b=traj_b, checkpoint_rows=torch.load(path)['vq._codebook.embed'].shape[-2],
+                         state_equal=all(bool(torch.equal(v, model_b.state_dict()[k]))
+                                         for k, v in model_a.state_dict().items()))
+
+    torch.manual_seed(2)
+    model = AEModel(sync_axis='data', code_axis='code').eval()
+
+    def forward(m, z):
+        q, idx, _ = m.vq(z)
+        return q, idx, m.vq.get_output_from_indices(idx)
+
+    with torch.no_grad():
+        z = model.enc(local[0])
+        q, idx, dec = tp_apply(model, mesh, forward, z)
+        q1, idx1, _ = model.vq(z)
+    out['decode'] = dict(round_trip=bool(torch.equal(q, dec)), equal_unsharded=bool(torch.equal(q, q1)
+                                                                                    and torch.equal(idx, idx1)),
+                         at_rest=model.vq._codebook.embed.shape[-2])
+    return np_tree(out)
+
+
+def unsharded_in_mesh_body(rank, world, mesh, *, cls, kwargs, x):
+    """A code_axis module at rest (its leaves unsharded) run inside a mesh
+    that binds the axis: the error it raises, or None."""
+    import vqtpu_torch
+    torch.manual_seed(0)
+    module = getattr(vqtpu_torch, cls)(**kwargs, device='cpu')
+    try:
+        with mesh:
+            module(torch.from_numpy(x))
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def code_axis_at_rest_raises_in_mesh(tmp_path, cls, **kwargs) -> list:
+    """unsharded_in_mesh_body on two ('code',) ranks: each rank's message."""
+    x = np.random.default_rng(0).standard_normal((2, 4, kwargs['dim']), dtype=np.float32)
+    return run_world(unsharded_in_mesh_body, tmp_path, axes=('code',), cls=cls, kwargs=kwargs, x=x)
+
+
+# -- group-parallel Grouped composites ----------------------------------------------
+
+
+def gp_body(rank, world, mesh, *, cases):
+    """Each case: twins of a Grouped composite from one torch seed (loaded
+    from a JAX state when the case has one), the parallel one run through
+    group_parallel_forward over `mesh_axes` (this world's ('group',) mesh
+    of 4, or a ('data', 'group') (2, 2) mesh made here), the serial one
+    called on the same (this data rank's) input; per step both outputs, and
+    at the end both states, the parallel decode (group_parallel_output_from_indices)
+    and the serial one."""
+    import vqtpu_torch
+    from vqtpu_torch import load_vqtpu_state
+    from vqtpu_torch.parallel import group_parallel_forward, group_parallel_output_from_indices, make_mesh
+
+    mesh_2d = make_mesh(('data', 'group'), (2, 2))
+    out = []
+    for case in cases:
+        m = mesh if case.get('mesh') == 'group' else mesh_2d
+        data_axis = case.get('data_axis')
+        dw = m.size('data') if data_axis else 1
+        di = m.index('data') if data_axis else 0
+        twins = []
+        for kwargs in (case['par_kwargs'], case['ser_kwargs']):
+            torch.manual_seed(case.get('seed', 0))
+            module = getattr(vqtpu_torch, case['cls'])(**kwargs, device='cpu')
+            if case.get('state') is not None:
+                load_vqtpu_state(module, case['state'])
+            twins.append(module.train(case.get('train', True)))
+        par, ser = twins
+        steps = []
+        for x in case['xs']:
+            xl = torch.from_numpy(shard(x, di, dw))
+            call = dict(case.get('call', {}))
+            if 'mask' in case:
+                call['mask'] = torch.from_numpy(shard(case['mask'], di, dw))
+            if 'indices' in case:
+                call['indices'] = tuple(torch.from_numpy(shard(i, di, dw)) for i in case['indices'])
+            with torch.no_grad():
+                got = group_parallel_forward(par, xl, m, group_axis='group', data_axis=data_axis, **call)
+                want = ser(torch.from_numpy(x) if data_axis else xl, **call)
+            steps.append(np_tree(dict(par=got, ser=want)))
+        decoded = None
+        if case.get('decode'):
+            with torch.no_grad():
+                idx = steps[-1]['par'][1]
+                decoded = np_tree(dict(
+                    par=group_parallel_output_from_indices(par, torch.from_numpy(idx), m, group_axis='group'),
+                    ser=ser.get_output_from_indices(torch.from_numpy(idx))))
+        out.append(dict(steps=steps, decoded=decoded, par_state=np_tree(dict(par.state_dict())),
+                        ser_state=np_tree(dict(ser.state_dict()))))
+    return out
+
+
+def tp_card_body(rank, world, mesh, *, shape=(16, 256, 64), codes=1024):
+    """tp_vq_train at a small size on the card (tests/test_torch_cuda.py):
+    VectorQuantize(code_axis='code') with expiry, three steps sharded over
+    'code' with this rank's K1 and code_sums launches per step, then the
+    eval forward through tp_apply against the gathered module at rest."""
+    import vqtpu_torch
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.kernels.train_fused import code_sums
+    from vqtpu_torch.parallel import gather_codebooks, shard_codebooks, tp_apply
+
+    torch.cuda.set_device(0)
+    torch.manual_seed(0)
+    vq = vqtpu_torch.VectorQuantize(dim=shape[-1], codebook_size=codes, code_axis='code', threshold_ema_dead_code=2,
+                                    device='cuda').train()
+    shard_codebooks(vq, mesh)
+    launches = []
+    for s in range(3):
+        x = torch.randn(shape, generator=torch.Generator('cuda').manual_seed(s), device='cuda')
+        nearest_code.launches = code_sums.launches = 0
+        with mesh, torch.no_grad():
+            vq(x)
+        torch.cuda.synchronize()
+        launches.append(dict(nearest_code=nearest_code.launches, code_sums=code_sums.launches))
+    gather_codebooks(vq, mesh)
+    vq.eval()
+    x = torch.randn(shape, generator=torch.Generator('cuda').manual_seed(9), device='cuda')
+    with torch.no_grad():
+        q, idx, _ = tp_apply(vq, mesh, lambda m, t: m(t), x)
+        q1, idx1, _ = vq(x)
+    return dict(launches=launches, eval_equal=bool(torch.equal(q, q1) and torch.equal(idx, idx1)))

@@ -26,9 +26,11 @@ RandomProjectionQuantizer (the selection kernel over all heads),
 HierarchicalVQ (one VectorQuantize across scales), FSP, LatentQuantize,
 BinaryMapper and Sequential, with the codebook metrics. Data parallelism
 runs over torch.distributed (`parallel`: collectives named by mesh axis,
-the data-parallel trainer; the quantizers' `sync_axis`), and `utils` holds
-checkpointing, the import of upstream checkpoints and profiling. Row-sharded
-codebooks (`code_axis`) are not ported yet.
+the data-parallel trainer; the quantizers' `sync_axis`), and so do
+row-sharded codebooks (the codebook-bearing modules' `code_axis`,
+`parallel.TensorParallelTrainer`, `parallel.tp_apply`) and group-parallel
+Grouped composites (`parallel.group_parallel_forward`); `utils` holds
+checkpointing, the import of upstream checkpoints and profiling.
 """
 
 from .composite.hierarchical_vq import HierarchicalVQ

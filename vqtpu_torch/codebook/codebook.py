@@ -39,7 +39,21 @@ candidates and psums its bins and sums; the affine batch moments psum
 with `sync_affine_param`; dead-code expiry pools every rank's candidate
 rows and draws the same replacement on every rank. The ranks' state stays
 bit-identical when they start identical and seed their generators alike.
-Row-sharded codebooks (`code_axis`) raise NotImplementedError.
+
+Row-sharded (`code_axis`, a mesh axis name; see `parallel.tp`): at rest the
+codebook holds all its rows; inside a bound mesh that has the axis, its
+per-code leaves (`_code_sharded_leaves`) hold the rank's window of rows and
+every method works on them. Selection is `parallel.shard.sharded_nearest_code`
+(the selection kernel on the rank's rows, the winners reduced over the
+axis), rows come from their owner (`sharded_gather_codes`, on the bf16 tier
+`sharded_quantize_lookup_bf16`), the fused train kernel is not taken, and
+the statistics of the rank's rows are summed by `code_sums` (the fused
+kernel's statistics passes on the card), every token of another rank's
+codes sent to a dump row. The laplace total, the affine codebook moments
+and kmeans' assignments cross the axis; kmeans and expiry draw the global
+index vector with the generator every rank holds alike and keep their
+window. The distance path computes the rank's columns and all-gathers
+them. A leaf with the wrong row count for where it runs raises.
 
 Buffers (and the EMA's writes to a learnable `embed`) are updated in place
 under `torch.no_grad()` from detached tensors, so no graph is kept on them
@@ -64,13 +78,15 @@ from ..core.utils import (
 from ..kernels.distance import (
     gather_codes, gather_codes_per_head, nearest_code_xla, quantize_lookup,
 )
-from ..kernels.train_fused import code_statistics_plain, fused_train_quantize, lookup_with_code_grad
+from ..kernels.train_fused import code_statistics_plain, code_sums, fused_train_quantize, lookup_with_code_grad
+from ..parallel import collectives
 from ..parallel.collectives import psum
+from ..parallel.shard import (
+    code_row0, local_onehot_from_global, local_or_dump, sharded_gather_codes, sharded_nearest_code,
+    sharded_quantize_lookup_bf16, slice_local_cols,
+)
+from ..parallel.tp import check_code_rows
 from . import kmeans as kmeans_module
-
-
-def not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(f'{feature} is not ported to vqtpu_torch yet')
 
 
 # stat_precision: the JAX package's matmul precision of the statistics.
@@ -108,6 +124,11 @@ def _prepare_ema_weight(weight, like: torch.Tensor):
 class Codebook(nn.Module):
     """Euclidean or cosine codebook with EMA statistics, kmeans init and
     dead-code expiry."""
+
+    # the per-code leaves and the position of their code-row dim from the
+    # end, sharded over `code_axis` (parallel.tp)
+    _code_sharded_leaves = {'embed': 2, 'embed_avg': 2, 'accum_embed_avg': 2, 'cluster_size': 1,
+                            'accum_cluster_size': 1}
 
     def __init__(
         self,
@@ -156,10 +177,11 @@ class Codebook(nn.Module):
 
         `sync_axis` names the data-parallel mesh axis (None: one replica);
         `sync_kmeans` and `sync_affine_param` say whether kmeans init and
-        the affine batch moments sync over it too."""
+        the affine batch moments sync over it too. `code_axis` names the
+        mesh axis the codebook's rows shard over (None: not sharded)."""
         super().__init__()
-        if code_axis is not None:
-            raise not_ported('code_axis')
+        if code_axis is not None and vq_bridge is not None:
+            raise ValueError('vq_bridge transforms the whole codebook jointly and cannot run on row-sharded state')
         stat_precision = str(stat_precision).lower()
         if stat_precision not in STAT_PRECISIONS:
             raise ValueError(f'stat_precision must be one of {STAT_PRECISIONS}, got {stat_precision!r}')
@@ -187,6 +209,7 @@ class Codebook(nn.Module):
         self.stat_precision = stat_precision
         self.learnable_codebook = learnable_codebook
         self.sync_axis = sync_axis
+        self.code_axis = code_axis
         self.sync_kmeans = sync_kmeans
         self.sync_affine_param = sync_affine_param
         self.vq_bridge = vq_bridge
@@ -232,6 +255,15 @@ class Codebook(nn.Module):
 
     def transform_input(self, x: torch.Tensor) -> torch.Tensor:
         return l2norm(x) if self.use_cosine_sim else x
+
+    def _code_parallel(self) -> bool:
+        """Whether the codebook works on a row shard: inside a bound mesh
+        that has `code_axis` (its leaves must then hold the rank's rows;
+        outside, all rows)."""
+        return self.code_axis is not None and check_code_rows(self, self.embed.shape[-2])
+
+    def _code_row0(self) -> int:
+        return code_row0(self.code_axis, self.embed.shape[-2])
 
     def _train_fused_active(self, device_type: str) -> bool:
         """Whether a training forward on tensors of `device_type` takes the
@@ -296,8 +328,15 @@ class Codebook(nn.Module):
         embed = embed.detach().reshape(embed.shape[0], -1, embed.shape[-1])
         if self.training:
             decay = self.affine_param_codebook_decay
-            self._update_with_decay('codebook_mean', embed.mean(-2, keepdim=True), decay)
-            self._update_with_decay('codebook_variance', embed.var(-2, keepdim=True, unbiased=False), decay)
+            if self._code_parallel():
+                # the moments over every rank's rows: partial sums psum'd
+                # over the code axis, divided by the whole codebook's size
+                c_mean = psum(embed.sum(-2, keepdim=True), self.code_axis) / self.codebook_size
+                c_var = psum(((embed - c_mean) ** 2).sum(-2, keepdim=True), self.code_axis) / self.codebook_size
+            else:
+                c_mean, c_var = embed.mean(-2, keepdim=True), embed.var(-2, keepdim=True, unbiased=False)
+            self._update_with_decay('codebook_mean', c_mean, decay)
+            self._update_with_decay('codebook_variance', c_var, decay)
         sync = self.sync_axis if self.sync_affine_param else None
         if mask is not None:
             w = mask.float()[..., None]                                 # (h, N, 1)
@@ -342,6 +381,7 @@ class Codebook(nn.Module):
             self.generator, flatten.detach(), self.codebook_size,
             num_iters=self.kmeans_iters, use_cosine_sim=self.use_cosine_sim, mask=mask,
             sync_axis=self.sync_axis if self.sync_kmeans else None,
+            code_axis=self.code_axis if self._code_parallel() else None,
         )
         embed_sum = embed * cluster_size[..., None]
         self.embed.copy_(self._normalized_embed(embed_sum, cluster_size))
@@ -353,8 +393,13 @@ class Codebook(nn.Module):
     # -- EMA update machinery ------------------------------------------------
 
     def _normalized_embed(self, embed_avg: torch.Tensor, cluster_size: torch.Tensor) -> torch.Tensor:
-        smoothed = laplace_smoothing(cluster_size, self.codebook_size, self.eps)
-        smoothed = smoothed * cluster_size.sum(-1, keepdim=True)
+        if self._code_parallel():
+            # the laplace total is the mass of every rank's rows
+            total = psum(cluster_size.sum(-1, keepdim=True), self.code_axis)
+            smoothed = (cluster_size + self.eps) / (total + self.codebook_size * self.eps) * total
+        else:
+            smoothed = laplace_smoothing(cluster_size, self.codebook_size, self.eps)
+            smoothed = smoothed * cluster_size.sum(-1, keepdim=True)
         embed_normalized = embed_avg / smoothed[..., None]
         if self.use_cosine_sim:
             embed_normalized = l2norm(embed_normalized)
@@ -389,7 +434,20 @@ class Codebook(nn.Module):
         `mask` (h, N) is False count for nothing. With `affine_param` the
         tokens are first mapped to the codebook's statistics."""
         flatten = flatten.detach().float()
-        if self.stat_precision != 'highest':
+        if self._code_parallel():
+            # the rank's rows: codes of other ranks go to a dump row c_local
+            c_local, row0 = self.embed.shape[-2], self._code_row0()
+            if self.stat_precision != 'highest':
+                onehot = local_onehot_from_global(embed_ind, c_local, row0)
+                bins, embed_sum = self._onehot_statistics(flatten, onehot, mask)
+            else:
+                if self.affine_param:
+                    flatten = self._affine_to_codebook(flatten)
+                weights = None if mask is None else mask.float().contiguous()
+                local = local_or_dump(embed_ind, c_local, row0).contiguous()
+                bins, embed_sum = code_sums(flatten.contiguous(), local, c_local + 1, weights)
+                bins, embed_sum = bins[:, :c_local], embed_sum[:, :c_local]
+        elif self.stat_precision != 'highest':
             onehot = F.one_hot(embed_ind.long(), self.codebook_size).float()
             bins, embed_sum = self._onehot_statistics(flatten, onehot, mask)
         else:
@@ -444,14 +502,24 @@ class Codebook(nn.Module):
             batch_samples = l2norm(batch_samples)
         batch_samples = batch_samples.detach().float()
         h = batch_samples.shape[0]
-        sampled = torch.stack([
-            masked_sample_vectors(
-                self.generator, batch_samples[i],
-                None if seq_mask is None else seq_mask[i], self.codebook_size,
-            )
-            for i in range(h)
-        ])
-        sampled = kmeans_module.pool_candidates(self.generator, sampled, self.sync_axis)
+        if self._code_parallel():
+            # the rank's window of the global draw, never (c, d) candidates
+            sampled = torch.stack([
+                kmeans_module.sharded_draw(
+                    self.generator, batch_samples[i], None if seq_mask is None else seq_mask[i],
+                    self.codebook_size, self.code_axis, self.sync_axis,
+                )
+                for i in range(h)
+            ])
+        else:
+            sampled = torch.stack([
+                masked_sample_vectors(
+                    self.generator, batch_samples[i],
+                    None if seq_mask is None else seq_mask[i], self.codebook_size,
+                )
+                for i in range(h)
+            ])
+            sampled = kmeans_module.pool_candidates(self.generator, sampled, self.sync_axis)
         if seq_mask is not None:
             has_valid = psum(seq_mask.any(-1)[:, None].float(), self.sync_axis) > 0
         else:
@@ -633,10 +701,17 @@ class Codebook(nn.Module):
                      and topk is None and codebook_transform_fn is None)
         batch_stats = None
         dist = embed_onehot = None
+        code_parallel = self._code_parallel()
 
         if not fast_path:
             embed_ind, quantize, dist, embed_onehot = self._distance_select(
                 tokens, embed, sample_codebook_temp, topk, codebook_transform_fn)
+            if code_parallel:
+                # as in the JAX package, the statistics of a row shard come
+                # from the indices, not the sampler's one-hot
+                embed_onehot = None
+        elif code_parallel:
+            embed_ind, quantize = self._sharded_select(flatten, embed, metric)
         elif update and self._fused_train_eligible() and self._train_fused_active(flatten.device.type):
             weights = None if flat_mask is None else flat_mask.float().contiguous()
             embed_ind, quantize, bins, esum = fused_train_quantize(
@@ -684,6 +759,21 @@ class Codebook(nn.Module):
             embed_ind = embed_ind[0]
         return quantize, embed_ind, None if dist is None else unpack(dist)
 
+    def _sharded_select(self, flatten, embed, metric):
+        """The fast path on a row shard: (h, N) global indices and their
+        rows, per head; the bf16 tier in eval, else the selection kernel on
+        the rank's rows and the rows from their owners (carrying their
+        gradient to a learnable shard)."""
+        if not self.training and self.quantize_tier == 'bf16':
+            out = [sharded_quantize_lookup_bf16(flatten[i], embed[i], self.code_axis, metric)
+                   for i in range(flatten.shape[0])]
+        else:
+            out = []
+            for i in range(flatten.shape[0]):
+                idx = sharded_nearest_code(flatten[i], embed[i], self.code_axis, metric)
+                out.append((idx, sharded_gather_codes(embed[i], idx, self.code_axis)))
+        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
     def _fused_train_eligible(self) -> bool:
         """Whether the fused train kernel may take this codebook's training
         forward, as in the JAX package: its rows carry no gradient (no
@@ -723,6 +813,11 @@ class Codebook(nn.Module):
         # buffer in place before the backward pass
         embed = embed.clone()
         transformed = None
+        code_parallel = self._code_parallel()
+        if code_parallel:
+            # a rank's distances are its columns: its share of the tokens'
+            # gradient is partial, and the psum in the backward sums it
+            tokens = collectives.psum_in_bwd(tokens, self.code_axis)
         with matmul_tf32(tokens.device, allow=False):
             if codebook_transform_fn is not None:
                 transformed = codebook_transform_fn(embed)               # (h, b, n, c, d)
@@ -737,12 +832,18 @@ class Codebook(nn.Module):
                 dist = tokens @ embed.transpose(-1, -2)
             else:
                 dist = -cdist(tokens, embed)
+            if code_parallel:
+                # every rank's columns, in code order; the backward hands
+                # each rank its own columns' cotangent
+                dist = collectives.all_gather_exact(dist, self.code_axis, concat_axis=2)
 
             embed_ind, embed_onehot = self.gumbel_sample_fn(
                 self.generator, dist, temperature=temperature, training=self.training, topk=topk,
             )
             c = dist.shape[-1]
-            if transformed is not None:
+            if code_parallel:
+                quantize = self._sharded_distance_rows(embed, transformed, embed_ind, embed_onehot)
+            elif transformed is not None:
                 if self.training:
                     onehot = embed_onehot.reshape(h, num_tokens, -1, c)
                     quantize = onehot @ transformed                       # (h, N, K, d)
@@ -756,3 +857,24 @@ class Codebook(nn.Module):
             else:
                 quantize = torch.stack([gather_codes(embed[i], embed_ind[i]) for i in range(h)])
         return embed_ind, quantize, dist, embed_onehot
+
+    def _sharded_distance_rows(self, embed, transformed, embed_ind, embed_onehot):
+        """The distance path's rows on a row shard: each rank contributes
+        its own codes' rows and psum_exact sums them. In training through the
+        rank's columns of the sampler's one-hot (`slice_local_cols`, whose
+        backward gives the one-hot its full cotangent); in eval through the
+        one-hot of the indices over the rank's window, or the row gather."""
+        h, num_tokens = embed_ind.shape[:2]
+        c_local = embed.shape[-2]
+        d = embed.shape[-1]
+        if self.training:
+            onehot = slice_local_cols(embed_onehot, c_local, self.code_axis)
+        elif transformed is None:
+            return torch.stack([sharded_gather_codes(embed[i], embed_ind[i], self.code_axis) for i in range(h)])
+        else:
+            onehot = local_onehot_from_global(embed_ind, c_local, self._code_row0())
+        if transformed is not None:
+            local = onehot.reshape(h, num_tokens, -1, c_local) @ transformed      # (h, N, K, d)
+        else:
+            local = onehot.reshape(h, -1, c_local) @ embed
+        return collectives.psum_exact(local, self.code_axis).reshape(*embed_ind.shape, d)

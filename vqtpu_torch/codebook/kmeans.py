@@ -1,5 +1,4 @@
-"""K-means codebook initialization (counterpart of vqtpu/codebook/kmeans.py,
-without its row-sharded `code_axis`).
+"""K-means codebook initialization (counterpart of vqtpu/codebook/kmeans.py).
 
 Lloyd's algorithm over the first training batch: a fixed number of
 iterations, masked tokens excluded from assignments and counts. Each step
@@ -11,15 +10,25 @@ from its own tokens, the buffers are pooled with `all_gather`, and every
 rank draws the initial means from the pool with the same generator state,
 so the ranks agree without a host round trip; the bins and sums of each
 step are psum'd over the axis.
+
+Row-sharded (`code_axis`): each rank draws and updates only its window of
+the centroids. The initial draw is the global index vector, drawn with the
+generator every rank of the axis holds in the same state, of which each
+rank keeps its window (what the unsharded draw gives those rows); with
+`sync_axis` each slot also draws the data rank it comes from, and the
+candidates are summed over the data axis from that rank alone. Each step
+assigns with `parallel.shard.sharded_nearest_code` (the selection kernel
+on the rank's rows on the card) and sums with `code_sums`, every token of
+another rank's centroids sent to a dump row.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.sampling import masked_sample_vectors
+from ..core.sampling import masked_sample_indices, masked_sample_vectors
 from ..core.utils import cdist_sq, l2norm
-from ..kernels.train_fused import code_statistics_plain
+from ..kernels.train_fused import code_statistics_plain, code_sums
 from ..parallel import collectives
 
 
@@ -35,6 +44,32 @@ def sample_means(
         masked_sample_vectors(generator, s, None if mask is None else mask[i], num_clusters)
         for i, s in enumerate(samples)
     ])
+
+
+def sharded_draw(
+    generator: torch.Generator,
+    samples: torch.Tensor,
+    mask: torch.Tensor | None,
+    num: int,
+    code_axis: str,
+    sync_axis: str | None,
+) -> torch.Tensor:
+    """This rank's window of a draw of `num` rows of (n, d) `samples` (the
+    rows where `mask` is True) for a codebook sharded over `code_axis`:
+    (num / axis size, d). The global index vector comes from `generator`;
+    with `sync_axis`, each slot's data rank is drawn too, and a slot takes
+    its row from that rank's samples (a psum over the data axis)."""
+    world = collectives.axis_size(code_axis)
+    c_local = num // world
+    row0 = collectives.axis_index(code_axis) * c_local
+    idx = masked_sample_indices(generator, samples.shape[0], mask, num, samples.device)
+    cand = samples.index_select(0, idx[row0:row0 + c_local])
+    if sync_axis is None:
+        return cand
+    src = torch.randint(0, collectives.axis_size(sync_axis), (num,), generator=generator,
+                        device=samples.device)[row0:row0 + c_local]
+    mine = (src == collectives.axis_index(sync_axis))[:, None]
+    return collectives.psum(torch.where(mine, cand, 0.0), sync_axis)
 
 
 def pool_candidates(generator: torch.Generator, local: torch.Tensor, sync_axis: str | None) -> torch.Tensor:
@@ -55,22 +90,44 @@ def kmeans(
     use_cosine_sim: bool = False,
     mask: torch.Tensor | None = None,
     sync_axis: str | None = None,
+    code_axis: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(h, n, d) samples -> (means (h, c, d), bins (h, c)); with
-    `sync_axis`, over the tokens of every rank."""
+    `sync_axis`, over the tokens of every rank; with `code_axis` (bound),
+    this rank's window of the centroids, (h, c_local, d) and (h, c_local)."""
+    from ..parallel.shard import local_or_dump, sharded_nearest_code
+
     h = samples.shape[0]
     samples = samples.float()
-    means = pool_candidates(generator, sample_means(generator, samples, mask, num_clusters), sync_axis)
+    if code_axis is not None:
+        means = torch.stack([
+            sharded_draw(generator, s, None if mask is None else mask[i], num_clusters, code_axis, sync_axis)
+            for i, s in enumerate(samples)
+        ])
+    else:
+        means = pool_candidates(generator, sample_means(generator, samples, mask, num_clusters), sync_axis)
+    c_rows = means.shape[1]
     weights = None if mask is None else mask.float()
+    metric = 'cosine' if use_cosine_sim else 'euclidean'
 
-    bins = torch.zeros(h, num_clusters, device=samples.device)
+    bins = torch.zeros(h, c_rows, device=samples.device)
     for _ in range(num_iters):
-        if use_cosine_sim:
-            dists = samples @ means.transpose(-1, -2)
+        if code_axis is not None:
+            row0 = collectives.axis_index(code_axis) * c_rows
+            buckets = torch.stack([
+                local_or_dump(sharded_nearest_code(s, m, code_axis, metric), c_rows, row0)
+                for s, m in zip(samples, means)
+            ])
+            bins, new_means = code_sums(samples.contiguous(), buckets, c_rows + 1,
+                                        None if weights is None else weights.contiguous())
+            bins, new_means = bins[:, :c_rows], new_means[:, :c_rows]
         else:
-            dists = -cdist_sq(samples, means)
-        buckets = dists.argmax(-1)                                # (h, n)
-        bins, new_means = code_statistics_plain(samples, buckets, num_clusters, weights)
+            if use_cosine_sim:
+                dists = samples @ means.transpose(-1, -2)
+            else:
+                dists = -cdist_sq(samples, means)
+            buckets = dists.argmax(-1)                            # (h, n)
+            bins, new_means = code_statistics_plain(samples, buckets, num_clusters, weights)
         bins = collectives.psum(bins, sync_axis)
         new_means = collectives.psum(new_means, sync_axis)
 

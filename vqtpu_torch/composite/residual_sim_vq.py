@@ -6,7 +6,8 @@ package: in training every layer runs (on the card one selection kernel
 launch a layer, and `code_sums` a layer in the backward), and the layers
 after the drawn index give zeros, index -1 and loss 0. The index comes from
 `self.generator`, or from `rand_quantize_dropout_index` when the caller
-gives it.
+gives it. With the layers' `code_axis`, decoding inside a bound mesh
+gathers each row from the rank that owns it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from torch import nn
 
 from ..core.sampling import quantize_dropout_index
 from ..core.utils import first, resolve_device
+from ..parallel.shard import sharded_gather_codes
 from ..quantizers.sim_vq import SimVQ
 
 
@@ -88,7 +90,13 @@ class ResidualSimVQ(nn.Module):
         dropout_mask = ind == -1
         ind = ind.masked_fill(dropout_mask, 0).long()
         codebooks = self.codebooks
-        all_codes = torch.stack([codebooks[i][ind[..., i]] for i in range(self.num_quantizers)])
+        layer0 = first(self.layers)
+        if layer0._code_parallel():
+            # row-sharded frozen codebooks: each row from the rank that owns it
+            all_codes = torch.stack([sharded_gather_codes(codebooks[i], ind[..., i], layer0.code_axis)
+                                     for i in range(self.num_quantizers)])
+        else:
+            all_codes = torch.stack([codebooks[i][ind[..., i]] for i in range(self.num_quantizers)])
         all_codes = all_codes.masked_fill(dropout_mask.movedim(-1, 0)[..., None], 0.0)
         all_codes = all_codes.reshape(self.num_quantizers, *lead_shape, -1)
         if self.channel_first:

@@ -33,6 +33,13 @@ launch (K1) per layer in eval and in a learnable (DiVeQ) training step, one
 fused train kernel launch (K4) per layer in an EMA training step, and the
 distance-materializing path (no kernel) for beam search, stochastic codes
 and QINCo.
+
+Row-sharded codebooks: `code_axis` rides the layers' kwargs. Inside a bound
+mesh each layer's codebook holds the rank's rows (a layer then runs K1 on
+its rows in eval and in EMA training, with `code_sums` for its statistics),
+the decode gathers each row from its owner, and QINCo's MLPs, which see
+only the rank's rows, declare their gradients partial
+(`_code_partial_grad_submodules`).
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from torch import nn
 from ..core.sampling import quantize_dropout_index, topk_first
 from ..core.ste import directional_reparam, frac_gradient
 from ..core.utils import cast_tuple, default, exists, first, resolve_device
+from ..parallel.collectives import psum_exact, psum_in_bwd
+from ..parallel.shard import code_row0, local_onehot_from_global, sharded_gather_codes
 from ..quantizers.vq import VectorQuantize
 
 
@@ -206,6 +215,13 @@ class ResidualVQ(nn.Module):
                 **(mlp_kwargs or {}))
             for _ in range(num_quantizers - 1)
         ) if implicit_neural_codebook else None
+        layer_code_axis = first(self.layers).code_axis
+        if implicit_neural_codebook and layer_code_axis is not None:
+            # row-sharded codebooks: the replicated MLPs see only the rank's
+            # rows in the forward, so their gradients are partial per rank
+            # (parallel.tp psums them)
+            self.code_axis = layer_code_axis
+            self._code_partial_grad_submodules = ('mlps',)
 
         # a shared codebook: every layer holds the one Codebook module, and
         # its in-place optimizer
@@ -236,6 +252,15 @@ class ResidualVQ(nn.Module):
             return tuple(codebooks)
         return torch.stack(codebooks)
 
+    def _condition(self, quantized_out):
+        """QINCo's condition, the sum of the layers before. On a row shard
+        the MLP maps only the rank's rows, so the condition's gradient from
+        it is the rank's share: the psum in the backward sums the shares."""
+        if self.implicit_neural_codebook and self.layers[0]._codebook._code_parallel() \
+                and isinstance(quantized_out, torch.Tensor):
+            return psum_in_bwd(quantized_out, self.code_axis)
+        return quantized_out
+
     def _layer_mlps(self) -> tuple:
         """Each layer's QINCo MLP, None for the first layer and without
         QINCo."""
@@ -259,6 +284,10 @@ class ResidualVQ(nn.Module):
         dropout_mask = ind == -1
         ind = ind.masked_fill(dropout_mask, 0)
         bf16_tier = self.layers[0].quantize_tier == 'bf16'
+        # inside a mesh binding the layers' code_axis each codebook holds
+        # the rank's rows, and every row comes from the rank that owns it
+        code_axis = self.layers[0].code_axis
+        code_parallel = self.layers[0]._codebook._code_parallel()
         all_codes = []
         quantized_out = 0.0
         for q, (codes, mlp) in enumerate(zip(self.codebooks, self._layer_mlps())):
@@ -266,13 +295,19 @@ class ResidualVQ(nn.Module):
             if mlp is not None:
                 # QINCo: the row of the per-token codebook of this layer
                 transformed = mlp(codes, condition=quantized_out)           # (b, n, c, d)
-                pick = layer_ind[..., None, None].expand(*layer_ind.shape, 1, transformed.shape[-1])
-                layer_codes = transformed.gather(-2, pick)[..., 0, :]
+                if code_parallel:
+                    c_local = transformed.shape[-2]
+                    onehot = local_onehot_from_global(layer_ind, c_local, code_row0(code_axis, c_local))
+                    layer_codes = psum_exact((onehot[..., None, :] @ transformed)[..., 0, :], code_axis)
+                else:
+                    pick = layer_ind[..., None, None].expand(*layer_ind.shape, 1, transformed.shape[-1])
+                    layer_codes = transformed.gather(-2, pick)[..., 0, :]
             else:
                 if bf16_tier:
                     # the bf16 tier quantizes to the bf16-rounded rows
                     codes = codes.to(torch.bfloat16).float()
-                layer_codes = codes[layer_ind]
+                layer_codes = (sharded_gather_codes(codes, layer_ind, code_axis) if code_parallel
+                               else codes[layer_ind])
             all_codes.append(layer_codes)
             quantized_out = quantized_out + layer_codes
         all_codes = torch.stack(all_codes)                                  # (q, b, n, d)
@@ -351,7 +386,7 @@ class ResidualVQ(nn.Module):
                 residual, mask=mask,
                 indices=indices[..., quantizer_index] if return_loss else None,
                 sample_codebook_temp=sample_codebook_temp, freeze_codebook=freeze_codebook,
-                codebook_transform_fn=None if mlp is None else partial(mlp, condition=quantized_out),
+                codebook_transform_fn=None if mlp is None else partial(mlp, condition=self._condition(quantized_out)),
                 ema_update_weight=None if dropout_index is None else float(keep),
             )
             if return_loss:
@@ -416,7 +451,7 @@ class ResidualVQ(nn.Module):
             quantized, embed_indices, loss = vq(
                 residual, mask=mask, sample_codebook_temp=sample_codebook_temp,
                 freeze_codebook=freeze_codebook, topk=k, dist_precision=self.beam_score_precision,
-                codebook_transform_fn=None if mlp is None else partial(mlp, condition=quantized_out),
+                codebook_transform_fn=None if mlp is None else partial(mlp, condition=self._condition(quantized_out)),
             )                                  # quantized (..., j, k, d); indices, loss (..., j, k)
             if dropout_index is not None and quantizer_index > dropout_index:
                 quantized = torch.zeros_like(quantized)

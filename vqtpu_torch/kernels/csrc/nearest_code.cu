@@ -29,13 +29,15 @@ long long vqtpu_nearest_code_scratch_floats(long long h, long long c, long long 
 // x (h, n, d), e (h, c, d), bias (h, c) f32 and idx (h, n) int32, all
 // contiguous on the current device; scratch of
 // vqtpu_nearest_code_scratch_floats floats, 16-byte aligned; q (h, n, d) f32
-// for the winning codebook rows, or null for indices only. Launches on
+// for the winning codebook rows, or null for indices only; best (h, n) f32
+// for the winning scores (x.e + bias as the argmax compared them), or null.
+// Launches on
 // `stream` and returns cudaGetLastError(). Requires 1 <= h <= 65535 and
 // 1 <= n, c, d < 2^31 (checked by the Python wrapper).
 int vqtpu_nearest_code_f32(const float* x, const float* e, const float* bias, float* scratch,
-                           int32_t* idx, float* q, long long h, long long n, long long c,
+                           int32_t* idx, float* q, float* best, long long h, long long n, long long c,
                            long long d, void* stream) {
-  return static_cast<int>(vqtpu::launch_select_tf32(x, e, bias, scratch, idx, q, h, n, c, d,
+  return static_cast<int>(vqtpu::launch_select_tf32(x, e, bias, scratch, idx, q, best, h, n, c, d,
                                                      static_cast<cudaStream_t>(stream)));
 }
 

@@ -3,6 +3,7 @@
 //
 //   idx[h, t] = first argmax_j ( x[h, t, :] . e[h, j, :] + bias[h, j] )
 //   q[h, t, :] = e[h, idx[h, t], :]          (optional, a bit copy)
+//   best[h, t] = the score at idx[h, t]        (optional)
 //
 // What bounds it: 2*n*c*d multiply-adds, 2.75e11 FLOP at n = 2^20, c = 512,
 // d = 256. Outside the tensor cores that is 4.1 ms at the H100 SXM's
@@ -62,6 +63,16 @@
 // smaller index winning on equal scores. Duplicated codebook rows get the
 // same split and the same products in the same order, so they score
 // bit-equal and the first copy wins.
+//
+// The winning score is the carry the quad reduction ends with: the f32 sum
+// of the three TF32 products and the bias, as the argmax compared it. With
+// a non-null `best` the kernel writes it beside idx (n floats more). A
+// column's score does not depend on the column's position in its tile or
+// on c: the pre-pass splits each code alone, and its products and their
+// order are the same wherever the code sits. So the scores of a codebook's
+// row blocks, each selected alone, are the unsharded scores, and a
+// row-sharded selection reduces the shards' (best, index) pairs without
+// scoring again (the JAX package's sharded_nearest_code, K1 per shard).
 //
 // With kCopyRows the block then copies each token's winning row of the
 // original f32 codebook (not eb + es) into q: rows stay bit-equal to
@@ -259,8 +270,8 @@ template <bool kVec, bool kCopyRows>
 __global__ void __launch_bounds__(kTcThreads, 1)
 select_tf32_kernel(const float* __restrict__ x, const float* __restrict__ packed,
                    const float* __restrict__ e, const float* __restrict__ bias,
-                   int32_t* __restrict__ idx, float* __restrict__ q, int n, int c, int d, int c_tiles,
-                   int k_chunks) {
+                   int32_t* __restrict__ idx, float* __restrict__ q, float* __restrict__ best_out, int n,
+                   int c, int d, int c_tiles, int k_chunks) {
   extern __shared__ uint8_t smem_raw[];
   float* stages = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                            ~static_cast<uintptr_t>(1023));
@@ -304,6 +315,7 @@ select_tf32_kernel(const float* __restrict__ x, const float* __restrict__ packed
   x += static_cast<size_t>(head) * n * d;
   bias += static_cast<size_t>(head) * c;
   idx += static_cast<size_t>(head) * n;
+  if (best_out != nullptr) best_out += static_cast<size_t>(head) * n;
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
@@ -416,7 +428,10 @@ select_tf32_kernel(const float* __restrict__ x, const float* __restrict__ packed
       }
     }
     const int r = row + 8 * rr;
-    if (tq == 0 && r < n) idx[r] = id;
+    if (tq == 0 && r < n) {
+      idx[r] = id;
+      if (best_out != nullptr) best_out[r] = v;
+    }
     if (kCopyRows && tq == 0) block_idx[local + 8 * rr] = id;
   }
 
@@ -455,26 +470,27 @@ inline long long select_tf32_scratch_floats(long long h, long long c, long long 
 
 template <bool kVec, bool kCopyRows>
 inline cudaError_t launch_select_tf32_kernel(const float* x, const float* packed, const float* e,
-                                             const float* bias, int32_t* idx, float* q, long long h,
-                                             long long n, long long c, long long d, int c_tiles,
-                                             int k_chunks, cudaStream_t stream) {
+                                             const float* bias, int32_t* idx, float* q, float* best,
+                                             long long h, long long n, long long c, long long d,
+                                             int c_tiles, int k_chunks, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(select_tf32_kernel<kVec, kCopyRows>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(kTcSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((n + kTcTokens - 1) / kTcTokens), static_cast<unsigned>(h));
   select_tf32_kernel<kVec, kCopyRows><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
-      x, packed, e, bias, idx, q, static_cast<int>(n), static_cast<int>(c), static_cast<int>(d), c_tiles,
-      k_chunks);
+      x, packed, e, bias, idx, q, best, static_cast<int>(n), static_cast<int>(c), static_cast<int>(d),
+      c_tiles, k_chunks);
   return cudaGetLastError();
 }
 
 // Splits the codebook into `packed` (select_tf32_scratch_floats floats,
 // 16-byte aligned), then runs the selection (and the row copy when q is not
-// null) on `stream`; returns the first nonzero cudaGetLastError().
+// null, the winning scores into `best` (h, n) when it is not null) on
+// `stream`; returns the first nonzero cudaGetLastError().
 inline cudaError_t launch_select_tf32(const float* x, const float* e, const float* bias, float* packed,
-                                      int32_t* idx, float* q, long long h, long long n, long long c,
-                                      long long d, cudaStream_t stream) {
+                                      int32_t* idx, float* q, float* best, long long h, long long n,
+                                      long long c, long long d, cudaStream_t stream) {
   const int c_tiles = static_cast<int>((c + kTcCodes - 1) / kTcCodes);
   const int k_chunks = static_cast<int>((d + kTcDepth - 1) / kTcDepth);
   const long long total = select_tf32_scratch_floats(h, c, d);
@@ -489,14 +505,14 @@ inline cudaError_t launch_select_tf32(const float* x, const float* e, const floa
                    (reinterpret_cast<uintptr_t>(e) % 16) == 0 &&
                    (q == nullptr || (reinterpret_cast<uintptr_t>(q) % 16) == 0);
   if (q != nullptr) {
-    return vec ? launch_select_tf32_kernel<true, true>(x, packed, e, bias, idx, q, h, n, c, d, c_tiles,
+    return vec ? launch_select_tf32_kernel<true, true>(x, packed, e, bias, idx, q, best, h, n, c, d, c_tiles,
                                                        k_chunks, stream)
-               : launch_select_tf32_kernel<false, true>(x, packed, e, bias, idx, q, h, n, c, d,
+               : launch_select_tf32_kernel<false, true>(x, packed, e, bias, idx, q, best, h, n, c, d,
                                                         c_tiles, k_chunks, stream);
   }
-  return vec ? launch_select_tf32_kernel<true, false>(x, packed, e, bias, idx, q, h, n, c, d, c_tiles,
+  return vec ? launch_select_tf32_kernel<true, false>(x, packed, e, bias, idx, q, best, h, n, c, d, c_tiles,
                                                       k_chunks, stream)
-             : launch_select_tf32_kernel<false, false>(x, packed, e, bias, idx, q, h, n, c, d, c_tiles,
+             : launch_select_tf32_kernel<false, false>(x, packed, e, bias, idx, q, best, h, n, c, d, c_tiles,
                                                        k_chunks, stream);
 }
 

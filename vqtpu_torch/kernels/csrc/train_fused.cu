@@ -735,7 +735,7 @@ int launch_selection(bool tensor_cores, const float* x, const float* e, const fl
                      int32_t* idx, float* q, long long h, long long n, long long c, long long d,
                      cudaStream_t s) {
   return static_cast<int>(tensor_cores
-                              ? vqtpu::launch_select_tf32(x, e, bias, packed, idx, q, h, n, c, d, s)
+                              ? vqtpu::launch_select_tf32(x, e, bias, packed, idx, q, nullptr, h, n, c, d, s)
                               : vqtpu::launch_select_codes<true>(x, e, bias, idx, q, h, n, c, d, s));
 }
 

@@ -38,23 +38,29 @@ def selection_bias(embed: torch.Tensor, metric: str) -> torch.Tensor:
 
 
 def nearest_code_plain(
-    x: torch.Tensor, embed: torch.Tensor, bias: torch.Tensor
-) -> torch.Tensor:
+    x: torch.Tensor, embed: torch.Tensor, bias: torch.Tensor, return_best: bool = False
+):
     """Plain version of the kernel: (..., n, d), (..., c, d), (..., c) ->
     (..., n) int32 argmax of `x @ embed.T + bias`, first index on ties,
-    computed in chunks of tokens."""
+    computed in chunks of tokens; with `return_best`, also the (..., n)
+    winning scores."""
     if x.ndim == 3:
-        return torch.stack([
-            nearest_code_plain(x[i], embed[i], bias[i]) for i in range(x.shape[0])
-        ])
+        outs = [nearest_code_plain(x[i], embed[i], bias[i], return_best) for i in range(x.shape[0])]
+        if return_best:
+            return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+        return torch.stack(outs)
     n, c = x.shape[0], embed.shape[0]
     rows = max(1, _PLAIN_CHUNK_ELEMS // c)
     out = torch.empty(n, dtype=torch.int32, device=x.device)
+    best = torch.empty(n, dtype=torch.float32, device=x.device) if return_best else None
     embed_t = embed.T
     for start in range(0, n, rows):
         scores = x[start:start + rows] @ embed_t + bias
-        out[start:start + rows] = scores.argmax(-1)
-    return out
+        if return_best:
+            out[start:start + rows], best[start:start + rows] = argmax_first_with_best(scores)
+        else:
+            out[start:start + rows] = scores.argmax(-1)
+    return (out, best) if return_best else out
 
 
 def _check_kernel_operands(x, embed, bias, name='nearest_code'):
@@ -91,16 +97,18 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f'{what} kernel launch failed: {msg} ({err})')
 
 
-def _nearest_code_cuda(x, embed, bias, rows: bool = False):
-    """The tensor-core kernel: indices, and with `rows` the winning codebook
-    rows copied by the same launch. Counts one launch in
-    `nearest_code.launches`."""
+def _nearest_code_cuda(x, embed, bias, rows: bool = False, best: bool = False):
+    """The tensor-core kernel: indices, with `rows` the winning codebook
+    rows copied by the same launch, with `best` the winning scores.
+    Returns idx, (idx, q), (idx, best) or (idx, q, best). Counts one launch
+    in `nearest_code.launches`."""
     squeeze = x.ndim == 2
     x, embed, bias = _check_kernel_operands(x, embed, bias)
     h, n, d = x.shape
     c = embed.shape[1]
     idx = torch.empty((h, n), dtype=torch.int32, device=x.device)
     q = torch.empty((h, n, d), dtype=torch.float32, device=x.device) if rows else None
+    score = torch.empty((h, n), dtype=torch.float32, device=x.device) if best else None
     if n:
         lib = _kernel_library()
         scratch = torch.empty(lib.vqtpu_nearest_code_scratch_floats(h, c, d), device=x.device)
@@ -108,19 +116,21 @@ def _nearest_code_cuda(x, embed, bias, rows: bool = False):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.vqtpu_nearest_code_f32(
                 x.data_ptr(), embed.data_ptr(), bias.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
-                None if q is None else q.data_ptr(), h, n, c, d, stream,
+                None if q is None else q.data_ptr(), None if score is None else score.data_ptr(),
+                h, n, c, d, stream,
             )
         _raise_on(lib, err, 'nearest_code')
         nearest_code.launches += 1
+    out = tuple(t for t in (idx, q, score) if t is not None)
     if squeeze:
-        idx, q = idx[0], None if q is None else q[0]
-    return (idx, q) if rows else idx
+        out = tuple(t[0] for t in out)
+    return out if len(out) > 1 else out[0]
 
 
 def _kernel_library() -> ctypes.CDLL:
     lib = _build.load('nearest_code')
     ptr, size = ctypes.c_void_p, ctypes.c_longlong
-    lib.vqtpu_nearest_code_f32.argtypes = [ptr] * 6 + [size] * 4 + [ptr]
+    lib.vqtpu_nearest_code_f32.argtypes = [ptr] * 7 + [size] * 4 + [ptr]
     lib.vqtpu_nearest_code_f32.restype = ctypes.c_int
     lib.vqtpu_nearest_code_f32_simt.argtypes = [ptr] * 4 + [size] * 4 + [ptr]
     lib.vqtpu_nearest_code_f32_simt.restype = ctypes.c_int
@@ -160,9 +170,14 @@ def nearest_code(
     embed: torch.Tensor,
     metric: str = 'euclidean',
     bias: torch.Tensor | None = None,
-) -> torch.Tensor:
+    *,
+    return_best: bool = False,
+):
     """Nearest-code indices: (n, d) or (h, n, d) tokens against (c, d) or
-    (h, c, d) codes -> (n,) or (h, n) int32, first index on ties.
+    (h, c, d) codes -> (n,) or (h, n) int32, first index on ties; with
+    `return_best`, (indices, best) where best (f32, the indices' shape) is
+    the score x.e + bias that the argmax reduced, in the kernel's own
+    arithmetic (the row-sharded selection compares shards by it).
 
     `bias` defaults to `selection_bias(embed, metric)`. CUDA tensors launch
     the Hopper kernel (f32, contiguous, or it raises) and count the launch
@@ -171,10 +186,10 @@ def nearest_code(
     if bias is None:
         bias = selection_bias(embed, metric)
     if x.device.type == 'cpu':
-        return nearest_code_plain(x, embed, bias)
+        return nearest_code_plain(x, embed, bias, return_best)
     if x.device.type != 'cuda':
         raise ValueError(f'nearest_code runs on CUDA or CPU tensors, not {x.device}')
-    return _nearest_code_cuda(x, embed, bias)
+    return _nearest_code_cuda(x, embed, bias, best=return_best)
 
 
 nearest_code.launches = 0
@@ -251,16 +266,32 @@ def quantize_lookup(
     return idx, gather_codes(embed, idx)
 
 
+def bf16_select(x: torch.Tensor, embed: torch.Tensor, metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 tier's selection: (n, d) tokens against (c, d) codes, both
+    cast to bfloat16 -> (int32 first-index argmax, best score) of the f32
+    scores of the bf16 values (each product exact in f32; a product of two
+    bf16 tensors would round the scores to bf16) plus the bias of the
+    bf16-cast codes, computed in chunks of tokens, as `nearest_code_plain`
+    is, so that a large codebook's (n, c) scores are never whole."""
+    ef = embed.to(torch.bfloat16).float()
+    bias = selection_bias(ef, metric)
+    xb = x.to(torch.bfloat16).float()
+    n, c = x.shape[0], ef.shape[0]
+    rows = max(1, _PLAIN_CHUNK_ELEMS // c)
+    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    best = torch.empty(n, dtype=torch.float32, device=x.device)
+    for start in range(0, n, rows):
+        idx[start:start + rows], best[start:start + rows] = argmax_first_with_best(
+            xb[start:start + rows] @ ef.T + bias)
+    return idx, best
+
+
 def _quantize_lookup_bf16(x, embed, metric):
     eb = embed.to(torch.bfloat16)
-    ef = eb.float()
-    # a product of two bf16 tensors would round the scores to bf16; the
-    # f32 product of the bf16 values keeps them as the JAX package does
-    scores = x.to(torch.bfloat16).float() @ ef.transpose(-1, -2)
-    scores = scores + selection_bias(ef, metric)[..., None, :]
-    idx = scores.argmax(-1).to(torch.int32)
     if eb.ndim > 2:
+        idx = torch.stack([bf16_select(x[i], eb[i], metric)[0] for i in range(eb.shape[0])])
         return idx, gather_codes_per_head(eb, idx)
+    idx = bf16_select(x, eb, metric)[0]
     return idx, gather_codes(eb, idx)
 
 

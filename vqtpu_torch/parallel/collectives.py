@@ -18,7 +18,9 @@ Gradient contracts, as in the JAX package under `shard_map(check_vma=False)`:
   - `psum_in_bwd`: forward the identity, backward a psum;
   - `pmean`: psum / axis size, both ways;
   - `all_gather`: backward the rank's own block of the summed cotangent
-    (JAX's psum_scatter transpose).
+    (JAX's psum_scatter transpose);
+  - `pmax`, `pmin`: no gradient (the winner reductions of row-sharded
+    selection, whose operands are scores and ranks).
 
 Every rank must call the same collectives in the same order, forward and
 backward, as with any torch.distributed program.
@@ -156,6 +158,24 @@ def all_gather(x: torch.Tensor, axis: str | None, *, tiled: bool = True, concat_
     if axis is None:
         return x
     return _AllGather.apply(x, group(axis), concat_axis, tiled, True)
+
+
+def _reduce_no_grad(x: torch.Tensor, axis: str | None, op) -> torch.Tensor:
+    if axis is None:
+        return x.detach()
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=group(axis))
+    return out
+
+
+def pmax(x: torch.Tensor, axis: str | None) -> torch.Tensor:
+    """Elementwise maximum over the axis, without gradient."""
+    return _reduce_no_grad(x, axis, dist.ReduceOp.MAX)
+
+
+def pmin(x: torch.Tensor, axis: str | None) -> torch.Tensor:
+    """Elementwise minimum over the axis, without gradient."""
+    return _reduce_no_grad(x, axis, dist.ReduceOp.MIN)
 
 
 def axis_size(axis: str | None) -> int:

@@ -1,5 +1,5 @@
-"""Meshes of process groups and the data-parallel trainer (counterpart of
-the data-parallel half of vqtpu/parallel/shard.py).
+"""Meshes of process groups, the data-parallel trainer and the helpers of
+row-sharded codebooks (counterpart of vqtpu/parallel/shard.py).
 
 The quantizers take `sync_axis='data'`; a training step runs with a mesh
 bound, so every codebook statistic is a psum over that axis (the ranks'
@@ -8,6 +8,13 @@ averages the parameter gradients (`pmean`). The model is not wrapped in
 `torch.nn.parallel.DistributedDataParallel`: by default it broadcasts
 rank 0's buffers before each forward, which would overwrite the other
 ranks' codebooks and hide a replica that drifted.
+
+Row-sharded codebooks (`code_axis`): `sharded_nearest_code` runs the
+selection kernel on each rank's rows and reduces the shards' winners,
+`sharded_gather_codes` looks rows up from their owners, and
+`slice_local_cols` and `local_onehot_from_global` cut a rank's code
+columns out of replicated tensors. The TPU's one-hot lookup for small
+shards is not ported: every lookup here is a row gather.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..kernels.distance import bf16_select, nearest_code
+from ..kernels.train_fused import code_sums
 from . import collectives
 
 
@@ -93,6 +102,20 @@ def make_mesh(axis_names: tuple[str, ...] = ('data',), shape: tuple[int, ...] | 
     return Mesh(axis_names, shape, groups, coords)
 
 
+def average_gradients(params: list, axis: str, reduce: Callable = collectives.pmean) -> None:
+    """Replace each parameter's gradient by `reduce` of it over `axis`
+    (pmean by default), in one collective over the flattened gradients; a
+    parameter without a gradient counts a zero one."""
+    if not params:
+        return
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    flat = reduce(torch.cat([g.reshape(-1) for g in grads]), axis)
+    offset = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[offset:offset + g.numel()].reshape(g.shape).to(g.dtype, copy=True)
+        offset += g.numel()
+
+
 class DataParallelTrainer:
     """Data-parallel training of a model whose quantizers take
     `sync_axis=axis`: each rank runs `step` on its own shard of the global
@@ -123,18 +146,6 @@ class DataParallelTrainer:
         self.mesh = mesh
         self.axis = axis
 
-    def _average_gradients(self):
-        params = [p for p in self.model.parameters() if p.requires_grad]
-        if not params:
-            return
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        flat = collectives.pmean(flat, self.axis)
-        offset = 0
-        for p, g in zip(params, grads):
-            p.grad = flat[offset:offset + g.numel()].reshape(g.shape).to(g.dtype, copy=True)
-            offset += g.numel()
-
     def step(self, batch) -> torch.Tensor:
         """One optimizer step on this rank's shard `batch`; updates the
         model and the optimizer in place and returns the mean loss over
@@ -144,7 +155,7 @@ class DataParallelTrainer:
             loss = self.loss_fn(self.model, batch)
             loss.backward()
             with torch.no_grad():
-                self._average_gradients()
+                average_gradients([p for p in self.model.parameters() if p.requires_grad], self.axis)
             self.optimizer.step()
             return collectives.pmean(loss.detach(), self.axis)
 
@@ -161,3 +172,142 @@ def eval_step_fn(model: nn.Module, mesh: Mesh, axis: str = 'data') -> Callable:
             return model(batch)
 
     return run
+
+
+# -- row-sharded codebooks (tensor parallelism over a `code` axis) ---------------
+#
+# Counterpart of the tensor-parallel half of vqtpu/parallel/shard.py. A
+# codebook's rows split over the ranks of a mesh axis in rank order: rank r
+# holds global codes [r * c_local, (r + 1) * c_local). Tokens are
+# replicated over the axis; every function here is called by every rank of
+# the axis with the same tokens.
+
+
+def code_row0(axis: str, c_local: int) -> int:
+    """The global index of this rank's first codebook row."""
+    return collectives.axis_index(axis) * c_local
+
+
+def _global_winner_index(local_idx: torch.Tensor, score: torch.Tensor, axis: str, c_local: int) -> torch.Tensor:
+    """The shards' (score, local index) pairs -> global int32 indices: pmax
+    of the scores, pmin of the ranks that hold the best, psum of the
+    winner's index. Within a shard the argmax took the first index, and the
+    global index is rank-major, so the lowest global index wins a tie, as
+    the unsharded argmax's does."""
+    rank, world = collectives.axis_index(axis), collectives.axis_size(axis)
+    best = collectives.pmax(score, axis)
+    is_best = score == best
+    win_rank = collectives.pmin(torch.where(is_best, rank, world).to(torch.int32), axis)
+    mine = is_best & (win_rank == rank)
+    global_idx = torch.where(mine, local_idx.to(torch.int32) + rank * c_local, 0).to(torch.int32)
+    return collectives.psum(global_idx, axis)
+
+
+def sharded_nearest_code(
+    x: torch.Tensor, embed_shard: torch.Tensor, axis: str, metric: str = 'euclidean',
+) -> torch.Tensor:
+    """(n, d) tokens against this rank's (c_local, d) rows -> (n,) global
+    int32 indices of the nearest code of the whole codebook, first index on
+    ties. Each rank runs the selection kernel on its rows with the winning
+    score (`nearest_code(..., return_best=True)`; `nearest_code_plain` on
+    the CPU) and the shards' winners reduce over the axis
+    (`_global_winner_index`): a column's score does not depend on the shard
+    that computes it, so nothing is scored again."""
+    local_idx, score = nearest_code(x.float().contiguous(), embed_shard.detach().float().contiguous(), metric,
+                                    return_best=True)
+    return _global_winner_index(local_idx, score, axis, embed_shard.shape[0])
+
+
+def sharded_quantize_lookup_bf16(
+    x: torch.Tensor, embed_shard: torch.Tensor, axis: str, metric: str = 'euclidean',
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 tier (`quantize_lookup(..., tier='bf16')`) against
+    row-sharded codes: (n, d), (c_local, d) -> ((n,) global int32 indices,
+    (n, d) bf16 rows), bit-identical to the unsharded tier (a column's f32
+    score of bf16 values does not depend on the shard; the winner reduction
+    keeps the first index; the row comes from its one owner)."""
+    eb = embed_shard.detach().to(torch.bfloat16)
+    local_idx, score = bf16_select(x, eb, metric)
+    idx = _global_winner_index(local_idx, score, axis, eb.shape[0])
+    return idx, sharded_gather_codes(eb, idx, axis)
+
+
+class _SliceLocalCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, full, c_local, axis, row0):
+        ctx.axis, ctx.row0, ctx.c_full = axis, row0, full.shape[-1]
+        return full.narrow(-1, row0, c_local)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros(*g.shape[:-1], ctx.c_full)
+        full.narrow(-1, ctx.row0, g.shape[-1]).copy_(g)
+        return collectives.psum(full, ctx.axis), None, None, None
+
+
+def slice_local_cols(full: torch.Tensor, c_local: int, axis: str) -> torch.Tensor:
+    """This rank's code columns [row0, row0 + c_local) of a replicated
+    (..., c) tensor. The backward scatters each rank's cotangent into its
+    window and psums over the axis, so the replicated tensor (a
+    straight-through one-hot over global codes) receives the full
+    cotangent on every rank."""
+    return _SliceLocalCols.apply(full, c_local, axis, code_row0(axis, c_local))
+
+
+def local_onehot_from_global(ind: torch.Tensor, c_local: int, row0: int) -> torch.Tensor:
+    """(...) global code indices -> (..., c_local) f32 one-hot over this
+    rank's window [row0, row0 + c_local), all zero for codes another rank
+    owns."""
+    local = ind.long() - row0
+    mine = (local >= 0) & (local < c_local)
+    out = torch.zeros(*ind.shape, c_local + 1, device=ind.device)
+    out.scatter_(-1, torch.where(mine, local, c_local)[..., None], 1.0)
+    return out[..., :c_local]
+
+
+def local_or_dump(ind: torch.Tensor, c_local: int, row0: int) -> torch.Tensor:
+    """Global code indices -> int32 indices into this rank's rows, with the
+    codes another rank owns sent to the dump row c_local (one past the
+    rank's rows)."""
+    local = ind.long() - row0
+    mine = (local >= 0) & (local < c_local)
+    return torch.where(mine, local, c_local).to(torch.int32)
+
+
+class _RowGather(torch.autograd.Function):
+    """Rows of (c_local + 1, d) by local index; the backward sums the rows'
+    gradients by code (`code_sums`, deterministic on the card), the dump
+    row's sum dropped."""
+
+    @staticmethod
+    def forward(ctx, embed_shard, safe):
+        ctx.save_for_backward(safe)
+        ctx.c_local = embed_shard.shape[0]
+        padded = torch.cat([embed_shard, embed_shard.new_zeros(1, embed_shard.shape[-1])])
+        return padded.index_select(0, safe.long())
+
+    @staticmethod
+    def backward(ctx, g):
+        safe, = ctx.saved_tensors
+        _, esum = code_sums(g.float().contiguous(), safe, ctx.c_local + 1)
+        return esum[:ctx.c_local].to(g.dtype), None
+
+
+def sharded_gather_codes(embed_shard: torch.Tensor, indices: torch.Tensor, axis: str) -> torch.Tensor:
+    """Row lookup against a codebook sharded over `axis`: (c_local, d) rows,
+    (...) global indices -> (..., d). Each rank gathers the rows it owns
+    from its rows with one zero row appended (where codes of other ranks
+    land), then `psum_exact` over the axis: each token's row comes from its
+    one owner and the others add zeros, so the rows are bit-equal to
+    codebook rows. Differentiable with respect to the rows: each rank's
+    rows take the gradient of the tokens they own."""
+    c_local = embed_shard.shape[0]
+    safe = local_or_dump(indices.reshape(-1), c_local, code_row0(axis, c_local))
+    out = _RowGather.apply(embed_shard, safe)
+    if out.dtype in (torch.bfloat16, torch.float16):
+        # the sum of one row and zeros is exact in f32, and every backend
+        # sums f32
+        out = collectives.psum_exact(out.float(), axis).to(out.dtype)
+    else:
+        out = collectives.psum_exact(out, axis)
+    return out.reshape(*indices.shape, embed_shard.shape[-1])

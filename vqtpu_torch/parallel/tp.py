@@ -1,0 +1,283 @@
+"""Row-sharded (tensor-parallel) codebooks over torch.distributed: which
+leaves shard, sharding and gathering them, the trainer and `tp_apply`
+(counterpart of vqtpu/parallel/tp.py).
+
+In the JAX package a `code_axis` module holds the full codebook at rest and
+sees its rows inside a shard_map that binds the axis. In processes:
+
+  - at rest (construction, `load_vqtpu_state`, checkpoints, decode outside
+    a mesh) the module holds the full codebook;
+  - `shard_codebooks(model, mesh)` narrows every declared per-code leaf to
+    the rank's rows, as a copy that frees the full tensor (a Parameter's
+    `.data` is replaced, so the object an optimizer holds stays the same);
+    `gather_codebooks` all-gathers them back;
+  - inside a bound mesh that has the axis, each module works on its rows
+    with collectives over the axis; a leaf whose row count is not
+    codebook_size / axis size raises (so does a sharded leaf outside one).
+
+A module takes part by declaring `code_axis` (a string) and
+`_code_sharded_leaves`, {leaf name: position of the code-row dim from the
+end}: Codebook its EMA state, SimVQ its frozen codebook. A replicated
+submodule that sees only its shard's rows in the forward (SimVQ's
+transform, QINCo's MLPs) is declared in `_code_partial_grad_submodules`:
+its gradients are partial per shard and psum over the code axis
+(`psum_partial_grads`, which TensorParallelTrainer calls).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+from . import collectives
+from .shard import Mesh, average_gradients
+
+
+def _declares(module) -> bool:
+    return (isinstance(getattr(module, 'code_axis', None), str)
+            and isinstance(getattr(module, '_code_sharded_leaves', None), dict))
+
+
+def find_sharded_codebooks(model: nn.Module) -> list:
+    """[(name, module)] of the submodules that declare code sharding."""
+    return [(name, m) for name, m in model.named_modules() if _declares(m)]
+
+
+def _declared_keys(model: nn.Module):
+    """(state_dict key, code-row position from the end, code axis) of every
+    per-code leaf; a module shared by several parents under each of its
+    names, as in the state_dict."""
+    for name, m in model.named_modules(remove_duplicate=False):
+        if _declares(m):
+            for leaf, pos in m._code_sharded_leaves.items():
+                if getattr(m, leaf, None) is not None:
+                    yield (f'{name}.{leaf}' if name else leaf), pos, m.code_axis
+
+
+def codebook_pspecs(model: nn.Module) -> dict:
+    """{state_dict key: position of the code-row dim from the end} of every
+    per-code leaf of `model`, the counterpart of the JAX package's
+    PartitionSpec tree (every other key is replicated)."""
+    return {key: pos for key, pos, _ in _declared_keys(model)}
+
+
+def codebook_axes(model: nn.Module) -> dict:
+    """{state_dict key: the code axis its rows shard over} of every per-code
+    leaf of `model`."""
+    return {key: axis for key, _, axis in _declared_keys(model)}
+
+
+def find_code_partial_grad_paths(model: nn.Module) -> list:
+    """[(submodule name, code axis)] of the replicated submodules whose
+    parameter gradients are partial per code shard."""
+    out = []
+    for name, m in model.named_modules():
+        subs = getattr(m, '_code_partial_grad_submodules', None)
+        axis = getattr(m, 'code_axis', None)
+        if isinstance(subs, (tuple, list)) and isinstance(axis, str):
+            out += [(f'{name}.{s}' if name else s, axis) for s in subs if getattr(m, s, None) is not None]
+    return out
+
+
+@torch.no_grad()
+def psum_partial_grads(model: nn.Module, partial_paths: list | None = None) -> None:
+    """psum, over its code axis, the gradient of every parameter under the
+    declared partial-gradient submodules (a parameter without a gradient
+    counts a zero one); the identity for every other parameter. Call it
+    with the mesh bound, after the backward."""
+    partial_paths = find_code_partial_grad_paths(model) if partial_paths is None else partial_paths
+    seen = set()
+    for path, axis in partial_paths:
+        params = [p for p in model.get_submodule(path).parameters() if p.requires_grad and id(p) not in seen]
+        seen.update(id(p) for p in params)
+        average_gradients(params, axis, collectives.psum)
+
+
+def _leaves(model: nn.Module):
+    """(module, leaf name, tensor, code-row dim) of every declared leaf,
+    each tensor once."""
+    seen = set()
+    for _, m in find_sharded_codebooks(model):
+        for leaf, pos in m._code_sharded_leaves.items():
+            t = getattr(m, leaf, None)
+            if t is None or id(t) in seen:
+                continue
+            seen.add(id(t))
+            yield m, leaf, t, t.ndim - pos
+
+
+def is_sharded(model: nn.Module) -> bool:
+    """Whether the declared leaves hold a rank's rows (not the full
+    codebook)."""
+    return any(t.shape[dim] != m.codebook_size for m, _, t, dim in _leaves(model))
+
+
+def check_code_rows(module: nn.Module, rows: int) -> bool:
+    """Whether `module` (a declaring module) works on a row shard: True
+    inside a bound mesh that has its code axis, False outside. Raises when
+    `rows`, the row count of its leaves, is not what that needs:
+    codebook_size / axis size inside, codebook_size outside."""
+    axis = getattr(module, 'code_axis', None)
+    bound = collectives.axis_is_bound(axis)
+    want = module.codebook_size // collectives.axis_size(axis) if bound else module.codebook_size
+    if rows != want:
+        where = f"inside a mesh binding {axis!r}" if bound else 'outside a mesh binding its code axis'
+        raise ValueError(
+            f'{type(module).__name__} holds {rows} codebook rows {where}, where it needs {want}: shard the '
+            'codebooks for the mesh (parallel.shard_codebooks, TensorParallelTrainer, tp_apply) and gather '
+            'them back (parallel.gather_codebooks) before using the module at rest')
+    return bound
+
+
+@torch.no_grad()
+def shard_codebooks(model: nn.Module, mesh: Mesh, optimizer: torch.optim.Optimizer | None = None) -> nn.Module:
+    """Narrow every declared leaf of `model` to this rank's rows of `mesh`'s
+    code axis, in place. Refuses an optimizer that already holds state (its
+    moments would keep the full rows)."""
+    if optimizer is not None and len(optimizer.state):
+        raise ValueError('shard the codebooks before the optimizer takes its first step: '
+                         'its state holds the full rows')
+    for m, _, t, dim in list(_leaves(model)):
+        world, index = mesh.size(m.code_axis), mesh.index(m.code_axis)
+        if t.shape[dim] != m.codebook_size:
+            raise ValueError(f'{type(m).__name__} is sharded already')
+        if m.codebook_size % world:
+            raise ValueError(f'codebook_size {m.codebook_size} does not split over {world} ranks')
+        c_local = m.codebook_size // world
+        t.data = t.data.narrow(dim, index * c_local, c_local).clone()
+        if hasattr(m, 'rewritten_rows'):
+            m.rewritten_rows = None
+    return model
+
+
+@torch.no_grad()
+def gather_codebooks(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """The inverse of `shard_codebooks`: every declared leaf all-gathered
+    over its code axis back to the full codebook, in place. Every rank of
+    the axis calls it."""
+    with mesh:
+        for m, _, t, dim in list(_leaves(model)):
+            if t.shape[dim] == m.codebook_size:
+                raise ValueError(f'{type(m).__name__} holds its full codebook already')
+            t.data = collectives.all_gather_exact(t.data.contiguous(), m.code_axis, concat_axis=dim)
+            if hasattr(m, 'rewritten_rows'):
+                m.rewritten_rows = None
+    return model
+
+
+def gathered_state_dict(model: nn.Module, mesh: Mesh) -> dict:
+    """`model`'s state_dict with its codebooks gathered to full rows
+    (copies; the model stays as it is). Every rank of the code axes calls
+    it."""
+    if not is_sharded(model):
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}
+    specs, axes = codebook_pspecs(model), codebook_axes(model)
+    out = {}
+    with mesh, torch.no_grad():
+        for k, v in model.state_dict().items():
+            if k in specs:
+                out[k] = collectives.all_gather_exact(v.detach().contiguous(), axes[k],
+                                                      concat_axis=v.ndim - specs[k])
+            else:
+                out[k] = v.detach().clone()
+    return out
+
+
+class TensorParallelTrainer:
+    """Training of a model whose codebooks take `code_axis` (and, for data
+    parallelism, `sync_axis=data_axis`) over a mesh with a code axis and
+    optionally a data axis. The constructor shards the codebooks; each rank
+    then runs `step` on its shard of the global batch (the same shard on
+    the ranks of a code group). A step binds the mesh, averages every
+    trainable parameter's gradient over `data_axis` (pmean), psums the
+    declared partial gradients over the code axis, steps the optimizer and
+    returns the loss averaged over `data_axis`, as the JAX package's
+    shard_map body does.
+
+    Usage:
+        mesh = make_mesh(('data', 'code'), shape=(2, 4))
+        trainer = TensorParallelTrainer(model, torch.optim.Adam(model.parameters(), 1e-3), loss_fn, mesh)
+        loss = trainer.step(global_batch(mesh, ('data',), batch))
+
+    `gather_codebooks(model, mesh)` (or `utils.checkpoint.save_checkpoint`
+    with the mesh) brings the full codebooks back for a checkpoint.
+    """
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable, mesh: Mesh,
+                 data_axis: str | None = 'data'):
+        if data_axis is not None and data_axis not in mesh.axis_names:
+            raise ValueError(f'data axis {data_axis!r} is not an axis of {mesh}')
+        for _, m in find_sharded_codebooks(model):
+            if m.code_axis not in mesh.axis_names:
+                raise ValueError(f'code axis {m.code_axis!r} is not an axis of {mesh}')
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.mesh = mesh
+        self.data_axis = data_axis
+        shard_codebooks(model, mesh, optimizer)
+        self._partial_grad_paths = find_code_partial_grad_paths(model)
+
+    def step(self, batch) -> torch.Tensor:
+        """One optimizer step on this rank's shard `batch`; returns the mean
+        loss over the data axis (detached)."""
+        with self.mesh:
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self.loss_fn(self.model, batch)
+            loss.backward()
+            with torch.no_grad():
+                if self.data_axis is not None:
+                    average_gradients([p for p in self.model.parameters() if p.requires_grad], self.data_axis)
+                psum_partial_grads(self.model, self._partial_grad_paths)
+            self.optimizer.step()
+            return collectives.pmean(loss.detach(), self.data_axis)
+
+
+def _generators(model: nn.Module) -> list:
+    seen, out = set(), []
+    for m in model.modules():
+        g = getattr(m, 'generator', None)
+        if isinstance(g, torch.Generator) and id(g) not in seen:
+            seen.add(id(g))
+            out.append(g)
+    return out
+
+
+def tp_apply(model: nn.Module, mesh: Mesh, fn: Callable, *args, mutates_state: bool = False):
+    """`fn(model, *args)` with `mesh` bound and the model's codebooks
+    sharded (an eval forward, or `get_output_from_indices` against sharded
+    rows). A model at rest is sharded for the call. With `mutates_state`
+    the state the call leaves (EMA statistics, expired codes) is kept, and
+    a model that was at rest is gathered back to full rows; without it the
+    model's parameters, buffers and generators are restored after the
+    call, as the JAX package discards a non-mutating call's state."""
+    at_rest = not is_sharded(model)
+    full = {id(t): t.data for _, _, t, _ in _leaves(model)} if at_rest and not mutates_state else None
+    saved = None
+    if not mutates_state:
+        tensors = {id(t): t for t in [*model.parameters(), *model.buffers()]}
+        saved = ({i: t.detach().clone() for i, t in tensors.items() if full is None or i not in full},
+                 [(g, g.get_state()) for g in _generators(model)])
+    if at_rest:
+        shard_codebooks(model, mesh)
+    try:
+        with mesh:
+            return fn(model, *args)
+    finally:
+        if mutates_state:
+            if at_rest:
+                gather_codebooks(model, mesh)
+        else:
+            with torch.no_grad():
+                for t in [*model.parameters(), *model.buffers()]:
+                    if full is not None and id(t) in full:
+                        t.data = full[id(t)]
+                    elif id(t) in saved[0]:
+                        t.data = saved[0][id(t)]
+            for g, state in saved[1]:
+                g.set_state(state)
+            for m, _, _, _ in _leaves(model):
+                if hasattr(m, 'rewritten_rows'):
+                    m.rewritten_rows = None

@@ -11,7 +11,16 @@ from the pick, as under the JAX package's stop-gradient.
 
 In training the dual commitment loss and the rotation trick (or the
 straight-through estimator) follow; eval returns the rows as they are and
-a zero loss. Row-sharded codebooks (`code_axis`) raise NotImplementedError.
+a zero loss.
+
+Row-sharded (`code_axis`, see `parallel.tp`): the frozen codebook's rows
+shard over the axis inside a bound mesh, and the transform, row-wise, stays
+replicated. Selection is `parallel.shard.sharded_nearest_code` on the
+rank's implicit rows, and the rows come from their owners
+(`sharded_gather_codes`, whose backward sums the rows' gradients by code
+with `code_sums`). The transform's gradient on a rank is then its rows'
+share: it is declared in `_code_partial_grad_submodules`, and the trainer
+psums it over the axis.
 """
 
 from __future__ import annotations
@@ -21,14 +30,20 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..codebook.codebook import not_ported
 from ..core.ste import rotate_to, straight_through
 from ..core.utils import default, resolve_device
 from ..kernels.distance import gather_codes, nearest_code_xla
 from ..kernels.train_fused import lookup_with_code_grad
+from ..parallel.shard import sharded_gather_codes, sharded_nearest_code
+from ..parallel.tp import check_code_rows
 
 
 class SimVQ(nn.Module):
+    # the frozen codebook (c, fd) shards over `code_axis` (parallel.tp); the
+    # replicated transform sees only the rank's rows
+    _code_sharded_leaves = {'frozen_codebook': 2}
+    _code_partial_grad_submodules = ('code_transform',)
+
     def __init__(
         self,
         dim: int,
@@ -54,10 +69,9 @@ class SimVQ(nn.Module):
         super().__init__()
         if rngs is not None:
             raise TypeError('rngs is a flax RNG stream; seed torch with torch.manual_seed instead')
-        if code_axis is not None:
-            raise not_ported('code_axis')
         device = resolve_device(device)
         self.codebook_size = codebook_size
+        self.code_axis = code_axis
         self.channel_first = channel_first
 
         frozen_codebook_dim = default(frozen_codebook_dim, dim)
@@ -81,9 +95,16 @@ class SimVQ(nn.Module):
     def codebook_dim(self) -> int:
         return self.frozen_codebook.shape[-1]
 
+    def _code_parallel(self) -> bool:
+        return self.code_axis is not None and check_code_rows(self, self.frozen_codebook.shape[0])
+
     def indices_to_codes(self, indices: torch.Tensor) -> torch.Tensor:
         """The transform of the gathered frozen rows."""
-        quantized = self.code_transform(gather_codes(self.frozen_codebook, indices))
+        if self._code_parallel():
+            frozen = sharded_gather_codes(self.frozen_codebook, indices, self.code_axis)
+        else:
+            frozen = gather_codes(self.frozen_codebook, indices)
+        quantized = self.code_transform(frozen)
         if self.channel_first:
             quantized = quantized.movedim(-1, 1)
         return quantized
@@ -93,6 +114,9 @@ class SimVQ(nn.Module):
         that carry their gradient to the transform)."""
         implicit = self.codebook.float().contiguous()
         x = tokens.detach().float().contiguous()
+        if self._code_parallel():
+            indices = sharded_nearest_code(x, implicit, self.code_axis)
+            return indices, sharded_gather_codes(implicit, indices, self.code_axis)
         if not self.use_pallas:
             indices = nearest_code_xla(x, implicit.detach())
             return indices, gather_codes(implicit, indices)

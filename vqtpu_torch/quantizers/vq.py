@@ -24,8 +24,15 @@ Data parallel: `sync_axis` (or `sync_codebook`: a string names the axis,
 True means 'data') psums the codebook's statistics over a mesh axis (see
 `codebook.Codebook`), with kmeans init (`sync_kmeans`) and the affine batch
 moments (`sync_affine_param`); the in-place optimizer's gradients are
-averaged over it (`pmean`). Row-sharded codebooks (`code_axis`) raise
-NotImplementedError that names them.
+averaged over it (`pmean`).
+
+Row-sharded codebooks: `code_axis` names the mesh axis the codebook's rows
+shard over (see `codebook.Codebook` and `parallel.tp`). Decoding inside a
+bound mesh gathers rows from their owners, and the orthogonal loss runs
+through the (d, d) gram of the normalized rows, psum'd over the axis, so no
+(c, c) matrix and no gather of the codebook is formed;
+`orthogonal_reg_max_codes` is refused with `code_axis`, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch import nn
 
-from ..codebook.codebook import Codebook, not_ported
+from ..codebook.codebook import Codebook
 from ..core import sampling
 from ..core.layout import to_tokens
 from ..core.sampling import gumbel_sample
@@ -49,8 +56,10 @@ from ..core.utils import (
     append_dims_to, default, entropy, exists, l2norm, lens_to_mask, masked_mean, matmul_tf32,
     orthogonal_loss_fn, resolve_device,
 )
-from ..kernels.distance import gather_codes
+from ..kernels.distance import gather_codes as _gather_codes
+from ..parallel import collectives
 from ..parallel.collectives import pmean
+from ..parallel.shard import code_row0, sharded_gather_codes
 
 
 class LossBreakdown(NamedTuple):
@@ -191,8 +200,9 @@ class VectorQuantize(nn.Module):
             sync_axis = sync_codebook
         elif sync_codebook:
             sync_axis = default(sync_axis, 'data')
-        if code_axis is not None:
-            raise not_ported('code_axis')
+        if code_axis is not None and orthogonal_reg_weight > 0.0 and orthogonal_reg_max_codes is not None:
+            raise ValueError('orthogonal_reg_max_codes is not supported with row-sharded (code_axis) codebooks: '
+                             'the sharded loss runs through the (d, d) gram and needs no code subsampling')
         # the interdependent defaults, as in the JAX package
         ema_update = default(ema_update, not directional_reparam and vq_bridge is None)
         learnable_codebook = default(learnable_codebook, directional_reparam or vq_bridge is not None)
@@ -263,6 +273,7 @@ class VectorQuantize(nn.Module):
         self.directional_reparam_variance = directional_reparam_variance
         self.sync_update_v = sync_update_v
         self.sync_axis = sync_axis
+        self.code_axis = code_axis
         self.has_codebook_orthogonal_loss = orthogonal_reg_weight > 0.0
         self.orthogonal_reg_weight = orthogonal_reg_weight
         self.orthogonal_reg_active_codes_only = orthogonal_reg_active_codes_only
@@ -287,6 +298,7 @@ class VectorQuantize(nn.Module):
             affine_param_batch_decay=affine_param_batch_decay,
             affine_param_codebook_decay=affine_param_codebook_decay,
             sync_axis=sync_axis,
+            code_axis=code_axis,
             sync_affine_param=sync_affine_param,
             sample_codebook_temp=sample_codebook_temp,
             gumbel_sample_fn=partial(gumbel_sample, stochastic=stochastic_sample_codes,
@@ -391,7 +403,8 @@ class VectorQuantize(nn.Module):
     def get_codes_from_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """Indices -> codebook vectors. As in the JAX package, an index in
         [-c, -1] counts from the end of the codebook; others outside [0, c)
-        raise IndexError."""
+        raise IndexError. Inside a mesh binding `code_axis` the rows come
+        from the ranks that own them."""
         codebook = self.codebook
         if self.quantize_tier == 'bf16':
             codebook = codebook.to(torch.bfloat16)
@@ -400,6 +413,10 @@ class VectorQuantize(nn.Module):
             raise IndexError(f'code indices must lie in [-{c}, {c})')
         indices = torch.where(indices < 0, indices + c, indices)
         is_multiheaded = codebook.ndim > 2
+        if self._codebook._code_parallel():
+            gather_codes = partial(sharded_gather_codes, axis=self.code_axis)
+        else:
+            gather_codes = _gather_codes
 
         if not is_multiheaded and self.heads > 1:
             # shared codebook: (b, ..., h) -> (b, ..., h*d)
@@ -538,6 +555,8 @@ class VectorQuantize(nn.Module):
         `orthogonal_reg_max_codes` codes drawn by `orthogonal_reg_code_ids`
         when the codebook has more."""
         codebook = self._codebook.embed_after_forward()              # (h, c, d)
+        if self._codebook._code_parallel():
+            return self._orthogonal_reg_loss_sharded(codebook, embed_ind)
         h, c, _ = codebook.shape
         active = None
         if self.orthogonal_reg_active_codes_only:
@@ -560,6 +579,32 @@ class VectorQuantize(nn.Module):
             cosine_sim = normed @ normed.transpose(-1, -2)
         n_active = active.sum().float().clamp_min(1.0)
         return (cosine_sim ** 2).sum() / (h * n_active ** 2) - (1.0 / n_active)
+
+    def _orthogonal_reg_loss_sharded(self, codebook: torch.Tensor, embed_ind: torch.Tensor) -> torch.Tensor:
+        """Eq. (2) over a row-sharded codebook: sum_ij (n_i . n_j)^2 is the
+        squared Frobenius norm of the (d, d) gram N^T N, a sum over code
+        rows, so each rank adds its rows' gram and one psum_exact over the
+        code axis gives the whole codebook's (the loss's gradient reaches
+        each rank's own rows). With active codes only, every rank builds
+        the same global mask from the (replicated) global indices and keeps
+        its window."""
+        axis = self.code_axis
+        h, c_local, _ = codebook.shape
+        normed = l2norm(codebook)
+        if self.orthogonal_reg_active_codes_only:
+            if self.heads > 1 and self.separate_codebook_per_head:
+                raise ValueError('orthogonal regularization for only active codes not compatible '
+                                 'with multi-headed with separate codebooks yet')
+            active = torch.zeros(self.codebook_size, dtype=torch.bool, device=codebook.device)
+            active[embed_ind.reshape(-1).long()] = True
+            row0 = code_row0(axis, c_local)
+            normed = normed * active[row0:row0 + c_local][None, :, None]
+            n = active.sum().float().clamp_min(1.0)
+        else:
+            n = torch.tensor(float(self.codebook_size), device=codebook.device)
+        with matmul_tf32(codebook.device, allow=False):
+            gram = collectives.psum_exact(normed.transpose(-1, -2) @ normed, axis)     # (h, d, d)
+        return (gram ** 2).sum() / (h * n ** 2) - (1.0 / n)
 
     def _calculate_ce_loss(self, distances: torch.Tensor, codes: torch.Tensor, batch: int) -> torch.Tensor:
         """Cross entropy between the distance logits (h, B, n, c) and code

@@ -26,6 +26,12 @@ vector_quantize_pytorch.py:415-448, as the JAX package keeps it):
 
 The draws' generators (`module.generator`) are not persisted, as the JAX
 package persists no RNG state: a freshly constructed module brings its own.
+
+Row-sharded codebooks (`code_axis`, parallel.tp): given the mesh, a sharded
+module's snapshot gathers every codebook over its code axis (every rank
+calls it), so a checkpoint always holds the full codebook, as the JAX
+package's state_dict of a sharded module does; `save_checkpoint` writes it
+from rank 0 alone, and it restores into a module at rest.
 """
 
 from __future__ import annotations
@@ -38,9 +44,13 @@ from torch import nn
 DERIVED_STATE_DOC = __doc__
 
 
-def state_dict(module: nn.Module) -> dict:
+def state_dict(module: nn.Module, mesh=None) -> dict:
     """{name: tensor} of every parameter and persistent buffer of `module`,
-    copied (a later step does not change the snapshot)."""
+    copied (a later step does not change the snapshot); with `mesh`, a
+    row-sharded module's codebooks gathered to their full rows."""
+    if mesh is not None:
+        from ..parallel.tp import gathered_state_dict
+        return gathered_state_dict(module, mesh)
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
@@ -51,9 +61,18 @@ def load_state_dict(module: nn.Module, d: dict) -> nn.Module:
     return module
 
 
-def save_checkpoint(path: str | os.PathLike, module: nn.Module) -> None:
-    """Persist `module`'s state to the file `path`."""
-    torch.save(state_dict(module), os.fspath(path))
+def save_checkpoint(path: str | os.PathLike, module: nn.Module, mesh=None) -> None:
+    """Persist `module`'s state to the file `path`. With `mesh` (every rank
+    calls it), the state of a row-sharded module gathered to its full
+    codebooks, written by rank 0 alone; the ranks wait for the file."""
+    snapshot = state_dict(module, mesh)
+    if mesh is None:
+        torch.save(snapshot, os.fspath(path))
+        return
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        torch.save(snapshot, os.fspath(path))
+    dist.barrier()
 
 
 def restore_checkpoint(path: str | os.PathLike, module: nn.Module) -> nn.Module:
