@@ -200,7 +200,27 @@ prints one JSON line per phase:
 38. utils: timeit_chained on the VQ eval forward beside phase 5's time, a
    torch.profiler trace holding an annotate label, and dp_vq_train's module
    saved by rank 0 and restored here, its eval forward bit-equal;
-39. the {"kernels": [...]} line.
+39. native_data: native/vqdata.c built by the port into
+   build/vqtpu_torch/native/ (no numpy fallback), 8192 synthetic images
+   written as an IDX file by the port's write_idx, the native gather
+   against the numpy decode bit for bit, the prefetch ring's first 4
+   batches against a serial gather, host ms per 256-image batch of the
+   native gather and the numpy paths;
+40. native_oracle: native/vqcheck.c built the same way; K1 on 8192 of the
+   main tokens against the main codebook (c = 512, d = 256), both metrics,
+   held to the float64 C oracle but for near-ties, and a tie probe held
+   exactly;
+41. examples_path: the eight autoencoders of vqtpu_torch.examples, each
+   main(train_iter=0) and main(train_iter=N) on the card (N = 200 for the
+   VQ example, 50 for the others) on the synthetic images of
+   image_batches: logged losses finite, the trained model's held-out L1 in
+   eval below the untrained one's, a training step's and an eval forward's
+   launches as PERF.md's table says, step ms, the idle share of 5 profiled
+   steps and the loop's share in next(data) (for the VQ example also on the
+   native loader's prefetch ring); then tp_large_codebook on a (2, 2)
+   ('data', 'code') mesh and group_parallel_grvq on two ranks, 3 steps
+   each, as gloo ranks on the card, with their own checks;
+42. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -217,6 +237,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import re
@@ -2560,7 +2581,7 @@ def phase_rvq_flagship_train(device, sizes):
     with the gumbel noise and kmeans' rows given to both; no kernel in
     training (stochastic codes take the distance path); the eval forward
     after training launches K1 once a layer."""
-    import vqtpu_torch.codebook.kmeans as tkmeans
+    tkmeans = importlib.import_module('vqtpu_torch.codebook.kmeans')
     import vqtpu_torch.core.sampling as tsampling
     from vqtpu_torch import ResidualVQ, SimpleQuantizeAutoEncoder
     from vqtpu_torch.core.metrics import codebook_perplexity
@@ -3832,7 +3853,7 @@ def phase_hq_path(device, sizes):
     eval forward, K1 once a scale, its decode from indices within 1e-5;
     times with the device's idle share."""
     import vqtpu_torch.codebook.codebook as tcodebook
-    import vqtpu_torch.codebook.kmeans as tkmeans
+    tkmeans = importlib.import_module('vqtpu_torch.codebook.kmeans')
     from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
 
     def loss_of(model, x):
@@ -5038,6 +5059,357 @@ def phase_gp_grouped():
     return ranks
 
 
+NATIVE_IMAGES = 8192
+NATIVE_BATCH = 256
+NATIVE_TIMED_BATCHES = 200
+# (n, c, d): 8192 of the main tokens against the main shape's codebook
+ORACLE_MAIN = (8192, 512, 256)
+EXAMPLE_STEPS = dict(autoencoder=200, autoencoder_lfq=50, autoencoder_fsq=50, autoencoder_sim_vq=50,
+                     autoencoder_rvq=50, autoencoder_hq=50, autoencoder_fvq=50, autoencoder_fsp=50)
+# the kernels one training step of each example launches once its codebooks
+# are initialized (PERF.md section 6; LFQ's follow its entropy route), and
+# one eval forward
+EXAMPLE_STEP_LAUNCHES = dict(autoencoder=dict(train_fused=1), autoencoder_lfq={}, autoencoder_fsq={},
+                             autoencoder_sim_vq=dict(nearest_code=1, code_sums=1), autoencoder_rvq={},
+                             autoencoder_hq=dict(train_fused=4), autoencoder_fvq=dict(nearest_code=3, code_sums=2),
+                             autoencoder_fsp={})
+EXAMPLE_EVAL_LAUNCHES = dict(autoencoder=dict(nearest_code=1), autoencoder_lfq={}, autoencoder_fsq={},
+                             autoencoder_sim_vq=dict(nearest_code=1), autoencoder_rvq=dict(nearest_code=8),
+                             autoencoder_hq=dict(nearest_code=4), autoencoder_fvq=dict(nearest_code=1),
+                             autoencoder_fsp={})
+EXAMPLE_KMEANS = ('autoencoder_rvq', 'autoencoder_hq')
+EXAMPLE_TIMED_STEPS = 10
+EXAMPLE_WAIT_STEPS = 20
+EX_TP_MESH = (('data', 'code'), (2, 2))
+EX_DIST_STEPS = 3
+
+
+def idx_decode_lut() -> np.ndarray:
+    """numpy's decode of the native gather: x * (2/255) - 1 in f32."""
+    return np.arange(256, dtype=np.float32) * (2.0 / 255.0) - 1.0
+
+
+def synthetic_u8(num, seed):
+    """The port's synthetic images as uint8, the IDX file's pixels."""
+    from vqtpu_torch.models.data import _synthetic_images
+    return np.clip(np.rint((_synthetic_images(num=num, seed=seed) + 1.0) * 127.5), 0, 255).astype(np.uint8)
+
+
+def host_ms(fn, reps):
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_native_data(smi):
+    """native_data: native/vqdata.c built into build/vqtpu_torch/native/ (a
+    failed build fails the phase: no numpy fallback), 8192 synthetic images
+    written as uint8 by the port's write_idx, the native gather against the
+    numpy decode bit for bit on the same tokens, PrefetchLoader's first 4
+    batches against a serial gather with the same seed, and the host time
+    per 256-image batch of the native gather, the numpy decode and the
+    float gather of the synthetic path."""
+    import tempfile
+    from vqtpu_torch.models import native_build, native_data
+    t0 = time.perf_counter()
+    lib = native_build.load()
+    build_s = time.perf_counter() - t0
+    check(lib is not None, 'native_data: native/vqdata.c builds and loads')
+    lib_dir = os.path.dirname(lib._name)
+    check(lib_dir == native_build.OUT_DIR and lib_dir.endswith(os.path.join('build', 'vqtpu_torch', 'native')),
+          f'native_data: the library lands under build/vqtpu_torch/native ({lib._name})')
+    images = synthetic_u8(NATIVE_IMAGES, seed=70)
+    floats = images.astype(np.float32) * (2.0 / 255.0) - 1.0
+    lut = idx_decode_lut()
+    rng = np.random.default_rng(72)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, 'train-images-idx3-ubyte')
+        native_data.write_idx(path, images)
+        ds = native_data.IdxDataset(path)
+        check((ds.count, ds.rows, ds.cols) == images.shape, f'native_data: the IDX header {ds.count, ds.rows, ds.cols}')
+        tokens = rng.permutation(NATIVE_IMAGES)
+        got = ds.gather(tokens)
+        check(np.array_equal(got, lut[images[tokens]]), 'native_data: the gather equals the numpy decode bit for bit')
+        loader = native_data.PrefetchLoader(ds, NATIVE_BATCH, seed=71)
+        serial = np.random.default_rng(71)
+        ring_equal = []
+        for _ in range(4):
+            want = ds.gather(serial.integers(0, NATIVE_IMAGES, NATIVE_BATCH))[..., None]
+            ring_equal.append(bool(np.array_equal(next(loader), want)))
+        loader.close()
+        check(all(ring_equal), f'native_data: the prefetch ring equals a serial gather {ring_equal}')
+        batches = [rng.integers(0, NATIVE_IMAGES, NATIVE_BATCH) for _ in range(NATIVE_TIMED_BATCHES)]
+        out = np.empty((NATIVE_BATCH, 28, 28), np.float32)
+        it = iter(batches * 2)
+        native_ms = host_ms(lambda: ds.gather(next(it), out), NATIVE_TIMED_BATCHES)
+        it = iter(batches * 2)
+        numpy_ms = host_ms(lambda: lut[images[next(it)]], NATIVE_TIMED_BATCHES)
+        it = iter(batches * 2)
+        float_ms = host_ms(lambda: floats[next(it)][..., None].astype(np.float32), NATIVE_TIMED_BATCHES)
+        ds.close()
+    emit('native_data', library=os.path.relpath(lib._name), build_s=build_s, images=list(images.shape),
+         gather_bit_equal=True, prefetch_first_4_equal=ring_equal, batch=NATIVE_BATCH,
+         host_ms_per_batch=dict(native_gather=native_ms, numpy_lut_decode=numpy_ms,
+                                numpy_float_gather=float_ms),
+         host_ms_note='one thread of the host; numpy_float_gather is the synthetic path of image_batches',
+         nvidia_smi=smi)
+    return dict(native_ms=native_ms, numpy_ms=numpy_ms, float_ms=float_ms)
+
+
+def phase_native_oracle(device, smi):
+    """native_oracle: native/vqcheck.c built, K1 (nearest_code) on 8192 of
+    the main tokens against the main shape's codebook (c = 512, d = 256),
+    euclidean and cosine (both sides l2-normalized), held to the float64 C
+    oracle (nearest_code_ref): the picks equal but at near-ties (1e-5
+    relative in float64, selection_disagreements); and a tie probe (codes
+    repeated, tokens on codes and zero tokens), where the picks equal the
+    oracle's exactly."""
+    from vqtpu_torch.core.utils import l2norm
+    from vqtpu_torch.kernels import native_check
+    from vqtpu_torch.kernels.distance import nearest_code, selection_bias, selection_disagreements
+    t0 = time.perf_counter()
+    check(native_check.available(), 'native_oracle: native/vqcheck.c builds and loads')
+    build_s = time.perf_counter() - t0
+    n, c, d = ORACLE_MAIN
+    # the first rows of the main input and the main codebook (phase kernel_vs_plain)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)).to(device)
+    e = torch.from_numpy(np.random.default_rng(1).standard_normal((c, d), dtype=np.float32)).to(device)
+    cases = {}
+    for metric, (xs, es) in (('euclidean', (x, e)), ('cosine', (l2norm(x), l2norm(e)))):
+        idx = nearest_code(xs, es, metric)
+        sync(device)
+        t0 = time.perf_counter()
+        ref = torch.from_numpy(native_check.nearest_code_ref(xs, es, metric)).to(device)
+        oracle_s = time.perf_counter() - t0
+        r = selection_disagreements(xs, es, selection_bias(es, metric), idx, ref)
+        check(r['non_tie'] == 0, f'native_oracle {metric}: K1 against the float64 oracle {r}')
+        cases[metric] = dict(r, oracle_s=oracle_s)
+    base = e[:128]
+    ties_e = torch.cat([base, base, base, base]).contiguous()
+    ties_x = torch.cat([base[::3], torch.zeros(64, d, device=device)]).contiguous()
+    for metric in ('euclidean', 'cosine'):
+        idx = nearest_code(ties_x, ties_e, metric).cpu().numpy()
+        ref = native_check.nearest_code_ref(ties_x, ties_e, metric)
+        check(np.array_equal(idx, ref) and (idx < 128).all(),
+              f'native_oracle {metric}: tie probe, the first copy as the oracle picks it')
+        cases[f'ties_{metric}'] = dict(tokens=int(ties_x.shape[0]), equal=True)
+    emit('native_oracle', library_build_s=build_s, shape=dict(n=n, c=c, d=d), cases=cases,
+         rule='picks equal but where both picks score within 1e-5 relative in float64', nvidia_smi=smi)
+    return cases
+
+
+def example_launches(examples: dict, key: str, kernel: str) -> dict:
+    """{example: its launches of `kernel`} for the examples that launch it."""
+    return {name: r[key][kernel] for name, r in examples.items() if r[key].get(kernel)}
+
+
+def launches_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def parse_logged_losses(text: str) -> list[tuple[float, float]]:
+    return [(float(m.group(1)), float(m.group(2)))
+            for m in re.finditer(r'rec loss: (\S+) \| aux loss: (\S+) \|', text)]
+
+
+def example_eval_l1(model, x):
+    model.eval()
+    with torch.no_grad():
+        out = model(x)[0]
+    model.train()
+    return float((out.clamp(-1, 1) - x).abs().mean())
+
+
+def example_data_wait(step, data, device, steps):
+    """The training loop's host time in next(data), and in the batch's copy
+    to the card (which waits for the stream: the copy from pageable memory
+    synchronizes), each as a share of the loop's time over `steps` steps."""
+    xb = torch.from_numpy(next(data)).to(device)      # the first batch builds the source
+    step(xb)
+    sync(device)
+    wait = copy = 0.0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        batch = next(data)
+        t2 = time.perf_counter()
+        xb = torch.from_numpy(batch).to(device)
+        copy += time.perf_counter() - t2
+        wait += t2 - t1
+        step(xb)
+    sync(device)
+    total = time.perf_counter() - t0
+    return dict(share=wait / total, wait_ms_per_step=wait * 1e3 / steps, copy_share=copy / total,
+                copy_ms_per_step=copy * 1e3 / steps, loop_ms_per_step=total * 1e3 / steps)
+
+
+def ex_tp_body(rank, world, mesh, out, device, steps):
+    """Rank body: vqtpu_torch.examples.tp_large_codebook.run at its own
+    widths (65,536 codes, dim 64, batch 256) for `steps` steps, and this
+    rank's launches."""
+    from vqtpu_torch.examples import tp_large_codebook
+    reset_all_launches()
+    result = tp_large_codebook.run(mesh, train_iter=steps, device=device)
+    sync(device)
+    return dict(result, launches=all_launches())
+
+
+def ex_gp_body(rank, world, mesh, out, device, steps):
+    """Rank body: vqtpu_torch.examples.group_parallel_grvq.run at its own
+    widths (4 groups, dim 64, 4 layers of 128 codes, 2048 tokens)."""
+    from vqtpu_torch.examples import group_parallel_grvq
+    reset_all_launches()
+    result = group_parallel_grvq.run(mesh, steps=steps, device=device)
+    sync(device)
+    return dict(result, launches=all_launches())
+
+
+def phase_examples_path(device, smi):
+    """examples_path: each of the eight autoencoders of vqtpu_torch.examples,
+    main(train_iter=0) and main(train_iter=N) from the same seed on the
+    card, on the port's image_batches (the synthetic images: no dataset on
+    the machine; generated once, the same array for every example): every
+    logged loss finite, the trained model's L1 reconstruction of a held-out
+    synthetic batch in eval below the untrained one's, the launches of one
+    training step after the run as PERF.md's table says (LFQ's as its
+    entropy route says), the run's launches N steps of them (plus kmeans'
+    at step 0 where the example has kmeans init), an eval forward's
+    launches; the step time (CUDA events after warm-up), the idle share of
+    5 profiled steps and the share of the loop spent in next(data), for
+    the VQ example also on the native IDX loader's prefetch ring. Then
+    tp_large_codebook on a (2, 2) mesh and group_parallel_grvq on two
+    ranks, 3 steps each, as gloo ranks sharing the card."""
+    import contextlib
+    import functools
+    import importlib
+    import io
+    import tempfile
+    import vqtpu_torch.models.data as tdata
+    from vqtpu_torch.examples import AUTOENCODERS
+    from vqtpu_torch.examples.common import adamw, train_step
+    from vqtpu_torch.models import native_data
+    from vqtpu_torch.quantizers.lfq import entropy_route
+
+    t_phase = time.perf_counter()
+    synthetic = tdata._synthetic_images
+    tdata._synthetic_images = functools.lru_cache(maxsize=2)(synthetic)
+    held_out = torch.from_numpy(synthetic(num=256, seed=4321)[..., None]).to(device)
+    results = {}
+    try:
+        for name in AUTOENCODERS:
+            mod = importlib.import_module(f'vqtpu_torch.examples.{name}')
+            steps = EXAMPLE_STEPS[name]
+            t0 = time.perf_counter()
+            untrained = mod.main(train_iter=0, device=device)
+            log = io.StringIO()
+            reset_all_launches()
+            with contextlib.redirect_stdout(log):
+                model = mod.main(train_iter=steps, device=device)
+            sync(device)
+            run_launches = launches_delta({k: 0 for k in all_launches()}, all_launches())
+            run_s = time.perf_counter() - t0
+            losses = parse_logged_losses(log.getvalue())
+            check(len(losses) == (steps - 1) // 50 + 1 + (1 if (steps - 1) % 50 else 0),
+                  f'{name}: one log line every 50 steps and at the last ({len(losses)})')
+            check(all(np.isfinite(v) for pair in losses for v in pair), f'{name}: every logged loss is finite')
+            l1_untrained, l1_trained = example_eval_l1(untrained, held_out), example_eval_l1(model, held_out)
+            check(l1_trained < l1_untrained,
+                  f'{name}: the trained model reconstructs a held-out batch better ({l1_trained} vs {l1_untrained})')
+            expected = dict(EXAMPLE_STEP_LAUNCHES[name])
+            route = None
+            if name == 'autoencoder_lfq':
+                q = model.quantizer
+                chunk = q.entropy_chunk_size
+                if chunk is None and q.codebook_size > (1 << 16):
+                    chunk = 1 << 14
+                route = entropy_route(q.entropy_fused, 'cuda', q.codebook_dim, chunk)
+                if route == 'fused':
+                    expected = {f'lfq_sweep_{k}': 1 for k in 'abcd'}
+            data = tdata.image_batches(batch_size=256, seed=1234)
+            xb = torch.from_numpy(next(data)).to(device)
+            step = train_step(model, adamw(model.parameters(), 3e-4), mod.loss_from_outputs, 10.0)
+            step(xb)
+            sync(device)
+            before = all_launches()
+            step(xb)
+            sync(device)
+            step_launches = launches_delta(before, all_launches())
+            check(step_launches == expected, f'{name}: a training step launched {step_launches}, expected {expected}')
+            extra = {k: run_launches.get(k, 0) - steps * expected.get(k, 0) for k in set(run_launches) | set(expected)}
+            if name in EXAMPLE_KMEANS:
+                check(all(v >= 0 for v in extra.values()), f'{name}: the run launched N steps of kernels {extra}')
+            else:
+                check(all(v == 0 for v in extra.values()), f'{name}: the run launched N steps of kernels {extra}')
+            model.eval()
+            before = all_launches()
+            with torch.no_grad():
+                model(held_out)
+            sync(device)
+            eval_launches = launches_delta(before, all_launches())
+            model.train()
+            check(eval_launches == EXAMPLE_EVAL_LAUNCHES[name],
+                  f'{name}: an eval forward launched {eval_launches}, expected {EXAMPLE_EVAL_LAUNCHES[name]}')
+            step_ms = cuda_ms(lambda: step(xb), EXAMPLE_TIMED_STEPS, warmup=2)
+            prof = profile_device(lambda: step(xb), 5)
+            wait = example_data_wait(step, data, device, EXAMPLE_WAIT_STEPS)
+            entry = dict(steps=steps, run_s=run_s, logged=losses, l1_untrained=l1_untrained, l1_trained=l1_trained,
+                         launches_run=run_launches, launches_step=step_launches, launches_beyond_n_steps=extra,
+                         launches_eval=eval_launches, step_ms=step_ms,
+                         device_idle_share_5_steps=prof['device_idle_share'], data_wait=wait)
+            if route is not None:
+                entry['entropy_route'] = route
+            if name == 'autoencoder':
+                with tempfile.TemporaryDirectory() as td:
+                    path = os.path.join(td, 'train-images-idx3-ubyte')
+                    native_data.write_idx(path, synthetic_u8(NATIVE_IMAGES, seed=1234))
+                    candidates, tdata._IDX_CANDIDATES = tdata._IDX_CANDIDATES, (path,)
+                    try:
+                        native = tdata.image_batches(batch_size=256, seed=1234)
+                        entry['data_wait_native_prefetch'] = example_data_wait(step, native, device,
+                                                                               EXAMPLE_WAIT_STEPS)
+                        native.close()
+                    finally:
+                        tdata._IDX_CANDIDATES = candidates
+            results[name] = entry
+            emit('example', name=name, **entry)
+            del untrained, model, step
+    finally:
+        tdata._synthetic_images = synthetic
+    torch.cuda.empty_cache()
+    seconds = dict(autoencoders=time.perf_counter() - t_phase)
+    t0 = time.perf_counter()
+    tp = dp_run_world(ex_tp_body, 'ex_tp_large_codebook', world=4, axes=EX_TP_MESH[0], mesh_shape=EX_TP_MESH[1],
+                      steps=EX_DIST_STEPS)
+    for r in tp:
+        check(all(r['data_replicas_identical'].values()), f"tp_large_codebook: data replicas bit-identical {r['coords']}")
+        check(r['rows_per_rank'] == 65536 // EX_TP_MESH[1][1] and np.isfinite(r['losses']).all(),
+              f"tp_large_codebook: rows and losses on {r['coords']}")
+        check(r['losses'] == tp[0]['losses'], 'tp_large_codebook: every rank reports the same mean loss')
+    seconds['tp_large_codebook'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp = dp_run_world(ex_gp_body, 'ex_group_parallel_grvq', world=2, axes=('group',), steps=EX_DIST_STEPS)
+    seconds['group_parallel_grvq'] = time.perf_counter() - t0
+    for r in gp:
+        check(all(r['step0'].values()), f"group_parallel_grvq: step 0 equal to the serial loop {r['step0']}")
+        check(r['decode_max_err'] < 1e-5, f"group_parallel_grvq: decode round trip {r['decode_max_err']}")
+    emit('examples_path', steps=EXAMPLE_STEPS, batch=256, data='synthetic blob images (no dataset on the machine)',
+         step_ms={k: v['step_ms'] for k, v in results.items()},
+         device_idle_share={k: v['device_idle_share_5_steps'] for k, v in results.items()},
+         data_wait_share={k: v['data_wait']['share'] for k, v in results.items()},
+         data_wait_share_native_prefetch=results['autoencoder']['data_wait_native_prefetch']['share'],
+         launches_step={k: v['launches_step'] for k, v in results.items()},
+         launches_eval={k: v['launches_eval'] for k, v in results.items()},
+         tp_large_codebook=dict(mesh=dict(zip(*EX_TP_MESH)), steps=EX_DIST_STEPS,
+                                ranks=[{k: r[k] for k in ('coords', 'losses', 'rows_per_rank', 'ema_perplexity',
+                                                          'launches')} for r in tp]),
+         group_parallel_grvq=dict(world=2, steps=EX_DIST_STEPS,
+                                  ranks=[{k: r[k] for k in ('step0', 'losses', 'decode_max_err', 'launches')}
+                                         for r in gp]),
+         seconds=seconds, nvidia_smi=smi)
+    return results, tp, gp
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -5146,6 +5518,10 @@ def main() -> int:
     tp_train = phase_tp_vq_train()
     tp_eval = phase_tp_vq_eval()
     gp = phase_gp_grouped()
+    # the data pipeline, the native oracle and the example trainers
+    phase_native_data(smi)
+    phase_native_oracle(device, smi)
+    examples, ex_tp, ex_gp = phase_examples_path(device, smi)
     tp_train_launches = [[r['steps'][i]['launches'] for r in tp_train] for i in range(len(tp_train[0]['steps']))]
     dp_vq_launches = {f"{st['route']}_step_{st['step']}": [r['steps'][i]['launches'] for r in dp_vq]
                       for i, st in enumerate(dp_vq[0]['steps'])}
@@ -5185,6 +5561,10 @@ def main() -> int:
         'launches_tp_vq_train_per_step_per_rank': [[x['nearest_code'] for x in st] for st in tp_train_launches],
         'launches_tp_vq_eval_per_rank': [r['launches'] for r in tp_eval],
         'launches_gp_grouped_rvq_eval_per_rank': [r['vq_eval_launches']['nearest_code'] for r in gp],
+        'launches_example_step': example_launches(examples, 'launches_step', 'nearest_code'),
+        'launches_example_eval': example_launches(examples, 'launches_eval', 'nearest_code'),
+        'launches_example_tp_large_codebook_per_rank': [r['launches']['nearest_code'] for r in ex_tp],
+        'launches_example_group_parallel_grvq_per_rank': [r['launches']['nearest_code'] for r in ex_gp],
         'tp_select_ms': dict(k1=tp_sel['k1_ms'], k1_return_best=tp_sel['k1_return_best_ms'],
                              sharded_world1=tp_sel['sharded_world1_ms'],
                              of=f'n, c, d = {list(TP_SELECT)}; sharded_world1 on a one-rank gloo group'),
@@ -5218,6 +5598,8 @@ def main() -> int:
         'launches_dp_vq_step_per_rank': {k: [r['train_fused'] for r in v] for k, v in dp_vq_launches.items()
                                          if k.startswith('on')},
         'launches_gp_grouped_rvq_on_step_per_rank': [r['vq_train_launches']['train_fused'] for r in gp],
+        'launches_example_step': example_launches(examples, 'launches_step', 'train_fused'),
+        'launches_example_group_parallel_grvq_per_rank': [r['launches']['train_fused'] for r in ex_gp],
         'max_abs_err': train_err,
         'max_abs_err_of': 'max |esum - float64 sum| at the main shape (indices and rows are exact)',
         'design': TRAIN_DESIGN,
@@ -5239,6 +5621,9 @@ def main() -> int:
         'launches_by_sweep': lfq_main_launches,
         'launches_flagship_train': lfq_flagship_launches,
         'launches_dp_lfq_step_per_rank': [{k: r['launches'][f'lfq_sweep_{k}'] for k in 'abcd'} for r in dp_lfq],
+        'launches_example_lfq_step': {k: examples['autoencoder_lfq']['launches_step'].get(f'lfq_sweep_{k}', 0)
+                                      for k in 'abcd'},
+        'example_lfq_entropy_route': examples['autoencoder_lfq']['entropy_route'],
         'max_abs_err': lfq_errors['dx']['max_abs_err'],
         'max_abs_err_of': 'max |dx - float64 plain| at the main LFQ shape, inv_temp 100, '
                           "LFQ aux loss cotangents (errors of every output: phase lfq_kernels_vs_plain)",
@@ -5294,6 +5679,8 @@ def main() -> int:
         'launches_rsimvq_step': rsimvq_launches['step']['code_sums'],
         'launches_sequential_simvq_step': zoo['sequential_step0']['launches']['code_sums'],
         'launches_tp_vq_train_per_step_per_rank': [[x['code_sums'] for x in st] for st in tp_train_launches],
+        'launches_example_step': example_launches(examples, 'launches_step', 'code_sums'),
+        'launches_example_tp_large_codebook_per_rank': [r['launches']['code_sums'] for r in ex_tp],
         'max_abs_err': code_sums_times['max_abs_err'],
         'max_abs_err_of': 'max |sums - float64 per-code sum| over the code_sums cases (each within the f32 '
                           'summation bound)',
@@ -5308,7 +5695,8 @@ def main() -> int:
         'step_ms': dict(learnable=learn_times['step_ms'], ortho={k: v['step_ms'] for k, v in ortho.items()},
                         affine=affine_ms, fvq=fvq_ms, qinco_eval=qinco_eval_ms, qinco_train=qinco_train_ms,
                         diveq_rvq=diveq_ms, simvq=simvq_ms, rsimvq=rsimvq_ms, rpq_forward=rpq_ms['forward_ms'],
-                        hq=hq_ms, fsp_autoencoder=zoo['fsp_step_ms']),
+                        hq=hq_ms, fsp_autoencoder=zoo['fsp_step_ms'],
+                        examples={k: v['step_ms'] for k, v in examples.items()}),
         'check': 'bins exact, sums within the f32 summation bound of float64, two calls bit-identical; the '
                  'learnable codebook gradient bit-identical across two calls and two steps',
         'power_limit': smi,

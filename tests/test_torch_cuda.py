@@ -1082,3 +1082,40 @@ def test_tp_vq_train_two_gloo_ranks(card, tmp_path):
     for r in ranks:
         assert r['launches'] == [dict(nearest_code=1, code_sums=1)] * 3
         assert r['eval_equal']
+
+
+@pytest.mark.parametrize('metric', td.METRICS)
+def test_native_oracle_agrees_with_kernel(card, metric):
+    """K1 against the float64 C oracle (native/vqcheck.c): the picks equal
+    but at near-ties; on a tie probe (codes repeated, tokens on codes and
+    zero tokens) exactly, the first copy."""
+    from vqtpu_torch.kernels import native_check
+
+    assert native_check.available(), 'native/vqcheck.c does not build here'
+    x, e = _operands((4096, 512, 256), metric, card, seed=7)
+    idx = td.nearest_code(x, e, metric)
+    ref = torch.from_numpy(native_check.nearest_code_ref(x, e, metric)).to(card)
+    r = td.selection_disagreements(x, e, td.selection_bias(e, metric), idx, ref)
+    assert r['non_tie'] == 0, r
+    base = e[:64]
+    ties_e = torch.cat([base, base, base]).contiguous()
+    ties_x = torch.cat([base[::5], torch.zeros(16, 256, device=card)]).contiguous()
+    got = td.nearest_code(ties_x, ties_e, metric).cpu().numpy()
+    want = native_check.nearest_code_ref(ties_x, ties_e, metric)
+    assert np.array_equal(got, want) and (got < 64).all()
+
+
+def test_vq_example_main_on_the_card(card, capsys):
+    """vqtpu_torch.examples.autoencoder's main on the card: its model there,
+    K4 once a training step (train_fused='auto'), finite logged losses."""
+    from vqtpu_torch.examples import autoencoder
+
+    before = (ttf.fused_train_quantize.launches, td.nearest_code.launches)
+    model = autoencoder.main(train_iter=3, batch_size=32, device='cuda')
+    torch.cuda.synchronize()
+    assert (ttf.fused_train_quantize.launches - before[0], td.nearest_code.launches - before[1]) == (3, 0)
+    assert all(p.is_cuda for p in model.parameters())
+    lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith('iter')]
+    assert len(lines) == 2
+    for line in lines:
+        assert np.isfinite(float(line.split('rec loss:')[1].split('|')[0]))

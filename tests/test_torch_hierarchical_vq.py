@@ -31,13 +31,13 @@ import vqtpu
 import vqtpu.codebook.codebook as jcodebook
 import vqtpu_torch
 import vqtpu_torch.codebook.codebook as tcodebook
-import vqtpu_torch.codebook.kmeans as tkmeans
 from vqtpu.composite.hierarchical_vq import adaptive_avg_pool_2d
 from vqtpu_torch import load_vqtpu_state
 
 from torch_parity import assert_grads_close, assert_indices_tie_equal, jax_state, one_torch_thread  # noqa: F401
 
 jkmeans = importlib.import_module('vqtpu.codebook.kmeans')
+tkmeans = importlib.import_module('vqtpu_torch.codebook.kmeans')
 
 DIM, CODES, SCALES, SIDE = 8, 16, (1, 2, 4), 4
 TOL = dict(rtol=1e-5, atol=1e-5)

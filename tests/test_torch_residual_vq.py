@@ -32,7 +32,6 @@ import vqtpu.composite as jcomposite
 import vqtpu.core.sampling as jsampling
 import vqtpu_torch
 import vqtpu_torch.codebook.codebook as tcodebook
-import vqtpu_torch.codebook.kmeans as tkmeans
 import vqtpu_torch.core.sampling as tsampling
 from vqtpu_torch import load_vqtpu_state
 
@@ -41,6 +40,7 @@ from torch_parity import (  # noqa: F401  (one_torch_thread: autouse)
 )
 
 jkmeans = importlib.import_module('vqtpu.codebook.kmeans')
+tkmeans = importlib.import_module('vqtpu_torch.codebook.kmeans')
 
 SHAPE = (2, 24, 16)
 BASE = dict(dim=16, num_quantizers=4, codebook_size=32)

@@ -31,11 +31,11 @@ import vqtpu
 import vqtpu.codebook.codebook as jcodebook
 import vqtpu_torch
 import vqtpu_torch.codebook.codebook as tcodebook
-import vqtpu_torch.codebook.kmeans as tkmeans
 from vqtpu_torch import load_vqtpu_state
 
 # the module: vqtpu.codebook's own `kmeans` attribute is the function
 jkmeans = importlib.import_module('vqtpu.codebook.kmeans')
+tkmeans = importlib.import_module('vqtpu_torch.codebook.kmeans')
 
 from torch_parity import assert_indices_tie_equal, jax_state, one_torch_thread  # noqa: F401  (autouse)
 

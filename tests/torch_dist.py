@@ -13,6 +13,7 @@ the test instead of holding the suite. Results are numpy arrays.
 
 from __future__ import annotations
 
+import importlib
 import multiprocessing as mp
 import pickle
 import sys
@@ -102,7 +103,7 @@ def inject_rows(tables: dict):
     head, wherever the draw comes from. Returns the function that undoes
     it."""
     import vqtpu_torch.codebook.codebook as tcodebook
-    import vqtpu_torch.codebook.kmeans as tkmeans
+    tkmeans = importlib.import_module('vqtpu_torch.codebook.kmeans')
 
     def rows(n):
         return torch.from_numpy(tables['now'][n])
@@ -396,7 +397,7 @@ def inject_index_draws(tables: dict):
     unsharded row draws and the sharded windows both take) by
     `tables['now'][(n, num)]`: the same global index vector wherever the
     draw comes from. Returns the function that undoes it."""
-    import vqtpu_torch.codebook.kmeans as tkmeans
+    tkmeans = importlib.import_module('vqtpu_torch.codebook.kmeans')
     import vqtpu_torch.core.sampling as tsampling
 
     def draw(generator, n, mask, num, device=None):
@@ -759,3 +760,18 @@ def tp_card_body(rank, world, mesh, *, shape=(16, 256, 64), codes=1024):
         q, idx, _ = tp_apply(vq, mesh, lambda m, t: m(t), x)
         q1, idx1, _ = vq(x)
     return dict(launches=launches, eval_equal=bool(torch.equal(q, q1) and torch.equal(idx, idx1)))
+
+
+def examples_body(rank, world, mesh, *, tp_kwargs, gp_kwargs):
+    """vqtpu_torch.examples' two distributed examples on this world: the
+    tensor-parallel trainer on `mesh` ('data', 'code'), then the
+    group-parallel GroupedResidualVQ on a ('group',) mesh of every rank.
+    The trainer's synthetic images are 512 here, not 8192, to keep it short."""
+    import vqtpu_torch.models.data as tdata
+    from vqtpu_torch.examples import group_parallel_grvq, tp_large_codebook
+    from vqtpu_torch.parallel import make_mesh
+    full = tdata._synthetic_images
+    tdata._synthetic_images = lambda num=8192, size=28, seed=0: full(512, size, seed)
+    tp = tp_large_codebook.run(mesh, device='cpu', **tp_kwargs)
+    gp = group_parallel_grvq.run(make_mesh(('group',)), device='cpu', **gp_kwargs)
+    return dict(tp=tp, gp=gp)

@@ -64,6 +64,7 @@ from torch's global generator at construction.
 
 from __future__ import annotations
 
+import importlib
 from typing import Callable
 
 import torch
@@ -86,7 +87,9 @@ from ..parallel.shard import (
     sharded_quantize_lookup_bf16, slice_local_cols,
 )
 from ..parallel.tp import check_code_rows
-from . import kmeans as kmeans_module
+
+# the module: the package binds the name `kmeans` to the function
+kmeans_module = importlib.import_module('.kmeans', __package__)
 
 
 # stat_precision: the JAX package's matmul precision of the statistics.

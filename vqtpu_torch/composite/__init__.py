@@ -5,5 +5,5 @@ from .hierarchical_vq import HierarchicalVQ
 from .residual_fsq import GroupedResidualFSQ, ResidualFSQ
 from .residual_lfq import GroupedResidualLFQ, ResidualLFQ
 from .residual_sim_vq import ResidualSimVQ
-from .residual_vq import GroupedResidualVQ, ResidualVQ
-from .sequential import Sequential
+from .residual_vq import MLP, GroupedResidualVQ, ResidualVQ
+from .sequential import QUANTIZE_KLASSES, Sequential

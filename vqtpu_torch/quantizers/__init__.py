@@ -1,7 +1,7 @@
 """Quantizer layers."""
 
 from .binary_mapper import BinaryMapper
-from .fsp import FSP
+from .fsp import FSP, VectorNorm, build_cdf_act
 from .fsq import FSQ
 from .latent import LatentQuantize
 from .lfq import LFQ, CosineSimLinear
