@@ -181,7 +181,7 @@ prints one JSON line per phase:
    codebook_size=512, decay=0.8, sync_axis='data', train_fused='on',
    kmeans_init=True, threshold_ema_dead_code=2) behind a scalar gain, the
    main batch (1024, 1024, 256) split 2 x (512, 1024, 256) over two gloo
-   ranks on the card (spawned processes): 3 steps with K4 once a rank a
+   ranks on the card (one process each): 3 steps with K4 once a rank a
    step, then one step on 'off' (K1 once a rank, index_put_ statistics);
    the ranks' codebooks bit-identical every step (gathered over gloo);
    every step held to one process over the whole batch from the same state
@@ -220,7 +220,15 @@ prints one JSON line per phase:
    native loader's prefetch ring); then tp_large_codebook on a (2, 2)
    ('data', 'code') mesh and group_parallel_grvq on two ranks, 3 steps
    each, as gloo ranks on the card, with their own checks;
-42. the {"kernels": [...]} line.
+42. entry_dryrun: vqtpu_torch.entry's entry() on the card, fn(state, x)
+   twice: bit-identical, the state unchanged, K4 once a call, held to
+   entry(device='cpu') on the same state, its ms and idle share; then
+   dryrun_multichip over NCCL at torch.cuda.device_count() (one rank a
+   card) and over gloo with four ranks on the card (every section, the 2D
+   ones included), each rank's K1, K4 and code_sums launches a section
+   exactly as predicted; the gloo run held to the same dryrun on four CPU
+   ranks (losses, buffers, gradients, indices);
+43. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -4174,58 +4182,33 @@ DP_DIR = 'build/chip_smoke_dp'
 
 def dp_run_world(body, name, world=DP_WORLD, backend='gloo', device='cuda', axes=('data',), mesh_shape=None,
                  **kwargs):
-    """Spawn `world` processes on card 0 (or the CPU), each joining a
-    `backend` group through a rendezvous file under build/, and run
-    `body(rank, world, mesh, out_dir, device=device, **kwargs)` in each,
-    the mesh `axes` of `mesh_shape` (one axis over every rank by default);
-    returns what each returned. A rank that fails or hangs fails the
-    phase."""
-    import multiprocessing as mp
+    """Run `body(rank, world, mesh, out_dir, device=<the rank's device>,
+    **kwargs)` on `world` ranks (vqtpu_torch.parallel.run_ranks: gloo ranks
+    share card 0, or run on the CPU), the mesh `axes` of `mesh_shape` (one
+    axis over every rank by default), TF32 off and cuDNN deterministic in
+    each; `out_dir` is a
+    fresh directory under build/. Returns what each rank returned. A rank
+    that fails or hangs fails the phase."""
     import shutil
     from pathlib import Path
+    from vqtpu_torch.parallel import run_ranks
     out = Path(DP_DIR) / name
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    ctx = mp.get_context('spawn')
-    procs = [ctx.Process(target=_dp_rank_main,
-                         args=(body, r, world, backend, str(out.resolve()), tuple(axes), mesh_shape,
-                               dict(kwargs, device=device)))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + DP_JOIN_S
-    for p in procs:
-        p.join(max(1.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(30)
-    check(not hung, f'{name}: ranks {hung} finished within {DP_JOIN_S} s')
-    errors = [(out / f'rank{r}.err').read_text() for r, p in enumerate(procs) if p.exitcode != 0]
-    check(not errors, f'{name}: every rank exited 0\n' + '\n'.join(errors))
-    return [torch.load(out / f'rank{r}.pt') for r in range(world)]
-
-
-def _dp_rank_main(body, rank, world, backend, out, axes, shape, kwargs):
-    import traceback
-    from datetime import timedelta
-    from pathlib import Path
-    import torch.distributed as dist
-    from vqtpu_torch.parallel import init_multihost, make_mesh
     try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        init_multihost(f'file://{out}/rendezvous', world, rank, [0] if kwargs['device'] == 'cuda' else None,
-                       backend=backend, timeout=timedelta(seconds=300))
-        try:
-            result = body(rank, world, make_mesh(axes, shape), out, **kwargs)
-        finally:
-            dist.destroy_process_group()
-        torch.save(result, Path(out) / f'rank{rank}.pt')
-    except BaseException:
-        (Path(out) / f'rank{rank}.err').write_text(f'rank {rank}:\n{traceback.format_exc()}')
-        sys.exit(1)
+        return run_ranks(_dp_rank_body, world, backend=backend, device=device, axes=axes, shape=mesh_shape,
+                         timeout=DP_JOIN_S, kwargs=dict(body=body, out=str(out.resolve()), body_kwargs=kwargs))
+    except RuntimeError as e:
+        check(False, f'{name}: every rank finished and exited 0\n{e}')
+
+
+def _dp_rank_body(rank, world, mesh, device, body, out, body_kwargs):
+    # as main() sets them: full f32, and deterministic cuDNN, without which
+    # two code ranks of one data row may sum a convolution's weight
+    # gradient in different orders and their replicated weights drift apart
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    return body(rank, world, mesh, out, device=device, **body_kwargs)
 
 
 class GainVQ(torch.nn.Module):
@@ -5410,6 +5393,156 @@ def phase_examples_path(device, smi):
     return results, tp, gp
 
 
+# -- the port's entry points: vqtpu_torch.entry ---------------------------------
+
+ENTRY_REPS = 20
+ENTRY_GLOO_WORLD = 4
+# a card dryrun against the CPU one: each float tensor within this share of
+# the CPU's largest entry, each loss within it relative (full f32 on both;
+# a wrong selection or statistic moves a codebook row by O(its norm))
+DRYRUN_REL_TOL = 1e-4
+
+
+def expected_dryrun_launches(world: int) -> dict:
+    """{section: {kernel wrapper: launches}} of one dryrun rank on the card,
+    from the sections' code (vqtpu_torch/entry.py)."""
+    def k(nearest_code=0, train_fused=0, code_sums=0):
+        return dict(nearest_code=nearest_code, train_fused=train_fused, code_sums=code_sums)
+    even = world % 2 == 0
+    out = {'dp_autoencoder': k(train_fused=1),                 # one training forward, fused
+           'tp_argmin_bf16': k(nearest_code=2)}                # the sharded selection, the unsharded one
+    if even:
+        out['sharded_ema_2d'] = k(nearest_code=1, code_sums=1)  # sharded_quantize, its EMA statistics
+        # kmeans' 10 Lloyd iterations and the 2 steps' forwards: a sharded selection and its statistics each
+        out['tp_vq_65536'] = k(nearest_code=12, code_sums=12)
+    # 2 groups x 2 EMA layers fused; SimVQ's selection and its backward into the transform
+    out['config5'] = k(nearest_code=1, train_fused=4, code_sums=1)
+    if even:
+        out['rvq_tp'] = k(nearest_code=2, code_sums=2)          # 2 row-sharded layers
+    # the serial loop (g groups x 2 layers), a group's 2 layers on each rank, and (even) the data x group run
+    g = 2 if even else 1
+    out['group_parallel'] = k(train_fused=2 * g + 2 + (2 if even else 0))
+    return out
+
+
+def dryrun_launches(result: dict, kernel: str) -> list[dict]:
+    """{section: launches of `kernel`} for each rank of a dryrun."""
+    return [{s: v[kernel] for s, v in r.items()} for r in result['launches']]
+
+
+def hold_dryrun(card: dict, cpu: dict) -> dict:
+    """The card dryrun against the CPU one on the same seeds: the losses,
+    and, for every rank, what each section left (buffers and gradients,
+    indices, rows): integer tensors equal, float ones within
+    DRYRUN_REL_TOL of the CPU's largest entry. Returns the worst relative
+    error of each section."""
+    worst = {}
+    for key in ('dp_loss', 'tp_loss', 'config5_loss', 'rvq_tp_loss'):
+        a, b = card[key], cpu[key]
+        check((a is None) == (b is None), f'dryrun {key}: ran on both')
+        if a is not None:
+            err = abs(a - b) / abs(b)
+            worst[key] = err
+            check(err <= DRYRUN_REL_TOL, f'dryrun {key} on the card {a} against the CPU {b}')
+    for r, (got_r, want_r) in enumerate(zip(card['held'], cpu['held'])):
+        check(list(got_r) == list(want_r), f'dryrun rank {r}: the same sections')
+        for section, want in want_r.items():
+            got = got_r[section]
+            check(sorted(got) == sorted(want), f'dryrun rank {r} {section}: the same tensors')
+            for name, w in want.items():
+                g = got[name]
+                check(g.shape == w.shape and g.dtype == w.dtype, f'dryrun rank {r} {section} {name}: shape, dtype')
+                if not w.is_floating_point():
+                    check(torch.equal(g, w), f'dryrun rank {r} {section} {name}: equal to the CPU')
+                    continue
+                scale = float(w.abs().max()) if w.numel() else 0.0
+                err = float((g - w).abs().max()) / scale if scale > 0 else float((g - w).abs().max())
+                worst[section] = max(worst.get(section, 0.0), err)
+                check(err <= DRYRUN_REL_TOL,
+                      f'dryrun rank {r} {section} {name}: {err} of the largest entry from the CPU')
+    return worst
+
+
+def phase_entry_dryrun(smi):
+    """entry_dryrun: vqtpu_torch.entry.entry() on the card, fn(state, x)
+    called twice: the outputs bit-identical, the state unchanged, K4 once a
+    call (and nothing else), held to entry(device='cpu') on the same state
+    (reconstruction and commitment loss within 1e-4 of their largest entry,
+    indices but at near-ties); its ms by CUDA events and the idle share of
+    5 profiled calls. Then dryrun_multichip over NCCL on every card (one
+    rank a card; JAX's odd-n skips at one card) and over gloo with four
+    ranks sharing the card, every section, each rank's launches of K1, K4
+    and code_sums per section exactly as predicted; the gloo run is held
+    to the same dryrun on four CPU ranks (hold_dryrun)."""
+    from vqtpu_torch.entry import build_flagship, dryrun_multichip, entry
+    from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+
+    fn, (state, x) = entry()
+    check(x.is_cuda and all(v.is_cuda for v in state.values()), 'entry() puts its state and input on the card')
+    before = {k: v.clone() for k, v in state.items()}
+    outs, launches = [], []
+    for _ in range(2):
+        reset_all_launches()
+        outs.append(fn(state, x))
+        sync('cuda')
+        launches.append(launches_delta({k: 0 for k in all_launches()}, all_launches()))
+    check(launches == [dict(train_fused=1)] * 2, f'the entry forward launched K4 once a call {launches}')
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), 'two calls of the entry forward are bit-identical')
+    check(all(torch.equal(before[k], v) for k, v in state.items()), 'the entry forward leaves its state unchanged')
+    recon, idx, loss = outs[0]
+    check(recon.shape == x.shape and idx.shape == (8, 49) and bool(torch.isfinite(recon).all()),
+          'entry forward shapes and finite reconstruction')
+
+    fn_cpu, (_, x_cpu) = entry(device='cpu')
+    state_cpu = {k: v.cpu() for k, v in state.items()}
+    recon_ref, idx_ref, loss_ref = fn_cpu(state_cpu, x_cpu)
+    ref = build_flagship(device='cpu')
+    ref.load_state_dict(state_cpu)
+    with torch.no_grad():
+        z = ref.encoder(x_cpu).reshape(-1, 32).to('cuda')
+    embed = state['quantizer._codebook.embed'][0]
+    ties = selection_disagreements(z, embed, selection_bias(embed, 'euclidean'), idx.reshape(-1),
+                                   idx_ref.reshape(-1).to('cuda'))
+    check(ties['non_tie'] == 0, f'entry indices disagree with the CPU beyond near-ties {ties}')
+    same = (idx.cpu() == idx_ref).all(-1)
+    recon_err = float((recon.detach().cpu()[same] - recon_ref.detach()[same]).abs().max()) if same.any() else 0.0
+    recon_tol = 1e-4 * float(recon_ref.detach().abs().max())
+    loss_err = abs(float(loss) - float(loss_ref))
+    check(recon_err <= recon_tol and loss_err <= 1e-4 * abs(float(loss_ref)),
+          f'the entry forward matches the CPU (recon {recon_err} > {recon_tol} or loss {loss_err})')
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: fn(state, x), ENTRY_REPS)
+        prof = profile_device(lambda: fn(state, x), 5)
+    entry_out = dict(launches_per_call=launches, images_agreeing=int(same.sum()), recon_max_abs_err_vs_cpu=recon_err,
+                     commit_loss_abs_err_vs_cpu=loss_err, forward_ms=forward_ms,
+                     device_idle_share_5_calls=prof['device_idle_share'],
+                     device_ms_per_call=prof['device_ms_per_call'], **ties)
+
+    runs = {}
+    for name, n, backend, dev in (('nccl', torch.cuda.device_count(), 'nccl', 'cuda'),
+                                  ('gloo4', ENTRY_GLOO_WORLD, 'gloo', 'cuda'),
+                                  ('gloo4_cpu', ENTRY_GLOO_WORLD, 'gloo', 'cpu')):
+        t0 = time.perf_counter()
+        result = dryrun_multichip(n, backend=backend, device=dev)
+        result['seconds'] = time.perf_counter() - t0
+        check(result['n_devices'] == n and len(result['launches']) == n, f'dryrun {name}: {n} ranks')
+        runs[name] = result
+    gloo = runs['gloo4']
+    check(gloo['skipped'] == [] and gloo['tp_loss'] is not None and gloo['rvq_tp_loss'] is not None,
+          'the 4-rank gloo dryrun ran every section')
+    for name in ('nccl', 'gloo4'):
+        want = expected_dryrun_launches(runs[name]['n_devices'])
+        check(all(r == want for r in runs[name]['launches']),
+              f"dryrun {name}: every rank's launches as predicted {runs[name]['launches']} vs {want}")
+    worst = hold_dryrun(gloo, runs['gloo4_cpu'])
+    emit('entry_dryrun', entry=entry_out,
+         dryrun={k: {key: v[key] for key in ('n_devices', 'backend', 'devices', 'dp_loss', 'tp_loss', 'config5_loss',
+                                              'rvq_tp_loss', 'skipped', 'summary', 'launches', 'seconds')}
+                 for k, v in runs.items()},
+         gloo4_vs_cpu_worst_rel_err=worst, gloo4_vs_cpu_tol=DRYRUN_REL_TOL, nvidia_smi=smi)
+    return entry_out, {k: v for k, v in runs.items() if k != 'gloo4_cpu'}      # the card's runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -5522,6 +5655,8 @@ def main() -> int:
     phase_native_data(smi)
     phase_native_oracle(device, smi)
     examples, ex_tp, ex_gp = phase_examples_path(device, smi)
+    # the port's entry points
+    entry_out, dryruns = phase_entry_dryrun(smi)
     tp_train_launches = [[r['steps'][i]['launches'] for r in tp_train] for i in range(len(tp_train[0]['steps']))]
     dp_vq_launches = {f"{st['route']}_step_{st['step']}": [r['steps'][i]['launches'] for r in dp_vq]
                       for i, st in enumerate(dp_vq[0]['steps'])}
@@ -5565,6 +5700,7 @@ def main() -> int:
         'launches_example_eval': example_launches(examples, 'launches_eval', 'nearest_code'),
         'launches_example_tp_large_codebook_per_rank': [r['launches']['nearest_code'] for r in ex_tp],
         'launches_example_group_parallel_grvq_per_rank': [r['launches']['nearest_code'] for r in ex_gp],
+        'launches_dryrun_per_rank': {k: dryrun_launches(v, 'nearest_code') for k, v in dryruns.items()},
         'tp_select_ms': dict(k1=tp_sel['k1_ms'], k1_return_best=tp_sel['k1_return_best_ms'],
                              sharded_world1=tp_sel['sharded_world1_ms'],
                              of=f'n, c, d = {list(TP_SELECT)}; sharded_world1 on a one-rank gloo group'),
@@ -5600,6 +5736,10 @@ def main() -> int:
         'launches_gp_grouped_rvq_on_step_per_rank': [r['vq_train_launches']['train_fused'] for r in gp],
         'launches_example_step': example_launches(examples, 'launches_step', 'train_fused'),
         'launches_example_group_parallel_grvq_per_rank': [r['launches']['train_fused'] for r in ex_gp],
+        'launches_entry_forward': entry_out['launches_per_call'][0]['train_fused'],
+        'launches_dryrun_per_rank': {k: dryrun_launches(v, 'train_fused') for k, v in dryruns.items()},
+        'entry_forward_ms': entry_out['forward_ms'],
+        'entry_forward_of': 'vqtpu_torch.entry.entry() forward on (8, 28, 28, 1), CUDA events, K4 once a call',
         'max_abs_err': train_err,
         'max_abs_err_of': 'max |esum - float64 sum| at the main shape (indices and rows are exact)',
         'design': TRAIN_DESIGN,
@@ -5681,6 +5821,7 @@ def main() -> int:
         'launches_tp_vq_train_per_step_per_rank': [[x['code_sums'] for x in st] for st in tp_train_launches],
         'launches_example_step': example_launches(examples, 'launches_step', 'code_sums'),
         'launches_example_tp_large_codebook_per_rank': [r['launches']['code_sums'] for r in ex_tp],
+        'launches_dryrun_per_rank': {k: dryrun_launches(v, 'code_sums') for k, v in dryruns.items()},
         'max_abs_err': code_sums_times['max_abs_err'],
         'max_abs_err_of': 'max |sums - float64 per-code sum| over the code_sums cases (each within the f32 '
                           'summation bound)',

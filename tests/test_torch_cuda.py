@@ -985,14 +985,14 @@ def test_hierarchical_vq_launches_per_scale(card):
     assert float((dec - rec).abs().max()) <= 1e-5 * float(rec.abs().max())
 
 
-def test_dp_vq_train_two_gloo_ranks(card, tmp_path):
+def test_dp_vq_train_two_gloo_ranks(card):
     """The data-parallel VQ step at a small size: two gloo ranks on one card
     (tests/torch_dist.py), K4 once a rank a step, the ranks' codebooks
     bit-identical every step, and from step 1 on one process over the whole
     batch from the same state picks the same indices and cluster sizes."""
     import torch_dist
 
-    ranks = torch_dist.run_world(torch_dist.vq_dp_card_body, tmp_path, steps=3)
+    ranks = torch_dist.run_world(torch_dist.vq_dp_card_body, steps=3)
     for steps in ranks:
         assert [st['launches'] for st in steps] == [1, 1, 1]
         assert all(st['identical'] for st in steps)
@@ -1073,12 +1073,12 @@ def test_code_sums_with_a_dump_row(card):
     assert float(bins[0, c_local]) == float((~mine).sum())
 
 
-def test_tp_vq_train_two_gloo_ranks(card, tmp_path):
+def test_tp_vq_train_two_gloo_ranks(card):
     """A row-sharded VectorQuantize on two ('code',) gloo ranks of one card
     at a small size: K1 and code_sums once a rank a step, and the eval
     forward equal to the unsharded module's."""
     import torch_dist
-    ranks = torch_dist.run_world(torch_dist.tp_card_body, tmp_path, axes=('code',))
+    ranks = torch_dist.run_world(torch_dist.tp_card_body, axes=('code',))
     for r in ranks:
         assert r['launches'] == [dict(nearest_code=1, code_sums=1)] * 3
         assert r['eval_equal']
@@ -1119,3 +1119,49 @@ def test_vq_example_main_on_the_card(card, capsys):
     assert len(lines) == 2
     for line in lines:
         assert np.isfinite(float(line.split('rec loss:')[1].split('|')[0]))
+
+
+def test_entry_forward_on_the_card(card):
+    """vqtpu_torch.entry.entry() on the card: K4 once a call of its training
+    forward (train_fused='auto'), two calls bit-identical and the state
+    left as it was (the forward's EMA update runs on copies)."""
+    from vqtpu_torch.entry import entry
+
+    fn, (state, x) = entry()
+    assert x.is_cuda and all(v.is_cuda for v in state.values())
+    before = {k: v.clone() for k, v in state.items()}
+    outs, launches = [], []
+    for _ in range(2):
+        k4, k1 = ttf.fused_train_quantize.launches, td.nearest_code.launches
+        outs.append(fn(state, x))
+        torch.cuda.synchronize()
+        launches.append((ttf.fused_train_quantize.launches - k4, td.nearest_code.launches - k1))
+    assert launches == [(1, 0), (1, 0)]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert all(torch.equal(before[k], v) for k, v in state.items())
+    recon, indices, commit_loss = outs[0]
+    assert recon.shape == x.shape and indices.shape == (8, 49) and bool(torch.isfinite(recon).all())
+
+
+def test_module_moved_to_the_card_draws_as_on_the_cpu(card):
+    """A VectorQuantize built on the CPU and moved to the card keeps its
+    generator on the CPU (Module.to does not move it), so its kmeans init
+    and dead-code expiry draw the same rows as its twin left on the CPU:
+    the codebooks after two training forwards agree within 1e-5 of their
+    largest entry, and the indices exactly."""
+    from vqtpu_torch import VectorQuantize
+
+    kw = dict(dim=16, codebook_size=64, kmeans_init=True, threshold_ema_dead_code=2, device='cpu')
+    torch.manual_seed(0)
+    on_cpu = VectorQuantize(**kw).train()
+    torch.manual_seed(0)
+    moved = VectorQuantize(**kw).to(card).train()
+    assert moved._codebook.generator.device.type == 'cpu'
+    xs = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 2, 50, 16), dtype=np.float32))
+    for x in xs:
+        _, want, _ = on_cpu(x)
+        _, got, _ = moved(x.to(card))
+        assert torch.equal(got.cpu(), want)
+    embed = on_cpu._codebook.embed
+    assert bool(on_cpu._codebook.initted) and bool(moved._codebook.initted)
+    assert float((moved._codebook.embed.cpu() - embed).abs().max()) <= 1e-5 * float(embed.abs().max())

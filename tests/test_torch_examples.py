@@ -266,13 +266,13 @@ def test_main_runs_two_steps(name, small_synthetic, capsys):
         assert math.isfinite(rec) and math.isfinite(aux)
 
 
-def test_distributed_examples_on_two_gloo_ranks(tmp_path):
+def test_distributed_examples_on_two_gloo_ranks():
     """tp_large_codebook on a (1, 2) ('data', 'code') mesh and
     group_parallel_grvq on a 2-rank ('group',) mesh, one step each, in one
     world: the codebook split over the ranks, the ranks' losses alike; the
     group-parallel step equal to the serial loop and the decode round
     trip."""
-    ranks = torch_dist.run_world(torch_dist.examples_body, tmp_path, world=2, axes=('data', 'code'), shape=(1, 2),
+    ranks = torch_dist.run_world(torch_dist.examples_body, world=2, axes=('data', 'code'), shape=(1, 2),
                                  tp_kwargs=dict(train_iter=1, num_codes=256, batch_size=BATCH),
                                  gp_kwargs=dict(steps=1, groups=2, dim=16, num_quantizers=2, codes=32, tokens=256))
     for r in ranks:

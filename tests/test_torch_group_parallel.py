@@ -3,7 +3,7 @@
 loop and against the JAX package's group_parallel_forward, on the CPU.
 Mirrors tests/test_group_parallel.py.
 
-One spawned gloo world of four ranks (tests/torch_dist.py::gp_body) runs
+One gloo world of four ranks (tests/torch_dist.py::gp_body) runs
 every case: on its ('group',) mesh of 4 (one member a rank) or on a
 ('data', 'group') (2, 2) mesh (two members a rank, with or without the
 batch split over 'data'). Each rank runs the parallel module and its serial
@@ -90,9 +90,9 @@ CASES = dict([
 
 
 @pytest.fixture(scope='module')
-def world(tmp_path_factory):
+def world():
     names = list(CASES)
-    ranks = td.run_world(td.gp_body, tmp_path_factory.mktemp('gp'), world=4, axes=('group',),
+    ranks = td.run_world(td.gp_body, world=4, axes=('group',),
                          cases=[CASES[n] for n in names])
     return {n: [r[i] for r in ranks] for i, n in enumerate(names)}
 

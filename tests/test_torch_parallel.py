@@ -1,7 +1,7 @@
 """The port's data parallelism (vqtpu_torch.parallel, `sync_axis`) against
 the JAX package's, on the CPU.
 
-The torch side runs as two spawned gloo ranks (tests/torch_dist.py), each
+The torch side runs as two gloo ranks (tests/torch_dist.py), each
 with its half of the global batch along dim 0; the JAX side runs in this
 process under `shard_map` over two of its eight CPU devices, from the same
 state (load_vqtpu_state); and the port runs again in this process on the
@@ -150,14 +150,14 @@ def _joined(ranks, step, name):
 
 
 @pytest.mark.parametrize('route', ('off', 'on'))
-def test_vq_ema_dp_matches_jax_and_one_process(route, tmp_path, monkeypatch):
+def test_vq_ema_dp_matches_jax_and_one_process(route, monkeypatch):
     kwargs = dict(VQ_KW, train_fused=route)
     xs, gs = _inputs()
     tables = [step_tables(s) for s in range(STEPS)]
     jvq = vqtpu.VectorQuantize(**kwargs, sync_axis='data', rngs=nnx.Rngs(0))
     state = jax_state(jvq)
 
-    ranks = td.run_world(td.vq_dp_body, tmp_path, kwargs=kwargs, state=state, xs=xs, gs=gs, step_tables=tables)
+    ranks = td.run_world(td.vq_dp_body, kwargs=kwargs, state=state, xs=xs, gs=gs, step_tables=tables)
     one = vqtpu_torch.VectorQuantize(**kwargs, device='cpu').train()
     load_vqtpu_state(one, state)
     single = td.vq_steps(one, xs, gs, tables)
@@ -200,12 +200,12 @@ def _lfq_kwargs(route):
 
 
 @pytest.mark.parametrize('route', ('off', 'sweeps'))
-def test_lfq_distributed_entropy_matches_one_process(route, tmp_path):
+def test_lfq_distributed_entropy_matches_one_process(route):
     kw = _lfq_kwargs(route)
     x = np.random.default_rng(7).standard_normal((8, 16, 8), dtype=np.float32)
     jm = vqtpu.LFQ(**kw, sync_axis='data', rngs=nnx.Rngs(0))
     state = jax_state(jm)
-    ranks = td.run_world(td.lfq_dp_body, tmp_path, kwargs=kw, state=state, x=x, inv_temps=INV_TEMPS)
+    ranks = td.run_world(td.lfq_dp_body, kwargs=kw, state=state, x=x, inv_temps=INV_TEMPS)
     one = vqtpu_torch.LFQ(**kw, device='cpu').train()
     load_vqtpu_state(one, state)
     jm.train()
@@ -235,12 +235,12 @@ def test_lfq_distributed_entropy_matches_one_process(route, tmp_path):
             assert float(np.abs(got - jgx).max()) < 5e-4
 
 
-def test_fsp_distributed_moments_match_one_process(tmp_path):
+def test_fsp_distributed_moments_match_one_process():
     kw = dict(levels=[8, 6, 5], quantize_rate=1.0)
     x = np.random.default_rng(3).standard_normal((16, 8, 3), dtype=np.float32)
     jm = vqtpu.FSP(**kw, sync_axis='data', rngs=nnx.Rngs(0))
     state = jax_state(jm)
-    ranks = td.run_world(td.fsp_dp_body, tmp_path, kwargs=kw, state=state, x=x)
+    ranks = td.run_world(td.fsp_dp_body, kwargs=kw, state=state, x=x)
 
     one = vqtpu_torch.FSP(**kw, device='cpu').train()
     load_vqtpu_state(one, state)
@@ -267,9 +267,9 @@ def test_fsp_distributed_moments_match_one_process(tmp_path):
     np.testing.assert_allclose(np.concatenate([r['x_grad'] for r in ranks]), np.asarray(jgx), **tol)
 
 
-def test_data_parallel_trainer_converges_and_repeats(tmp_path):
+def test_data_parallel_trainer_converges_and_repeats():
     x = np.random.default_rng(0).standard_normal((32, 4, 8), dtype=np.float32)
-    runs = [td.run_world(td.trainer_body, tmp_path / str(i), x=x, steps=20) for i in range(2)]
+    runs = [td.run_world(td.trainer_body, x=x, steps=20) for _ in range(2)]
     for ranks in runs:
         losses = ranks[0]['losses']
         assert losses[-1] < losses[0], losses
@@ -286,12 +286,12 @@ def test_data_parallel_trainer_converges_and_repeats(tmp_path):
         np.testing.assert_array_equal(p, b['params'][name], err_msg=name)
 
 
-def test_trainer_step_is_the_one_process_gradient(tmp_path):
+def test_trainer_step_is_the_one_process_gradient():
     """One trainer step on two ranks against one Adam step of the same
     model on the whole batch: the psum's summed cotangent and the
     trainer's mean make the single-process gradient."""
     x = np.random.default_rng(1).standard_normal((8, 4, 8), dtype=np.float32)
-    ranks = td.run_world(td.trainer_body, tmp_path, x=x, steps=1, vq_kwargs=dict(ema_update=False))
+    ranks = td.run_world(td.trainer_body, x=x, steps=1, vq_kwargs=dict(ema_update=False))
     torch.manual_seed(0)
     model = td.DPModel(sync_axis=None, ema_update=False)
     opt = torch.optim.Adam(model.parameters(), lr=1e-2)
@@ -305,8 +305,8 @@ def test_trainer_step_is_the_one_process_gradient(tmp_path):
         np.testing.assert_allclose(ranks[0]['params'][name], p.detach().numpy(), rtol=0, atol=1e-6, err_msg=name)
 
 
-def test_collectives_gradient_contracts(tmp_path):
-    ranks = td.run_world(td.collectives_body, tmp_path)
+def test_collectives_gradient_contracts():
+    ranks = td.run_world(td.collectives_body)
     w = np.arange(WORLD * 2, dtype=np.float32) + 1.0
     for r, out in enumerate(ranks):
         mine = w[2 * r:2 * r + 2]
@@ -344,11 +344,11 @@ def test_unbound_axis_raises_and_none_is_identity():
         vq.train()(z)
 
 
-def test_composites_pass_sync_axis_to_every_quantizer(tmp_path):
+def test_composites_pass_sync_axis_to_every_quantizer():
     rng = np.random.default_rng(5)
     x = rng.standard_normal((4, 12, 16), dtype=np.float32)
     x_img = rng.standard_normal((4, 16, 4, 4), dtype=np.float32)
-    ranks = td.run_world(td.composites_body, tmp_path, x=x, x_img=x_img)
+    ranks = td.run_world(td.composites_body, x=x, x_img=x_img)
     for name, out in ranks[0].items():
         assert out['sync_axes'] and set(out['sync_axes']) == {'data'}, (name, out['sync_axes'])
         for a, b in zip(out['codebooks'], ranks[1][name]['codebooks']):
@@ -363,14 +363,14 @@ AFFINE_INPLACE = (
 )
 
 
-def test_affine_and_in_place_optimizer_sync(tmp_path):
+def test_affine_and_in_place_optimizer_sync():
     """affine_param's batch moments with sync_affine_param, and the in-place
     optimizer's step on gradients averaged over the ranks: the ranks'
     state stays identical and equals one process's on the whole batch
     (rtol 1e-5, atol 1e-6). sync_codebook names the axis: True means
     'data', a string the axis itself."""
     x = np.random.default_rng(9).standard_normal((4, 10, 16), dtype=np.float32)
-    ranks = td.run_world(td.affine_inplace_body, tmp_path, x=x, kwargs_list=AFFINE_INPLACE)
+    ranks = td.run_world(td.affine_inplace_body, x=x, kwargs_list=AFFINE_INPLACE)
     for i, kwargs in enumerate(AFFINE_INPLACE):
         for key, value in ranks[0][i].items():
             np.testing.assert_array_equal(value, ranks[1][i][key], err_msg=key)

@@ -115,3 +115,31 @@ def test_gumbel_noise_draws_from_the_generator():
     # the standard Gumbel distribution: mean 0.5772 (Euler-Mascheroni), var pi^2 / 6
     big = tsampling.gumbel_noise(gen, (200_000,)).double()
     assert abs(float(big.mean()) - 0.5772) < 0.02 and abs(float(big.var()) - np.pi ** 2 / 6) < 0.05
+
+
+# each draw of core.sampling, with a generator and the device where the draw is used
+DRAWS = {
+    'gumbel_noise': lambda g, dev: tsampling.gumbel_noise(g, (5,), device=dev),
+    'normal_noise': lambda g, dev: tsampling.normal_noise(g, (5,), device=dev),
+    'uniform_noise': lambda g, dev: tsampling.uniform_noise(g, (5,), device=dev),
+    'bernoulli': lambda g, dev: tsampling.bernoulli(g, torch.full((5,), 0.3, device=dev)),
+    'random_permutation': lambda g, dev: tsampling.random_permutation(g, 7, device=dev),
+    'bernoulli_and_uniform': lambda g, dev: torch.stack(tsampling.bernoulli_and_uniform(g, 0.3, (5,), device=dev)),
+    'masked_sample_indices': lambda g, dev: tsampling.masked_sample_indices(g, 9, None, 4, device=dev),
+    'sample_vectors': lambda g, dev: tsampling.sample_vectors(g, torch.ones(9, 2, device=dev), 4),
+    'sample_vectors_with_replacement': lambda g, dev: tsampling.sample_vectors(g, torch.ones(3, 2, device=dev), 4),
+}
+
+
+@pytest.mark.parametrize('draw', sorted(DRAWS))
+def test_draws_are_made_on_the_generators_device(draw):
+    """Module.to leaves a module's generators where they were made, so a
+    draw is made on its generator's device, exactly as there, and moved to
+    where it is used ('meta' stands in for the card: a draw made there
+    would leave the CPU generator where it was)."""
+    on_cpu, elsewhere = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    want = DRAWS[draw](on_cpu, 'cpu')
+    got = DRAWS[draw](elsewhere, 'meta')
+    assert got.device.type == 'meta' and got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(on_cpu.get_state(), elsewhere.get_state())
+    assert not torch.equal(on_cpu.get_state(), torch.Generator().manual_seed(3).get_state())

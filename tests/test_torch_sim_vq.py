@@ -116,7 +116,7 @@ def test_simvq_channel_first_and_custom_transform():
         torch.testing.assert_close(tm.indices_to_codes(idx), q, rtol=0, atol=0)
 
 
-def test_simvq_code_axis_is_not_ported(tmp_path):
+def test_simvq_code_axis_is_not_ported():
     """code_axis is ported (tests/test_torch_tp.py): outside a mesh binding
     the axis SimVQ is the unsharded module; inside one, with its frozen
     codebook not sharded, it raises."""
@@ -127,7 +127,7 @@ def test_simvq_code_axis_is_not_ported(tmp_path):
     plain = vqtpu_torch.SimVQ(dim=DIM, codebook_size=CODES, device='cpu')
     for got, want in zip(sharded(x), plain(x)):
         assert torch.equal(got, want)
-    errors = torch_dist.code_axis_at_rest_raises_in_mesh(tmp_path, 'SimVQ', dim=DIM, codebook_size=CODES,
+    errors = torch_dist.code_axis_at_rest_raises_in_mesh('SimVQ', dim=DIM, codebook_size=CODES,
                                                           code_axis='code')
     assert all(f'{CODES} codebook rows inside a mesh' in e for e in errors), errors
 

@@ -2,7 +2,7 @@
 against the JAX package's and against the port's own unsharded modules, on
 the CPU. Mirrors tests/test_tp.py.
 
-The torch side runs in spawned gloo worlds (tests/torch_dist.py): two ranks
+The torch side runs in gloo worlds (tests/torch_dist.py): two ranks
 on a ('code',) mesh for every module case, four on a (2, 2) ('data',
 'code') mesh for the trainer, the 2D parity, the checkpoint resume and the
 sharded_vq engine. Each world runs once per module (fixtures) and the tests
@@ -153,10 +153,10 @@ CASES = _cases()
 
 
 @pytest.fixture(scope='module')
-def code_world(tmp_path_factory):
+def code_world():
     """Every case on two ('code',) ranks and on one process."""
     names = list(CASES)
-    ranks = td.run_world(td.tp_cases_body, tmp_path_factory.mktemp('code_world'), world=WORLD, axes=('code',),
+    ranks = td.run_world(td.tp_cases_body, world=WORLD, axes=('code',),
                          cases=[CASES[n] for n in names])
     return {n: dict(ranks=[r[i] for r in ranks], one=td.run_case(CASES[n])) for i, n in enumerate(names)}
 
@@ -351,7 +351,7 @@ CASES_2D = {
 @pytest.fixture(scope='module')
 def world_2d(tmp_path_factory):
     tmp = tmp_path_factory.mktemp('world_2d')
-    ranks = td.run_world(td.tp_trainer_body, tmp, world=4, axes=('data', 'code'), shape=(2, 2),
+    ranks = td.run_world(td.tp_trainer_body, world=4, axes=('data', 'code'), shape=(2, 2),
                          xs=AE_XS, ckpt_dir=str(tmp), cases=list(CASES_2D.values()))
     one = td.run_case(dict(CASES_2D['plain'], kwargs=dict(dim=DIM, codebook_size=CODES)))
     return ranks, one

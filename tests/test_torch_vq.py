@@ -254,7 +254,7 @@ DATA_PARALLEL = ('sync_codebook', 'sync_axis')
     (dict(directional_reparam=True, threshold_ema_dead_code=2), 'directional_reparam'),
     (dict(stat_precision='default'), 'stat_precision'),
 ))
-def test_vq_out_of_slice_features_raise(kwargs, feature, tmp_path):
+def test_vq_out_of_slice_features_raise(kwargs, feature):
     """The row-sharded codebook trains outside a mesh as the unsharded one
     does, and inside a mesh binding its axis, with its leaves not sharded,
     raises (it trains sharded in tests/test_torch_tp.py); the data-parallel
@@ -271,7 +271,7 @@ def test_vq_out_of_slice_features_raise(kwargs, feature, tmp_path):
         plain = vqtpu_torch.VectorQuantize(dim=16, codebook_size=8, device='cpu').train()
         for got, want in zip(vq(x), plain(x)):
             assert torch.equal(got, want)
-        errors = torch_dist.code_axis_at_rest_raises_in_mesh(tmp_path, 'VectorQuantize', dim=16, codebook_size=8,
+        errors = torch_dist.code_axis_at_rest_raises_in_mesh('VectorQuantize', dim=16, codebook_size=8,
                                                               **kwargs)
         assert all('8 codebook rows inside a mesh' in e for e in errors), errors
         return

@@ -403,7 +403,7 @@ def test_refused_combinations_raise_like_jax(case):
 
 
 @pytest.mark.parametrize('feature', ('sync_axis', 'sync_codebook', 'sync_affine_param', 'code_axis'))
-def test_distributed_kwargs_not_ported(feature, tmp_path):
+def test_distributed_kwargs_not_ported(feature):
     """Every distributed kwarg is ported. The row-sharded codebook (code_axis)
     of a learnable, affine VectorQuantize trains outside a mesh as the
     unsharded one does, and inside a mesh binding its axis, its leaves not
@@ -422,7 +422,7 @@ def test_distributed_kwargs_not_ported(feature, tmp_path):
         plain = TVQ(**kwargs, device='cpu').train()
         for got, want in zip(sharded(x), plain(x)):
             assert torch.equal(got, want)
-        errors = torch_dist.code_axis_at_rest_raises_in_mesh(tmp_path, 'VectorQuantize', code_axis='code', **kwargs)
+        errors = torch_dist.code_axis_at_rest_raises_in_mesh('VectorQuantize', code_axis='code', **kwargs)
         assert all(f'{CODES} codebook rows inside a mesh' in e for e in errors), errors
         return
     kwargs = dict(affine_param=True, **{feature: value})

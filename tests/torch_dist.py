@@ -1,77 +1,36 @@
-"""Spawned gloo worlds for the port's data-parallel tests, and the bodies
+"""Gloo worlds on the CPU for the port's distributed tests, and the bodies
 their ranks run. Imports torch and vqtpu_torch only: each rank is a fresh
-`spawn` process, which would otherwise pay for importing JAX.
+interpreter, which would otherwise pay for importing JAX.
 
-`run_world(body, tmp_path, **kwargs)` starts `world` processes, each of
-which joins a gloo process group through a rendezvous file in `tmp_path`
-(never a fixed port: the suite runs in several worker processes at once),
-builds the mesh (`axes` of `shape`; `('data',)` over every rank by
-default), calls `body(rank, world, mesh, **kwargs)` and pickles what it
-returns. Every join has a timeout, so a hung rank fails
-the test instead of holding the suite. Results are numpy arrays.
+`run_world(body, **kwargs)` runs `body(rank, world, mesh, **kwargs)` on
+`world` gloo ranks through vqtpu_torch.parallel.run_ranks (the mesh `axes`
+of `shape`; `('data',)` over every rank by default), each rank on one
+thread, and returns what each rank returned. Every join has a timeout, so
+a hung rank fails the test instead of holding the suite. Results are numpy
+arrays.
 """
 
 from __future__ import annotations
 
 import importlib
-import multiprocessing as mp
-import pickle
-import sys
-import traceback
-from datetime import timedelta
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from vqtpu_torch.parallel import run_ranks
+
 JOIN_TIMEOUT_S = 120
 
 
-def run_world(body, tmp_path, world: int = 2, timeout: float = JOIN_TIMEOUT_S, axes=('data',), shape=None,
-              **kwargs) -> list:
+def run_world(body, world: int = 2, timeout: float = JOIN_TIMEOUT_S, axes=('data',), shape=None, **kwargs) -> list:
     """[body's result on rank r for r in range(world)]."""
-    tmp_path = Path(tmp_path)
-    tmp_path.mkdir(parents=True, exist_ok=True)
-    ctx = mp.get_context('spawn')
-    procs = [ctx.Process(target=_rank_main, args=(body, r, world, str(tmp_path), tuple(axes), shape, kwargs),
-                         daemon=True)
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout)
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(10)
-    assert not hung, f'ranks {hung} did not finish within {timeout} s'
-    errors = [(tmp_path / f'rank{r}.err').read_text() for r, p in enumerate(procs) if p.exitcode != 0]
-    assert not errors, '\n'.join(errors)
-    results = []
-    for r in range(world):
-        with open(tmp_path / f'rank{r}.pkl', 'rb') as f:
-            results.append(pickle.load(f))      # written by this test's own ranks
-    return results
+    return run_ranks(_one_thread, world, backend='gloo', device='cpu', axes=axes, shape=shape, timeout=timeout,
+                     kwargs=dict(body=body, body_kwargs=kwargs))
 
 
-def _rank_main(body, rank, world, tmp, axes, shape, kwargs):
-    import torch.distributed as dist
-
-    from vqtpu_torch.parallel import init_multihost, make_mesh
-
-    try:
-        torch.set_num_threads(1)
-        init_multihost(f'file://{tmp}/rendezvous', world, rank, backend='gloo', timeout=timedelta(seconds=60))
-        try:
-            out = body(rank, world, make_mesh(axes, shape), **kwargs)
-        finally:
-            dist.destroy_process_group()
-        with open(Path(tmp) / f'rank{rank}.pkl', 'wb') as f:
-            pickle.dump(out, f)
-    except BaseException:
-        (Path(tmp) / f'rank{rank}.err').write_text(f'rank {rank}:\n{traceback.format_exc()}')
-        sys.exit(1)
+def _one_thread(rank, world, mesh, device, body, body_kwargs):
+    torch.set_num_threads(1)
+    return body(rank, world, mesh, **body_kwargs)
 
 
 def shard(a: np.ndarray, rank: int, world: int) -> np.ndarray:
@@ -670,10 +629,10 @@ def unsharded_in_mesh_body(rank, world, mesh, *, cls, kwargs, x):
     return None
 
 
-def code_axis_at_rest_raises_in_mesh(tmp_path, cls, **kwargs) -> list:
+def code_axis_at_rest_raises_in_mesh(cls, **kwargs) -> list:
     """unsharded_in_mesh_body on two ('code',) ranks: each rank's message."""
     x = np.random.default_rng(0).standard_normal((2, 4, kwargs['dim']), dtype=np.float32)
-    return run_world(unsharded_in_mesh_body, tmp_path, axes=('code',), cls=cls, kwargs=kwargs, x=x)
+    return run_world(unsharded_in_mesh_body, axes=('code',), cls=cls, kwargs=kwargs, x=x)
 
 
 # -- group-parallel Grouped composites ----------------------------------------------
@@ -775,3 +734,45 @@ def examples_body(rank, world, mesh, *, tp_kwargs, gp_kwargs):
     tp = tp_large_codebook.run(mesh, device='cpu', **tp_kwargs)
     gp = group_parallel_grvq.run(make_mesh(('group',)), device='cpu', **gp_kwargs)
     return dict(tp=tp, gp=gp)
+
+
+# -- the entry points' dryrun (vqtpu_torch.entry) and its launcher --------------------
+
+
+def echo_body(rank, world, mesh, device):
+    """A rank of vqtpu_torch.parallel.run_ranks that reports where it ran."""
+    return dict(rank=rank, world=world, axes=mesh.axis_names, size=mesh.size('data'), device=device)
+
+
+def failing_body(rank, world, mesh, device):
+    """A rank body whose rank 1 raises."""
+    if rank == 1:
+        raise ValueError('rank 1 fails on purpose')
+    return rank
+
+
+def _codebooks(model) -> list:
+    import vqtpu_torch.codebook.codebook as tcodebook
+    return [np_tree(dict(embed=m.embed, embed_avg=m.embed_avg, cluster_size=m.cluster_size))
+            for m in model.modules() if isinstance(m, tcodebook.Codebook)]
+
+
+def entry_sections_body(rank, world, mesh, *, c5_state, c5_batch, rvq_state, rvq_batch):
+    """vqtpu_torch.entry's config-5 DP step on this world's ('data',) mesh
+    and its code-sharded ResidualVQ TP step on a (2, 2) ('data', 'code')
+    mesh, each from a JAX state: the loss, every codebook and the whole
+    state after the step (the ResidualVQ's gathered back to full rows)."""
+    from vqtpu_torch import load_vqtpu_state
+    from vqtpu_torch.entry import Config5Model, TPRVQModel, config5_step, rvq_tp_step
+    from vqtpu_torch.parallel import gather_codebooks, make_mesh
+
+    c5 = Config5Model('cpu')
+    load_vqtpu_state(c5, c5_state)
+    c5_loss, _ = config5_step(c5, mesh, torch.from_numpy(shard(c5_batch, rank, world)))
+    mesh2d = make_mesh(('data', 'code'), (2, world // 2))
+    rvq = TPRVQModel(16 * world, 'cpu')
+    load_vqtpu_state(rvq, rvq_state)
+    rvq_loss, _ = rvq_tp_step(rvq, mesh2d, torch.from_numpy(shard(rvq_batch, mesh2d.index('data'), 2)))
+    gather_codebooks(rvq, mesh2d)
+    return dict(c5_loss=c5_loss, c5_codebooks=_codebooks(c5), c5_state=np_tree(c5.state_dict()),
+                rvq_loss=rvq_loss, rvq_codebooks=_codebooks(rvq), rvq_state=np_tree(rvq.state_dict()))

@@ -30,7 +30,8 @@ the data-parallel trainer; the quantizers' `sync_axis`), and so do
 row-sharded codebooks (the codebook-bearing modules' `code_axis`,
 `parallel.TensorParallelTrainer`, `parallel.tp_apply`) and group-parallel
 Grouped composites (`parallel.group_parallel_forward`); `utils` holds
-checkpointing, the import of upstream checkpoints and profiling.
+checkpointing, the import of upstream checkpoints and profiling, and
+`entry` the repo's entry points (`entry()`, `dryrun_multichip(n)`).
 """
 
 from .composite.hierarchical_vq import HierarchicalVQ

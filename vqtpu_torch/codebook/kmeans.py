@@ -67,7 +67,7 @@ def sharded_draw(
     if sync_axis is None:
         return cand
     src = torch.randint(0, collectives.axis_size(sync_axis), (num,), generator=generator,
-                        device=samples.device)[row0:row0 + c_local]
+                        device=generator.device)[row0:row0 + c_local].to(samples.device)
     mine = (src == collectives.axis_index(sync_axis))[:, None]
     return collectives.psum(torch.where(mine, cand, 0.0), sync_axis)
 

@@ -1,7 +1,10 @@
 """Row sampling with an explicit generator (counterpart of
 vqtpu/core/sampling.py).
 
-Each function takes a `torch.Generator` on the device of the samples. The
+Each draw is made on its generator's own device and then moved to where
+it is used: `Module.to` leaves a module's generators where they were made,
+so a model built on the CPU and moved to the card draws the same values as
+it does on the CPU (as a JAX key draws the same on every backend). The
 two frameworks cannot share a random stream, so the tests hand both sides
 the same indices by replacing these functions. `gumbel_noise` is the draw of
 `gumbel_sample` (the code sampler of the distance-materializing path, which
@@ -20,32 +23,39 @@ import math
 import torch
 
 
+def _to(t: torch.Tensor, device) -> torch.Tensor:
+    """A draw made on its generator's device, on `device` (where it was
+    made when None)."""
+    return t if device is None else t.to(device)
+
+
 def gumbel_noise(generator: torch.Generator, shape, device=None) -> torch.Tensor:
     """Standard Gumbel noise, -log(-log u) for u uniform in (0, 1)."""
-    u = torch.rand(shape, generator=generator, device=device)
+    u = _to(torch.rand(shape, generator=generator, device=generator.device), device)
     tiny = torch.finfo(u.dtype).tiny
     return -torch.log(-torch.log(u.clamp(tiny, 1.0 - 2 ** -24)))
 
 
 def normal_noise(generator: torch.Generator, shape, device=None) -> torch.Tensor:
     """Standard normal noise of `shape`."""
-    return torch.randn(shape, generator=generator, device=device)
+    return _to(torch.randn(shape, generator=generator, device=generator.device), device)
 
 
 def uniform_noise(generator: torch.Generator, shape, dtype=torch.float32, device=None) -> torch.Tensor:
     """Uniform [0, 1) values of `shape`."""
-    return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return _to(torch.rand(shape, generator=generator, dtype=dtype, device=generator.device), device)
 
 
 def bernoulli(generator: torch.Generator, prob: torch.Tensor) -> torch.Tensor:
     """A boolean tensor of `prob`'s shape, each entry True with its
     probability."""
-    return torch.rand(prob.shape, generator=generator, dtype=prob.dtype, device=prob.device) < prob
+    return _to(torch.rand(prob.shape, generator=generator, dtype=prob.dtype, device=generator.device),
+               prob.device) < prob
 
 
 def random_permutation(generator: torch.Generator, n: int, device=None) -> torch.Tensor:
     """A uniform random permutation of range(n), int64."""
-    return torch.randperm(n, generator=generator, device=device)
+    return _to(torch.randperm(n, generator=generator, device=generator.device), device)
 
 
 def topk_first(t: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -124,8 +134,8 @@ def bernoulli_and_uniform(generator: torch.Generator, p: float, shape, dtype=tor
                           device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """A boolean mask, True with probability p, and uniform [0, 1) values of
     `dtype`, both of `shape`."""
-    mask = torch.rand(shape, generator=generator, device=device) < p
-    return mask, torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    mask = _to(torch.rand(shape, generator=generator, device=generator.device), device) < p
+    return mask, _to(torch.rand(shape, generator=generator, dtype=dtype, device=generator.device), device)
 
 
 def sample_vectors(generator: torch.Generator, samples: torch.Tensor, num: int) -> torch.Tensor:
@@ -133,10 +143,10 @@ def sample_vectors(generator: torch.Generator, samples: torch.Tensor, num: int) 
     replacement otherwise."""
     n = samples.shape[0]
     if n >= num:
-        indices = torch.randperm(n, generator=generator, device=samples.device)[:num]
+        indices = torch.randperm(n, generator=generator, device=generator.device)[:num]
     else:
-        indices = torch.randint(0, n, (num,), generator=generator, device=samples.device)
-    return samples.index_select(0, indices)
+        indices = torch.randint(0, n, (num,), generator=generator, device=generator.device)
+    return samples.index_select(0, indices.to(samples.device))
 
 
 def batched_sample_vectors(
@@ -154,11 +164,12 @@ def masked_sample_indices(
     where `mask` is True; uniform over all rows when `mask` is None or has
     no True row (callers skip the draw's use then)."""
     if mask is None:
-        return torch.randint(0, n, (num,), generator=generator, device=device)
+        return _to(torch.randint(0, n, (num,), generator=generator, device=generator.device), device)
     weights = mask.reshape(-1).float()
-    # no host sync: an all-False mask draws from all rows
+    # no host sync (with the generator on the mask's device): an all-False
+    # mask draws from all rows
     weights = torch.where(weights.sum() > 0, weights, torch.ones_like(weights))
-    return torch.multinomial(weights, num, replacement=True, generator=generator)
+    return torch.multinomial(weights.to(generator.device), num, replacement=True, generator=generator).to(mask.device)
 
 
 def masked_sample_vectors(

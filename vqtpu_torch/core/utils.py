@@ -43,10 +43,22 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return device
 
 
+def module_generators(model) -> list[torch.Generator]:
+    """The distinct `generator`s of `model`'s modules, in module order (the
+    random state a module keeps beside its parameters and buffers)."""
+    seen, out = set(), []
+    for m in model.modules():
+        g = getattr(m, 'generator', None)
+        if isinstance(g, torch.Generator) and id(g) not in seen:
+            seen.add(id(g))
+            out.append(g)
+    return out
+
+
 def random_orthogonal(n: int, generator: torch.Generator, device) -> torch.Tensor:
     """A Haar-random (n, n) orthogonal matrix: QR of a Gaussian matrix with
     the signs of R's diagonal folded into Q."""
-    q, r = torch.linalg.qr(torch.randn(n, n, generator=generator, device=device))
+    q, r = torch.linalg.qr(torch.randn(n, n, generator=generator, device=generator.device).to(device))
     return q * torch.sign(torch.diagonal(r))[None, :]
 
 

@@ -16,21 +16,10 @@ import torch.distributed as dist
 from torch import nn
 
 from ..core import metrics
+from ..core.optim import OPTAX_ADAMW_WEIGHT_DECAY, adamw  # noqa: F401  (the examples' optimizer)
 from ..core.utils import resolve_device
 from ..models import data as data_module
 from ..parallel import init_multihost
-
-# optax.adamw's default weight decay; torch.optim.AdamW's default is 1e-2
-OPTAX_ADAMW_WEIGHT_DECAY = 1e-4
-
-
-def adamw(params, lr: float) -> torch.optim.AdamW:
-    """`optax.adamw(lr)` in torch: b1 0.9, b2 0.999 and eps 1e-8 are both
-    libraries' defaults; the weight decay is optax's 1e-4, decoupled as in
-    optax (p -= lr * (adam update + wd * p))."""
-    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=OPTAX_ADAMW_WEIGHT_DECAY)
-
 
 def l1_reconstruction(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The examples' reconstruction loss: mean |clip(out, -1, 1) - x|."""

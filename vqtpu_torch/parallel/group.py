@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..core.utils import module_generators
 from . import collectives
 from .shard import Mesh
 
@@ -68,9 +69,7 @@ def broadcast_member_state(gmodule, mesh: Mesh, group_axis: str = 'group') -> No
             if buf is not t.data:
                 t.data.copy_(buf)
         device = next(iter(member.buffers()), torch.zeros(())).device
-        gens = {id(m.generator): m.generator for m in member.modules()
-                if isinstance(getattr(m, 'generator', None), torch.Generator)}
-        for gen in gens.values():
+        for gen in module_generators(member):
             state = gen.get_state().to(device)
             dist.broadcast(state, src=src, group=pg)
             gen.set_state(state.cpu())

@@ -31,6 +31,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..core.utils import module_generators
 from . import collectives
 from .shard import Mesh, average_gradients
 
@@ -235,16 +236,6 @@ class TensorParallelTrainer:
             return collectives.pmean(loss.detach(), self.data_axis)
 
 
-def _generators(model: nn.Module) -> list:
-    seen, out = set(), []
-    for m in model.modules():
-        g = getattr(m, 'generator', None)
-        if isinstance(g, torch.Generator) and id(g) not in seen:
-            seen.add(id(g))
-            out.append(g)
-    return out
-
-
 def tp_apply(model: nn.Module, mesh: Mesh, fn: Callable, *args, mutates_state: bool = False):
     """`fn(model, *args)` with `mesh` bound and the model's codebooks
     sharded (an eval forward, or `get_output_from_indices` against sharded
@@ -259,7 +250,7 @@ def tp_apply(model: nn.Module, mesh: Mesh, fn: Callable, *args, mutates_state: b
     if not mutates_state:
         tensors = {id(t): t for t in [*model.parameters(), *model.buffers()]}
         saved = ({i: t.detach().clone() for i, t in tensors.items() if full is None or i not in full},
-                 [(g, g.get_state()) for g in _generators(model)])
+                 [(g, g.get_state()) for g in module_generators(model)])
     if at_rest:
         shard_codebooks(model, mesh)
     try:

@@ -153,6 +153,23 @@ class LatentQuantize(nn.Module):
             return quantize
         return z + (quantize - z).detach()
 
+    def quantize_and_project(self, z: torch.Tensor, is_img_or_video=None, ps=None):
+        """Quantize tokens already through project_in, (b, n, c, d), and
+        project them back out -> (codes (b, n, c * d), out, indices). `ps`
+        is the channel-last shape of the original input, (b, *spatial,
+        dim): `out` takes it and `indices` (b, *spatial, c); `out` comes
+        back channel-first, and `indices` without their codebook dim unless
+        `keep_num_codebooks_dim`. `is_img_or_video` is accepted and unused,
+        as upstream."""
+        codes, out, indices = self._quantize_tokens(z)
+        if ps is not None:
+            out = out.reshape(ps)
+            indices = indices.reshape(*ps[:-1], self.num_codebooks)
+        out = out.movedim(-1, 1)
+        if not self.keep_num_codebooks_dim:
+            indices = indices[..., 0]
+        return codes, out, indices
+
     @staticmethod
     def quantization_loss(z: torch.Tensor, zhat: torch.Tensor) -> torch.Tensor:
         return ((zhat.detach() - z) ** 2).mean()
@@ -162,19 +179,20 @@ class LatentQuantize(nn.Module):
         return ((z.detach() - zhat) ** 2).mean()
 
     def _quantize_tokens(self, z_tokens: torch.Tensor, ste: bool = True):
-        """(b, N, c, d) -> (out (b, N, dim), indices (b, N, c))."""
+        """(b, N, c, d) -> (codes (b, N, c * d), out (b, N, dim), indices
+        (b, N, c))."""
         codes = self.quantize(z_tokens, ste=ste)
         indices = self.codes_to_indices(codes)
         codes = codes.reshape(*codes.shape[:-2], -1)
         out = self.project_out(codes) if self.project_out is not None else codes
-        return out, indices
+        return codes, out, indices
 
     def _inner_step(self, z: torch.Tensor, original_input: torch.Tensor, finalize) -> None:
         """One step of the in-place optimizer on the two losses of the raw
         gathered values; every parameter's `.grad` is left as it was."""
         params = [p for group in self.in_place_codebook_optimizer.param_groups for p in group['params']]
         with torch.enable_grad():
-            out, _ = finalize(*self._quantize_tokens(z.detach(), ste=False))
+            out, _ = finalize(*self._quantize_tokens(z.detach(), ste=False)[1:])
             loss = torch.zeros((), device=out.device)
             if self.commitment_loss_weight != 0:
                 loss = loss + self.commitment_loss(original_input, out)
@@ -213,7 +231,7 @@ class LatentQuantize(nn.Module):
         if self.in_place_codebook_optimizer is not None and self.training:
             self._inner_step(z, original_input, finalize)
 
-        out, indices = finalize(*self._quantize_tokens(z))
+        out, indices = finalize(*self._quantize_tokens(z)[1:])
         zero = torch.zeros((), device=out.device)
         commitment_loss = quantization_loss = zero
         if self.training:
