@@ -228,7 +228,19 @@ prints one JSON line per phase:
    ones included), each rank's K1, K4 and code_sums launches a section
    exactly as predicted; the gloo run held to the same dryrun on four CPU
    ranks (losses, buffers, gradients, indices);
-43. the {"kernels": [...]} line.
+43. dtype_path: each module of the dtype repair (LFQ, ResidualLFQ, FSQ,
+   ResidualFSQ and its grouped form, FSP, LatentQuantize, ResidualVQ and
+   its grouped form with a codebook_dim, RPQ, HierarchicalVQ, BinaryMapper)
+   on bf16 and fp16 inputs, in eval and one training step, on its kernel
+   route against its plain route from the same state (dtype_case: the
+   output dtypes, the same launches as an f32 input, indices but at
+   near-ties and edges, values within 1e-4); then under
+   torch.autocast('cuda', dtype=torch.bfloat16) the main VectorQuantize on
+   (1024, 1024, 256) in eval and one step per train_fused route, the
+   distance path's step, ResidualVQ(dim=256, num_quantizers=8,
+   codebook_size=1024) and SimVQ eval, each bit-equal to the call without
+   autocast (outputs, losses, the codebook's state) with the same launches;
+44. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -5543,6 +5555,350 @@ def phase_entry_dryrun(smi):
     return entry_out, {k: v for k, v in runs.items() if k != 'gloo4_cpu'}      # the card's runs
 
 
+# -- dtypes: low-precision inputs and autocast -------------------------------------------
+
+DTYPE_LOW = {'bf16': torch.bfloat16, 'fp16': torch.float16}
+# a token whose index moves when the input moves this much (relative, plus
+# the same absolute) sits at a bin edge (tests/test_torch_dtype.py)
+DTYPE_EDGE_REL = 1e-6
+DTYPE_MAX_DIFFER_SHARE = 1e-2
+DTYPE_TOL = 1e-4
+
+
+def dtype_cases():
+    """Each module of the F1 repair (ROADMAP.md Queue 3) on a low-precision
+    input: name -> (build(**route kwargs) on the CPU, the kernel route's
+    kwargs, the plain route's kwargs, the plain route's device, the input
+    shape, the index rule, {mode: kernels its forward must launch}, the
+    output's dtype: 'f32', or the input's where no projection promotes it,
+    as in the JAX package)."""
+    import vqtpu_torch as vt
+    lfq_sweeps = [f'lfq_sweep_{k}' for k in 'abcd']
+    vq_routes = (dict(), dict(use_pallas=False), 'cuda')
+    return {
+        'lfq': (lambda **kw: vt.LFQ(dim=24, codebook_size=4096, **kw), dict(entropy_fused='on'),
+                dict(entropy_fused='off'), 'cuda', (4, 1024, 24), 'scalar', dict(train=lfq_sweeps, eval=[]), 'f32'),
+        'residual_lfq': (lambda **kw: vt.ResidualLFQ(dim=24, codebook_size=4096, num_quantizers=2, **kw),
+                         dict(entropy_fused='on'), dict(entropy_fused='off'), 'cuda', (4, 1024, 24), 'scalar',
+                         dict(train=lfq_sweeps, eval=[]), 'f32'),
+        'fsq': (lambda **kw: vt.FSQ(levels=[8, 5, 5], dim=16, **kw), {}, {}, 'cpu', (4, 1024, 16), 'scalar',
+                dict(train=[], eval=[]), 'f32'),
+        # no projection: K9 in eval, held to the 'off' loop on the card
+        'residual_fsq': (lambda **kw: vt.ResidualFSQ(dim=4, levels=[8, 5, 5, 5], num_quantizers=8, **kw),
+                         dict(eval_fused='auto'), dict(eval_fused='off'), 'cuda', (4, 1024, 4), 'scalar',
+                         dict(train=[], eval=['residual_fsq_fused']), 'input'),
+        'grouped_residual_fsq': (lambda **kw: vt.GroupedResidualFSQ(dim=8, levels=[8, 5, 5, 5], num_quantizers=4,
+                                                                    groups=2, **kw),
+                                 dict(eval_fused='auto'), dict(eval_fused='off'), 'cuda', (4, 1024, 8), 'scalar',
+                                 dict(train=[], eval=['residual_fsq_fused']), 'input'),
+        'fsp': (lambda **kw: vt.FSP([8, 5, 5], dim=16, **kw), {}, {}, 'cpu', (4, 1024, 16), 'scalar',
+                dict(train=[], eval=[]), 'f32'),
+        'latent_quantize': (lambda **kw: vt.LatentQuantize(levels=[5, 5, 8], dim=16, **kw), {}, {}, 'cpu',
+                            (4, 16, 1024), 'scalar', dict(train=[], eval=[]), 'f32'),
+        'residual_vq': (lambda **kw: vt.ResidualVQ(dim=256, codebook_size=1024, num_quantizers=2, codebook_dim=128,
+                                                   **kw), *vq_routes, (4, 1024, 256), 'codebook',
+                        dict(train=['train_fused'], eval=['nearest_code']), 'f32'),
+        'grouped_residual_vq': (lambda **kw: vt.GroupedResidualVQ(dim=256, codebook_size=1024, num_quantizers=2,
+                                                                  groups=2, codebook_dim=64, **kw),
+                                *vq_routes, (4, 1024, 256), 'codebook',
+                                dict(train=['train_fused'], eval=['nearest_code']), 'f32'),
+        'rpq': (lambda **kw: vt.RandomProjectionQuantizer(dim=256, codebook_size=1024, codebook_dim=64,
+                                                          num_codebooks=4, **kw), *vq_routes, (4, 1024, 256),
+                'codebook', dict(train=['nearest_code'], eval=['nearest_code']), None),
+        # from its random codebook: kmeans init would overwrite the codebook
+        # inside the call, after the codebook calls are recorded
+        'hierarchical_vq': (lambda **kw: vt.HierarchicalVQ(dim=64, codebook_size=256, scales=(1, 2, 4, 8),
+                                                           accept_image_fmap=True, kmeans_init=False, **kw),
+                            *vq_routes, (8, 64, 8, 8), 'codebook',
+                            dict(train=['train_fused'], eval=['nearest_code']), 'f32'),
+        'binary_mapper': (lambda **kw: vt.BinaryMapper(bits=8, **kw), {}, {}, 'cpu', (4, 1024, 8), 'bits',
+                          dict(train=[], eval=[]), 'f32'),
+    }
+
+
+def dtype_outputs(out) -> list:
+    """The tensors of a module's output in a fixed order (dicts by key)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in dtype_outputs(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in dtype_outputs(o)]
+    return []
+
+
+def record_codebook_calls(model, store: list) -> list:
+    """Hooks that append each Codebook call's (h, N, d) f32 input, its
+    codebook and its (h, N) picks to `store`."""
+    from vqtpu_torch.codebook.codebook import Codebook
+
+    def pre(module, args, kwargs):
+        x = args[0].detach().float()
+        x = x[None] if x.ndim < 4 else x
+        store.append([x.reshape(x.shape[0], -1, x.shape[-1]), module.embed.detach().clone(), None,
+                      'cosine' if module.use_cosine_sim else 'euclidean'])
+
+    def post(module, args, kwargs, out):
+        store[-1][2] = out[1].reshape(store[-1][1].shape[0], -1)
+    handles = []
+    for m in model.modules():
+        if isinstance(m, Codebook):
+            handles += [m.register_forward_pre_hook(pre, with_kwargs=True),
+                        m.register_forward_hook(post, with_kwargs=True)]
+    return handles
+
+
+def dtype_edge_entries(before, x32, idx) -> list:
+    """Per index output, True where the kernel route's index moves when the
+    f32 input moves by DTYPE_EDGE_REL of its magnitude (plus the same) either
+    way, in eval."""
+    import copy
+    moved = [torch.zeros_like(i, dtype=torch.bool) for i in idx]
+    step = DTYPE_EDGE_REL * (x32.abs() + 1.0)
+    for sign in (1.0, -1.0):
+        with torch.no_grad():
+            out = dtype_outputs(copy.deepcopy(before).eval()(x32 + sign * step))
+        moved = [mv | (a != b.to(a.device)) for mv, a, b in
+                 zip(moved, idx, [o for o in out if not o.dtype.is_floating_point])]
+    return moved
+
+
+def dtype_case(name, case, dt, mode, device):
+    """One module on a `dt` input in `mode` (a training step: forward and
+    backward): the kernel route on the card against the plain route (on the
+    card or a CPU copy) from the same state. Returns the case's findings."""
+    import copy
+    from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+    build, kernel_kw, plain_kw, plain_device, shape, rule, kernels, out_dtype = case
+    # the same seed: the same parameters and the same generator seeds
+    torch.manual_seed(61)
+    kernel_model = build(device='cpu', **kernel_kw)
+    torch.manual_seed(61)
+    plain_model = build(device='cpu', **plain_kw)
+    plain_model.load_state_dict(kernel_model.state_dict())
+    kernel_model = kernel_model.to(device).train(mode == 'train')
+    plain_model = plain_model.to(plain_device).train(mode == 'train')
+    before = copy.deepcopy(kernel_model)
+    x = torch.from_numpy(np.random.default_rng(62).standard_normal(shape, dtype=np.float32)).to(DTYPE_LOW[dt])
+    call = (lambda m, t: m(t, return_indices=True)) if name == 'binary_mapper' else (lambda m, t: m(t))
+
+    k_calls, p_calls = [], []
+    handles = record_codebook_calls(kernel_model, k_calls) + record_codebook_calls(plain_model, p_calls)
+    xk = x.to(device).requires_grad_(mode == 'train')
+    reset_all_launches()
+    got = dtype_outputs(call(kernel_model, xk))
+    floats = [g for g in got if g.dtype.is_floating_point and g.requires_grad]
+    if mode == 'train' and floats:
+        # the backward: LFQ's sweeps C and D run there
+        sum(g.float().mean() for g in floats).backward()
+    sync(device)
+    launches = {k: v for k, v in all_launches().items() if v}
+    # K9 takes its input in f32, as the JAX package's kernel does, where the
+    # loop soft-clamps in the input's dtype: in eval it is held to the loop
+    # on the input's values in f32, its output cast back
+    f32_plain = mode == 'eval' and 'residual_fsq_fused' in kernels['eval']
+    with torch.set_grad_enabled(mode == 'train'):
+        want = dtype_outputs(call(plain_model, x.to(plain_device).float() if f32_plain else x.to(plain_device)))
+    if f32_plain:
+        want = [w.to(x.dtype) if w.dtype.is_floating_point else w for w in want]
+    for h in handles:
+        h.remove()
+    check(all(launches.get(k, 0) > 0 for k in kernels[mode]) and set(launches) <= set(kernels[mode]),
+          f'dtype {name} {dt} {mode}: the kernel route launched {launches}, expected {kernels[mode]}')
+    check(len(got) == len(want) and all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want)),
+          f'dtype {name} {dt} {mode}: the routes return the same dtypes and shapes')
+    dtypes = [str(g.dtype).replace('torch.', '') for g in got]
+    if out_dtype is not None:
+        want_dtype = torch.float32 if out_dtype == 'f32' else x.dtype
+        check(got[0].dtype == want_dtype and got[1].dtype == torch.int32,
+              f'dtype {name} {dt} {mode}: the output in {want_dtype} and int32 indices ({dtypes})')
+
+    idx_got = [g for g in got if not g.dtype.is_floating_point]
+    idx_want = [w.to(device) for w in want if not w.dtype.is_floating_point]
+    differ = [a != b for a, b in zip(idx_got, idx_want)]
+    n_differ = sum(int(d.sum()) for d in differ)
+    finding = dict(launches=launches, dtypes=dtypes, index_entries=sum(d.numel() for d in differ),
+                   indices_differing=n_differ)
+    if rule == 'codebook':
+        check(len(k_calls) == len(p_calls) > 0, f'dtype {name}: the routes made the same codebook calls')
+        non_tie = 0
+        for (xin, embed, picks, metric), plain in zip(k_calls, p_calls):
+            for h in range(embed.shape[0]):
+                r = selection_disagreements(xin[h], embed[h], selection_bias(embed[h], metric), picks[h],
+                                            plain[2][h].to(device))
+                non_tie += r['non_tie']
+        check(non_tie == 0, f'dtype {name} {dt} {mode}: {non_tie} picks differ beyond near-ties')
+    else:
+        x32 = x.float().to(device)
+        if rule == 'scalar':
+            edges = dtype_edge_entries(before, x32, idx_got)
+        else:
+            # a bit is an edge where its float64 probability lies within 2^-7
+            # of its threshold: 0.5, or the uniform the draw compared it with
+            # (the generator stays on the CPU, so both routes drew the same)
+            p = torch.sigmoid(x32.double())
+            if kernel_model.deterministic_on_eval and mode == 'eval':
+                threshold = 0.5
+            else:
+                threshold = torch.rand(x.shape, generator=before.generator, dtype=x.dtype,
+                                       device=before.generator.device).double().to(device)
+            edges = [((p - threshold).abs() <= 2 ** -7).any(-1)] * len(idx_got)
+        for d, edge in zip(differ, edges):
+            check(not bool((d & ~edge.expand_as(d)).any()),
+                  f'dtype {name} {dt} {mode}: {int((d & ~edge.expand_as(d)).sum())} indices differ off an edge')
+        finding['edge_entries'] = sum(int(e.sum()) for e in edges)
+    check(n_differ <= max(1, DTYPE_MAX_DIFFER_SHARE * finding['index_entries']),
+          f'dtype {name} {dt} {mode}: {n_differ} indices differ')
+    # values: a differing index may move its token's (for HierarchicalVQ its
+    # scale's upsampled patch's) features
+    worst = 0.0
+    for g, w in zip(got, want):
+        if not g.dtype.is_floating_point:
+            continue
+        # a low-precision output (BinaryMapper's aux loss) may round an ulp apart
+        tol = max(DTYPE_TOL, torch.finfo(g.dtype).eps)
+        g, w = g.detach().float(), w.detach().float().to(device)
+        err = (g - w).abs()
+        bad = err > tol * (1.0 + w.abs())
+        if g.ndim == len(shape):
+            bad = bad.any(1) if len(shape) == 4 or name == 'latent_quantize' else bad.any(-1)
+        spoiled = shape[-1] * shape[-2] if len(shape) == 4 else 1
+        check(int(bad.sum()) <= n_differ * spoiled,
+              f'dtype {name} {dt} {mode}: {int(bad.sum())} tokens beyond {tol} relative '
+              f'({n_differ} indices differ)')
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    finding['max_abs_err'] = worst
+    if mode == 'train':
+        if floats:
+            check(xk.grad is not None and xk.grad.dtype == x.dtype and bool(torch.isfinite(xk.grad).all()),
+                  f'dtype {name} {dt}: the input gradient is finite and in the input dtype')
+        if rule == 'codebook' and n_differ == 0:
+            ks, ps = kernel_model.state_dict(), plain_model.state_dict()
+            state_err = max(float((ks[k].float() - ps[k].float().to(device)).abs().max()
+                                  / ps[k].float().abs().max().clamp_min(1e-30))
+                            for k in ks if ks[k].dtype.is_floating_point and ks[k].numel())
+            check(state_err <= 1e-5, f'dtype {name} {dt}: the state after the step within 1e-5 ({state_err})')
+            finding['state_rel_err'] = state_err
+    return finding
+
+
+def autocast_twins(name, build, call, inputs, state_keys, kernels):
+    """`call(model, x)` on two twins of one module (`build` seeds torch
+    first, so their state and generators agree), plainly and under
+    torch.autocast('cuda', dtype=torch.bfloat16): every output bit-equal,
+    and the buffers `state_keys` after it; the same launches, `kernels` among
+    them. Returns the launches of a call."""
+    plain, cast = build(), build()
+    reset_all_launches()
+    want = call(plain, inputs())
+    sync('cuda')
+    plain_launches = all_launches()
+    reset_all_launches()
+    with torch.autocast('cuda', dtype=torch.bfloat16):
+        got = call(cast, inputs())
+    sync('cuda')
+    cast_launches = all_launches()
+    check(plain_launches == cast_launches and all(plain_launches[k] > 0 for k in kernels),
+          f'autocast {name}: the same launches {plain_launches} {cast_launches}, {kernels} among them')
+    want, got = dtype_outputs(want), dtype_outputs(got)
+    check(len(want) == len(got) > 0 and all(w.dtype == g.dtype and torch.equal(w, g) for w, g in zip(want, got)),
+          f'autocast {name}: every output bit-equal under autocast')
+    ps, cs = plain.state_dict(), cast.state_dict()
+    check(all(torch.equal(ps[k], cs[k]) for k in state_keys), f'autocast {name}: {state_keys} bit-equal')
+    return {k: v for k, v in plain_launches.items() if v}
+
+
+def dtype_launches(low: dict, casts: dict, kernel: str) -> dict:
+    """A kernel's launches in each dtype_path call that launched it (for
+    LFQ's four sweeps, sweep A's: each sweep runs once with it)."""
+    out = {k: v['launches'][kernel] for k, v in low.items() if v['launches'].get(kernel)}
+    out.update({f'autocast_{k}': v[kernel] for k, v in casts.items() if v.get(kernel)})
+    return out
+
+
+def phase_dtype_path(device, sizes):
+    """dtype_path. Low-precision inputs: each module of the F1 repair on
+    bf16 and fp16 inputs, in eval and in one training step (forward and
+    backward), on its kernel route on the card against its plain route from
+    the same state (dtype_case). Autocast at full width: the main path's
+    VectorQuantize(dim=256, codebook_size=512) on (1024, 1024, 256) in eval
+    and one step per train_fused route, ResidualVQ(dim=256,
+    num_quantizers=8, codebook_size=1024) eval on (32, 2048, 256),
+    SimVQ(dim=256, codebook_size=512) eval and one step of the distance path
+    (stochastic_sample_codes=True) on the main shape, each under
+    torch.autocast('cuda', dtype=torch.bfloat16) bit-equal to the same call
+    without it: outputs, losses and the codebook's embed, embed_avg and
+    cluster_size."""
+    import vqtpu_torch as vt
+    t0 = time.perf_counter()
+    low = {}
+    for name, case in dtype_cases().items():
+        for dt in DTYPE_LOW:
+            for mode in ('eval', 'train'):
+                low[f'{name}_{dt}_{mode}'] = dtype_case(name, case, dt, mode, device)
+    low_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    n, c, d = sizes['main']
+    b = sizes['batch']
+    rng = np.random.default_rng(63)
+    x_main = torch.from_numpy(rng.standard_normal((b, n // b, d), dtype=np.float32)).to(device)
+    g_main = torch.from_numpy(rng.standard_normal((b, n // b, d), dtype=np.float32) * 1e-3).to(device)
+    state = ['_codebook.embed', '_codebook.embed_avg', '_codebook.cluster_size']
+
+    def vq(**kw):
+        torch.manual_seed(64)
+        return vt.VectorQuantize(dim=d, codebook_size=c, device=device, **kw)
+
+    def step(model, x):
+        model.train()
+        q, idx, loss = model(x)
+        ((q * g_main).sum() + loss).backward()
+        return q.detach(), idx, loss.detach(), x.grad
+
+    def eval_call(model, x):
+        with torch.no_grad():
+            return model.eval()(x)
+
+    def fresh():
+        return x_main.clone().requires_grad_()
+    casts = {
+        'vq_eval': autocast_twins('vq_eval', vq, eval_call, lambda: x_main, state, ['nearest_code']),
+        'vq_step_on': autocast_twins('vq_step_on', lambda: vq(train_fused='on'), step, fresh, state,
+                                     ['train_fused']),
+        'vq_step_off': autocast_twins('vq_step_off', lambda: vq(train_fused='off'), step, fresh, state,
+                                      ['nearest_code']),
+        'distance_path_step': autocast_twins('distance_path_step', lambda: vq(stochastic_sample_codes=True), step,
+                                             fresh, state, []),
+    }
+    rb, rn, rd, rq, rc = RVQ_MAIN
+    x_rvq = torch.from_numpy(rng.standard_normal((rb, rn, rd), dtype=np.float32)).to(device)
+
+    def rvq():
+        torch.manual_seed(65)
+        return vt.ResidualVQ(dim=rd, num_quantizers=rq, codebook_size=rc, device=device)
+    rvq_state = [f'layers.{i}.{k}' for i in range(rq) for k in state]
+    casts['rvq_eval'] = autocast_twins('rvq_eval', rvq, eval_call, lambda: x_rvq, rvq_state, ['nearest_code'])
+    del x_rvq
+    sb, sn, sd, sc = sizes['simvq_main']
+
+    def simvq():
+        torch.manual_seed(66)
+        return vt.SimVQ(dim=sd, codebook_size=sc, device=device)
+    casts['simvq_eval'] = autocast_twins('simvq_eval', simvq, eval_call, lambda: x_main, [], ['nearest_code'])
+    check(casts['vq_eval'] == dict(nearest_code=1) and casts['vq_step_on'] == dict(train_fused=1)
+          and casts['vq_step_off'] == dict(nearest_code=1) and casts['rvq_eval'] == dict(nearest_code=rq)
+          and casts['simvq_eval'] == dict(nearest_code=1) and casts['distance_path_step'] == {},
+          f'autocast: each call launched its kernels as without autocast {casts}')
+    cast_s = time.perf_counter() - t0
+    del x_main, g_main
+    torch.cuda.empty_cache()
+    emit('dtype_path', low_precision=low, low_precision_s=low_s, autocast_launches=casts, autocast_s=cast_s,
+         autocast_dtype='bfloat16', autocast_shapes=dict(vq=[b, n // b, d], rvq=list(RVQ_MAIN[:3]),
+                                                         simvq=[sb, sn, sd]))
+    return low, casts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -5657,6 +6013,8 @@ def main() -> int:
     examples, ex_tp, ex_gp = phase_examples_path(device, smi)
     # the port's entry points
     entry_out, dryruns = phase_entry_dryrun(smi)
+    # bf16 and fp16 inputs on each kernel route, and the cores under autocast
+    dtype_low, dtype_casts = phase_dtype_path(device, sizes)
     tp_train_launches = [[r['steps'][i]['launches'] for r in tp_train] for i in range(len(tp_train[0]['steps']))]
     dp_vq_launches = {f"{st['route']}_step_{st['step']}": [r['steps'][i]['launches'] for r in dp_vq]
                       for i, st in enumerate(dp_vq[0]['steps'])}
@@ -5701,6 +6059,7 @@ def main() -> int:
         'launches_example_tp_large_codebook_per_rank': [r['launches']['nearest_code'] for r in ex_tp],
         'launches_example_group_parallel_grvq_per_rank': [r['launches']['nearest_code'] for r in ex_gp],
         'launches_dryrun_per_rank': {k: dryrun_launches(v, 'nearest_code') for k, v in dryruns.items()},
+        'launches_dtype_path': dtype_launches(dtype_low, dtype_casts, 'nearest_code'),
         'tp_select_ms': dict(k1=tp_sel['k1_ms'], k1_return_best=tp_sel['k1_return_best_ms'],
                              sharded_world1=tp_sel['sharded_world1_ms'],
                              of=f'n, c, d = {list(TP_SELECT)}; sharded_world1 on a one-rank gloo group'),
@@ -5738,6 +6097,7 @@ def main() -> int:
         'launches_example_group_parallel_grvq_per_rank': [r['launches']['train_fused'] for r in ex_gp],
         'launches_entry_forward': entry_out['launches_per_call'][0]['train_fused'],
         'launches_dryrun_per_rank': {k: dryrun_launches(v, 'train_fused') for k, v in dryruns.items()},
+        'launches_dtype_path': dtype_launches(dtype_low, dtype_casts, 'train_fused'),
         'entry_forward_ms': entry_out['forward_ms'],
         'entry_forward_of': 'vqtpu_torch.entry.entry() forward on (8, 28, 28, 1), CUDA events, K4 once a call',
         'max_abs_err': train_err,
@@ -5764,6 +6124,7 @@ def main() -> int:
         'launches_example_lfq_step': {k: examples['autoencoder_lfq']['launches_step'].get(f'lfq_sweep_{k}', 0)
                                       for k in 'abcd'},
         'example_lfq_entropy_route': examples['autoencoder_lfq']['entropy_route'],
+        'launches_dtype_path': dtype_launches(dtype_low, dtype_casts, 'lfq_sweep_a'),
         'max_abs_err': lfq_errors['dx']['max_abs_err'],
         'max_abs_err_of': 'max |dx - float64 plain| at the main LFQ shape, inv_temp 100, '
                           "LFQ aux loss cotangents (errors of every output: phase lfq_kernels_vs_plain)",
@@ -5790,6 +6151,7 @@ def main() -> int:
         'launches': rfsq_launches,
         'launches_grouped_two_groups': rfsq_grouped_launches,
         'launches_gp_grouped_per_rank': [r['fsq_eval_launches']['residual_fsq'] for r in gp],
+        'launches_dtype_path': dtype_launches(dtype_low, dtype_casts, 'residual_fsq_fused'),
         'max_abs_err': max(r['max_abs_err'] for r in rfsq_cases.values()),
         'max_abs_err_of': 'max |quantized - plain version| over the rfsq_kernel_vs_plain cases '
                           f"({sum(r['bit_identical'] for r in rfsq_cases.values())} of {len(rfsq_cases)} "

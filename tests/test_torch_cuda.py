@@ -1165,3 +1165,132 @@ def test_module_moved_to_the_card_draws_as_on_the_cpu(card):
     embed = on_cpu._codebook.embed
     assert bool(on_cpu._codebook.initted) and bool(moved._codebook.initted)
     assert float((moved._codebook.embed.cpu() - embed).abs().max()) <= 1e-5 * float(embed.abs().max())
+
+
+# -- dtypes: low-precision inputs and autocast ---------------------------------------
+
+
+def _launch_counts():
+    return dict(nearest_code=td.nearest_code.launches, train_fused=ttf.fused_train_quantize.launches,
+                lfq=sum(f.launches for f in tle.SWEEPS.values()),
+                residual_fsq=trf.fused_residual_fsq_eval.launches)
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _tensors(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def _card_vq(card, **kw):
+    return vqtpu_torch.VectorQuantize(dim=64, codebook_size=512, decay=0.8, device=card, **kw)
+
+
+# name -> (module factory, training?, call, the kernel the call launches)
+AUTOCAST_CASES = {
+    'vq_eval': (lambda c: _card_vq(c), False, lambda m, x: m(x), 'nearest_code'),
+    'vq_step_on': (lambda c: _card_vq(c, train_fused='on'), True, lambda m, x: m(x), 'train_fused'),
+    'vq_step_off': (lambda c: _card_vq(c, train_fused='off'), True, lambda m, x: m(x), 'nearest_code'),
+    'vq_stochastic_step': (lambda c: _card_vq(c, stochastic_sample_codes=True), True, lambda m, x: m(x), None),
+    # the orthogonal loss reads the codebook the forward left: K1, not K4
+    'vq_orthogonal_loss_step': (lambda c: _card_vq(c, orthogonal_reg_weight=1.0), True,
+                                lambda m, x: m(x, return_loss_breakdown=True), 'nearest_code'),
+    'rvq_eval': (lambda c: vqtpu_torch.ResidualVQ(dim=64, codebook_size=256, num_quantizers=4, device=c), False,
+                 lambda m, x: m(x), 'nearest_code'),
+    'simvq_eval': (lambda c: vqtpu_torch.SimVQ(dim=64, codebook_size=512, device=c), False, lambda m, x: m(x),
+                   'nearest_code'),
+    'simvq_step': (lambda c: vqtpu_torch.SimVQ(dim=64, codebook_size=512, device=c), True, lambda m, x: m(x),
+                   'nearest_code'),
+    'lfq_fused_step': (lambda c: vqtpu_torch.LFQ(dim=12, codebook_size=4096, entropy_fused='on', device=c), True,
+                       lambda m, x: m(x[..., :12], return_loss_breakdown=True), 'lfq'),
+    'fsq_eval': (lambda c: vqtpu_torch.FSQ(levels=[8, 5, 5, 5], device=c), False, lambda m, x: m(x[..., :4]), None),
+    'residual_fsq_eval': (lambda c: vqtpu_torch.ResidualFSQ(dim=4, levels=[8, 5, 5, 5], num_quantizers=4,
+                                                            device=c), False, lambda m, x: m(x[..., :4]),
+                          'residual_fsq'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(AUTOCAST_CASES))
+def test_core_is_bit_equal_under_cuda_autocast(card, case):
+    """The same call on two copies of one module, once plainly and once
+    under torch.autocast('cuda', dtype=torch.bfloat16), on f32 inputs:
+    every output and the state after it bit-equal, and the kernel route
+    taken in both."""
+    import copy
+
+    make, train, call, kernel = AUTOCAST_CASES[case]
+    torch.manual_seed(0)
+    model = make(card).train(train)
+    plain, cast = copy.deepcopy(model), copy.deepcopy(model)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((8, 256, 64), dtype=np.float32)).to(card)
+    before = _launch_counts()
+    want = _tensors(call(plain, x))
+    middle = _launch_counts()
+    with torch.autocast('cuda', dtype=torch.bfloat16):
+        got = _tensors(call(cast, x))
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    if kernel is not None:
+        assert middle[kernel] > before[kernel] and after[kernel] - middle[kernel] == middle[kernel] - before[kernel]
+    assert len(want) == len(got) > 0
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert w.dtype == g.dtype and torch.equal(w, g), (case, i)
+    for key, w in plain.state_dict().items():
+        assert torch.equal(w, cast.state_dict()[key]), (case, key)
+
+
+# name -> (module factory, input shape, the kernel a training step launches, the kernel eval launches)
+LOW_PRECISION_CASES = {
+    'lfq': (lambda c: vqtpu_torch.LFQ(dim=16, codebook_size=4096, entropy_fused='on', device=c), (4, 128, 16),
+            'lfq', None),
+    'residual_lfq': (lambda c: vqtpu_torch.ResidualLFQ(dim=16, codebook_size=4096, num_quantizers=2,
+                                                       entropy_fused='on', device=c), (4, 128, 16), 'lfq', None),
+    'residual_fsq': (lambda c: vqtpu_torch.ResidualFSQ(dim=4, levels=[8, 5, 5, 5], num_quantizers=4, device=c),
+                     (4, 128, 4), None, 'residual_fsq'),
+    'residual_vq': (lambda c: vqtpu_torch.ResidualVQ(dim=64, codebook_size=256, num_quantizers=2, codebook_dim=32,
+                                                     device=c), (4, 128, 64), 'train_fused', 'nearest_code'),
+    # no LayerNorm: it would normalize in the input's dtype, before the cast
+    'rpq': (lambda c: vqtpu_torch.RandomProjectionQuantizer(dim=64, codebook_size=256, codebook_dim=16,
+                                                            num_codebooks=2, norm=False, device=c), (4, 128, 64),
+            'nearest_code', 'nearest_code'),
+    'fsq': (lambda c: vqtpu_torch.FSQ(levels=[8, 5, 5], dim=16, device=c), (4, 128, 16), None, None),
+    'fsp': (lambda c: vqtpu_torch.FSP([8, 5, 5], dim=16, device=c), (4, 128, 16), None, None),
+}
+
+
+@pytest.mark.parametrize('dtype', (torch.bfloat16, torch.float16), ids=('bf16', 'fp16'))
+@pytest.mark.parametrize('case,mode', [(c, m) for c in sorted(LOW_PRECISION_CASES) for m in ('eval', 'train')
+                                       # without a projection its training loop clamps in the input's dtype
+                                       if (c, m) != ('residual_fsq', 'train')])
+def test_low_precision_input_takes_the_kernel_route(card, case, mode, dtype):
+    """A bf16 or fp16 input is cast where it meets the module's f32
+    weights (ResidualFSQ's K9 casts it), so the kernels take f32 operands
+    as for the input's values in f32: the same launches, and the same
+    outputs bit for bit once cast to the low-precision run's dtypes."""
+    import copy
+
+    make, shape, train_kernel, eval_kernel = LOW_PRECISION_CASES[case]
+    kernel = train_kernel if mode == 'train' else eval_kernel
+    torch.manual_seed(0)
+    model = make(card).train(mode == 'train')
+    low, ref = copy.deepcopy(model), copy.deepcopy(model)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(shape, dtype=np.float32)).to(card).to(dtype)
+    x.requires_grad_(mode == 'train')
+    before = _launch_counts()
+    got = _tensors(low(x))
+    middle = _launch_counts()
+    want = _tensors(ref(x.detach().float()))
+    after = _launch_counts()
+    if kernel is not None:
+        assert middle[kernel] > before[kernel] and after[kernel] - middle[kernel] == middle[kernel] - before[kernel]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.to(g.dtype)) and (not g.dtype.is_floating_point or torch.isfinite(g).all())
+    if mode == 'train':
+        floats = [g for g in got if g.dtype.is_floating_point and g.requires_grad]
+        if floats:
+            sum(g.float().sum() for g in floats).backward()
+            assert x.grad.dtype == dtype and torch.isfinite(x.grad).all()

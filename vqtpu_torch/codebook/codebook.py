@@ -73,7 +73,7 @@ from torch import nn
 
 from ..core.sampling import gumbel_sample, masked_sample_vectors
 from ..core.utils import (
-    append_dims_to, cdist, default, l2norm, laplace_smoothing, matmul_tf32, pack_tokens,
+    append_dims_to, cdist, default, f32_core, l2norm, laplace_smoothing, matmul_tf32, pack_tokens,
     resolve_device, uniform_init,
 )
 from ..kernels.distance import (
@@ -626,6 +626,7 @@ class Codebook(nn.Module):
 
     # -- forward ---------------------------------------------------------------
 
+    @f32_core
     def forward(
         self,
         x: torch.Tensor,
@@ -667,7 +668,10 @@ class Codebook(nn.Module):
         statistics. With `affine_param` every forward also folds the batch's
         mean and variance into their EMAs (and in training the codebook's).
         `dist_precision` is the JAX package's matmul precision knob: the
-        distances here are always full f32.
+        distances here are always full f32. The whole forward (kmeans init,
+        selection, the EMA update and expiry) runs on f32 tokens with
+        autocast off (`core.utils.f32_core`), whatever the caller's
+        autocast, as the JAX package forces its core to f32.
         """
         ema_update = default(ema_update, self.ema_update)
         sample_codebook_temp = default(sample_codebook_temp, self.sample_codebook_temp)

@@ -38,7 +38,8 @@ class _Phi2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.resi_ratio <= 1e-8:
             return x
-        return (1.0 - self.resi_ratio) * x + self.resi_ratio * self.conv(x)
+        # a bf16 or fp16 input meets the f32 weights in f32, as JAX promotes it
+        return (1.0 - self.resi_ratio) * x + self.resi_ratio * self.conv(x.to(self.conv.weight.dtype))
 
 
 class HierarchicalVQ(nn.Module):

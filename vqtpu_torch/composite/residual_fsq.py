@@ -166,7 +166,7 @@ class ResidualFSQ(nn.Module):
             x = x.reshape(x.shape[0], -1, x.shape[-1])
 
         if self.project_in is not None:
-            x = self.project_in(x)
+            x = self.project_in(x.to(self.project_in.weight.dtype))
 
         if self._fused_eval_ok(x):
             quantized_out, all_indices = fused_residual_fsq_eval(

@@ -103,7 +103,7 @@ class ResidualLFQ(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, return_all_codes: bool = False,
                 rand_quantize_dropout_index: int | torch.Tensor | None = None):
         if self.project_in is not None:
-            x = self.project_in(x)
+            x = self.project_in(x.to(self.project_in.weight.dtype))
 
         quantized_out = torch.zeros_like(x, dtype=torch.float32)
         residual = x.float()

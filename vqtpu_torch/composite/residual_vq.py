@@ -96,8 +96,9 @@ class MLP(nn.Module):
         if one_headed:
             codes = codes[None]
         d = codes.shape[-1]
-        cond = condition.reshape(condition.shape[0], -1, condition.shape[-1])
         w_cond, w_codes = self.proj_in.weight.split(d, dim=1)
+        # a bf16 or fp16 condition meets the f32 weights in f32, as JAX promotes it
+        cond = condition.reshape(condition.shape[0], -1, condition.shape[-1]).to(w_cond.dtype)
         from_cond = cond @ w_cond.T                                          # (b, n, d)
         from_codes = codes @ w_codes.T + self.proj_in.bias                   # (h, c, d)
         x = from_cond[None, :, :, None, :] + from_codes[:, None, None, :, :]
@@ -360,7 +361,7 @@ class ResidualVQ(nn.Module):
         is_beam_search = exists(beam_size) and beam_size > 1
 
         if self.project_in is not None:
-            x = self.project_in(x)
+            x = self.project_in(x.to(self.project_in.weight.dtype))
         if self.accept_image_fmap and return_loss:
             raise ValueError('indices= is not supported on image feature maps')
         if isinstance(indices, (list, tuple)):

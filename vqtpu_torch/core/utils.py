@@ -7,6 +7,7 @@ the CPU, and never quietly on the CPU when the card is missing.
 
 from __future__ import annotations
 
+import functools
 import math
 from contextlib import contextmanager
 from typing import Any, Callable
@@ -119,6 +120,32 @@ def cdist(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return torch.sqrt(cdist_sq(x, y).clamp_min(eps))
 
 
+def autocast_off(device: torch.device):
+    """A context in which `torch.autocast` is off for `device`'s type, so
+    that the products inside take their operands' dtype: a quantization core
+    whose operands are f32 runs in f32 under a caller's bf16 or fp16
+    autocast, as the JAX package's cores force f32."""
+    return torch.autocast(device_type=device.type, enabled=False)
+
+
+def f32_core(method):
+    """Run `method`, whose first argument is a tensor, with autocast off for
+    that tensor's device type (`autocast_off`). The method casts its own
+    operands to f32."""
+    @functools.wraps(method)
+    def run(self, x, *args, **kwargs):
+        with autocast_off(x.device):
+            return method(self, x, *args, **kwargs)
+    return run
+
+
+def rotate(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """x @ rot in rot's dtype with autocast off: a bf16 or fp16 input meets
+    an f32 rotation in f32, as JAX promotes it."""
+    with autocast_off(x.device):
+        return x.to(rot.dtype) @ rot
+
+
 @contextmanager
 def matmul_tf32(device: torch.device, allow: bool):
     """Run the float32 matrix products inside in TF32 when `allow` (10
@@ -127,23 +154,25 @@ def matmul_tf32(device: torch.device, allow: bool):
     device, whatever `torch.backends.cuda.matmul.allow_tf32` (or
     `torch.set_float32_matmul_precision('high')`) says outside. Full f32 is
     what selection needs: a TF32 product would round the operands to 10
-    mantissa bits and move near-tied rankings. A no-op on the CPU, whose f32
-    products are f32."""
-    if device.type != 'cuda' or torch.backends.cuda.matmul.allow_tf32 == allow:
-        yield
-        return
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = not allow
+    mantissa bits and move near-tied rankings. On every device autocast is
+    off inside (`autocast_off`), so that a caller's bf16 autocast does not
+    round them either; the CPU's f32 products are f32."""
+    with autocast_off(device):
+        if device.type != 'cuda' or torch.backends.cuda.matmul.allow_tf32 == allow:
+            yield
+            return
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = not allow
 
 
 def orthogonal_loss_fn(t: torch.Tensor) -> torch.Tensor:
     """Eq. (2) of https://arxiv.org/abs/2112.00384 over (h, n, d) codebooks:
     the mean squared cosine similarity of every pair of rows of a head
     (each row with itself included), less 1/n, averaged over the heads. The
-    products run in full f32 on the card."""
+    products run in full f32, with autocast off."""
     h, n = t.shape[:2]
     normed = l2norm(t)
     with matmul_tf32(t.device, allow=False):

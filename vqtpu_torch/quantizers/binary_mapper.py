@@ -121,8 +121,10 @@ class BinaryMapper(nn.Module):
 
         if straight_through:
             # soft G: the categorical distribution the per-bit Bernoullis imply
+            # bf16 or fp16 log-sigmoids meet the f32 codes in f32, as JAX promotes them
             codes = self._codes_table(logits.device).float()
-            soft_g = torch.exp(F.logsigmoid(logits) @ codes.T + F.logsigmoid(-logits) @ (1.0 - codes).T)
+            log_p, log_q = F.logsigmoid(logits).float(), F.logsigmoid(-logits).float()
+            soft_g = torch.exp(log_p @ codes.T + log_q @ (1.0 - codes).T)
             one_hot = one_hot + soft_g - soft_g.detach()
 
         if not return_indices:

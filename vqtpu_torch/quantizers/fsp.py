@@ -226,7 +226,7 @@ class FSP(nn.Module):
             raise ValueError(f'expected dimension of {self.dim} but found {z_shape[-1]}')
         z = z.reshape(-1, self.dim)
         if self.project_in is not None:
-            z = self.project_in(z)
+            z = self.project_in(z.to(self.project_in.weight.dtype))
 
         norm_loss, norm_info = self.vector_norm(z)
         act_z = self.act_func(z)

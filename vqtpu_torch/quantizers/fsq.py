@@ -27,7 +27,7 @@ from torch import nn
 from ..core.layout import to_tokens
 from ..core.sampling import bernoulli_and_uniform
 from ..core.ste import floor_ste, round_ste
-from ..core.utils import default, random_orthogonal, resolve_device
+from ..core.utils import autocast_off, default, random_orthogonal, resolve_device, rotate
 
 
 class FSQ(nn.Module):
@@ -202,7 +202,7 @@ class FSQ(nn.Module):
         is_img_or_video = indices.ndim >= (3 + int(self.keep_num_codebooks_dim))
         codes = self._indices_to_codes(indices)
         if self.orthogonal_rotation:
-            codes = codes @ self.orthogonal_rot.T
+            codes = rotate(codes, self.orthogonal_rot.T)
         if self.keep_num_codebooks_dim:
             codes = codes.reshape(*codes.shape[:-2], -1)
         if self.project_out is not None:
@@ -222,24 +222,26 @@ class FSQ(nn.Module):
             raise ValueError(f'expected dimension of {self.dim} but found {z.shape[-1]}')
 
         if self.project_in is not None:
-            z = self.project_in(z)
+            # a bf16 or fp16 input meets the f32 weights in f32, as JAX promotes it
+            z = self.project_in(z.to(self.project_in.weight.dtype))
 
         b, n = z.shape[:2]
         z = z.reshape(b, n, self.num_codebooks, self.codebook_dim)
-        if self.orthogonal_rotation:
-            z = z @ self.orthogonal_rot
+        # the quantization runs with autocast off, in f32 unless the input
+        # dtype is allowed
+        with autocast_off(z.device):
+            if self.orthogonal_rotation:
+                z = rotate(z, self.orthogonal_rot)
+            orig_dtype = z.dtype
+            if self.force_quantization_f32 and orig_dtype not in self.allowed_dtypes:
+                z = z.float()
 
-        # the quantization runs in f32 unless the input dtype is allowed
-        orig_dtype = z.dtype
-        if self.force_quantization_f32 and orig_dtype not in self.allowed_dtypes:
-            z = z.float()
+            codes = self.quantize(z)
+            indices = self.codes_to_indices(codes) if self.return_indices else None
+            codes = self.maybe_apply_noise(codes)
 
-        codes = self.quantize(z)
-        indices = self.codes_to_indices(codes) if self.return_indices else None
-        codes = self.maybe_apply_noise(codes)
-
-        if self.orthogonal_rotation:
-            codes = codes @ self.orthogonal_rot.T
+            if self.orthogonal_rotation:
+                codes = rotate(codes, self.orthogonal_rot.T)
         codes = codes.reshape(b, n, -1).to(orig_dtype)
         out = self.project_out(codes) if self.project_out is not None else codes
 

@@ -218,7 +218,7 @@ class LatentQuantize(nn.Module):
             raise ValueError(f'expected dimension of {self.dim} but found {z_shape[-1]}')
         z = z.reshape(z.shape[0], -1, self.dim)
         if self.project_in is not None:
-            z = self.project_in(z)
+            z = self.project_in(z.to(self.project_in.weight.dtype))
         z = z.reshape(*z.shape[:-1], self.num_codebooks, self.codebook_dim)
 
         def finalize(out_tokens, indices_tokens):

@@ -44,7 +44,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.layout import to_tokens
 from ..core.sampling import gumbel_noise
-from ..core.utils import default, entropy as entropy_fn, l2norm, random_orthogonal, resolve_device
+from ..core.utils import (
+    default, entropy as entropy_fn, f32_core, l2norm, random_orthogonal, resolve_device, rotate,
+)
 from ..kernels.lfq_entropy import MAX_DIM, code_magnitude, lfq_entropy_stats
 from ..parallel.collectives import psum
 
@@ -251,7 +253,7 @@ class LFQ(nn.Module):
 
         codes = self.maybe_l2norm(self.bits_to_codes(self._bits(indices.long())))
         if self.orthogonal_rotation:
-            codes = codes @ self.orthogonal_rot.T
+            codes = rotate(codes, self.orthogonal_rot.T)
         codes = codes.reshape(*codes.shape[:-2], -1)
 
         if project_out and self.project_out is not None:
@@ -269,9 +271,11 @@ class LFQ(nn.Module):
         scores = torch.where(weights > 0, 0.0, -1e9) + noise
         return scores.topk(num_sampled).indices
 
+    @f32_core
     def _entropy_terms(self, original_input, inv_temperature, mask):
         """Per-sample entropy (mean over tokens) and batch codebook entropy
-        of (b, n, c, d) f32 inputs; masked tokens weigh 0."""
+        of (b, n, c, d) f32 inputs; masked tokens weigh 0. The products with
+        the codes run with autocast off."""
         flat = original_input.reshape(-1, *original_input.shape[-2:])      # (N, c, d)
         num_tokens = flat.shape[0]
         if mask is not None:
@@ -384,7 +388,8 @@ class LFQ(nn.Module):
             raise ValueError(f'expected dimension of {self.dim} but received {x.shape[-1]}')
 
         if self.project_in is not None:
-            x = self.project_in(x)
+            # a bf16 or fp16 input meets the f32 weights in f32, as JAX promotes it
+            x = self.project_in(x.to(self.project_in.weight.dtype))
 
         if self.soft_clamp_input_value is not None:
             clamp = self.soft_clamp_input_value
@@ -400,7 +405,7 @@ class LFQ(nn.Module):
                 mask = mask[:, None].expand(b, n)
 
         if self.orthogonal_rotation:
-            x = x @ self.orthogonal_rot
+            x = rotate(x, self.orthogonal_rot)
 
         x = self.maybe_l2norm(x)
 
@@ -445,7 +450,7 @@ class LFQ(nn.Module):
 
         x = x.to(orig_dtype)
         if self.orthogonal_rotation:
-            x = x @ self.orthogonal_rot.T
+            x = rotate(x, self.orthogonal_rot.T)
         x = x.reshape(b, n, -1)
         if self.project_out is not None:
             x = self.project_out(x)

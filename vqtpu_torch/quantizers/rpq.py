@@ -68,7 +68,8 @@ class RandomProjectionQuantizer(nn.Module):
         `indices` the cross entropy of the distances against them."""
         if self.norm is not None:
             x = self.norm(x)
-        x = torch.einsum('bnd,hde->bnhe', x, self.rand_projs)
+        # a bf16 or fp16 input meets the f32 projections in f32, as JAX promotes it
+        x = torch.einsum('bnd,hde->bnhe', x.to(self.rand_projs.dtype), self.rand_projs)
         x = x.reshape(*x.shape[:2], -1)
         # (quantized, indices, loss), or (quantized, cross entropy) with indices
         return self.vq(x, indices=indices)[1]

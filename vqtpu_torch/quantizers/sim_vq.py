@@ -13,6 +13,10 @@ In training the dual commitment loss and the rotation trick (or the
 straight-through estimator) follow; eval returns the rows as they are and
 a zero loss.
 
+The implicit codebook and the selection run in f32 with autocast off
+(`core.utils.autocast_off`): under a caller's bf16 autocast the transform's
+product stays f32, as the JAX package forces its core to f32.
+
 Row-sharded (`code_axis`, see `parallel.tp`): the frozen codebook's rows
 shard over the axis inside a bound mesh, and the transform, row-wise, stays
 replicated. Selection is `parallel.shard.sharded_nearest_code` on the
@@ -31,7 +35,7 @@ import torch
 from torch import nn
 
 from ..core.ste import rotate_to, straight_through
-from ..core.utils import default, resolve_device
+from ..core.utils import autocast_off, default, f32_core, resolve_device
 from ..kernels.distance import gather_codes, nearest_code_xla
 from ..kernels.train_fused import lookup_with_code_grad
 from ..parallel.shard import sharded_gather_codes, sharded_nearest_code
@@ -88,8 +92,10 @@ class SimVQ(nn.Module):
 
     @property
     def codebook(self) -> torch.Tensor:
-        """The implicit codebook (c, dim): the transform of the frozen one."""
-        return self.code_transform(self.frozen_codebook)
+        """The implicit codebook (c, dim): the transform of the frozen one,
+        with autocast off."""
+        with autocast_off(self.frozen_codebook.device):
+            return self.code_transform(self.frozen_codebook)
 
     @property
     def codebook_dim(self) -> int:
@@ -104,11 +110,13 @@ class SimVQ(nn.Module):
             frozen = sharded_gather_codes(self.frozen_codebook, indices, self.code_axis)
         else:
             frozen = gather_codes(self.frozen_codebook, indices)
-        quantized = self.code_transform(frozen)
+        with autocast_off(frozen.device):
+            quantized = self.code_transform(frozen)
         if self.channel_first:
             quantized = quantized.movedim(-1, 1)
         return quantized
 
+    @f32_core
     def lookup(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(N, dim) tokens -> (indices int32, rows of the implicit codebook
         that carry their gradient to the transform)."""
