@@ -240,7 +240,28 @@ prints one JSON line per phase:
    distance path's step, ResidualVQ(dim=256, num_quantizers=8,
    codebook_size=1024) and SimVQ eval, each bit-equal to the call without
    autocast (outputs, losses, the codebook's state) with the same launches;
-44. the {"kernels": [...]} line.
+44. compiled_path (run right after phase 1, while the process has profiled
+   little): every kernel is a torch.ops.vqtpu custom op, opaque to
+   torch.compile. Compiled whole (fullgraph, inductor) and held to the
+   eager call from the same state: VectorQuantize(dim=256,
+   codebook_size=512) eval and 3 train_fused='on' steps with x.grad on
+   (1024, 1024, 256), the LFQ(dim=18, codebook_size=2**18)
+   entropy_fused='on' step on (8, 1024, 18) (x.grad to 1e-3, the entropy
+   routes' kink rule), ResidualFSQ(dim=4, levels=[8, 5, 5, 5],
+   num_quantizers=8) eval on (2048, 2048, 4), the entry forward and the VQ
+   example's training step (forward, torch.autograd.grad and the AdamW
+   update in one graph), these two also as CUDA graphs
+   (mode='reduce-overhead', no cudagraph skip). Each training step starts
+   from eager's state (3 steps): indices but at near-ties, values within
+   1e-5, the codebook after the step within 1e-5 over the codes no flipped
+   token touched, parameters within 2 lr. A profiler trace of one compiled
+   call (warmed, padded by spin kernels; a process whose windows lose
+   events profiles the path again in a fresh one, `--profile NAME`) shows
+   each path's kernels by symbol at eager's launches (K1 1, K4 1, K5-K8 1
+   each, K9 1) and no argmax; compile seconds, eager, compiled and
+   CUDA-graph ms (CUDA events, two rounds) and, for the entry forward and
+   the example step, idle shares of 5 calls;
+45. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -322,8 +343,12 @@ RFSQ_DESIGN = ('no IEEE division on the proven route (Markstein correction from 
 RFSQ_MAIN = ((8, 5, 5, 5), 8, (2048, 2048))
 
 
+# the script's clock: every phase line says when it was printed
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({'phase': phase, **fields}), flush=True)
+    print(json.dumps({'phase': phase, 'script_s': time.perf_counter() - _T0, **fields}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -5899,6 +5924,538 @@ def phase_dtype_path(device, sizes):
     return low, casts
 
 
+# -- the compiled step: the kernels as torch.ops.vqtpu ops under torch.compile -------------
+
+COMPILED_REPS = 10          # CUDA-event calls a mode and round; two rounds give the spread
+COMPILED_STEPS = 3          # compiled training steps held to as many eager ones
+COMPILED_REL = 1e-5         # inductor may reorder the glue's f32 reductions
+# the kernels' symbols in csrc/*.cu: K1 and K4 share the tensor-core tile, K4
+# (and code_sums) add the statistics by sorted code
+KERNEL_SYMBOLS = dict(select='select_tf32_kernel', sorted_stats='sort_split_kernel', sweep_a='sweep_a_kernel',
+                      sweep_b='sweep_b_kernel', sweep_c='sweep_c_kernel', sweep_d='sweep_d_kernel',
+                      k9='residual_fsq_eval_kernel')
+K1_SYMBOLS = dict(select=1)
+K4_SYMBOLS = dict(select=1, sorted_stats=1)
+LFQ_SYMBOLS = dict(sweep_a=1, sweep_b=1, sweep_c=1, sweep_d=1)
+K9_SYMBOLS = dict(k9=1)
+
+
+# a spin kernel of this many cycles (about 25 ms) pads each side of a
+# profiled window
+PAD_CYCLES = 50_000_000
+
+
+class LostWindows(AssertionError):
+    """Every profiler window of a measurement lost device events."""
+
+
+def warm_profile(fn, calls: int = 1, windows: int = 4):
+    """torch.profiler events of `calls` calls of `fn`, and the launch
+    counters' delta over them. A window may lose device events (seen on an
+    H100 with torch 2.11: the first milliseconds of a cold window, and now
+    and then all of them, more often in a process that has profiled much),
+    so a spin kernel and one call warm the profiler up, spin kernels of
+    about 25 ms pad the measured calls on either side, and a window that
+    did not record both pads lost events and is taken again, up to
+    `windows` in all. Returns (events without the pads and the step
+    annotation, launches, windows taken)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for window in range(1, windows + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            torch.cuda._sleep(PAD_CYCLES)
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            torch.cuda._sleep(PAD_CYCLES)
+            before = all_launches()
+            for _ in range(calls):
+                fn()
+            launches = launches_delta(before, all_launches())
+            torch.cuda._sleep(PAD_CYCLES)
+            torch.cuda.synchronize()
+            prof.step()
+        events = prof.events()
+        if sum(e.device_type == DeviceType.CUDA and 'spin_kernel' in e.name for e in events) == 2:
+            break
+    else:
+        raise LostWindows(f'check failed: {windows} profiler windows each lost device events')
+    # the pads, and the step annotation that spans the whole window on the device's timeline
+    kept = [e for e in events if 'spin_kernel' not in e.name and not e.name.startswith('ProfilerStep')]
+    return kept, launches, window
+
+
+def compiled_trace(fn, windows: int = 4) -> dict:
+    """One call of `fn` under a warmed profiler (`warm_profile`): the
+    hand-written kernels by symbol, every device kernel or host op whose
+    name holds 'argmax' (a product and an argmax standing in for the
+    selection), and the launch counters' delta."""
+    from torch.autograd import DeviceType
+
+    events, launches, windows = warm_profile(fn, windows=windows)
+    device = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    symbols = {k: sum(sym in name for name in device) for k, sym in KERNEL_SYMBOLS.items()}
+    return dict(symbols={k: v for k, v in symbols.items() if v}, device_kernels=len(device), windows=windows,
+                kernel_names=sorted({name[:60] for name in device}),
+                argmax=sorted({e.name[:80] for e in events if 'argmax' in e.name.lower()}),
+                launches=launches)
+
+
+def warm_idle_share(fn, calls: int = 5, windows: int = 4) -> dict:
+    """The device's idle share over `calls` back-to-back calls of `fn`
+    under a warmed profiler: 1 - the time some kernel ran (the union of the
+    kernels' intervals, each interval once) / the span from the first
+    kernel's start to the last one's end."""
+    from torch.autograd import DeviceType
+
+    events, _, windows = warm_profile(fn, calls, windows)
+    spans = sorted({(e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA})
+    if not spans:
+        return dict(idle_share=None, device_events=0, windows=windows)
+    busy, (lo, hi) = 0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    return dict(idle_share=1 - busy / (max(e for _, e in spans) - spans[0][0]), device_events=len(spans),
+                windows=windows)
+
+
+def check_trace(name, trace, symbols, launches):
+    check(trace['symbols'] == symbols, f'{name}: the compiled call ran {trace["symbols"]}, expected {symbols} '
+                                       f'({trace["launches"]}; {trace["kernel_names"]})')
+    check(trace['launches'] == launches, f'{name}: the compiled call launched {trace["launches"]}, expected {launches}')
+    check(not trace['argmax'], f'{name}: nothing stands in for the selection {trace["argmax"]}')
+
+
+def first_calls_s(fn, calls: int = 1) -> float:
+    """Seconds of the first `calls` calls (compile, warm-up and capture)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mode_times(fns: dict) -> dict:
+    """CUDA-event ms a call of each mode, two rounds in turns (forward, then
+    backward order)."""
+    order = list(fns)
+    runs = {k: [] for k in order}
+    for rnd in (order, order[::-1]):
+        for k in rnd:
+            runs[k].append(cuda_ms(fns[k], COMPILED_REPS, warmup=2))
+    return dict(ms={k: sum(v) / len(v) for k, v in runs.items()}, ms_runs=runs)
+
+
+def profile_path(name: str, fns: dict, idle_modes=()) -> dict:
+    """The trace of one call of fns['compiled'] (compiled_trace) and the
+    idle share of 5 calls of each mode in `idle_modes`, taken in this
+    process; a process that has lost its profiler windows keeps losing
+    them, so then the path is built again in a fresh process
+    (`python3 chip_smoke.py --profile NAME MODE...`) and profiled there."""
+    try:
+        return dict(trace=compiled_trace(fns['compiled']),
+                    idle={k: warm_idle_share(fns[k]) for k in idle_modes}, profiled_in='this process')
+    except LostWindows:
+        cmd = [sys.executable, os.path.abspath(__file__), '--profile', name, *idle_modes]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(r.returncode == 0, f'{name}: the fresh process failed ({r.returncode}):\n{r.stdout[-3000:]}\n'
+                                 f'{r.stderr[-3000:]}')
+        return dict(json.loads(r.stdout.strip().splitlines()[-1]), profiled_in='a fresh process')
+
+
+def _no_grad(fn):
+    def call():
+        with torch.no_grad():
+            return fn()
+    return call
+
+
+# -- the compiled paths, each built the same way in this process and in a fresh one
+# (`--profile NAME`): a dict of what the phase holds, 'fns' the calls by mode
+
+
+def subject_vq_eval(device):
+    import vqtpu_torch as vt
+    from vqtpu_torch.core.compile import compile_step
+    n, c, d = MAIN
+    x = torch.from_numpy(np.random.default_rng(71).standard_normal((1024, n // 1024, d), dtype=np.float32)).to(device)
+    torch.manual_seed(72)
+    vq = vt.VectorQuantize(dim=d, codebook_size=c, device=device).eval()
+    compiled = compile_step(vq)
+    return dict(vq=vq, compiled=compiled, x=x,
+                fns=dict(eager=_no_grad(lambda: vq(x)), compiled=_no_grad(lambda: compiled(x))))
+
+
+def _vq_train_call(m):
+    def step(xs, gs):
+        q, idx, loss = m(xs)
+        gx, = torch.autograd.grad((q * gs).sum() + loss, [xs])
+        return q.detach(), idx, loss.detach(), gx
+    return step
+
+
+def subject_vq_on_step(device):
+    import vqtpu_torch as vt
+    from vqtpu_torch.core.compile import compile_step
+    n, c, d = MAIN
+    rng = np.random.default_rng(71)
+    x = torch.from_numpy(rng.standard_normal((1024, n // 1024, d), dtype=np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal(x.shape, dtype=np.float32)).to(device)
+    xg = x.detach().requires_grad_()
+    torch.manual_seed(73)
+    vqs = [vt.VectorQuantize(dim=d, codebook_size=c, train_fused='on', device=device).train() for _ in range(2)]
+    vqs[1].load_state_dict(vqs[0].state_dict())
+    eager, compiled = _vq_train_call(vqs[0]), compile_step(_vq_train_call(vqs[1]))
+    return dict(vqs=vqs, eager=eager, compiled=compiled, x=x, xg=xg, g=g,
+                fns=dict(eager=lambda: eager(xg, g), compiled=lambda: compiled(xg, g)))
+
+
+def _lfq_call(m):
+    def step(xs):
+        (q, idx, aux), _ = m(xs, inv_temperature=LFQ_INV_TEMP, return_loss_breakdown=True)
+        gx, = torch.autograd.grad(aux + q.square().mean(), [xs])
+        return q.detach(), idx, aux.detach(), gx
+    return step
+
+
+def subject_lfq_on_step(device):
+    import vqtpu_torch as vt
+    from vqtpu_torch.core.compile import compile_step
+    ld = LFQ_MAIN[1]
+    xg = torch.from_numpy(np.random.default_rng(74).standard_normal((8, 1024, ld), dtype=np.float32)).to(device)
+    xg.requires_grad_()
+    torch.manual_seed(74)
+    lfqs = [vt.LFQ(dim=ld, codebook_size=2 ** ld, spherical=True, entropy_loss_weight=0.1, entropy_fused='on',
+                   device=device).train() for _ in range(2)]
+    lfqs[1].load_state_dict(lfqs[0].state_dict())
+    eager, compiled = _lfq_call(lfqs[0]), compile_step(_lfq_call(lfqs[1]))
+    return dict(compiled=compiled, xg=xg, fns=dict(eager=lambda: eager(xg), compiled=lambda: compiled(xg)))
+
+
+def subject_rfsq_eval(device):
+    import vqtpu_torch as vt
+    from vqtpu_torch.core.compile import compile_step
+    levels, q, lead = RFSQ_MAIN
+    xr = rfsq_input(levels, lead, device, seed=75)
+    rfsq = vt.ResidualFSQ(dim=len(levels), levels=list(levels), num_quantizers=q, device=device).eval()
+    compiled = compile_step(rfsq)
+    return dict(fns=dict(eager=_no_grad(lambda: rfsq(xr)), compiled=_no_grad(lambda: compiled(xr))))
+
+
+def subject_entry_forward(device):
+    from vqtpu_torch.core.compile import compile_step
+    from vqtpu_torch.entry import entry
+    fn, (state, x) = entry(device=device)
+    x = x + 0.5                       # zeros would pick code 0 for every token
+    compiled, graph = compile_step(fn), compile_step(fn, mode='reduce-overhead')
+    return dict(state=state, x=x, modes=dict(compiled=compiled, graph=graph),
+                fns=dict(eager=lambda: fn(state, x), compiled=lambda: compiled(state, x),
+                         graph=lambda: graph(state, x)))
+
+
+def subject_vq_example_step(device):
+    import contextlib
+    import io
+    from vqtpu_torch.examples import autoencoder
+    from vqtpu_torch.examples.common import adamw, train_step
+    from vqtpu_torch.models import data as tdata
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        models = {k: autoencoder.main(train_iter=0, device=device) for k in ('eager', 'compiled', 'graph')}
+    opts = {k: adamw(m.parameters(), 3e-4) for k, m in models.items()}
+    modes = dict(eager={}, compiled=dict(compiled=True), graph=dict(compiled=True, mode='reduce-overhead'))
+    steps = {k: train_step(m, opts[k], autoencoder.loss_from_outputs, 10.0, **modes[k]) for k, m in models.items()}
+    data = tdata.image_batches(batch_size=256, seed=1234)
+    batches = [torch.from_numpy(next(data)).to(device) for _ in range(COMPILED_STEPS)]
+    return dict(models=models, opts=opts, steps=steps, batches=batches,
+                fns={k: (lambda f=f: f(batches[0])) for k, f in steps.items()})
+
+
+PROFILE_SUBJECTS = dict(vq_eval=subject_vq_eval, vq_on_step=subject_vq_on_step, lfq_on_step=subject_lfq_on_step,
+                        rfsq_eval=subject_rfsq_eval, entry_forward=subject_entry_forward,
+                        vq_example_step=subject_vq_example_step)
+
+
+def profile_main(args) -> int:
+    """`--profile NAME MODE...`: build the compiled path NAME of
+    PROFILE_SUBJECTS, call each of its modes 3 times (compile, warm-up and
+    capture), and print one JSON line: the trace of one compiled call and
+    the idle share of 5 calls of each MODE."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    use_build_caches()
+    name, modes = args[0], args[1:]
+    fns = PROFILE_SUBJECTS[name](torch.device('cuda'))['fns']
+    for f in fns.values():
+        for _ in range(3):
+            f()
+    torch.cuda.synchronize()
+    print(json.dumps(dict(trace=compiled_trace(fns['compiled'], windows=4),
+                          idle={k: warm_idle_share(fns[k], windows=4) for k in modes})), flush=True)
+    return 0
+
+
+def check_no_cudagraph_skip(name):
+    from torch._dynamo.utils import counters
+    skips = dict(counters['inductor']).get('cudagraph_skips', 0)
+    check(skips == 0, f'{name}: inductor skipped the CUDA graph ({skips} skips)')
+
+
+def compiled_entry(device, smi):
+    """The entry forward: eager, inductor and CUDA graphs from the same state."""
+    from vqtpu_torch.entry import build_flagship
+    from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+
+    s = subject_entry_forward(device)
+    fns, state, x = s['fns'], s['state'], s['x']
+    eager_out = fns['eager']()
+    compile_s = first_calls_s(fns['compiled'])
+    graph_s = first_calls_s(fns['graph'], 3)
+    check_no_cudagraph_skip('entry forward')
+    model = build_flagship(device=device)
+    model.load_state_dict(state)
+    with torch.no_grad():
+        z = model.encoder(x).reshape(-1, 32)
+    embed = state['quantizer._codebook.embed'][0]
+    bias = selection_bias(embed, 'euclidean')
+    errs = {}
+    for mode in ('compiled', 'graph'):
+        recon, idx, loss = (t.detach().clone() for t in fns[mode]())
+        ties = selection_disagreements(z, embed, bias, idx.reshape(-1), eager_out[1].reshape(-1))
+        check(ties['non_tie'] == 0, f'entry {mode}: indices beyond near-ties {ties}')
+        same = (idx == eager_out[1]).all(-1)
+        errs[mode] = dict(recon=rel_err(recon[same], eager_out[0].detach()[same]) if same.any() else 0.0,
+                          commit_loss=rel_err(loss, eager_out[2].detach()), images_agreeing=int(same.sum()), **ties)
+        check(errs[mode]['recon'] <= COMPILED_REL and errs[mode]['commit_loss'] <= COMPILED_REL,
+              f'entry {mode} against eager {errs[mode]}')
+    prof = profile_path('entry_forward', fns, tuple(fns))
+    check_trace('entry forward', prof['trace'], K4_SYMBOLS, dict(train_fused=1))
+    return dict(compile_s=compile_s, graph_first_3_calls_s=graph_s, vs_eager=errs, **prof, **mode_times(fns),
+                nvidia_smi=smi)
+
+
+def codebook_vs_eager(got: dict, want: dict, idx_got, idx_want) -> tuple[dict, int]:
+    """Each float buffer of a codebook's state after one step against
+    eager's after the same step from the same state, as its largest
+    relative error over the codes that no token picked differently (a
+    near-tie that flips moves two codes by a whole token), and the number
+    of tokens that flipped."""
+    flipped = (idx_got != idx_want).reshape(-1)
+    touched = torch.cat([idx_got.reshape(-1)[flipped], idx_want.reshape(-1)[flipped]]).long().unique()
+    out = {}
+    for name, w in want.items():
+        if not w.is_floating_point():
+            continue
+        g = got[name]
+        if w.ndim >= 2 and touched.numel():
+            keep = torch.ones(w.shape[1], dtype=torch.bool, device=w.device)
+            keep[touched] = False
+            g, w = g[:, keep], w[:, keep]
+        out[name] = rel_err(g, w)
+    return out, int(flipped.sum())
+
+
+def sync_to(model, opt, ref_model, ref_opt) -> None:
+    """`model` and `opt` take `ref_model`'s and `ref_opt`'s state in place
+    (the tensors a compiled step or a CUDA graph holds stay the same)."""
+    model.load_state_dict(ref_model.state_dict())
+    for p, q in zip(model.parameters(), ref_model.parameters()):
+        for name, t in opt.state[p].items():
+            t.copy_(ref_opt.state[q][name])
+
+
+def compiled_vq_example(device, smi):
+    """The VQ example's step (examples/common.py::train_step): forward, its
+    gradients and the AdamW update in one graph; eager, inductor and CUDA
+    graphs, each step from eager's state on the same batch, 3 steps."""
+    from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+
+    s_ = subject_vq_example_step(device)
+    models, opts, steps = s_['models'], s_['opts'], s_['steps']
+    first_s, errs = {}, {k: [] for k in ('compiled', 'graph')}
+    for s, xb in enumerate(s_['batches']):
+        ref = models['eager']
+        for k in ('compiled', 'graph'):
+            sync_to(models[k], opts[k], ref, opts['eager'])
+        with torch.no_grad():
+            z = ref.encoder(xb).reshape(-1, 32)
+        embed = ref.quantizer._codebook.embed[0].clone()
+        params = [p.detach().clone() for p in ref.parameters()]
+        want = [t.clone() for t in steps['eager'](xb)]
+        for k in ('compiled', 'graph'):
+            t0 = time.perf_counter()
+            got = [t.clone() for t in steps[k](xb)]
+            sync(device)
+            if s == 0:
+                first_s[k] = time.perf_counter() - t0
+            ties = selection_disagreements(z, embed, selection_bias(embed, 'euclidean'), got[2].reshape(-1),
+                                           want[2].reshape(-1))
+            check(ties['non_tie'] == 0, f'VQ example step {s} {k}: indices beyond near-ties {ties}')
+            cb, flips = codebook_vs_eager(models[k].quantizer._codebook.state_dict(),
+                                          ref.quantizer._codebook.state_dict(), got[2], want[2])
+            # a parameter moves by at most about lr a step; one whose
+            # gradient is 0 up to rounding may move the other way
+            moved = max(float((p - q).detach().abs().max()) for p, q in zip(models[k].parameters(), ref.parameters()))
+            e = dict(rec=rel_err(got[0], want[0]), aux=rel_err(got[1], want[1]), codebook=cb, flips=flips,
+                     params_max_abs_err=moved,
+                     params_max_move=max(float((p - q).detach().abs().max()) for p, q in zip(ref.parameters(), params)))
+            check(e['rec'] <= COMPILED_REL and e['aux'] <= COMPILED_REL and max(cb.values()) <= COMPILED_REL
+                  and moved <= 2 * 3e-4, f'VQ example step {s} {k} {e}')
+            errs[k].append(e)
+    check_no_cudagraph_skip('VQ example step')
+    fns = s_['fns']
+    prof = profile_path('vq_example_step', fns, tuple(fns))
+    check_trace('VQ example step', prof['trace'], K4_SYMBOLS, dict(train_fused=1))
+    return dict(first_call_s=first_s, steps_vs_eager=errs, **prof, **mode_times(fns), nvidia_smi=smi)
+
+
+def compiled_served(device, smi):
+    """The served paths at their PERF.md shapes, eager against inductor:
+    VectorQuantize eval (K1) and its train_fused='on' step (K4), the LFQ
+    entropy_fused='on' step (K5-K8), ResidualFSQ eval (K9)."""
+    from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+
+    out = {}
+    d = MAIN[2]
+
+    # VectorQuantize eval: one K1 with its rows
+    t_part = time.perf_counter()
+    s = subject_vq_eval(device)
+    fns, vq, x = s['fns'], s['vq'], s['x']
+    want = fns['eager']()
+    first = first_calls_s(fns['compiled'])
+    got = fns['compiled']()
+    embed = vq._codebook.embed[0]
+    ties = selection_disagreements(x.reshape(-1, d), embed, selection_bias(embed, 'euclidean'),
+                                   got[1].reshape(-1), want[1].reshape(-1))
+    same = got[1] == want[1]
+    err = rel_err(got[0][same], want[0][same])
+    check(ties['non_tie'] == 0 and err <= COMPILED_REL, f'VQ eval compiled against eager {ties} {err}')
+    prof = profile_path('vq_eval', fns)
+    check_trace('VQ eval', prof['trace'], K1_SYMBOLS, dict(nearest_code=1))
+    out['vq_eval'] = dict(seconds=time.perf_counter() - t_part, compile_s=first, quantize_rel_err=err, **ties,
+                          **prof, **mode_times(fns))
+    del s, fns, vq, x, want, got
+
+    # the train_fused='on' step, 3 times, each from eager's state
+    t_part = time.perf_counter()
+    s = subject_vq_on_step(device)
+    vqs, x, xg, g = s['vqs'], s['x'], s['xg'], s['g']
+    errs = []
+    for step in range(COMPILED_STEPS):
+        vqs[1].load_state_dict(vqs[0].state_dict())
+        embed = vqs[0]._codebook.embed[0].clone()
+        want = s['eager'](xg, g)
+        t0 = time.perf_counter()
+        got = s['compiled'](xg, g)
+        sync(device)
+        if step == 0:
+            first = time.perf_counter() - t0
+        ties = selection_disagreements(x.reshape(-1, d), embed, selection_bias(embed, 'euclidean'),
+                                       got[1].reshape(-1), want[1].reshape(-1))
+        same = (got[1] == want[1]).reshape(-1)
+        cb, flips = codebook_vs_eager(vqs[1]._codebook.state_dict(), vqs[0]._codebook.state_dict(), got[1], want[1])
+        e = dict(quantize=rel_err(got[0].reshape(-1, d)[same], want[0].reshape(-1, d)[same]),
+                 loss=rel_err(got[2], want[2]), x_grad=rel_err(got[3].reshape(-1, d)[same], want[3].reshape(-1, d)[same]),
+                 codebook=cb, flips=flips)
+        check(ties['non_tie'] == 0 and max(e['quantize'], e['loss'], e['x_grad'], *cb.values()) <= COMPILED_REL,
+              f'VQ on step {step} compiled against eager {e} {ties}')
+        errs.append(e)
+    prof = profile_path('vq_on_step', s['fns'])
+    check_trace("VQ 'on' step", prof['trace'], K4_SYMBOLS, dict(train_fused=1))
+    out['vq_on_step'] = dict(seconds=time.perf_counter() - t_part, compile_s=first, steps_vs_eager=errs, **prof,
+                             **mode_times(s['fns']))
+    del s, vqs, x, xg, g, want, got
+    torch.cuda.empty_cache()
+
+    # the LFQ entropy_fused='on' step: K5-K8 once each; x.grad to 1e-3 of
+    # its largest entry, as between the entropy routes (lfq_train_path): a
+    # code whose batch probability lies within rounding of the entropy's
+    # eps takes the other side of its kink when inductor sums the glue in
+    # another order
+    t_part = time.perf_counter()
+    s = subject_lfq_on_step(device)
+    fns = s['fns']
+    want = fns['eager']()
+    first = first_calls_s(fns['compiled'])
+    got = fns['compiled']()
+    e = dict(quantize=rel_err(got[0], want[0]), aux=rel_err(got[2], want[2]), x_grad=rel_err(got[3], want[3]),
+             indices_equal=bool(torch.equal(got[1], want[1])))
+    check(e['indices_equal'] and max(e['quantize'], e['aux']) <= COMPILED_REL and e['x_grad'] <= 1e-3,
+          f'LFQ on step compiled against eager {e}')
+    prof = profile_path('lfq_on_step', fns)
+    check_trace("LFQ 'on' step", prof['trace'], LFQ_SYMBOLS, {f'lfq_sweep_{k}': 1 for k in 'abcd'})
+    out['lfq_on_step'] = dict(seconds=time.perf_counter() - t_part, compile_s=first, vs_eager=e, **prof,
+                              **mode_times(fns))
+    del s, fns, want, got
+
+    # ResidualFSQ eval, eval_fused='auto': one K9
+    t_part = time.perf_counter()
+    fns = subject_rfsq_eval(device)['fns']
+    want = fns['eager']()
+    first = first_calls_s(fns['compiled'])
+    got = fns['compiled']()
+    e = dict(quantize_bit_equal=bool(torch.equal(got[0], want[0])), indices_equal=bool(torch.equal(got[1], want[1])),
+             quantize_rel_err=rel_err(got[0], want[0]))
+    check(e['indices_equal'] and e['quantize_rel_err'] <= COMPILED_REL, f'ResidualFSQ eval compiled {e}')
+    prof = profile_path('rfsq_eval', fns)
+    check_trace('ResidualFSQ eval', prof['trace'], K9_SYMBOLS, dict(residual_fsq_fused=1))
+    out['rfsq_eval'] = dict(seconds=time.perf_counter() - t_part, compile_s=first, vs_eager=e, **prof,
+                            **mode_times(fns))
+    del fns, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def compiled_launches(compiled: dict, kernel: str) -> dict:
+    """{compiled path: the kernel's launches in one compiled call}."""
+    return {path: r['trace']['launches'].get(kernel, 0) for path, r in compiled.items()}
+
+
+def phase_compiled_path(device, smi):
+    """compiled_path: each compiled path fullgraph under inductor, held to
+    its eager call from the same state, its kernels in a profiler trace by
+    symbol at eager's launches, and its compile s, ms and idle share beside
+    eager's; the entry forward and the VQ example step also as CUDA graphs
+    (mode='reduce-overhead')."""
+    t0 = time.perf_counter()
+    torch._dynamo.reset()
+    from torch._dynamo.utils import counters
+    counters.clear()
+    out = compiled_served(device, smi)
+    t1 = time.perf_counter()
+    out['entry_forward'] = compiled_entry(device, smi)
+    out['entry_forward']['seconds'] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out['vq_example_step'] = compiled_vq_example(device, smi)
+    out['vq_example_step']['seconds'] = time.perf_counter() - t1
+    seconds = time.perf_counter() - t0
+    emit('compiled_path', seconds=seconds, torch=torch.__version__, nvidia_smi=smi, **out)
+    torch._dynamo.reset()
+    torch.cuda.empty_cache()
+    return out
+
+
+def use_build_caches() -> None:
+    """inductor's and Triton's compile caches under the checkout's build/
+    directory (git-ignored), unless the caller set them."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
+    os.environ.setdefault('TORCHINDUCTOR_CACHE_DIR', os.path.join(build, 'torchinductor'))
+    os.environ.setdefault('TRITON_CACHE_DIR', os.path.join(build, 'triton'))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
@@ -5910,6 +6467,7 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     device = torch.device('cuda')
+    use_build_caches()
     sizes = {
         'main': MAIN,
         'batch': 1024,
@@ -5946,6 +6504,10 @@ def main() -> int:
     }
 
     kind, count, smi, ptxas = phase_device()
+    # the compiled step (every kernel a torch.ops.vqtpu op inside one
+    # graph) first: the profiler loses fewer windows in a process that has
+    # not profiled much yet
+    compiled = phase_compiled_path(device, smi)
     n, c, d = sizes['main']
     x_main = torch.from_numpy(
         np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)).to(device)
@@ -6060,6 +6622,7 @@ def main() -> int:
         'launches_example_group_parallel_grvq_per_rank': [r['launches']['nearest_code'] for r in ex_gp],
         'launches_dryrun_per_rank': {k: dryrun_launches(v, 'nearest_code') for k, v in dryruns.items()},
         'launches_dtype_path': dtype_launches(dtype_low, dtype_casts, 'nearest_code'),
+        'launches_compiled_path': compiled_launches(compiled, 'nearest_code'),
         'tp_select_ms': dict(k1=tp_sel['k1_ms'], k1_return_best=tp_sel['k1_return_best_ms'],
                              sharded_world1=tp_sel['sharded_world1_ms'],
                              of=f'n, c, d = {list(TP_SELECT)}; sharded_world1 on a one-rank gloo group'),
@@ -6098,6 +6661,7 @@ def main() -> int:
         'launches_entry_forward': entry_out['launches_per_call'][0]['train_fused'],
         'launches_dryrun_per_rank': {k: dryrun_launches(v, 'train_fused') for k, v in dryruns.items()},
         'launches_dtype_path': dtype_launches(dtype_low, dtype_casts, 'train_fused'),
+        'launches_compiled_path': compiled_launches(compiled, 'train_fused'),
         'entry_forward_ms': entry_out['forward_ms'],
         'entry_forward_of': 'vqtpu_torch.entry.entry() forward on (8, 28, 28, 1), CUDA events, K4 once a call',
         'max_abs_err': train_err,
@@ -6125,6 +6689,7 @@ def main() -> int:
                                       for k in 'abcd'},
         'example_lfq_entropy_route': examples['autoencoder_lfq']['entropy_route'],
         'launches_dtype_path': dtype_launches(dtype_low, dtype_casts, 'lfq_sweep_a'),
+        'launches_compiled_path': compiled_launches(compiled, 'lfq_sweep_a'),
         'max_abs_err': lfq_errors['dx']['max_abs_err'],
         'max_abs_err_of': 'max |dx - float64 plain| at the main LFQ shape, inv_temp 100, '
                           "LFQ aux loss cotangents (errors of every output: phase lfq_kernels_vs_plain)",
@@ -6152,6 +6717,7 @@ def main() -> int:
         'launches_grouped_two_groups': rfsq_grouped_launches,
         'launches_gp_grouped_per_rank': [r['fsq_eval_launches']['residual_fsq'] for r in gp],
         'launches_dtype_path': dtype_launches(dtype_low, dtype_casts, 'residual_fsq_fused'),
+        'launches_compiled_path': compiled_launches(compiled, 'residual_fsq_fused'),
         'max_abs_err': max(r['max_abs_err'] for r in rfsq_cases.values()),
         'max_abs_err_of': 'max |quantized - plain version| over the rfsq_kernel_vs_plain cases '
                           f"({sum(r['bit_identical'] for r in rfsq_cases.values())} of {len(rfsq_cases)} "
@@ -6184,6 +6750,7 @@ def main() -> int:
         'launches_example_step': example_launches(examples, 'launches_step', 'code_sums'),
         'launches_example_tp_large_codebook_per_rank': [r['launches']['code_sums'] for r in ex_tp],
         'launches_dryrun_per_rank': {k: dryrun_launches(v, 'code_sums') for k, v in dryruns.items()},
+        'launches_compiled_path': compiled_launches(compiled, 'code_sums'),
         'max_abs_err': code_sums_times['max_abs_err'],
         'max_abs_err_of': 'max |sums - float64 per-code sum| over the code_sums cases (each within the f32 '
                           'summation bound)',
@@ -6210,4 +6777,4 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(profile_main(sys.argv[2:]) if sys.argv[1:2] == ['--profile'] else main())

@@ -1294,3 +1294,142 @@ def test_low_precision_input_takes_the_kernel_route(card, case, mode, dtype):
         if floats:
             sum(g.float().sum() for g in floats).backward()
             assert x.grad.dtype == dtype and torch.isfinite(x.grad).all()
+
+
+# -- the compiled step: inductor, fullgraph, the kernels by symbol --------------------------
+
+# the kernels' symbols in csrc/*.cu (K1 and K4 share the tensor-core tile; K4
+# adds the statistics by sorted code)
+_SYMBOLS = dict(select='select_tf32_kernel', sorted_stats='sort_split_kernel', sweep_a='sweep_a_kernel',
+                sweep_b='sweep_b_kernel', sweep_c='sweep_c_kernel', sweep_d='sweep_d_kernel',
+                k9='residual_fsq_eval_kernel')
+
+
+def _kernel_symbols(fn) -> tuple[dict, list]:
+    """The hand-written kernels of one call of `fn` by symbol, and the
+    names of any event that holds 'argmax' (torch.profiler after one
+    warm-up call under it, the call padded by spin kernels of about 25 ms
+    on either side: a window loses the device events of its first
+    milliseconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.cuda._sleep(50_000_000)
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        torch.cuda._sleep(50_000_000)
+        fn()
+        torch.cuda._sleep(50_000_000)
+        torch.cuda.synchronize()
+        prof.step()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    counts = {k: sum(sym in n for n in names) for k, sym in _SYMBOLS.items()}
+    return {k: v for k, v in counts.items() if v}, [e.name for e in prof.events() if 'argmax' in e.name.lower()]
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _compiled_entry(card):
+    from vqtpu_torch.entry import entry
+
+    fn, (state, x) = entry()
+    x = x + 0.5
+    return lambda: fn(state, x), lambda c: (lambda: c(state, x)), fn, dict(select=1, sorted_stats=1), 1e-5
+
+
+def _compiled_vq_example(card):
+    from vqtpu_torch.examples import autoencoder
+    from vqtpu_torch.examples.common import adamw, train_step
+
+    torch.manual_seed(0)
+    models = [autoencoder.main(train_iter=0, device='cuda') for _ in range(2)]
+    models[1].load_state_dict(models[0].state_dict())
+    xb = torch.from_numpy(np.random.default_rng(8).uniform(-1, 1, (32, 28, 28, 1)).astype(np.float32)).to(card)
+    eager = train_step(models[0], adamw(models[0].parameters(), 3e-4), autoencoder.loss_from_outputs, 10.0)
+    compiled = train_step(models[1], adamw(models[1].parameters(), 3e-4), autoencoder.loss_from_outputs, 10.0,
+                          compiled=True)
+    return lambda: eager(xb), lambda: compiled(xb), None, dict(select=1, sorted_stats=1), 1e-5
+
+
+def _served(make, shape, call, symbols, requires_grad=False, grad_rel=1e-5):
+    def build(card):
+        torch.manual_seed(0)
+        models = [make(card) for _ in range(2)]
+        models[1].load_state_dict(models[0].state_dict())
+        x = torch.from_numpy(np.random.default_rng(9).standard_normal(shape, dtype=np.float32)).to(card)
+        x.requires_grad_(requires_grad)
+        from vqtpu_torch.core.compile import compile_step
+        compiled = compile_step(lambda xs: call(models[1], xs))
+        return lambda: call(models[0], x), lambda: compiled(x), None, symbols, grad_rel
+    return build
+
+
+def _vq_train_call(m, x):
+    q, idx, loss = m(x)
+    gx, = torch.autograd.grad(q.square().sum() + loss, [x])
+    return q.detach(), idx, loss.detach(), gx
+
+
+def _lfq_train_call(m, x):
+    (q, idx, aux), _ = m(x, inv_temperature=100.0, return_loss_breakdown=True)
+    gx, = torch.autograd.grad(aux + q.square().mean(), [x])
+    return q.detach(), idx, aux.detach(), gx
+
+
+def _eval_call(m, x):
+    with torch.no_grad():
+        return m(x)[:2]
+
+
+COMPILED_PATHS = {
+    'entry_forward': _compiled_entry,
+    'vq_example_step': _compiled_vq_example,
+    'vq_eval': _served(lambda dev: vqtpu_torch.VectorQuantize(dim=64, codebook_size=128, device=dev).eval(),
+                       (2, 256, 64), _eval_call, dict(select=1)),
+    'vq_on_step': _served(lambda dev: vqtpu_torch.VectorQuantize(dim=64, codebook_size=128, train_fused='on',
+                                                                 device=dev).train(),
+                          (2, 256, 64), _vq_train_call, dict(select=1, sorted_stats=1), requires_grad=True),
+    'lfq_on_step': _served(lambda dev: vqtpu_torch.LFQ(dim=12, codebook_size=2 ** 12, spherical=True,
+                                                       entropy_loss_weight=0.1, entropy_fused='on',
+                                                       device=dev).train(),
+                           (2, 256, 12), _lfq_train_call, dict(sweep_a=1, sweep_b=1, sweep_c=1, sweep_d=1),
+                           requires_grad=True, grad_rel=1e-3),
+    'rfsq_eval': _served(lambda dev: vqtpu_torch.ResidualFSQ(dim=4, levels=[8, 5, 5, 5], num_quantizers=8,
+                                                             device=dev).eval(),
+                         (64, 256, 4), _eval_call, dict(k9=1)),
+}
+
+
+@pytest.mark.parametrize('path', list(COMPILED_PATHS))
+def test_compiled_path_runs_the_kernels(card, path):
+    """Each compiled path under inductor with fullgraph=True: held to its
+    eager call from the same state (indices equal, values within 1e-5 of
+    their largest entry; LFQ's x.grad within 1e-3 of its largest entry, as
+    between its entropy routes: a code whose batch probability lies within
+    rounding of the entropy's eps takes the other side of its kink when
+    inductor sums the glue in another order), and a profiler trace of one
+    compiled call shows its hand-written kernels by symbol at eager's
+    launch counts, and no argmax."""
+    from vqtpu_torch.core.compile import compile_step
+
+    torch._dynamo.reset()
+    eager, compiled, fn, symbols, grad_rel = COMPILED_PATHS[path](card)
+    if fn is not None:
+        compiled = compiled(compile_step(fn))
+    want, got = eager(), compiled()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if g.dtype.is_floating_point:
+            assert _rel(g, w) <= (grad_rel if i == 3 else 1e-5), (path, i, _rel(g, w))
+        else:
+            assert torch.equal(g, w), (path, i, int((g != w).sum()))
+    counts, argmax = _kernel_symbols(compiled)
+    assert counts == symbols and not argmax, (counts, argmax)
+    torch._dynamo.reset()

@@ -199,7 +199,7 @@ def test_one_step_matches_jax(name, small_synthetic, injected_draws, monkeypatch
     jmod.main(train_iter=1, batch_size=BATCH)
     tm = tmod.main(train_iter=1, batch_size=BATCH, device='cpu')
     jm = seen['jax']
-    assert {k: v for k, v in seen['port_kw'].items() if k not in ('loss_from_outputs', 'device')} == \
+    assert {k: v for k, v in seen['port_kw'].items() if k not in ('loss_from_outputs', 'device', 'compiled')} == \
         {k: v for k, v in seen['jax_kw'].items() if k != 'loss_from_outputs'}
 
     for key in ('rec', 'aux'):

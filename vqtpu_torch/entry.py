@@ -31,7 +31,7 @@ from torch import nn
 
 from .composite.residual_vq import GroupedResidualVQ, ResidualVQ
 from .core.optim import adamw
-from .core.utils import module_generators, resolve_device
+from .core.utils import resolve_device
 from .kernels.distance import nearest_code, quantize_lookup
 from .kernels.train_fused import code_sums, fused_train_quantize
 from .models.autoencoder import SimpleQuantizeAutoEncoder
@@ -67,21 +67,24 @@ def entry(device=None):
     as a pure function of its state; `state` is the model's state_dict (a
     copy) and `x` zeros of shape (8, 28, 28, 1), NHWC, both on `device`
     (the card when None, where the forward runs the fused train kernel
-    once)."""
+    once).
+
+    As `nnx.merge(graphdef, state)` leaves the JAX state, the call runs on
+    copies of the state's tensors (the EMA update writes into the copies;
+    gradients flow to the originals). The forward draws nothing from the
+    model's generators (no kmeans init, no expiry, no stochastic codes), so
+    `fn` reads and writes no random state and compiles whole, as
+    `jax.jit(fn)` does:
+
+        fn, (state, x) = entry()
+        recon, indices, commit_loss = torch.compile(fn, fullgraph=True)(state, x)
+    """
     device = resolve_device(device)
     model = build_flagship(device=device).train()
 
     def forward(state, x):
-        # as `nnx.merge(graphdef, state)` leaves the JAX state: the call runs
-        # on copies of the state's tensors (the EMA update writes into them;
-        # gradients flow to the originals) and the generators are restored
-        generators = [(g, g.get_state()) for g in module_generators(model)]
-        try:
-            recon, indices, commit_loss = torch.func.functional_call(
-                model, {k: v.clone() for k, v in state.items()}, (x,))
-        finally:
-            for g, s in generators:
-                g.set_state(s)
+        recon, indices, commit_loss = torch.func.functional_call(
+            model, {k: v.clone() for k, v in state.items()}, (x,))
         return recon, indices, commit_loss
 
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -391,5 +394,6 @@ def dryrun_multichip(n_devices: int, backend: str = 'nccl', device=None) -> dict
 
 if __name__ == '__main__':
     fn, args = entry()
-    print('entry ok:', [tuple(t.shape) for t in fn(*args)])
+    out = torch.compile(fn, fullgraph=True)(*args)
+    print('entry ok:', [tuple(t.shape) for t in out])
     dryrun_multichip(min(8, torch.cuda.device_count()))

@@ -2,6 +2,13 @@
 AdamW, an L1 reconstruction plus alpha times the aux loss, and a log line
 with the active-code share and the perplexity; and the process group of
 the distributed examples.
+
+The step is one function of the batch: the forward, the loss, its
+gradients (`torch.autograd.grad`) and the AdamW update
+(`core.optim.adamw_update`). On the card it runs compiled whole
+(`core.compile.compile_step`: one graph, or an error), as the JAX script's
+`@nnx.jit` step does; an example whose quantizer draws from a generator
+passes `compiled=False` and says so.
 """
 
 from __future__ import annotations
@@ -16,7 +23,8 @@ import torch.distributed as dist
 from torch import nn
 
 from ..core import metrics
-from ..core.optim import OPTAX_ADAMW_WEIGHT_DECAY, adamw  # noqa: F401  (the examples' optimizer)
+from ..core.compile import compile_step
+from ..core.optim import OPTAX_ADAMW_WEIGHT_DECAY, adamw, adamw_update, prepare_adamw_for_graph  # noqa: F401
 from ..core.utils import resolve_device
 from ..models import data as data_module
 from ..parallel import init_multihost
@@ -26,18 +34,25 @@ def l1_reconstruction(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (out.clamp(-1, 1) - x).abs().mean()
 
 
-def train_step(model: nn.Module, opt: torch.optim.Optimizer, loss_from_outputs: Callable, alpha: float):
+def train_step(model: nn.Module, opt: torch.optim.AdamW, loss_from_outputs: Callable, alpha: float, *,
+               compiled: bool = False, backend: str = 'inductor', mode: str | None = None):
     """One training step as a function of the batch: the forward,
     `loss_from_outputs(outputs, x, alpha) -> (total, rec, aux, indices)`,
-    the backward and the optimizer step; returns (rec, aux, indices),
-    detached."""
+    the gradients of the total with respect to `opt`'s parameters and
+    their AdamW update (`adamw_update`; a parameter without a gradient is
+    not moved, as `opt.step()` leaves one whose `.grad` is None); returns
+    (rec, aux, indices), detached. `opt` is an AdamW (`adamw`). With
+    `compiled`, the step is `compile_step` of the same function with
+    `backend` and `mode` (`'reduce-overhead'`: CUDA graphs): one graph,
+    compiled at the first call."""
+    params = [p for group in opt.param_groups for p in group['params']]
+    prepare_adamw_for_graph(opt)
+
     def step(x: torch.Tensor):
-        opt.zero_grad(set_to_none=True)
         total, rec, aux, indices = loss_from_outputs(model(x), x, alpha)
-        total.backward()
-        opt.step()
+        adamw_update(opt, torch.autograd.grad(total, params, allow_unused=True))
         return rec.detach(), aux.detach(), indices
-    return step
+    return compile_step(step, backend=backend, mode=mode) if compiled else step
 
 
 def train_loop(
@@ -52,16 +67,20 @@ def train_loop(
     seed: int = 1234,
     log_every: int = 50,
     device=None,
+    compiled: bool | None = None,
 ) -> nn.Module:
     """Train `model` for `train_iter` AdamW steps on `image_batches(batch_size,
     seed)` (moved to `device`, the card when None) and return it.
     `loss_from_outputs(outputs, x, alpha) -> (total_loss, rec_loss,
     aux_loss, indices)`. Prints a line every `log_every` steps and at the
     last: the rec and aux losses, the share of codes the batch used and
-    its perplexity."""
+    its perplexity. `compiled`: run the step compiled whole (`train_step`);
+    None compiles it on the card and runs it eagerly on the CPU."""
     device = resolve_device(device)
     model.train()
-    step = train_step(model, adamw(model.parameters(), lr), loss_from_outputs, alpha)
+    if compiled is None:
+        compiled = device.type == 'cuda'
+    step = train_step(model, adamw(model.parameters(), lr), loss_from_outputs, alpha, compiled=compiled)
     data = data_module.image_batches(batch_size=batch_size, seed=seed)
 
     t0 = time.time()

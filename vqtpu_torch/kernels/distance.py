@@ -8,6 +8,13 @@
 hand-written Hopper kernel in csrc/nearest_code.cu, CPU tensors to
 `nearest_code_plain`, the same formulation in plain PyTorch. Indices are
 int32, as the kernel writes them.
+
+The kernel's entry points are the custom ops `torch.ops.vqtpu.nearest_code`,
+`nearest_code_best` (with the winning scores) and `quantize_lookup` (with
+the winning rows, copied by the same launch): a CPU implementation (the
+plain version), a CUDA one (the kernel, on the current stream) and a fake
+that gives shapes and dtypes. `torch.compile` keeps them opaque, as XLA
+keeps a `pallas_call`, so a compiled graph runs the kernel itself.
 """
 
 from __future__ import annotations
@@ -165,6 +172,74 @@ def _nearest_code_simt(x: torch.Tensor, embed: torch.Tensor, bias: torch.Tensor)
     return idx[0] if squeeze else idx
 
 
+
+# -- the kernel as custom ops: opaque to torch.compile, one implementation a device --
+
+
+def _selection_shape(x: torch.Tensor) -> tuple:
+    return tuple(x.shape[:-1])
+
+
+@torch.library.custom_op('vqtpu::nearest_code', mutates_args=(), device_types='cpu')
+def _nearest_code_op(x: torch.Tensor, embed: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    return nearest_code_plain(x, embed, bias)
+
+
+@_nearest_code_op.register_kernel('cuda')
+def _(x, embed, bias):
+    return _nearest_code_cuda(x, embed, bias)
+
+
+@_nearest_code_op.register_fake
+def _(x, embed, bias):
+    return x.new_empty(_selection_shape(x), dtype=torch.int32)
+
+
+@torch.library.custom_op('vqtpu::nearest_code_best', mutates_args=(), device_types='cpu')
+def _nearest_code_best_op(
+    x: torch.Tensor, embed: torch.Tensor, bias: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return nearest_code_plain(x, embed, bias, return_best=True)
+
+
+@_nearest_code_best_op.register_kernel('cuda')
+def _(x, embed, bias):
+    return _nearest_code_cuda(x, embed, bias, best=True)
+
+
+@_nearest_code_best_op.register_fake
+def _(x, embed, bias):
+    shape = _selection_shape(x)
+    return x.new_empty(shape, dtype=torch.int32), x.new_empty(shape, dtype=torch.float32)
+
+
+@torch.library.custom_op('vqtpu::quantize_lookup', mutates_args=(), device_types='cpu')
+def _quantize_lookup_op(
+    x: torch.Tensor, embed: torch.Tensor, bias: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, indices): the rows first, the output that carries a gradient
+    (`kernels.train_fused` registers it)."""
+    idx = nearest_code_plain(x, embed, bias)
+    return gather_codes_per_head(embed, idx) if embed.ndim > 2 else gather_codes(embed, idx), idx
+
+
+@_quantize_lookup_op.register_kernel('cuda')
+def _(x, embed, bias):
+    idx, rows = _nearest_code_cuda(x, embed, bias, rows=True)
+    return rows, idx
+
+
+@_quantize_lookup_op.register_fake
+def _(x, embed, bias):
+    shape = _selection_shape(x)
+    return embed.new_empty((*shape, embed.shape[-1])), x.new_empty(shape, dtype=torch.int32)
+
+
+def _check_device(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name} runs on CUDA or CPU tensors, not {x.device}')
+
+
 def nearest_code(
     x: torch.Tensor,
     embed: torch.Tensor,
@@ -181,15 +256,17 @@ def nearest_code(
 
     `bias` defaults to `selection_bias(embed, metric)`. CUDA tensors launch
     the Hopper kernel (f32, contiguous, or it raises) and count the launch
-    in `nearest_code.launches`; CPU tensors take `nearest_code_plain`.
+    in `nearest_code.launches`; CPU tensors take `nearest_code_plain`. The
+    call is the op `torch.ops.vqtpu.nearest_code` (`nearest_code_best`
+    with `return_best`); no gradient flows through it.
     """
+    _check_device('nearest_code', x)
     if bias is None:
         bias = selection_bias(embed, metric)
-    if x.device.type == 'cpu':
-        return nearest_code_plain(x, embed, bias, return_best)
-    if x.device.type != 'cuda':
-        raise ValueError(f'nearest_code runs on CUDA or CPU tensors, not {x.device}')
-    return _nearest_code_cuda(x, embed, bias, best=return_best)
+    x, embed, bias = x.detach(), embed.detach(), bias.detach()
+    if return_best:
+        return torch.ops.vqtpu.nearest_code_best(x, embed, bias)
+    return torch.ops.vqtpu.nearest_code(x, embed, bias)
 
 
 nearest_code.launches = 0
@@ -248,7 +325,10 @@ def quantize_lookup(
     tier='exact': f32 selection and an exact row copy. On CUDA tensors one
     launch of the selection kernel does both (counted in
     `nearest_code.launches`; f32 and contiguous, or it raises); CPU tensors
-    take `nearest_code_plain` and `index_select`.
+    take `nearest_code_plain` and `index_select`. The call is the op
+    `torch.ops.vqtpu.quantize_lookup` on detached operands: the rows carry
+    no gradient (`kernels.train_fused.lookup_with_code_grad` gives them the
+    codebook's).
     tier='bf16': x and the codebook are cast to bfloat16; scores are f32
     products of the bf16 values (each product is exact in f32) with the bias
     taken from the bf16-cast codebook, so indices and rows are exact with
@@ -258,12 +338,10 @@ def quantize_lookup(
         return _quantize_lookup_bf16(x, embed, metric)
     if tier != 'exact':
         raise ValueError(f"tier must be 'exact' or 'bf16', got {tier!r}")
-    if x.device.type == 'cuda':
-        return _nearest_code_cuda(x, embed, selection_bias(embed, metric), rows=True)
-    idx = nearest_code(x, embed, metric)
-    if embed.ndim > 2:
-        return idx, gather_codes_per_head(embed, idx)
-    return idx, gather_codes(embed, idx)
+    _check_device('quantize_lookup', x)
+    embed = embed.detach()
+    rows, idx = torch.ops.vqtpu.quantize_lookup(x.detach(), embed, selection_bias(embed, metric))
+    return idx, rows
 
 
 def bf16_select(x: torch.Tensor, embed: torch.Tensor, metric: str) -> tuple[torch.Tensor, torch.Tensor]:

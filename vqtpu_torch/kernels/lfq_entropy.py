@@ -19,9 +19,13 @@ gradient without an (N, K) tensor in memory:
 `sweep_a` .. `sweep_d` dispatch on where their tensors lie: CUDA tensors go
 to the hand-written Hopper kernels in csrc/lfq_entropy.cu (deterministic, no
 float atomics), CPU tensors to `sweep_a_plain` .. `sweep_d_plain`, the same
-formulas in plain PyTorch, chunked over K. `LfqEntropyStats` ties them
-together as an autograd function (A then B forward, C then D backward), and
-`lfq_entropy_stats` is its entry point.
+formulas in plain PyTorch, chunked over K. Two custom ops tie them
+together: `torch.ops.vqtpu.lfq_entropy` runs A then B and
+`torch.ops.vqtpu.lfq_entropy_backward` C then D, each with a CPU
+implementation (the plain sweeps), a CUDA one (the kernels) and a fake for
+shapes; the second is the first's autograd formula, so `torch.compile`
+traces both into its graph and keeps them opaque. `lfq_entropy_stats` is
+the entry point.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import ctypes
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -301,28 +304,76 @@ for _sweep in (sweep_a, sweep_b, sweep_c, sweep_d):
 SWEEPS = {'a': sweep_a, 'b': sweep_b, 'c': sweep_c, 'd': sweep_d}
 
 
-class LfqEntropyStats(torch.autograd.Function):
-    """(ent, avgp) of x (N, d) and weights w (N,): sweeps A then B forward,
-    saving (x, w, logz); sweeps C then D backward, giving dx and dw = gdot."""
+def _entropy_fwd_kernels(x, w, k, v, inv_temp, eps):
+    """Sweeps A then B through the kernels: (ent, avgp, logz)."""
+    m, s = sweep_a(x, k=k, v=v, inv_temp=inv_temp)
+    logz = m + torch.log(s)
+    ent, avgp = sweep_b(x, w, logz, k=k, v=v, inv_temp=inv_temp, eps=eps)
+    return ent, avgp, logz
 
-    @staticmethod
-    def forward(ctx, x, w, k, v, inv_temp, eps):
-        m, s = sweep_a(x, k=k, v=v, inv_temp=inv_temp)
-        logz = m + torch.log(s)
-        ent, avgp = sweep_b(x, w, logz, k=k, v=v, inv_temp=inv_temp, eps=eps)
-        ctx.save_for_backward(x, w, logz)
-        ctx.params = dict(k=k, v=v, inv_temp=inv_temp, eps=eps)
-        return ent, avgp
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, entbar, gbar):
-        x, w, logz = ctx.saved_tensors
-        entbar, gbar = entbar.contiguous(), gbar.contiguous()
-        sigma, gdot = sweep_c(x, w, logz, entbar, gbar, **ctx.params)
-        dx = sweep_d(x, w, logz, entbar, gbar, sigma, **ctx.params) if ctx.needs_input_grad[0] else None
-        dw = gdot if ctx.needs_input_grad[1] else None
-        return dx, dw, None, None, None, None
+@torch.library.custom_op('vqtpu::lfq_entropy', mutates_args=(), device_types='cpu')
+def _lfq_entropy_op(
+    x: torch.Tensor, w: torch.Tensor, k: int, v: float, inv_temp: float, eps: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return entropy_fwd_plain(x, w, k, v, inv_temp, eps)
+
+
+@_lfq_entropy_op.register_kernel('cuda')
+def _(x, w, k, v, inv_temp, eps):
+    return _entropy_fwd_kernels(x, w, k, v, inv_temp, eps)
+
+
+@_lfq_entropy_op.register_fake
+def _(x, w, k, v, inv_temp, eps):
+    n = x.shape[0]
+    return x.new_empty(n), x.new_empty(k), x.new_empty(n)
+
+
+def _entropy_bwd(x, w, logz, entbar, gbar, k, v, inv_temp, eps, need_dx, sweep_c, sweep_d):
+    kw = dict(k=k, v=v, inv_temp=inv_temp, eps=eps)
+    sigma, gdot = sweep_c(x, w, logz, entbar, gbar, **kw)
+    dx = sweep_d(x, w, logz, entbar, gbar, sigma, **kw) if need_dx else x.new_empty(0)
+    return dx, gdot
+
+
+@torch.library.custom_op('vqtpu::lfq_entropy_backward', mutates_args=(), device_types='cpu')
+def _lfq_entropy_backward_op(
+    x: torch.Tensor, w: torch.Tensor, logz: torch.Tensor, entbar: torch.Tensor, gbar: torch.Tensor,
+    k: int, v: float, inv_temp: float, eps: float, need_dx: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return _entropy_bwd(x, w, logz, entbar, gbar, k, v, inv_temp, eps, need_dx, sweep_c_plain, sweep_d_plain)
+
+
+@_lfq_entropy_backward_op.register_kernel('cuda')
+def _(x, w, logz, entbar, gbar, k, v, inv_temp, eps, need_dx):
+    return _entropy_bwd(x, w, logz, entbar, gbar, k, v, inv_temp, eps, need_dx, sweep_c, sweep_d)
+
+
+@_lfq_entropy_backward_op.register_fake
+def _(x, w, logz, entbar, gbar, k, v, inv_temp, eps, need_dx):
+    return x.new_empty(x.shape if need_dx else (0,)), x.new_empty(x.shape[0])
+
+
+def _entropy_setup_context(ctx, inputs, output):
+    x, w, k, v, inv_temp, eps = inputs
+    ctx.save_for_backward(x, w, output[2])
+    ctx.params = dict(k=k, v=v, inv_temp=inv_temp, eps=eps)
+
+
+def _entropy_backward(ctx, entbar, gbar, _logz_bar):
+    """Sweeps C then D: dx and dw = gdot (sweep D only when x needs its
+    gradient)."""
+    x, w, logz = ctx.saved_tensors
+    p = ctx.params
+    dx, gdot = torch.ops.vqtpu.lfq_entropy_backward(
+        x, w, logz, entbar.contiguous(), gbar.contiguous(), p['k'], p['v'], p['inv_temp'], p['eps'],
+        ctx.needs_input_grad[0])
+    return (dx if ctx.needs_input_grad[0] else None, gdot if ctx.needs_input_grad[1] else None,
+            None, None, None, None)
+
+
+torch.library.register_autograd('vqtpu::lfq_entropy', _entropy_backward, setup_context=_entropy_setup_context)
 
 
 def lfq_entropy_stats(x: torch.Tensor, w: torch.Tensor, *, k: int, v: float, inv_temp: float,
@@ -332,9 +383,13 @@ def lfq_entropy_stats(x: torch.Tensor, w: torch.Tensor, *, k: int, v: float, inv
     caller applies w), avg_prob_num_k = sum_n w_n p_nk. x is (N, d) with any
     N >= 0 (no padding), w (N,). Differentiable in x and w through sweeps C
     and D. CUDA tensors run the Hopper kernels (f32 and contiguous, or they
-    raise), CPU tensors the plain sweeps."""
+    raise), CPU tensors the plain sweeps; the call is the op
+    `torch.ops.vqtpu.lfq_entropy`."""
     if x.ndim != 2 or tuple(w.shape) != (x.shape[0],):
         raise ValueError(f'lfq_entropy_stats takes x (N, d) and w (N,), got {tuple(x.shape)}, {tuple(w.shape)}')
     if k != 1 << x.shape[1]:
         raise ValueError(f'k must be 2^d = {1 << x.shape[1]}, got {k}')
-    return LfqEntropyStats.apply(x, w, k, float(v), float(inv_temp), float(eps))
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'lfq_entropy_stats runs on CUDA or CPU tensors, not {x.device}')
+    ent, avgp, _ = torch.ops.vqtpu.lfq_entropy(x, w, k, float(v), float(inv_temp), float(eps))
+    return ent, avgp

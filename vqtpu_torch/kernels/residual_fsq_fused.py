@@ -23,6 +23,12 @@ tensor to `fused_residual_fsq_eval_plain`, the same chain in plain PyTorch,
 factored as `soft_clamp_plain` and `residual_fsq_chain_plain`.
 `kernel_chain_plain` is the kernel's own arithmetic in plain PyTorch, for
 the tests.
+
+The entry point is the custom op `torch.ops.vqtpu.residual_fsq_eval` (CPU:
+the plain version; CUDA: the kernel; a fake for shapes), which
+`torch.compile` keeps opaque. Its static configuration (levels, clamp, q)
+is part of the call; the CUDA implementation works out `kernel_plan` from
+it on the host, once per configuration, outside any traced graph.
 """
 
 from __future__ import annotations
@@ -322,21 +328,8 @@ def _plan_buffers(levels: tuple, clamp: tuple, num_quantizers: int, device: torc
     return plan, host, host.to(device)
 
 
-def fused_residual_fsq_eval(x: torch.Tensor, scales: torch.Tensor, *, levels, clamp, num_quantizers: int):
-    """Eval forward of the preserve-symmetry hard-clamp ResidualFSQ stack.
-
-    x: (..., d) tokens before the soft clamp, cast to f32 first. scales:
-    (q, d), the module's `_scales()`. levels and clamp: d values each.
-    Returns (quantized (..., d) in x.dtype, indices (..., q) int32).
-
-    A CUDA tensor launches the Hopper kernel (counted in
-    `fused_residual_fsq_eval.launches`) with the routes `kernel_plan`
-    proves for the configuration, a CPU tensor takes
-    `fused_residual_fsq_eval_plain`; any other device raises."""
-    if x.device.type == 'cpu':
-        return fused_residual_fsq_eval_plain(x, scales, levels=levels, clamp=clamp, num_quantizers=num_quantizers)
-    if x.device.type != 'cuda':
-        raise ValueError(f'fused_residual_fsq_eval runs on CUDA or CPU tensors, not {x.device}')
+def _fused_residual_fsq_eval_cuda(x, scales, levels, clamp, num_quantizers):
+    """The kernel on a CUDA tensor; counts the launch."""
     _check(x, scales, levels, clamp, num_quantizers)
     d, q = len(levels), num_quantizers
     lead = x.shape[:-1]
@@ -362,6 +355,43 @@ def fused_residual_fsq_eval(x: torch.Tensor, scales: torch.Tensor, *, levels, cl
             raise RuntimeError(f'fused_residual_fsq_eval kernel launch failed: {msg} ({err})')
         fused_residual_fsq_eval.launches += 1
     return qsum.to(x.dtype).reshape(*lead, d), indices.reshape(*lead, q)
+
+
+@torch.library.custom_op('vqtpu::residual_fsq_eval', mutates_args=(), device_types='cpu')
+def _residual_fsq_eval_op(
+    x: torch.Tensor, scales: torch.Tensor, levels: list[int], clamp: list[float], num_quantizers: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return fused_residual_fsq_eval_plain(x, scales, levels=levels, clamp=clamp, num_quantizers=num_quantizers)
+
+
+@_residual_fsq_eval_op.register_kernel('cuda')
+def _(x, scales, levels, clamp, num_quantizers):
+    return _fused_residual_fsq_eval_cuda(x, scales, levels, clamp, num_quantizers)
+
+
+@_residual_fsq_eval_op.register_fake
+def _(x, scales, levels, clamp, num_quantizers):
+    return torch.empty_like(x), x.new_empty((*x.shape[:-1], num_quantizers), dtype=torch.int32)
+
+
+def fused_residual_fsq_eval(x: torch.Tensor, scales: torch.Tensor, *, levels, clamp, num_quantizers: int):
+    """Eval forward of the preserve-symmetry hard-clamp ResidualFSQ stack.
+
+    x: (..., d) tokens before the soft clamp, cast to f32 first. scales:
+    (q, d), the module's `_scales()`. levels and clamp: d values each.
+    Returns (quantized (..., d) in x.dtype, indices (..., q) int32).
+
+    A CUDA tensor launches the Hopper kernel (counted in
+    `fused_residual_fsq_eval.launches`) with the routes `kernel_plan`
+    proves for the configuration, a CPU tensor takes
+    `fused_residual_fsq_eval_plain`; any other device raises. The call is
+    the op `torch.ops.vqtpu.residual_fsq_eval`; no gradient flows through
+    it."""
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'fused_residual_fsq_eval runs on CUDA or CPU tensors, not {x.device}')
+    _check(x, scales, levels, clamp, num_quantizers)
+    return torch.ops.vqtpu.residual_fsq_eval(x.detach(), scales.detach(), [int(v) for v in levels],
+                                             [float(c) for c in clamp], int(num_quantizers))
 
 
 fused_residual_fsq_eval.launches = 0

@@ -24,18 +24,23 @@ codebook's gradient is the sum by code of the rows' gradients, in token
 order within a code, so two backward passes give the same bits
 (`index_select`'s own backward, `index_add_`, sums with float atomics in
 an order that changes from run to run).
+
+The entry points are the custom ops `torch.ops.vqtpu.fused_train` and
+`torch.ops.vqtpu.code_sums` (CPU: the plain versions; CUDA: the kernels;
+a fake for shapes), and the autograd formula of
+`torch.ops.vqtpu.quantize_lookup`, whose backward is `code_sums`:
+`torch.compile` keeps each opaque and traces the backward into its graph.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from . import _build
-from .distance import (
-    _check_kernel_operands, gather_codes_per_head, nearest_code_plain, quantize_lookup, selection_bias,
-)
+from .distance import _check_kernel_operands, gather_codes_per_head, nearest_code_plain, selection_bias
 
 
 def code_statistics_plain(
@@ -198,6 +203,25 @@ def _fused_train_stages(x, embed, bias) -> dict:
     return {name: stage(i) for i, name in enumerate(STAGES)}
 
 
+@torch.library.custom_op('vqtpu::fused_train', mutates_args=(), device_types='cpu')
+def _fused_train_op(
+    x: torch.Tensor, embed: torch.Tensor, bias: torch.Tensor, weights: Optional[torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return fused_train_quantize_plain(x, embed, bias, weights)
+
+
+@_fused_train_op.register_kernel('cuda')
+def _(x, embed, bias, weights):
+    return _fused_train_cuda(x, embed, bias, weights)
+
+
+@_fused_train_op.register_fake
+def _(x, embed, bias, weights):
+    lead, n, c, d = tuple(x.shape[:-2]), x.shape[-2], embed.shape[-2], x.shape[-1]
+    return (x.new_empty((*lead, n), dtype=torch.int32), x.new_empty((*lead, n, d), dtype=torch.float32),
+            x.new_empty((*lead, c), dtype=torch.float32), x.new_empty((*lead, c, d), dtype=torch.float32))
+
+
 def fused_train_quantize(
     x: torch.Tensor,
     embed: torch.Tensor,
@@ -213,14 +237,15 @@ def fused_train_quantize(
 
     CUDA tensors launch the Hopper kernel (f32 and contiguous, or it
     raises) and count the call in `fused_train_quantize.launches`; CPU
-    tensors take `fused_train_quantize_plain`."""
+    tensors take `fused_train_quantize_plain`. The call is the op
+    `torch.ops.vqtpu.fused_train` on detached operands: no output carries
+    a gradient."""
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'fused_train_quantize runs on CUDA or CPU tensors, not {x.device}')
     if bias is None:
         bias = selection_bias(embed, metric)
-    if x.device.type == 'cpu':
-        return fused_train_quantize_plain(x, embed, bias, weights)
-    if x.device.type != 'cuda':
-        raise ValueError(f'fused_train_quantize runs on CUDA or CPU tensors, not {x.device}')
-    return _fused_train_cuda(x, embed, bias, weights)
+    return torch.ops.vqtpu.fused_train(x.detach(), embed.detach(), bias.detach(),
+                                       None if weights is None else weights.detach())
 
 
 fused_train_quantize.launches = 0
@@ -267,6 +292,34 @@ def _code_sums_cuda(x, idx, codebook_size, weights):
     return (bins[0], esum[0]) if squeeze else (bins, esum)
 
 
+def _code_statistics_any(x, idx, codebook_size, weights):
+    """`code_statistics_plain` on (n, d) or (h, n, d) rows."""
+    if x.ndim == 2:
+        bins, esum = code_statistics_plain(x[None], idx[None], codebook_size,
+                                           None if weights is None else weights[None])
+        return bins[0], esum[0]
+    return code_statistics_plain(x, idx, codebook_size, weights)
+
+
+@torch.library.custom_op('vqtpu::code_sums', mutates_args=(), device_types='cpu')
+def _code_sums_op(
+    x: torch.Tensor, idx: torch.Tensor, codebook_size: int, weights: Optional[torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return _code_statistics_any(x, idx, codebook_size, weights)
+
+
+@_code_sums_op.register_kernel('cuda')
+def _(x, idx, codebook_size, weights):
+    return _code_sums_cuda(x, idx, codebook_size, weights)
+
+
+@_code_sums_op.register_fake
+def _(x, idx, codebook_size, weights):
+    lead, d = tuple(x.shape[:-2]), x.shape[-1]
+    return (x.new_empty((*lead, codebook_size), dtype=torch.float32),
+            x.new_empty((*lead, codebook_size, d), dtype=torch.float32))
+
+
 def code_sums(
     x: torch.Tensor, idx: torch.Tensor, codebook_size: int,
     weights: torch.Tensor | None = None,
@@ -278,37 +331,32 @@ def code_sums(
     CUDA tensors launch the statistics by sorted code of
     csrc/train_fused.cu (f32 and contiguous, or it raises; deterministic)
     and count the call in `code_sums.launches`; CPU tensors take
-    `code_statistics_plain`."""
-    if x.device.type == 'cpu':
-        if x.ndim == 2:
-            bins, esum = code_statistics_plain(x[None], idx[None], codebook_size,
-                                               None if weights is None else weights[None])
-            return bins[0], esum[0]
-        return code_statistics_plain(x, idx, codebook_size, weights)
-    if x.device.type != 'cuda':
+    `code_statistics_plain`. The call is the op `torch.ops.vqtpu.code_sums`;
+    no gradient flows through it."""
+    if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'code_sums runs on CUDA or CPU tensors, not {x.device}')
-    return _code_sums_cuda(x, idx, codebook_size, weights)
+    return torch.ops.vqtpu.code_sums(x.detach(), idx, codebook_size, None if weights is None else weights.detach())
 
 
 code_sums.launches = 0
 
 
-class _LookupWithCodeGrad(torch.autograd.Function):
-    """quantize_lookup whose rows carry their gradient to the codebook."""
+def _lookup_setup_context(ctx, inputs, output):
+    _, embed, _ = inputs
+    _, idx = output
+    ctx.save_for_backward(idx)
+    ctx.codebook_size = embed.shape[-2]
 
-    @staticmethod
-    def forward(ctx, x, embed, metric):
-        idx, rows = quantize_lookup(x, embed, metric)
-        ctx.mark_non_differentiable(idx)
-        ctx.save_for_backward(idx)
-        ctx.codebook_size = embed.shape[-2]
-        return idx, rows
 
-    @staticmethod
-    def backward(ctx, grad_idx, grad_rows):
-        idx, = ctx.saved_tensors
-        _, grad_embed = code_sums(grad_rows.float().contiguous(), idx, ctx.codebook_size)
-        return None, grad_embed, None
+def _lookup_backward(ctx, grad_rows, grad_idx):
+    idx, = ctx.saved_tensors
+    _, grad_embed = code_sums(grad_rows.float().contiguous(), idx, ctx.codebook_size)
+    return None, grad_embed, None
+
+
+# the rows of `quantize_lookup` carry their gradient to the codebook: the sum
+# by code of the rows' gradients (`code_sums`); none reaches x or the bias
+torch.library.register_autograd('vqtpu::quantize_lookup', _lookup_backward, setup_context=_lookup_setup_context)
 
 
 def lookup_with_code_grad(
@@ -320,4 +368,7 @@ def lookup_with_code_grad(
     deterministic on the card). (n, d) or (h, n, d) tokens against (c, d)
     or (h, c, d) codes. No gradient reaches x, whose only part in the
     result is the choice of codes."""
-    return _LookupWithCodeGrad.apply(x, embed, metric)
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'lookup_with_code_grad runs on CUDA or CPU tensors, not {x.device}')
+    rows, idx = torch.ops.vqtpu.quantize_lookup(x.detach(), embed, selection_bias(embed, metric).detach())
+    return idx, rows
