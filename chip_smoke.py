@@ -260,8 +260,24 @@ prints one JSON line per phase:
    each path's kernels by symbol at eager's launches (K1 1, K4 1, K5-K8 1
    each, K9 1) and no argmax; compile seconds, eager, compiled and
    CUDA-graph ms (CUDA events, two rounds) and, for the entry forward and
-   the example step, idle shares of 5 calls;
-45. the {"kernels": [...]} line.
+   the example step, idle shares of 5 calls. Then the four example steps
+   that draw (the RQ-VAE, HQ, FVQ and FSP autoencoders at batch 256):
+   each `main()` trains through its compiled step (`example_run`, once a
+   process; examples_path reuses the run), and that step is held to an
+   eager twin from the same state for 3 steps, kmeans init inside both at
+   step 0 for the RQ-VAE and HQ, the compiled step given eager's means
+   (the same launches, indices equal, losses and codebooks within 1e-5,
+   Adam's moments within 1e-4, parameters within 2 lr, the random streams
+   alike), with its kernels by symbol in
+   a trace (K4 4 for HQ, K1 3 and code_sums 2 for FVQ, none for the
+   RQ-VAE's distance path and FSP), compile seconds, eager and compiled
+   ms and idle shares;
+45. stream (run right after phase 1): the port's counter-based random
+   stream (core.sampling.RandomStream), every draw function from the same
+   state at 2^20 values on the card and on the CPU, bit for bit, and a
+   ResidualVQ with kmeans init, stochastic codes and quantize dropout built
+   on the CPU and moved to the card drawing what its CPU copy draws;
+46. the {"kernels": [...]} line.
 
 Indices from two formulations may differ only at near-ties: tokens whose two
 picks, scored again in float64, differ by at most 1e-5 relative
@@ -278,12 +294,15 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import concurrent.futures
+import functools
 import importlib
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from contextlib import contextmanager
 
@@ -347,8 +366,16 @@ RFSQ_MAIN = ((8, 5, 5, 5), 8, (2048, 2048))
 _T0 = time.perf_counter()
 
 
+_EMIT_LOCK = threading.Lock()
+# phases that only wait on rank processes of their own run this many at a time
+BESIDE = 3
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({'phase': phase, 'script_s': time.perf_counter() - _T0, **fields}), flush=True)
+    line = json.dumps({'phase': phase, 'script_s': time.perf_counter() - _T0, **fields}) + '\n'
+    with _EMIT_LOCK:         # phases in threads (main()) print whole lines
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def check(ok: bool, what: str) -> None:
@@ -497,6 +524,81 @@ def phase_device():
          tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          tf32_cudnn=torch.backends.cudnn.allow_tf32)
     return kind, count, smi, ptxas
+
+
+STREAM_DRAWS = 1 << 20
+
+
+def phase_stream(device):
+    """stream: the port's counter-based random stream (core.sampling, the
+    port's nnx.Rngs stream), every draw function from the same state on the
+    card and on the CPU at 2^20 values: the card's values equal the CPU's
+    bit for bit (gumbel and normal noise are computed in float64 and
+    rounded once; a difference is reported in float32 ulps) and the
+    streams' states after it; then ResidualVQ(dim=32, num_quantizers=8,
+    codebook_size=256, kmeans_init, stochastic codes, quantize dropout)
+    built on the CPU and moved to the card: its streams moved with it, and
+    its dropout draws, a codebook stream's gumbel noise and a training
+    forward's draws (the streams' states after it) equal the CPU copy's."""
+    import copy
+    from vqtpu_torch import ResidualVQ
+    from vqtpu_torch.core import sampling
+
+    t0 = time.perf_counter()
+    n = STREAM_DRAWS
+    mask = torch.arange(n) % 7 == 3
+    draws = dict(
+        bits=lambda g, dev: (g.bits(n),),
+        uniform_noise=lambda g, dev: (sampling.uniform_noise(g, (n,)),),
+        uniform_noise_bf16=lambda g, dev: (sampling.uniform_noise(g, (n,), dtype=torch.bfloat16),),
+        gumbel_noise=lambda g, dev: (sampling.gumbel_noise(g, (n,)),),
+        normal_noise=lambda g, dev: (sampling.normal_noise(g, (n,)),),
+        bernoulli=lambda g, dev: (sampling.bernoulli(g, torch.full((n,), 0.3, device=dev)),),
+        random_permutation=lambda g, dev: (sampling.random_permutation(g, n),),
+        bernoulli_and_uniform=lambda g, dev: sampling.bernoulli_and_uniform(g, 0.3, (n,)),
+        randint=lambda g, dev: (sampling.randint(g, 1000, n),),
+        masked_sample_indices=lambda g, dev: (sampling.masked_sample_indices(g, n, mask.to(dev), n),),
+        quantize_dropout_index=lambda g, dev: tuple(sampling.quantize_dropout_index(g, 1, 8, 3)
+                                                    for _ in range(64)),
+        split=lambda g, dev: (g.split(),),
+    )
+    out = {}
+    for i, (name, draw) in enumerate(draws.items()):
+        cpu, card = sampling.new_stream(1234 + i), sampling.new_stream(1234 + i, device)
+        want, got = draw(cpu, 'cpu'), [t.cpu() for t in draw(card, device)]
+        sync(device)
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        ulps = max(float(((g.double() - w.double()).abs() / torch.finfo(w.dtype).eps
+                          / w.double().abs().clamp_min(1.0)).max()) for g, w in zip(got, want)
+                   if w.is_floating_point()) if want[0].is_floating_point() else 0.0
+        out[name] = dict(equal=equal, max_ulps=ulps, counter=int(card.get_state()[2]))
+        check(equal and torch.equal(card.get_state().cpu(), cpu.get_state()),
+              f'stream: {name} on the card equals the CPU ({out[name]})')
+    torch.manual_seed(91)
+    cpu_model = ResidualVQ(dim=32, num_quantizers=8, codebook_size=256, kmeans_init=True,
+                           stochastic_sample_codes=True, sample_codebook_temp=0.1, quantize_dropout=True,
+                           device='cpu').train()
+    card_model = copy.deepcopy(cpu_model).to(device)
+    streams = [m.generator for m in card_model.modules() if hasattr(m, 'rng_state')]
+    check(streams and all(g.device.type == torch.device(device).type for g in streams),
+          'stream: Module.to moved every stream')
+    want = [cpu_model.draw_dropout_index() for _ in range(64)]
+    got = [card_model.draw_dropout_index().cpu() for _ in range(64)]
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), 'stream: the moved module draws its dropout alike')
+    cb_cpu, cb_card = cpu_model.layers[0]._codebook, card_model.layers[0]._codebook
+    check(torch.equal(sampling.gumbel_noise(cb_card.generator, (4096, 256)).cpu(),
+                      sampling.gumbel_noise(cb_cpu.generator, (4096, 256))),
+          "stream: the moved module's codebook draws its gumbel noise alike")
+    x = torch.from_numpy(np.random.default_rng(92).standard_normal((4, 64, 32), dtype=np.float32))
+    with torch.no_grad():
+        cpu_model(x, rand_quantize_dropout_index=5)
+        card_model(x.to(device), rand_quantize_dropout_index=5)
+    sync(device)
+    states = [(a.cpu(), b) for (k, a), b in zip(card_model.state_dict().items(), cpu_model.state_dict().values())
+              if k.endswith('rng_state')]
+    check(all(torch.equal(a, b) for a, b in states), 'stream: a training forward advanced the moved streams alike')
+    emit('stream', draws=out, values=n, moved_module_streams=len(states), seconds=time.perf_counter() - t0)
+    return out
 
 
 def check_no_spill(ptxas: dict) -> None:
@@ -2630,6 +2732,7 @@ def phase_rvq_flagship_train(device, sizes):
     import vqtpu_torch.core.sampling as tsampling
     from vqtpu_torch import ResidualVQ, SimpleQuantizeAutoEncoder
     from vqtpu_torch.core.metrics import codebook_perplexity
+    from vqtpu_torch.core.sampling import new_stream
     alpha = 10.0    # examples/autoencoder_rvq.py
     q = 8
 
@@ -2660,7 +2763,7 @@ def phase_rvq_flagship_train(device, sizes):
 
     def same_noise(gen, shape, device=None):
         calls['n'] += 1
-        return draw_noise(torch.Generator().manual_seed(1000 + calls['n']), shape).to(device)
+        return draw_noise(new_stream(1000 + calls['n']), shape).to(device)
 
     def same_means(gen, samples, mask, num):
         rows = torch.from_numpy(np.random.default_rng(98).integers(0, samples.shape[1], num)).to(samples.device)
@@ -3064,6 +3167,7 @@ def phase_ortho_path(device, sizes):
     updated codebook with the same drawn codes, and no gradient to the
     EMA-written codebook (the JAX package's rule)."""
     from vqtpu_torch import VectorQuantize
+    from vqtpu_torch.core.sampling import RandomStream
     from vqtpu_torch.kernels.distance import nearest_code_plain, selection_bias, selection_disagreements
     from vqtpu_torch.quantizers.vq import orthogonal_reg_code_ids
     b, n, d, c = sizes['learn_main']
@@ -3093,8 +3197,7 @@ def phase_ortho_path(device, sizes):
         ema_share = max(float(((cb.cluster_size[0].double() - cs).abs() / cs_bound.clamp_min(1e-300)).max()),
                         float(((cb.embed_avg[0].double() - ea).abs() / ea_bound.clamp_min(1e-300)).max()))
         check(ema_share <= 1.0, f'active={active}: the EMA state within its f32 bound of float64 ({ema_share})')
-        gen = torch.Generator(device=device)
-        gen.set_state(rng_state)
+        gen = RandomStream(rng_state)
         mask = torch.zeros(c, dtype=torch.bool, device=device)
         mask[il.long()] = True
         ids = orthogonal_reg_code_ids(gen, c, 128, mask if active else None)
@@ -5084,7 +5187,7 @@ NATIVE_BATCH = 256
 NATIVE_TIMED_BATCHES = 200
 # (n, c, d): 8192 of the main tokens against the main shape's codebook
 ORACLE_MAIN = (8192, 512, 256)
-EXAMPLE_STEPS = dict(autoencoder=200, autoencoder_lfq=50, autoencoder_fsq=50, autoencoder_sim_vq=50,
+EXAMPLE_STEPS = dict(autoencoder=50, autoencoder_lfq=50, autoencoder_fsq=50, autoencoder_sim_vq=50,
                      autoencoder_rvq=50, autoencoder_hq=50, autoencoder_fvq=50, autoencoder_fsp=50)
 # the kernels one training step of each example launches once its codebooks
 # are initialized (PERF.md section 6; LFQ's follow its entropy route), and
@@ -5285,7 +5388,30 @@ def ex_gp_body(rank, world, mesh, out, device, steps):
     return dict(result, launches=all_launches())
 
 
-def phase_examples_path(device, smi):
+def examples_distributed() -> dict:
+    """tp_large_codebook on a (2, 2) mesh and group_parallel_grvq on two
+    ranks, 3 steps each, as gloo ranks sharing the card (reported in the
+    examples_path line): {'tp': ranks, 'gp': ranks, 'seconds': ...}."""
+    seconds = {}
+    t0 = time.perf_counter()
+    tp = dp_run_world(ex_tp_body, 'ex_tp_large_codebook', world=4, axes=EX_TP_MESH[0], mesh_shape=EX_TP_MESH[1],
+                      steps=EX_DIST_STEPS)
+    for r in tp:
+        check(all(r['data_replicas_identical'].values()), f"tp_large_codebook: data replicas bit-identical {r['coords']}")
+        check(r['rows_per_rank'] == 65536 // EX_TP_MESH[1][1] and np.isfinite(r['losses']).all(),
+              f"tp_large_codebook: rows and losses on {r['coords']}")
+        check(r['losses'] == tp[0]['losses'], 'tp_large_codebook: every rank reports the same mean loss')
+    seconds['tp_large_codebook'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp = dp_run_world(ex_gp_body, 'ex_group_parallel_grvq', world=2, axes=('group',), steps=EX_DIST_STEPS)
+    seconds['group_parallel_grvq'] = time.perf_counter() - t0
+    for r in gp:
+        check(all(r['step0'].values()), f"group_parallel_grvq: step 0 equal to the serial loop {r['step0']}")
+        check(r['decode_max_err'] < 1e-5, f"group_parallel_grvq: decode round trip {r['decode_max_err']}")
+    return dict(tp=tp, gp=gp, seconds=seconds)
+
+
+def phase_examples_path(device, smi, dist):
     """examples_path: each of the eight autoencoders of vqtpu_torch.examples,
     main(train_iter=0) and main(train_iter=N) from the same seed on the
     card, on the port's image_batches (the synthetic images: no dataset on
@@ -5297,9 +5423,8 @@ def phase_examples_path(device, smi):
     at step 0 where the example has kmeans init), an eval forward's
     launches; the step time (CUDA events after warm-up), the idle share of
     5 profiled steps and the share of the loop spent in next(data), for
-    the VQ example also on the native IDX loader's prefetch ring. Then
-    tp_large_codebook on a (2, 2) mesh and group_parallel_grvq on two
-    ranks, 3 steps each, as gloo ranks sharing the card."""
+    the VQ example also on the native IDX loader's prefetch ring. `dist`
+    is examples_distributed()'s (run beside the earlier phases)."""
     import contextlib
     import functools
     import importlib
@@ -5320,16 +5445,11 @@ def phase_examples_path(device, smi):
         for name in AUTOENCODERS:
             mod = importlib.import_module(f'vqtpu_torch.examples.{name}')
             steps = EXAMPLE_STEPS[name]
-            t0 = time.perf_counter()
             untrained = mod.main(train_iter=0, device=device)
-            log = io.StringIO()
-            reset_all_launches()
-            with contextlib.redirect_stdout(log):
-                model = mod.main(train_iter=steps, device=device)
-            sync(device)
-            run_launches = launches_delta({k: 0 for k in all_launches()}, all_launches())
-            run_s = time.perf_counter() - t0
-            losses = parse_logged_losses(log.getvalue())
+            # the run compiled_path made for the examples that draw, else a new one
+            run = example_run(name, device)
+            model, run_launches, run_s = run['model'], run['run_launches'], run['run_s']
+            losses = parse_logged_losses(run['log'])
             check(len(losses) == (steps - 1) // 50 + 1 + (1 if (steps - 1) % 50 else 0),
                   f'{name}: one log line every 50 steps and at the last ({len(losses)})')
             check(all(np.isfinite(v) for pair in losses for v in pair), f'{name}: every logged loss is finite')
@@ -5356,7 +5476,9 @@ def phase_examples_path(device, smi):
             sync(device)
             step_launches = launches_delta(before, all_launches())
             check(step_launches == expected, f'{name}: a training step launched {step_launches}, expected {expected}')
-            extra = {k: run_launches.get(k, 0) - steps * expected.get(k, 0) for k in set(run_launches) | set(expected)}
+            # the run's steps are compiled: FVQ's launch K1 once less (DRAWING_COMPILED_LAUNCHES)
+            per_step = COMPILED_RUN_LAUNCHES.get(name, expected)
+            extra = {k: run_launches.get(k, 0) - steps * per_step.get(k, 0) for k in set(run_launches) | set(per_step)}
             if name in EXAMPLE_KMEANS:
                 check(all(v >= 0 for v in extra.values()), f'{name}: the run launched N steps of kernels {extra}')
             else:
@@ -5393,26 +5515,13 @@ def phase_examples_path(device, smi):
                         tdata._IDX_CANDIDATES = candidates
             results[name] = entry
             emit('example', name=name, **entry)
-            del untrained, model, step
+            del untrained, model, step, run
+            _EXAMPLE_RUNS.pop(name)
     finally:
         tdata._synthetic_images = synthetic
     torch.cuda.empty_cache()
-    seconds = dict(autoencoders=time.perf_counter() - t_phase)
-    t0 = time.perf_counter()
-    tp = dp_run_world(ex_tp_body, 'ex_tp_large_codebook', world=4, axes=EX_TP_MESH[0], mesh_shape=EX_TP_MESH[1],
-                      steps=EX_DIST_STEPS)
-    for r in tp:
-        check(all(r['data_replicas_identical'].values()), f"tp_large_codebook: data replicas bit-identical {r['coords']}")
-        check(r['rows_per_rank'] == 65536 // EX_TP_MESH[1][1] and np.isfinite(r['losses']).all(),
-              f"tp_large_codebook: rows and losses on {r['coords']}")
-        check(r['losses'] == tp[0]['losses'], 'tp_large_codebook: every rank reports the same mean loss')
-    seconds['tp_large_codebook'] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gp = dp_run_world(ex_gp_body, 'ex_group_parallel_grvq', world=2, axes=('group',), steps=EX_DIST_STEPS)
-    seconds['group_parallel_grvq'] = time.perf_counter() - t0
-    for r in gp:
-        check(all(r['step0'].values()), f"group_parallel_grvq: step 0 equal to the serial loop {r['step0']}")
-        check(r['decode_max_err'] < 1e-5, f"group_parallel_grvq: decode round trip {r['decode_max_err']}")
+    seconds = dict(autoencoders=time.perf_counter() - t_phase, **dist['seconds'])
+    tp, gp = dist['tp'], dist['gp']
     emit('examples_path', steps=EXAMPLE_STEPS, batch=256, data='synthetic blob images (no dataset on the machine)',
          step_ms={k: v['step_ms'] for k, v in results.items()},
          device_idle_share={k: v['device_idle_share_5_steps'] for k, v in results.items()},
@@ -5500,18 +5609,33 @@ def hold_dryrun(card: dict, cpu: dict) -> dict:
     return worst
 
 
-def phase_entry_dryrun(smi):
-    """entry_dryrun: vqtpu_torch.entry.entry() on the card, fn(state, x)
-    called twice: the outputs bit-identical, the state unchanged, K4 once a
-    call (and nothing else), held to entry(device='cpu') on the same state
-    (reconstruction and commitment loss within 1e-4 of their largest entry,
-    indices but at near-ties); its ms by CUDA events and the idle share of
-    5 profiled calls. Then dryrun_multichip over NCCL on every card (one
-    rank a card; JAX's odd-n skips at one card) and over gloo with four
-    ranks sharing the card, every section, each rank's launches of K1, K4
-    and code_sums per section exactly as predicted; the gloo run is held
-    to the same dryrun on four CPU ranks (hold_dryrun)."""
-    from vqtpu_torch.entry import build_flagship, dryrun_multichip, entry
+# the dryruns of entry_dryrun: over NCCL on every card (one rank a card;
+# JAX's odd-n skips at one card), over gloo with four ranks sharing the
+# card, and the same on four CPU ranks, which holds the gloo run
+DRYRUNS = {'nccl': ('nccl', 'cuda'), 'gloo4': ('gloo', 'cuda'), 'gloo4_cpu': ('gloo', 'cpu')}
+
+
+def dryrun_world(name: str) -> int:
+    return torch.cuda.device_count() if name == 'nccl' else ENTRY_GLOO_WORLD
+
+
+def timed_dryrun(name: str) -> dict:
+    """One of DRYRUNS: dryrun_multichip's result and its seconds."""
+    from vqtpu_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    result = dryrun_multichip(dryrun_world(name), backend=DRYRUNS[name][0], device=DRYRUNS[name][1])
+    result['seconds'] = time.perf_counter() - t0
+    return result
+
+
+def entry_forward_on_card() -> dict:
+    """vqtpu_torch.entry.entry() on the card, fn(state, x) called twice: the
+    outputs bit-identical, the state unchanged, K4 once a call (and nothing
+    else), held to entry(device='cpu') on the same state (reconstruction
+    and commitment loss within 1e-4 of their largest entry, indices but at
+    near-ties); its ms by CUDA events and the idle share of 5 profiled
+    calls."""
+    from vqtpu_torch.entry import build_flagship, entry
     from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
 
     fn, (state, x) = entry()
@@ -5554,16 +5678,17 @@ def phase_entry_dryrun(smi):
                      commit_loss_abs_err_vs_cpu=loss_err, forward_ms=forward_ms,
                      device_idle_share_5_calls=prof['device_idle_share'],
                      device_ms_per_call=prof['device_ms_per_call'], **ties)
+    return entry_out
 
-    runs = {}
-    for name, n, backend, dev in (('nccl', torch.cuda.device_count(), 'nccl', 'cuda'),
-                                  ('gloo4', ENTRY_GLOO_WORLD, 'gloo', 'cuda'),
-                                  ('gloo4_cpu', ENTRY_GLOO_WORLD, 'gloo', 'cpu')):
-        t0 = time.perf_counter()
-        result = dryrun_multichip(n, backend=backend, device=dev)
-        result['seconds'] = time.perf_counter() - t0
-        check(result['n_devices'] == n and len(result['launches']) == n, f'dryrun {name}: {n} ranks')
-        runs[name] = result
+
+def phase_entry_dryrun(entry_out, runs, smi):
+    """entry_dryrun: the entry forward on the card (entry_forward_on_card)
+    and the dryruns (DRYRUNS, timed_dryrun): every section, each rank's
+    launches of K1, K4 and code_sums per section exactly as predicted; the
+    gloo run held to the same dryrun on four CPU ranks (hold_dryrun)."""
+    for name in DRYRUNS:
+        n = dryrun_world(name)
+        check(runs[name]['n_devices'] == n and len(runs[name]['launches']) == n, f'dryrun {name}: {n} ranks')
     gloo = runs['gloo4']
     check(gloo['skipped'] == [] and gloo['tp_loss'] is not None and gloo['rvq_tp_loss'] is not None,
           'the 4-rank gloo dryrun ran every section')
@@ -5693,9 +5818,10 @@ def dtype_case(name, case, dt, mode, device):
     backward): the kernel route on the card against the plain route (on the
     card or a CPU copy) from the same state. Returns the case's findings."""
     import copy
+    from vqtpu_torch.core.sampling import uniform_noise
     from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
     build, kernel_kw, plain_kw, plain_device, shape, rule, kernels, out_dtype = case
-    # the same seed: the same parameters and the same generator seeds
+    # the same seed: the same parameters and the same random streams
     torch.manual_seed(61)
     kernel_model = build(device='cpu', **kernel_kw)
     torch.manual_seed(61)
@@ -5760,13 +5886,13 @@ def dtype_case(name, case, dt, mode, device):
         else:
             # a bit is an edge where its float64 probability lies within 2^-7
             # of its threshold: 0.5, or the uniform the draw compared it with
-            # (the generator stays on the CPU, so both routes drew the same)
+            # (the streams draw the same bits on the card and the CPU, so
+            # both routes drew the same)
             p = torch.sigmoid(x32.double())
             if kernel_model.deterministic_on_eval and mode == 'eval':
                 threshold = 0.5
             else:
-                threshold = torch.rand(x.shape, generator=before.generator, dtype=x.dtype,
-                                       device=before.generator.device).double().to(device)
+                threshold = uniform_noise(before.generator, x.shape, dtype=x.dtype).double().to(device)
             edges = [((p - threshold).abs() <= 2 ** -7).any(-1)] * len(idx_got)
         for d, edge in zip(differ, edges):
             check(not bool((d & ~edge.expand_as(d)).any()),
@@ -5929,6 +6055,10 @@ def phase_dtype_path(device, sizes):
 COMPILED_REPS = 10          # CUDA-event calls a mode and round; two rounds give the spread
 COMPILED_STEPS = 3          # compiled training steps held to as many eager ones
 COMPILED_REL = 1e-5         # inductor may reorder the glue's f32 reductions
+COMPILED_MOMENTS_REL = 1e-4  # Adam's moments: the gradients, summed in another order by the compiled backward
+FSP_EDGE_REL = 1e-5          # an FSP activation this close to a bin edge (in [0, 1]) sits on it in f32
+# the examples whose steps draw (stochastic codes, kmeans init, FSP's perturbation)
+DRAWING_EXAMPLES = ('autoencoder_rvq', 'autoencoder_hq', 'autoencoder_fvq', 'autoencoder_fsp')
 # the kernels' symbols in csrc/*.cu: K1 and K4 share the tensor-core tile, K4
 # (and code_sums) add the statistics by sorted code
 KERNEL_SYMBOLS = dict(select='select_tf32_kernel', sorted_stats='sort_split_kernel', sweep_a='sweep_a_kernel',
@@ -6181,9 +6311,29 @@ def subject_vq_example_step(device):
                 fns={k: (lambda f=f: f(batches[0])) for k, f in steps.items()})
 
 
+def subject_drawing_example(name):
+    """The eager and compiled steps of an example that draws, each on a
+    model of its own from main(train_iter=0), on one batch of 256."""
+    def subject(device):
+        import contextlib
+        import io
+        from vqtpu_torch.examples.common import adamw, train_step
+        from vqtpu_torch.models import data as tdata
+
+        mod = importlib.import_module(f'vqtpu_torch.examples.{name}')
+        with contextlib.redirect_stdout(io.StringIO()):
+            models = {k: mod.main(train_iter=0, device=device) for k in ('eager', 'compiled')}
+        steps = {k: train_step(m, adamw(m.parameters(), 3e-4), mod.loss_from_outputs, 10.0, compiled=k == 'compiled')
+                 for k, m in models.items()}
+        xb = torch.from_numpy(next(tdata.image_batches(batch_size=256, seed=4321))).to(device)
+        return dict(fns={k: (lambda f=f: f(xb)) for k, f in steps.items()})
+    return subject
+
+
 PROFILE_SUBJECTS = dict(vq_eval=subject_vq_eval, vq_on_step=subject_vq_on_step, lfq_on_step=subject_lfq_on_step,
                         rfsq_eval=subject_rfsq_eval, entry_forward=subject_entry_forward,
-                        vq_example_step=subject_vq_example_step)
+                        vq_example_step=subject_vq_example_step,
+                        **{f'{name}_step': subject_drawing_example(name) for name in DRAWING_EXAMPLES})
 
 
 def profile_main(args) -> int:
@@ -6321,6 +6471,382 @@ def compiled_vq_example(device, smi):
     return dict(first_call_s=first_s, steps_vs_eager=errs, **prof, **mode_times(fns), nvidia_smi=smi)
 
 
+# -- the examples that draw (RQ-VAE, HQ, FVQ, FSP): their steps compiled whole --------
+
+# the kernels one compiled step of each launches once its codebooks are
+# initialized, and their symbols in its trace: eager's (EXAMPLE_STEP_LAUNCHES)
+# but for FVQ, whose inner step's forward selects from the same codebook for
+# the same tokens as the outer forward: the compiled graph calls the pure op
+# once for both (K1 2, where the eager step launches it 3 times)
+COMPILED_RUN_LAUNCHES = dict(autoencoder_fvq=dict(nearest_code=2, code_sums=2))
+DRAWING_COMPILED_LAUNCHES = dict(EXAMPLE_STEP_LAUNCHES, **COMPILED_RUN_LAUNCHES)
+DRAWING_SYMBOLS = dict(autoencoder_rvq={}, autoencoder_hq=dict(select=4, sorted_stats=4),
+                       autoencoder_fvq=dict(select=2, sorted_stats=2), autoencoder_fsp={})
+_EXAMPLE_RUNS = {}
+
+
+# the eight examples' steps, which main() compiles on the card, compiled
+# first in four fresh processes (two each, the costlier first; HQ and the
+# RQ-VAE compile twice, before and after kmeans init, so each takes one of
+# the cheapest) while this one runs the kernel phases: inductor's caches
+# under build/ then hand this process the compiled graphs (Dynamo still
+# traces each)
+PRECOMPILE_GROUPS = (('autoencoder_hq', 'autoencoder_sim_vq'), ('autoencoder_rvq', 'autoencoder_fsq'),
+                     ('autoencoder_fvq', 'autoencoder_lfq'), ('autoencoder', 'autoencoder_fsp'))
+
+
+def set_backends() -> None:
+    """TF32 off and cuDNN deterministic, in every process of the script."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the flagships' convolutions: one algorithm in every run, no benchmark search
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def precompile_main(names) -> int:
+    """`--precompile NAME...`: compile each example's step as its `main()`
+    compiles it on the card (the model at batch 256, AdamW,
+    `train_step(compiled=True)`, two calls on the first batch of
+    `image_batches(256, seed=1234)`: a kmeans codebook's step compiles
+    again once init has run) and print one JSON line of seconds."""
+    import contextlib
+    import io
+    from vqtpu_torch.examples.common import adamw, train_step
+    from vqtpu_torch.models import data as tdata
+
+    set_backends()
+    use_build_caches()
+    out = {}
+    x = torch.from_numpy(next(tdata.image_batches(batch_size=256, seed=1234))).cuda()
+    for name in names:
+        mod = importlib.import_module(f'vqtpu_torch.examples.{name}')
+        with contextlib.redirect_stdout(io.StringIO()):
+            model = mod.main(train_iter=0, device='cuda')
+        step = train_step(model, adamw(model.parameters(), 3e-4), mod.loss_from_outputs, 10.0, compiled=True)
+        t0 = time.perf_counter()
+        step(x)
+        step(x)
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+    print(json.dumps(dict(precompile_s=out)), flush=True)
+    return 0
+
+
+def start_precompile() -> list:
+    """One process a group of PRECOMPILE_GROUPS, stopped by join_precompile
+    or, should the script end first, at its exit."""
+    import atexit
+    here = os.path.dirname(os.path.abspath(__file__))
+    # two compile workers each (not part of inductor's cache key), at a
+    # lower priority: the phases of this process run meanwhile
+    env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS='2')
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--precompile', *names], cwd=here,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                              preexec_fn=lambda: os.nice(10))
+             for names in PRECOMPILE_GROUPS]
+    atexit.register(stop_processes, procs)
+    return procs
+
+
+def stop_processes(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def join_precompile(procs) -> dict:
+    """Wait for the precompile processes (900 s at most, then kill them);
+    their seconds, and the seconds this process waited."""
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=max(1.0, 900 - (time.perf_counter() - t0)))
+            check(p.returncode == 0, f'a precompile process failed ({p.returncode}):\n{stdout[-2000:]}\n'
+                                     f'{stderr[-3000:]}')
+            out.update(json.loads(stdout.strip().splitlines()[-1])['precompile_s'])
+    finally:
+        stop_processes(procs)
+    emit('precompile', seconds=out, waited_s=time.perf_counter() - t0)
+    return out
+
+
+def example_run(name, device) -> dict:
+    """`main(train_iter=EXAMPLE_STEPS[name])` of an example on the card, once
+    a process (so its step, which `train_loop` compiles on the card, compiles
+    once: compiled_path and examples_path share the run). Returns the
+    trained model, its printed log, the run's seconds and launches, and the
+    step `train_loop` made (`examples/common.py::train_step`, captured) with
+    its model and optimizer and the seconds of its first call (the
+    compile)."""
+    if name in _EXAMPLE_RUNS:
+        return _EXAMPLE_RUNS[name]
+    import contextlib
+    import io
+    from vqtpu_torch.examples import common
+
+    mod = importlib.import_module(f'vqtpu_torch.examples.{name}')
+    made = {}
+    real = common.train_step
+
+    def recording(model, opt, loss_from_outputs, alpha, **kw):
+        step = real(model, opt, loss_from_outputs, alpha, **kw)
+
+        def first_timed(x):
+            if 'first_call_s' in made:
+                return step(x)
+            sync(device)
+            t0 = time.perf_counter()
+            out = step(x)
+            sync(device)
+            made['first_call_s'] = time.perf_counter() - t0
+            return out
+        made.update(model=model, opt=opt, step=step, compiled=kw.get('compiled', False))
+        return first_timed
+    log = io.StringIO()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    common.train_step = recording
+    try:
+        with contextlib.redirect_stdout(log):
+            model = mod.main(train_iter=EXAMPLE_STEPS[name], device=device)
+    finally:
+        common.train_step = real
+    sync(device)
+    check(made.get('model') is model and made['compiled'], f'{name}: main() trained through a compiled step')
+    _EXAMPLE_RUNS[name] = dict(made, mod=mod, log=log.getvalue(), run_s=time.perf_counter() - t0,
+                               run_launches=launches_delta({k: 0 for k in all_launches()}, all_launches()))
+    return _EXAMPLE_RUNS[name]
+
+
+def codebook_modules(model) -> dict:
+    from vqtpu_torch.codebook.codebook import Codebook
+    return {n: m for n, m in model.named_modules() if isinstance(m, Codebook)}
+
+
+def stochastic_disagreements(records, idx_a, idx_b, rel=1e-5) -> dict:
+    """The RQ-VAE's gumbel-perturbed picks of two runs (idx_a, idx_b: (...,
+    q) over q layers) judged in float64 against the records of run a's q
+    calls of the codebook's distance path (its tokens, codebook,
+    temperature and gumbel noise, `record_distance_path`). A token is
+    judged at its first layer that differs (the later layers take another
+    residual): both picks' scores -|x - e| / t + g again in float64, a
+    near-tie when they differ by at most `rel` times the f32 rounding's
+    scale, (|x|^2 + |e|^2) / (2 |x - e| t) + |score| for each pick (the
+    distance from an f32 squared distance). Counts as selection_disagreements."""
+    q = len(records)
+    a, b = idx_a.reshape(-1, q).long(), idx_b.reshape(-1, q).long()
+    differ = a != b
+    tokens = differ.any(1)
+    first = differ.int().argmax(1)
+    out = {'tokens': int(a.shape[0]), 'disagree': int(tokens.sum()), 'non_tie': 0, 'max_score_gap': 0.0}
+    for layer, r in enumerate(records):
+        at = (tokens & (first == layer)).nonzero().reshape(-1)
+        if at.numel() == 0:
+            continue
+        x = r['tokens'].reshape(-1, r['tokens'].shape[-1])[at].double()
+        embed = r['embed'].reshape(-1, x.shape[-1]).double()
+        noise = r['noise'].reshape(-1, embed.shape[0])[at].double()
+        scores = []
+        for pick in (a[at, layer], b[at, layer]):
+            e = embed[pick]
+            dist = (x - e).norm(dim=-1)
+            score = -dist / r['temperature'] + noise.gather(1, pick[:, None])[:, 0]
+            scale = ((x * x).sum(-1) + (e * e).sum(-1)) / (2 * dist.clamp_min(1e-6) * r['temperature']) + score.abs()
+            scores.append((score, scale))
+        gap = (scores[0][0] - scores[1][0]).abs()
+        out['non_tie'] += int((gap > rel * (scores[0][1] + scores[1][1])).sum())
+        out['max_score_gap'] = max(out['max_score_gap'], float(gap.max()))
+    return out
+
+
+def record_distance_path(codebook, records: list) -> None:
+    """Record each call of `codebook`'s distance path: its tokens, codebook
+    and temperature, and the gumbel noise it draws (drawn again from a copy
+    of its stream's state, as `core.sampling.gumbel_sample` draws it)."""
+    from vqtpu_torch.core.sampling import RandomStream, gumbel_noise
+    real = codebook._distance_select
+
+    def recording(tokens, embed, temperature, topk, codebook_transform_fn):
+        stream = RandomStream(codebook.generator.get_state().clone())
+        records.append(dict(tokens=tokens.detach().clone(), embed=embed.detach().clone(), temperature=temperature,
+                            noise=gumbel_noise(stream, (*tokens.shape[:-1], embed.shape[-2]), device=tokens.device)))
+        return real(tokens, embed, temperature, topk, codebook_transform_fn)
+    codebook._distance_select = recording
+
+
+def bin_edge_disagreements(act, levels, idx_a, idx_b, rel=FSP_EDGE_REL) -> dict:
+    """FSP's indices of two runs judged against run a's activations (N,
+    len(levels)) in [0, 1]: a token that differs is a near-tie when every
+    dimension whose level differs has its activation within `rel` of a bin
+    edge k / level. Counts as selection_disagreements."""
+    lv = torch.tensor(levels, dtype=torch.float64, device=act.device)
+    basis = torch.cumprod(torch.cat([lv.new_ones(1), lv[:-1]]), 0).long()
+    a, b = idx_a.reshape(-1).long(), idx_b.reshape(-1).long()
+    at = (a != b).nonzero().reshape(-1)
+    out = {'tokens': int(a.numel()), 'disagree': int(at.numel()), 'non_tie': 0, 'max_score_gap': 0.0}
+    if at.numel() == 0:
+        return out
+    level_a = (a[at, None] // basis) % lv.long()
+    level_b = (b[at, None] // basis) % lv.long()
+    u = act.reshape(-1, len(levels))[at].double() * lv
+    edge = (u - u.round()).abs() / lv
+    worst = torch.where(level_a != level_b, edge, 0.0).amax(-1)
+    out['non_tie'] = int((worst > rel).sum())
+    out['max_score_gap'] = float(worst.max())
+    return out
+
+
+def compiled_drawing_example(name, device, smi):
+    """One of the examples whose step draws: `main()` trains it through its
+    compiled step (example_run); then 3 steps of that compiled step, each
+    from the state of an eager twin (`train_step` without compile) on the
+    same batch, the kmeans codebooks reset to un-initted before step 0 so
+    that kmeans init runs inside both steps (the compiled one given the
+    eager one's means): the same launches, indices equal but at near-ties
+    (every flip judged against what the eager step selected from: none
+    beyond a near-tie), the losses within COMPILED_REL plus the flipped
+    tokens' share, every codebook's buffers within COMPILED_REL, Adam's
+    moments within COMPILED_MOMENTS_REL of their largest, parameters
+    within 2 lr, the
+    random streams' states equal; then eager and compiled ms, the compiled
+    call's kernels by symbol in a profiler trace at eager's launches, and
+    the idle shares."""
+    from vqtpu_torch.examples.common import adamw, train_step
+    from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+    from vqtpu_torch.models import data as tdata
+    kmeans_module = importlib.import_module('vqtpu_torch.codebook.kmeans')
+
+    run = example_run(name, device)
+    mod, model, opt, step = run['mod'], run['model'], run['opt'], run['step']
+    twin = mod.main(train_iter=0, device=device)
+    twin_opt = adamw(twin.parameters(), 3e-4)
+    eager = train_step(twin, twin_opt, mod.loss_from_outputs, 10.0)
+    # what the eager twin selected from judges a flip a near-tie: HQ's and
+    # FVQ's tokens and codebook of the selection whose indices the step
+    # returns (HQ: the last scale's; FVQ: the one after the inner step, its
+    # codebook through the bridge), the RQ-VAE's every layer's gumbel-
+    # perturbed scores, FSP's activations against its bin edges
+    seen, hooks = [], []
+    if name == 'autoencoder_rvq':
+        for cb in codebook_modules(twin).values():
+            record_distance_path(cb, seen)
+    elif name == 'autoencoder_fsp':
+        real_act = twin.quantizer.quantize_act_value
+        twin.quantizer.quantize_act_value = lambda act_z, eps: (seen.append(act_z.detach().clone()),
+                                                                real_act(act_z, eps))[1]
+    elif name == 'autoencoder_hq':
+        hooks.append(twin.hq.vq.register_forward_pre_hook(lambda module, args: seen.append(
+            [args[0].detach().movedim(1, -1).reshape(-1, args[0].shape[1]),
+             module._codebook.embed.detach()[0].clone()])))
+    elif name == 'autoencoder_fvq':
+        cb = twin.quantizer._codebook
+        hooks.append(cb.register_forward_pre_hook(lambda module, args: seen.append(
+            [args[0].detach().reshape(-1, args[0].shape[-1]), None])))
+        hooks.append(cb.vq_bridge.register_forward_hook(
+            lambda module, args, out: seen[-1].__setitem__(1, out.detach()[0])))
+    data = tdata.image_batches(batch_size=256, seed=4321)
+    batches = [torch.from_numpy(next(data)).to(device) for _ in range(COMPILED_STEPS)]
+    errs = []
+    real_kmeans = kmeans_module.kmeans
+    for s, xb in enumerate(batches):
+        replayed = {}
+        if s == 0 and name in EXAMPLE_KMEANS:
+            for cb in codebook_modules(model).values():
+                if cb.kmeans_init:
+                    cb.initted.fill_(False)
+                    cb.initted_on_host = False
+
+            # kmeans init in both steps, the compiled one given the eager
+            # one's means: the synthetic images' identical background tokens
+            # make f32 kmeans near-ties, which inputs an ulp apart break
+            # differently (as tests/test_torch_examples.py notes)
+            def same_kmeans(*args, **kwargs):
+                if 'out' not in replayed:
+                    replayed['out'] = real_kmeans(*args, **kwargs)
+                replayed['calls'] = replayed.get('calls', 0) + 1
+                return tuple(t.clone() for t in replayed['out'])
+            kmeans_module.kmeans = same_kmeans
+        sync_to(twin, twin_opt, model, opt)
+        params = [p.detach().clone() for p in twin.parameters()]
+        try:
+            reset_all_launches()
+            want = [t.clone() for t in eager(xb)]
+            sync(device)
+            eager_launches = {k: v for k, v in all_launches().items() if v}
+            reset_all_launches()
+            got = [t.clone() for t in step(xb)]
+            sync(device)
+        finally:
+            kmeans_module.kmeans = real_kmeans
+        kmeans_calls = 2 if s == 0 and name in EXAMPLE_KMEANS else 0
+        check(replayed.get('calls', 0) == kmeans_calls, f'{name} step {s}: kmeans ran {kmeans_calls // 2} time in '
+                                                        f'each step ({replayed.get("calls", 0)} calls)')
+        launches = {k: v for k, v in all_launches().items() if v}
+        check(eager_launches == EXAMPLE_STEP_LAUNCHES[name] and launches == DRAWING_COMPILED_LAUNCHES[name],
+              f'{name} step {s}: the compiled step launched {launches}, expected '
+              f'{DRAWING_COMPILED_LAUNCHES[name]}; eager {eager_launches}, expected {EXAMPLE_STEP_LAUNCHES[name]}')
+        flips = int((got[2] != want[2]).sum())
+        if name == 'autoencoder_rvq':
+            ties = stochastic_disagreements(seen, want[2], got[2])
+        elif name == 'autoencoder_fsp':
+            ties = bin_edge_disagreements(seen[-1], twin.quantizer.levels, want[2], got[2])
+        else:
+            tokens, embed = seen[-1]
+            ties = selection_disagreements(tokens, embed, selection_bias(embed, 'euclidean'), want[2].reshape(-1),
+                                           got[2].reshape(-1))
+        seen.clear()
+        cbs, twin_cbs = codebook_modules(model), codebook_modules(twin)
+        cb_err = {}
+        for key, cb in cbs.items():
+            # a learnable codebook's rows are parameters, held as the others
+            learnable = {n for n, _ in cb.named_parameters()}
+            state = {k: v for k, v in cb.state_dict().items() if k not in learnable}
+            want_state = {k: v for k, v in twin_cbs[key].state_dict().items() if k not in learnable}
+            cb_err.update({f'{key}.{k}': v for k, v in codebook_vs_eager(state, want_state, got[2], want[2])[0].items()})
+            check(torch.equal(state['rng_state'], want_state['rng_state']), f'{name} step {s}: {key} drew alike')
+        # Adam's moments hold the gradients: each kind against the largest
+        # entry of that kind over the model (a gradient 0 but for rounding,
+        # such as MiniEncoder's attention key bias's, has no scale of its own)
+        moments = max(
+            max(float((opt.state[p][k] - twin_opt.state[q][k]).abs().max())
+                for p, q in zip(model.parameters(), twin.parameters()))
+            / max(float(twin_opt.state[q][k].abs().max()) for q in twin.parameters())
+            for k in ('exp_avg', 'exp_avg_sq'))
+        moved = max(float((p - q).detach().abs().max()) for p, q in zip(model.parameters(), twin.parameters()))
+        e = dict(rec=rel_err(got[0], want[0]), aux=rel_err(got[1], want[1]), flips=flips, ties=ties,
+                 codebook=max(cb_err.values(), default=0.0), adam_moments=moments, params_max_abs_err=moved,
+                 params_max_move=max(float((p - q).detach().abs().max()) for p, q in zip(twin.parameters(), params)),
+                 launches=launches)
+        check(ties['non_tie'] == 0, f'{name} step {s}: {flips} indices differ from eager beyond near-ties ({ties})')
+        # a near-tie flip moves its token's code (in the RQ-VAE also the
+        # token's later layers), and the mean losses by about that token's
+        # share
+        loss_rel = COMPILED_REL + ties['disagree'] / ties['tokens']
+        check(e['rec'] <= loss_rel and e['aux'] <= loss_rel and e['codebook'] <= COMPILED_REL
+              and moments <= COMPILED_MOMENTS_REL and moved <= 2 * 3e-4, f'{name} step {s} against eager {e}')
+        errs.append(e)
+    # the timed calls record nothing
+    for h in hooks:
+        h.remove()
+    for m in twin.modules():
+        m.__dict__.pop('_distance_select', None)
+        m.__dict__.pop('quantize_act_value', None)
+    xb = batches[0]
+    fns = dict(eager=lambda: eager(xb), compiled=lambda: step(xb))
+    times = mode_times(fns)
+    prof = profile_path(f'{name}_step', fns, tuple(fns))
+    check(prof['trace']['symbols'] == DRAWING_SYMBOLS[name] and prof['trace']['launches'] ==
+          DRAWING_COMPILED_LAUNCHES[name],
+          f'{name}: the compiled step ran {prof["trace"]["symbols"]} ({prof["trace"]["launches"]}), expected '
+          f'{DRAWING_SYMBOLS[name]} ({DRAWING_COMPILED_LAUNCHES[name]})')
+    del twin, twin_opt, eager
+    return dict(compile_s=run['first_call_s'], run_steps=EXAMPLE_STEPS[name], run_s=run['run_s'],
+                steps_vs_eager=errs, **prof, **times, nvidia_smi=smi)
+
+
 def compiled_served(device, smi):
     """The served paths at their PERF.md shapes, eager against inductor:
     VectorQuantize eval (K1) and its train_fused='on' step (K4), the LFQ
@@ -6441,6 +6967,11 @@ def phase_compiled_path(device, smi):
     t1 = time.perf_counter()
     out['vq_example_step'] = compiled_vq_example(device, smi)
     out['vq_example_step']['seconds'] = time.perf_counter() - t1
+    for name in DRAWING_EXAMPLES:
+        t1 = time.perf_counter()
+        out[f'{name}_step'] = compiled_drawing_example(name, device, smi)
+        out[f'{name}_step']['seconds'] = time.perf_counter() - t1
+        emit('compiled_example', name=name, **out[f'{name}_step'])
     seconds = time.perf_counter() - t0
     emit('compiled_path', seconds=seconds, torch=torch.__version__, nvidia_smi=smi, **out)
     torch._dynamo.reset()
@@ -6461,11 +6992,7 @@ def main() -> int:
         print('chip_smoke: no CUDA device; this script needs one', file=sys.stderr)
         return 1
     import vqtpu_torch  # noqa: F401  -- fails before any output outside a checkout
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # the flagships' convolutions: one algorithm in every run, no benchmark search
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    set_backends()
     device = torch.device('cuda')
     use_build_caches()
     sizes = {
@@ -6497,17 +7024,17 @@ def main() -> int:
         'learn_main': LEARN_MAIN,
         'code_sums_rvq': (RVQ_MAIN[0] * RVQ_MAIN[1], RVQ_MAIN[4]),
         # QINCo: eval tokens, training tokens, eval tokens checked in float64 on the CPU
-        'qinco_tokens': (1024, 256, 256),
+        'qinco_tokens': (1024, 64, 64),
         'simvq_main': SIMVQ_MAIN,
         'rsimvq_main': RSIMVQ_MAIN,
         'rpq_main': RPQ_MAIN,
     }
 
+    # the examples' compiles first trace and generate code, which needs no
+    # kernel library: they start beside the build (a step that runs before
+    # the build is done builds what it needs, into the same atomic files)
+    precompiling = start_precompile()
     kind, count, smi, ptxas = phase_device()
-    # the compiled step (every kernel a torch.ops.vqtpu op inside one
-    # graph) first: the profiler loses fewer windows in a process that has
-    # not profiled much yet
-    compiled = phase_compiled_path(device, smi)
     n, c, d = sizes['main']
     x_main = torch.from_numpy(
         np.random.default_rng(0).standard_normal((n, d), dtype=np.float32)).to(device)
@@ -6558,25 +7085,38 @@ def main() -> int:
     rpq_launches, rpq_ms = phase_rpq_path(device, sizes)
     hq_launches, hq_ms = phase_hq_path(device, sizes)
     zoo = phase_zoo_path(device, sizes)
-    # the data-parallel phases run in processes of their own on the card
-    torch.cuda.empty_cache()
-    dp_vq = phase_dp_vq_train()
-    dp_lfq = phase_dp_lfq_train()
-    phase_dp_nccl1()
-    phase_utils(dp_vq, times['vq_forward_ms'])
-    # row-sharded codebooks and group-parallel composites
+    # the in-process phases that time or trace on the card, alone on it
     tp_sel = phase_tp_select(device)
-    tp_train = phase_tp_vq_train()
-    tp_eval = phase_tp_vq_eval()
-    gp = phase_gp_grouped()
-    # the data pipeline, the native oracle and the example trainers
     phase_native_data(smi)
     phase_native_oracle(device, smi)
-    examples, ex_tp, ex_gp = phase_examples_path(device, smi)
-    # the port's entry points
-    entry_out, dryruns = phase_entry_dryrun(smi)
-    # bf16 and fp16 inputs on each kernel route, and the cores under autocast
-    dtype_low, dtype_casts = phase_dtype_path(device, sizes)
+    entry_out = entry_forward_on_card()
+    # the phases that only wait on rank processes of their own (DP, TP,
+    # group parallel, the dryruns, the two distributed examples), BESIDE at
+    # a time in threads, beside dtype_path (bf16 and fp16 inputs on each
+    # kernel route, and the cores under autocast; no timing) and the
+    # precompile processes; all end before the phases that time again
+    torch.cuda.empty_cache()
+    with concurrent.futures.ThreadPoolExecutor(BESIDE) as pool:
+        beside = {name: pool.submit(fn) for name, fn in (
+            *((f'dryrun_{k}', functools.partial(timed_dryrun, k)) for k in ('gloo4_cpu', 'gloo4')),
+            ('tp_train', phase_tp_vq_train), ('examples_distributed', examples_distributed),
+            ('dp_vq', phase_dp_vq_train), ('dp_lfq', phase_dp_lfq_train), ('gp', phase_gp_grouped),
+            ('tp_eval', phase_tp_vq_eval), ('dryrun_nccl', functools.partial(timed_dryrun, 'nccl')),
+            ('dp_nccl1', phase_dp_nccl1))}
+        dtype_low, dtype_casts = phase_dtype_path(device, sizes)
+        done = {name: f.result() for name, f in beside.items()}
+    dp_vq, dp_lfq, tp_train, tp_eval, gp = (done[k] for k in ('dp_vq', 'dp_lfq', 'tp_train', 'tp_eval', 'gp'))
+    phase_utils(dp_vq, times['vq_forward_ms'])
+    entry_out, dryruns = phase_entry_dryrun(entry_out, {k: done[f'dryrun_{k}'] for k in DRYRUNS}, smi)
+    # the compiled step (every kernel a torch.ops.vqtpu op inside one
+    # graph), once the precompile processes have filled the caches; a path
+    # whose profiler windows keep losing events is profiled in a fresh
+    # process (`--profile`)
+    join_precompile(precompiling)
+    phase_stream(device)
+    compiled = phase_compiled_path(device, smi)
+    # the example trainers (those compiled_path ran are not run again)
+    examples, ex_tp, ex_gp = phase_examples_path(device, smi, done['examples_distributed'])
     tp_train_launches = [[r['steps'][i]['launches'] for r in tp_train] for i in range(len(tp_train[0]['steps']))]
     dp_vq_launches = {f"{st['route']}_step_{st['step']}": [r['steps'][i]['launches'] for r in dp_vq]
                       for i, st in enumerate(dp_vq[0]['steps'])}
@@ -6777,4 +7317,8 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(profile_main(sys.argv[2:]) if sys.argv[1:2] == ['--profile'] else main())
+    if sys.argv[1:2] == ['--profile']:
+        sys.exit(profile_main(sys.argv[2:]))
+    if sys.argv[1:2] == ['--precompile']:
+        sys.exit(precompile_main(sys.argv[2:]))
+    sys.exit(main())

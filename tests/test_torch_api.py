@@ -96,8 +96,9 @@ def test_subpackage_exports_match(sub):
 
 def test_codebook_kmeans_is_the_function():
     from vqtpu_torch.codebook import kmeans
+    from vqtpu_torch.core.sampling import new_stream
 
     assert callable(kmeans) and not isinstance(kmeans, types.ModuleType)
     samples = torch.randn(1, 64, 4, generator=torch.Generator().manual_seed(0))
-    means, bins = kmeans(torch.Generator().manual_seed(1), samples, 8, num_iters=2)
+    means, bins = kmeans(new_stream(1), samples, 8, num_iters=2)
     assert means.shape == (1, 8, 4) and bins.shape == (1, 8) and int(bins.sum()) == 64

@@ -26,6 +26,7 @@ the JAX package runs the same path, to it.
     decomposition (no argmax standing in for the selection).
 """
 
+import importlib
 from collections import Counter
 
 import jax
@@ -56,6 +57,8 @@ from vqtpu_torch.examples.common import adamw, train_step
 from vqtpu_torch.kernels import distance as kd
 from vqtpu_torch.kernels import lfq_entropy as kl
 from vqtpu_torch.kernels import residual_fsq_fused as kr
+
+tkmeans = importlib.import_module('vqtpu_torch.codebook.kmeans')
 
 BACKEND = 'aot_eager'
 REL = 1e-5
@@ -118,13 +121,17 @@ def _op_case(name):
                                        (lx, lw, logz, entbar, gbar, k, v, inv_temp, eps, False)),
         'residual_fsq_eval': (ops.residual_fsq_eval,
                               (_randn(rng, 2, 30, 4) * 2, kr.canonical_scales(levels, q), levels, clamp, q)),
+        'random_words': (ops.random_words, (torch.tensor([7, 9, (1 << 32) - 3]), 50)),
+        'kmeans': (ops.kmeans, (x3, torch.tensor([7, 9, 0]), 6, 3, False, w3 > 0, None, None, torch.tensor(False))),
+        'kmeans_skipped': (ops.kmeans, (x3, torch.tensor([7, 9, 0]), 6, 3, False, None, None, None, torch.tensor(True))),
     }
     return cases[name]
 
 
 OP_CASES = ('nearest_code', 'nearest_code_heads', 'nearest_code_best', 'quantize_lookup', 'quantize_lookup_heads',
             'fused_train', 'fused_train_weighted_heads', 'code_sums', 'code_sums_weighted_heads', 'lfq_entropy',
-            'lfq_entropy_backward', 'lfq_entropy_backward_no_dx', 'residual_fsq_eval')
+            'lfq_entropy_backward', 'lfq_entropy_backward_no_dx', 'residual_fsq_eval', 'random_words', 'kmeans',
+            'kmeans_skipped')
 
 
 @pytest.mark.parametrize('name', OP_CASES)
@@ -227,6 +234,142 @@ def test_vq_example_steps_compiled_match_eager(train_fused):
         assert float(sg['step']) == float(sw['step']) == 3.0
         for key in ('exp_avg', 'exp_avg_sq'):
             _assert_close_to_largest(sg[key], sw[key], what=key)
+
+
+# -- the in-place optimizers' functional updates ----------------------------------------
+
+OPTIMIZERS = {
+    'sgd': lambda ps: torch.optim.SGD(ps, lr=1e-2),
+    'sgd_momentum': lambda ps: torch.optim.SGD(ps, lr=1e-2, momentum=0.9, dampening=0.1, weight_decay=1e-3),
+    'sgd_nesterov': lambda ps: torch.optim.SGD(ps, lr=1e-2, momentum=0.9, nesterov=True),
+    'adam': lambda ps: torch.optim.Adam(ps, lr=1e-3, weight_decay=1e-2),
+    'adamw': lambda ps: torch.optim.AdamW(ps, lr=1e-3),
+    'adam_amsgrad': lambda ps: torch.optim.Adam(ps, lr=1e-3, amsgrad=True),
+    'rmsprop': lambda ps: torch.optim.RMSprop(ps, lr=1e-3),
+}
+
+
+@pytest.mark.parametrize('name', sorted(OPTIMIZERS))
+def test_optimizer_update_equals_step(name):
+    """`core.optim.optimizer_update(opt, grads)` (the in-place codebook
+    optimizer's step inside a compiled step) against `opt.step()` on the
+    same gradients, 3 steps: the parameters and the optimizer's state bit
+    for bit, and the parameters' `.grad` left as they were."""
+    from vqtpu_torch.core.optim import optimizer_update
+
+    rng = np.random.default_rng(11)
+    p0 = [_randn(rng, 4, 5), _randn(rng, 7)]
+    ref = [torch.nn.Parameter(t.clone()) for t in p0]
+    got = [torch.nn.Parameter(t.clone()) for t in p0]
+    ref_opt, opt = OPTIMIZERS[name](ref), OPTIMIZERS[name](got)
+    outer = [_randn(rng, 4, 5), None]
+    for p, g in zip(got, outer):
+        p.grad = g
+    for _ in range(3):
+        grads = [_randn(rng, 4, 5), _randn(rng, 7)]
+        for p, g in zip(ref, grads):
+            p.grad = g.clone()
+        ref_opt.step()
+        optimizer_update(opt, grads)
+        for a, b in zip(got, ref):
+            assert torch.equal(a.detach(), b.detach()), name
+        for a, b in zip(got, ref):
+            for key, t in ref_opt.state[b].items():
+                assert torch.equal(opt.state[a][key], t), (name, key)
+    assert got[0].grad is outer[0] and got[1].grad is None
+
+
+# -- the examples that draw: the RQ-VAE, HQ, FVQ and FSP steps --------------------------
+
+DRAWING_EXAMPLES = ('autoencoder_rvq', 'autoencoder_hq', 'autoencoder_fvq', 'autoencoder_fsp')
+
+
+@pytest.mark.parametrize('name', DRAWING_EXAMPLES)
+def test_drawing_example_steps_compiled_match_eager(name):
+    """Three compiled steps against three eager steps of a twin from the same
+    state, the random streams' included: the same draws (stochastic codes,
+    kmeans init inside the compiled step at step 0 for the RQ-VAE and HQ, FSP's
+    perturbation), so the same indices, losses within 1e-5 of their
+    largest, every buffer within 1e-5 of its largest entry, the parameters
+    within 1e-5 of the model's largest (an entry whose gradient is 0 but
+    for rounding, such as MiniEncoder's attention key bias, moves by Adam's
+    step either way), Adam's moments within 1e-4 of their largest (they
+    hold the gradients, which AOT's decomposed backward rounds otherwise:
+    1.3e-5 in FVQ's nested backward through its bridge) and the streams'
+    states equal."""
+    mod = importlib.import_module(f'vqtpu_torch.examples.{name}')
+    eager_model = mod.main(train_iter=0, batch_size=8, device='cpu')
+    compiled_model = mod.main(train_iter=0, batch_size=8, device='cpu')
+    compiled_model.load_state_dict(eager_model.state_dict())
+    eager_opt, compiled_opt = adamw(eager_model.parameters(), 3e-4), adamw(compiled_model.parameters(), 3e-4)
+    eager_step = train_step(eager_model, eager_opt, mod.loss_from_outputs, 10.0)
+    compiled_step = train_step(compiled_model, compiled_opt, mod.loss_from_outputs, 10.0, compiled=True,
+                               backend=BACKEND)
+    initted = [b for k, b in compiled_model.named_buffers() if k.endswith('initted')]
+    # kmeans init is still to run in the RQ-VAE and HQ
+    assert any(not bool(b) for b in initted) == (name in ('autoencoder_rvq', 'autoencoder_hq'))
+    for s, x in enumerate(_example_batches(3)):
+        want = eager_step(x)
+        got = compiled_step(x)
+        assert torch.equal(got[2], want[2]), f'step {s} indices'
+        for a, b, what in zip(got[:2], want[:2], ('rec', 'aux')):
+            _assert_close_to_largest(a, b, what=f'step {s} {what}')
+    assert all(bool(b) for b in initted)
+    want_state, got_state = eager_model.state_dict(), compiled_model.state_dict()
+    assert sorted(want_state) == sorted(got_state) and any(k.endswith('rng_state') for k in want_state)
+    params = dict(eager_model.named_parameters())
+    scale = max(float(p.abs().max()) for p in params.values())
+    for key, w in want_state.items():
+        if key in params:
+            assert float((got_state[key] - w).abs().max()) <= REL * scale, key
+        elif w.is_floating_point():
+            _assert_close_to_largest(got_state[key], w, what=key)
+        else:
+            assert torch.equal(got_state[key], w), key
+    for key in ('exp_avg', 'exp_avg_sq'):
+        moments = [(compiled_opt.state[pg][key], eager_opt.state[pw][key])
+                   for pw, pg in zip(eager_model.parameters(), compiled_model.parameters())]
+        largest = max(float(w.abs().max()) for _, w in moments)
+        assert max(float((g - w).abs().max()) for g, w in moments) <= 10 * REL * largest, key
+
+
+def test_kmeans_init_runs_once_inside_the_compiled_forward(monkeypatch):
+    """kmeans init inside a compiled training forward: the first call's
+    graph calls the op `vqtpu::kmeans` once, with the `initted` flag, and
+    no `torch.cond`; kmeans runs at the first call and not after, as the
+    eager twin's does (the codebooks equal at every step); `initted` set,
+    and its host mirror with it, on which the forward compiles once more,
+    into a graph with no kmeans and no host read of the flag."""
+    calls = []
+    kmeans = tkmeans.kmeans
+
+    def counted(*a, **k):
+        calls.append(1)
+        return kmeans(*a, **k)
+    monkeypatch.setattr(tkmeans, 'kmeans', counted)
+    torch.manual_seed(0)
+    kw = dict(dim=8, codebook_size=16, kmeans_init=True, kmeans_iters=3, device='cpu')
+    eager, compiled = vqtpu_torch.VectorQuantize(**kw).train(), vqtpu_torch.VectorQuantize(**kw).train()
+    compiled.load_state_dict(eager.state_dict())
+    graphs = []
+    fn = torch.compile(compiled, backend=_recording_backend(graphs), fullgraph=True)
+    rng = np.random.default_rng(8)
+    for s in range(3):
+        x = _randn(rng, 2, 24, 8)
+        with torch.no_grad():
+            want, got = eager(x), fn(x)
+        assert bool(compiled._codebook.initted) and compiled._codebook.initted_on_host
+        assert len(calls) == 2, (s, len(calls))         # once in each model, at the first call
+        assert len(graphs) == (1 if s == 0 else 2), (s, len(graphs))
+        assert torch.equal(got[1], want[1]), s
+        for key, w in eager.state_dict().items():
+            assert torch.equal(compiled.state_dict()[key], w), (s, key)
+        if s == 0:
+            # kmeans' means, not the zeros a kmeans_init codebook starts from
+            assert int(compiled._codebook.embed.abs().sum(-1).gt(0).sum()) > kw['codebook_size'] // 2
+    counts = _op_counts(graphs)
+    assert counts['vqtpu::kmeans'] == 1 and _op_counts(graphs[1:])['vqtpu::kmeans'] == 0, counts
+    assert not any(n.target is torch.ops.higher_order.cond for gm in graphs for n in gm.graph.nodes)
 
 
 # -- VectorQuantize: eval and the 'on' training step ------------------------------------

@@ -103,7 +103,7 @@ def test_metrics_match_jax(masked):
 
 
 def test_sampling_draws_rows_of_the_batch():
-    gen = torch.Generator().manual_seed(0)
+    gen = tsampling.new_stream(0)
     samples = torch.arange(40, dtype=torch.float32).reshape(20, 2)
     mask = torch.zeros(20, dtype=torch.bool)
     mask[[3, 11]] = True
@@ -119,6 +119,6 @@ def test_sampling_draws_rows_of_the_batch():
     assert tsampling.sample_vectors(gen, samples[:3], 8).shape == (8, 2)
     assert tsampling.batched_sample_vectors(gen, samples.reshape(2, 10, 2), 4).shape == (2, 4, 2)
     # the same generator state draws the same rows
-    a = tsampling.masked_sample_indices(torch.Generator().manual_seed(5), 20, mask, 9)
-    b = tsampling.masked_sample_indices(torch.Generator().manual_seed(5), 20, mask, 9)
+    a = tsampling.masked_sample_indices(tsampling.new_stream(5), 20, mask, 9)
+    b = tsampling.masked_sample_indices(tsampling.new_stream(5), 20, mask, 9)
     assert torch.equal(a, b)

@@ -1144,10 +1144,11 @@ def test_entry_forward_on_the_card(card):
 
 
 def test_module_moved_to_the_card_draws_as_on_the_cpu(card):
-    """A VectorQuantize built on the CPU and moved to the card keeps its
-    generator on the CPU (Module.to does not move it), so its kmeans init
-    and dead-code expiry draw the same rows as its twin left on the CPU:
-    the codebooks after two training forwards agree within 1e-5 of their
+    """A VectorQuantize built on the CPU and moved to the card takes its
+    random stream's state (the buffer `rng_state`) with it, and the stream
+    draws the same bits on the card as on the CPU, so its kmeans init and
+    dead-code expiry draw the same rows as its twin left on the CPU: the
+    codebooks after two training forwards agree within 1e-5 of their
     largest entry, and the indices exactly."""
     from vqtpu_torch import VectorQuantize
 
@@ -1156,7 +1157,7 @@ def test_module_moved_to_the_card_draws_as_on_the_cpu(card):
     on_cpu = VectorQuantize(**kw).train()
     torch.manual_seed(0)
     moved = VectorQuantize(**kw).to(card).train()
-    assert moved._codebook.generator.device.type == 'cpu'
+    assert moved._codebook.generator.device.type == 'cuda'
     xs = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 2, 50, 16), dtype=np.float32))
     for x in xs:
         _, want, _ = on_cpu(x)
@@ -1433,3 +1434,178 @@ def test_compiled_path_runs_the_kernels(card, path):
     counts, argmax = _kernel_symbols(compiled)
     assert counts == symbols and not argmax, (counts, argmax)
     torch._dynamo.reset()
+
+
+# -- the random stream and the compiled steps that draw ------------------------------------
+
+STREAM_DRAWS = {
+    'bits': lambda g, dev: (g.bits(1 << 16),),
+    'uniform_noise': lambda g, dev: (_sampling().uniform_noise(g, (256, 256)),),
+    'gumbel_noise': lambda g, dev: (_sampling().gumbel_noise(g, (256, 256)),),
+    'normal_noise': lambda g, dev: (_sampling().normal_noise(g, (256, 256)),),
+    'bernoulli': lambda g, dev: (_sampling().bernoulli(g, torch.full((4096,), 0.3, device=dev)),),
+    'random_permutation': lambda g, dev: (_sampling().random_permutation(g, 5000),),
+    'bernoulli_and_uniform': lambda g, dev: _sampling().bernoulli_and_uniform(g, 0.3, (4096,)),
+    'masked_sample_indices': lambda g, dev: (_sampling().masked_sample_indices(
+        g, 3000, (torch.arange(3000, device=dev) % 5 == 1), 4096),),
+    'quantize_dropout_index': lambda g, dev: tuple(_sampling().quantize_dropout_index(g, 2, 8, 2)
+                                                   for _ in range(32)),
+}
+
+
+def _sampling():
+    from vqtpu_torch.core import sampling
+    return sampling
+
+
+@pytest.mark.parametrize('draw', sorted(STREAM_DRAWS))
+def test_stream_draws_on_the_card_equal_the_cpu(card, draw):
+    """Every draw of core.sampling from the same stream state: the card's
+    values equal the CPU's bit for bit (gumbel and normal noise are
+    float64 rounded once), and both counters advance alike."""
+    cpu, on_card = _sampling().new_stream(77), _sampling().new_stream(77, card)
+    want = STREAM_DRAWS[draw](cpu, 'cpu')
+    got = STREAM_DRAWS[draw](on_card, card)
+    assert all(g.device.type == 'cuda' and torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert torch.equal(on_card.get_state().cpu(), cpu.get_state())
+
+
+# the kernels of a compiled step by symbol: FVQ's inner forward selects from
+# the same codebook for the same tokens as its outer forward, and the
+# compiled graph calls the pure op once for both (eager launches K1 3 times)
+DRAWING_EXAMPLES = {'autoencoder_rvq': {}, 'autoencoder_hq': dict(select=4, sorted_stats=4),
+                    'autoencoder_fvq': dict(select=2, sorted_stats=2), 'autoencoder_fsp': {}}
+
+
+@pytest.mark.parametrize('name', sorted(DRAWING_EXAMPLES))
+def test_drawing_example_step_compiled_matches_eager(card, name, monkeypatch):
+    """The RQ-VAE, HQ, FVQ and FSP example steps compiled whole under
+    inductor (fullgraph), 3 steps, each from an eager twin's state on the
+    same batch of 256 images (the examples' batch: the graphs are the ones
+    chip_smoke.py compiles, so its inductor cache serves them; the first
+    runs kmeans init inside both steps for the RQ-VAE and HQ, the compiled
+    one given the eager one's means, as kmeans breaks near-ties apart on
+    inputs an ulp apart): the same draws (the streams' states equal), the
+    same indices (HQ's and FVQ's but at near-ties of their selection,
+    scored again in float64 against the tokens and codebook the eager step
+    selected from: FVQ's codebook collapses onto a few codes), the losses
+    within 1e-5 of their largest entry plus the flipped tokens' share,
+    the buffers within 1e-5 of their largest entry (a codebook's over the
+    codes no token picked differently), Adam's moments within 1e-4 of the
+    model's largest, parameters within 2 lr; a profiler trace of a
+    compiled step shows its kernels by symbol (HQ: K4 once a scale; FVQ:
+    K1 2 and code_sums 2; none in the RQ-VAE's distance path and FSP)."""
+    import importlib
+
+    from vqtpu_torch.examples.common import adamw, train_step
+
+    torch._dynamo.reset()
+    tkmeans = importlib.import_module('vqtpu_torch.codebook.kmeans')
+    first = {}
+    kmeans = tkmeans.kmeans
+
+    def same_kmeans(*args, **kwargs):
+        if 'out' not in first:
+            first['out'] = kmeans(*args, **kwargs)
+        return tuple(t.clone() for t in first['out'])
+    monkeypatch.setattr(tkmeans, 'kmeans', same_kmeans)
+    mod = importlib.import_module(f'vqtpu_torch.examples.{name}')
+    models = [mod.main(train_iter=0, device='cuda') for _ in range(2)]
+    models[1].load_state_dict(models[0].state_dict())
+    opts = [adamw(m.parameters(), 3e-4) for m in models]
+    eager = train_step(models[0], opts[0], mod.loss_from_outputs, 10.0)
+    compiled = train_step(models[1], opts[1], mod.loss_from_outputs, 10.0, compiled=True)
+    # the tokens and codebook of the selection whose indices the step
+    # returns (HQ: the last scale's; FVQ: after the inner step, through the
+    # bridge), as the eager step saw them
+    seen = []
+    if name == 'autoencoder_hq':
+        models[0].hq.vq.register_forward_pre_hook(lambda module, args: seen.append(
+            [args[0].detach().movedim(1, -1).reshape(-1, args[0].shape[1]),
+             module._codebook.embed.detach()[0].clone()]))
+    elif name == 'autoencoder_fvq':
+        cb = models[0].quantizer._codebook
+        cb.register_forward_pre_hook(lambda module, args: seen.append(
+            [args[0].detach().reshape(-1, args[0].shape[-1]), None]))
+        cb.vq_bridge.register_forward_hook(lambda module, args, out: seen[-1].__setitem__(1, out.detach()[0]))
+    rng = np.random.default_rng(10)
+    for s in range(3):
+        xb = torch.from_numpy(rng.uniform(-1, 1, (256, 28, 28, 1)).astype(np.float32)).to(card)
+        models[0].load_state_dict(models[1].state_dict())
+        for p, q in zip(models[0].parameters(), models[1].parameters()):
+            for key, t in opts[0].state[p].items():
+                t.copy_(opts[1].state[q][key])
+        params = [p.detach().clone() for p in models[0].parameters()]
+        seen.clear()
+        want, got = eager(xb), compiled(xb)
+        flipped = (got[2] != want[2]).reshape(-1)
+        if seen:
+            tokens, embed = seen[-1]
+            ties = td.selection_disagreements(tokens, embed, td.selection_bias(embed, 'euclidean'), want[2], got[2])
+            assert ties['non_tie'] == 0, (s, ties)
+        else:
+            assert not flipped.any(), (s, int(flipped.sum()))
+        for g, w in zip(got[:2], want[:2]):
+            assert _rel(g, w) <= 1e-5 + float(flipped.float().mean()), (s, _rel(g, w))
+        # a flipped token moves its two codes' rows of a codebook's buffers
+        touched = torch.cat([got[2].reshape(-1)[flipped], want[2].reshape(-1)[flipped]]).long().unique()
+        for (key, w), g in zip(models[0].state_dict().items(), models[1].state_dict().values()):
+            if key in dict(models[0].named_parameters()):
+                assert float((g - w).abs().max()) <= 2 * 3e-4, (s, key)
+            elif w.is_floating_point():
+                if '_codebook.' in key and w.ndim >= 2 and touched.numel():
+                    keep = torch.ones(w.shape[1], dtype=torch.bool, device=w.device)
+                    keep[touched] = False
+                    g, w = g[:, keep], w[:, keep]
+                assert _rel(g, w) <= 1e-5, (s, key)
+            else:
+                assert torch.equal(g, w), (s, key)
+        for key in ('exp_avg', 'exp_avg_sq'):
+            pairs = [(opts[1].state[q][key], opts[0].state[p][key])
+                     for p, q in zip(models[0].parameters(), models[1].parameters())]
+            largest = max(float(w.abs().max()) for _, w in pairs)
+            assert max(float((g - w).abs().max()) for g, w in pairs) <= 1e-4 * largest, (s, key)
+        assert max(float((p - q).abs().max()) for p, q in zip(models[0].parameters(), params)) > 0
+    counts, _ = _kernel_symbols(lambda: compiled(xb))
+    assert counts == DRAWING_EXAMPLES[name], counts
+    torch._dynamo.reset()
+
+
+# -- the LFQ sweeps (K5-K8) after other work ------------------------------------------------
+
+
+@pytest.mark.parametrize('n,d', [(2000, 12), (8192, 18)])
+def test_lfq_sweeps_bit_identical_over_poisoned_memory(card, n, d):
+    """The four sweeps of `lfq_entropy_stats` (forward and backward, the
+    watched test's operands: weighted, spherical, k = 2^d) 20 times in one
+    process, each after other work and after the caching allocator's free
+    blocks were filled with a poison (0, NaN, +-1e30, in turn), which the
+    sweeps' `torch.empty` scratch and outputs then take: a sweep that read
+    a word it had not written would give another result, or a NaN. Every
+    run is bit-identical to the first."""
+    x, w = _lfq_operands(n, d, True, True, card, seed=2)
+    v = tle.code_magnitude(d, 1.0, True)
+    gen = np.random.default_rng(3)
+    entbar = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(card)
+    gbar = torch.from_numpy(gen.standard_normal(1 << d).astype(np.float32)).to(card)
+
+    def run():
+        xs = x.clone().requires_grad_()
+        ent, avgp = tle.lfq_entropy_stats(xs, w, k=1 << d, v=v, inv_temp=1.0)
+        dx, = torch.autograd.grad((ent, avgp), xs, (entbar, gbar))
+        return [t.detach().clone() for t in (ent, avgp, dx)]
+
+    first = run()
+    poisons = (0.0, float('nan'), 1e30, -1e30)
+    other = _operands((3000, 256, 64), 'euclidean', card, seed=5)
+    for i in range(20):
+        td.nearest_code(*other)
+        torch.cuda.synchronize()
+        # fill the free blocks the sweeps' allocations will take, small and large
+        blocks = [torch.full((size,), poisons[i % 4], device=card) for size in (1 << 8, 1 << 12, 1 << 16, 1 << 22)
+                  for _ in range(8)]
+        del blocks
+        got = run()
+        torch.cuda.synchronize()
+        for g, f in zip(got, first):
+            assert torch.equal(g, f), (i, poisons[i % 4])

@@ -220,6 +220,11 @@ def test_one_step_matches_jax(name, small_synthetic, injected_draws, monkeypatch
     sign_free = SIGN_FREE.get(name, (None,))[0]
     for key, w in want.items():
         g = got[key]
+        if key.rpartition('.')[2] == 'rng_state':
+            # a random stream: load_vqtpu_state keys it from the JAX state;
+            # its counter counts the port's draws, not flax's stream calls
+            assert torch.equal(g[:2], w[:2]), key
+            continue
         if not torch.is_floating_point(w):
             assert torch.equal(g, w), key
             continue

@@ -240,7 +240,7 @@ def test_codes_from_indices_with_dropped_layers():
 def test_dropout_draw_stays_in_range():
     tm = tres.ResidualFSQ(levels=[5, 5], num_quantizers=6, quantize_dropout=True, quantize_dropout_cutoff_index=2,
                           quantize_dropout_multiple_of=2, device='cpu')
-    draws = {tm.draw_dropout_index() for _ in range(60)}
+    draws = {int(tm.draw_dropout_index()) for _ in range(60)}
     assert draws <= {3, 5} and draws
 
 
@@ -282,6 +282,7 @@ def test_load_vqtpu_state_carries_every_tensor(which):
         name = '.'.join([*mod, name])
         names.add(name)
         np.testing.assert_array_equal(got[name].numpy(), convert(value) if convert else value, err_msg=name)
-    assert names == set(got), (names, set(got))
+    # the JAX state's rngs seed the port's streams (rng_state) instead
+    assert names == {k for k in got if k.rpartition('.')[2] != 'rng_state'}, (names, set(got))
     if which != 'grouped':
         assert any('orthogonal_rot' in n for n in names)

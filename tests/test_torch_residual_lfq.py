@@ -130,7 +130,7 @@ def test_codes_from_indices_with_dropped_layers():
 def test_dropout_draw_stays_in_range():
     tm = tres.ResidualLFQ(dim=4, codebook_size=16, num_quantizers=6, quantize_dropout=True,
                           quantize_dropout_cutoff_index=2, quantize_dropout_multiple_of=2, device='cpu')
-    draws = {tm.draw_dropout_index() for _ in range(60)}
+    draws = {int(tm.draw_dropout_index()) for _ in range(60)}
     assert draws <= {3, 5} and draws
 
 

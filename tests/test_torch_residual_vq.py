@@ -378,9 +378,10 @@ def test_dropout_draw_rounds_like_jax(multiple_of, monkeypatch):
     draws = []
     for raw in range(1, 7):
         monkeypatch.setattr(jax.random, 'randint', lambda key, shape, low, high, raw=raw: jnp.int32(raw))
-        monkeypatch.setattr(torch, 'randint', lambda low, high, size, generator=None, device=None, raw=raw:
-                            torch.tensor(raw))
-        draws.append((tm.draw_dropout_index(), int(jm._draw_dropout_index())))
+        # the port draws cutoff + a value uniform below num_quantizers - cutoff
+        monkeypatch.setattr(tsampling, 'randint', lambda gen, high, num, device=None, raw=raw:
+                            torch.tensor([raw - 1]))
+        draws.append((int(tm.draw_dropout_index()), int(jm._draw_dropout_index())))
     monkeypatch.undo()
     assert all(t == j for t, j in draws), draws
     assert all(1 <= tm.draw_dropout_index() < 7 for _ in range(50))

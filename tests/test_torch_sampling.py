@@ -71,7 +71,7 @@ def test_gumbel_sample_matches_jax(mode, ties, same_noise):
     (_, (jind, joh)), jgrad = jax.value_and_grad(jax_sample, has_aux=True)(jnp.asarray(logits))
 
     tl = torch.from_numpy(logits).requires_grad_()
-    ind, oh = tsampling.gumbel_sample(torch.Generator(), tl, **kw)
+    ind, oh = tsampling.gumbel_sample(tsampling.new_stream(0), tl, **kw)
     relaxed = kw.get('straight_through') and kw['training'] and kw.get('temperature', 1.0) > 0
 
     assert ind.dtype == torch.int32 and tuple(ind.shape) == jind.shape
@@ -108,16 +108,16 @@ def test_approx_topk_is_exact_top_k():
 
 
 def test_gumbel_noise_draws_from_the_generator():
-    gen = torch.Generator().manual_seed(6)
+    gen = tsampling.new_stream(6)
     a = tsampling.gumbel_noise(gen, (1000,))
-    b = tsampling.gumbel_noise(torch.Generator().manual_seed(6), (1000,))
+    b = tsampling.gumbel_noise(tsampling.new_stream(6), (1000,))
     assert torch.equal(a, b) and bool(torch.isfinite(a).all())
     # the standard Gumbel distribution: mean 0.5772 (Euler-Mascheroni), var pi^2 / 6
     big = tsampling.gumbel_noise(gen, (200_000,)).double()
     assert abs(float(big.mean()) - 0.5772) < 0.02 and abs(float(big.var()) - np.pi ** 2 / 6) < 0.05
 
 
-# each draw of core.sampling, with a generator and the device where the draw is used
+# each draw of core.sampling, with a stream and the device where the draw is used
 DRAWS = {
     'gumbel_noise': lambda g, dev: tsampling.gumbel_noise(g, (5,), device=dev),
     'normal_noise': lambda g, dev: tsampling.normal_noise(g, (5,), device=dev),
@@ -133,13 +133,12 @@ DRAWS = {
 
 @pytest.mark.parametrize('draw', sorted(DRAWS))
 def test_draws_are_made_on_the_generators_device(draw):
-    """Module.to leaves a module's generators where they were made, so a
-    draw is made on its generator's device, exactly as there, and moved to
-    where it is used ('meta' stands in for the card: a draw made there
-    would leave the CPU generator where it was)."""
-    on_cpu, elsewhere = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    """A draw is made on its stream's device and moved to where it is used
+    ('meta' stands in for the card: a draw made there would leave the CPU
+    stream where it was); the stream advances alike."""
+    on_cpu, elsewhere = tsampling.new_stream(3), tsampling.new_stream(3)
     want = DRAWS[draw](on_cpu, 'cpu')
     got = DRAWS[draw](elsewhere, 'meta')
     assert got.device.type == 'meta' and got.shape == want.shape and got.dtype == want.dtype
     assert torch.equal(on_cpu.get_state(), elsewhere.get_state())
-    assert not torch.equal(on_cpu.get_state(), torch.Generator().manual_seed(3).get_state())
+    assert not torch.equal(on_cpu.get_state(), tsampling.new_stream(3).get_state())

@@ -197,7 +197,7 @@ def test_residual_simvq_codes_from_fewer_indices():
 def test_residual_simvq_draws_its_dropout_index():
     tm = vqtpu_torch.ResidualSimVQ(dim=DIM, num_quantizers=4, codebook_size=CODES, quantize_dropout=True,
                                    quantize_dropout_cutoff_index=1, quantize_dropout_multiple_of=2, device='cpu')
-    draws = {tm.draw_dropout_index() for _ in range(50)}
+    draws = {int(tm.draw_dropout_index()) for _ in range(50)}
     assert draws <= {1, 3} and draws
     with pytest.raises(ValueError, match='multi-headed'):
         vqtpu_torch.ResidualSimVQ(dim=DIM, num_quantizers=2, codebook_size=CODES, heads=2, device='cpu')

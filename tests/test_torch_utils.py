@@ -167,6 +167,8 @@ def upstream_state(tm, renames, transposed, seed):
     for key, value in tm.state_dict().items():
         if '.accum_' in key:              # the manual EMA's accumulators: no upstream buffer
             continue
+        if key.rpartition('.')[2] == 'rng_state':     # the port's random stream: no upstream buffer
+            continue
         for port, upstream in renames:
             key = key.replace(port, upstream)
         shape = tuple(value.shape)

@@ -38,7 +38,7 @@ or the plain statistics); kmeans init (with `sync_kmeans`) pools its
 candidates and psums its bins and sums; the affine batch moments psum
 with `sync_affine_param`; dead-code expiry pools every rank's candidate
 rows and draws the same replacement on every rank. The ranks' state stays
-bit-identical when they start identical and seed their generators alike.
+bit-identical when they start identical, their random streams among them.
 
 Row-sharded (`code_axis`, a mesh axis name; see `parallel.tp`): at rest the
 codebook holds all its rows; inside a bound mesh that has the axis, its
@@ -51,15 +51,16 @@ the statistics of the rank's rows are summed by `code_sums` (the fused
 kernel's statistics passes on the card), every token of another rank's
 codes sent to a dump row. The laplace total, the affine codebook moments
 and kmeans' assignments cross the axis; kmeans and expiry draw the global
-index vector with the generator every rank holds alike and keep their
+index vector with the stream every rank holds alike and keep their
 window. The distance path computes the rank's columns and all-gathers
 them. A leaf with the wrong row count for where it runs raises.
 
 Buffers (and the EMA's writes to a learnable `embed`) are updated in place
 under `torch.no_grad()` from detached tensors, so no graph is kept on them
 from step to step. Random draws (kmeans init, dead-code replacement) come
-from `self.generator`, a `torch.Generator` on the module's device seeded
-from torch's global generator at construction.
+from `self.generator`, the module's random stream
+(`core.sampling.RandomStream`), whose state is its buffer `rng_state`,
+seeded from torch's global generator at construction.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.sampling import gumbel_sample, masked_sample_vectors
+from ..core.sampling import attach_stream, gumbel_sample, masked_sample_vectors
 from ..core.utils import (
     append_dims_to, cdist, default, f32_core, l2norm, laplace_smoothing, matmul_tf32, pack_tokens,
     resolve_device, uniform_init,
@@ -243,6 +244,9 @@ class Codebook(nn.Module):
         self.register_buffer('embed_avg', embed.clone())
         self.register_buffer('cluster_size', torch.ones(shape[:2], device=device))
         self.register_buffer('initted', torch.tensor(not kmeans_init, device=device))
+        # `initted` as this module's last forward left it, mirrored on the
+        # host (False: not known, read the buffer); see init_embed_
+        self.initted_on_host = False
         self.register_buffer('accum_cluster_size', torch.zeros(shape[:2], device=device))
         self.register_buffer('accum_embed_avg', torch.zeros(shape, device=device))
         if affine_param:
@@ -253,8 +257,7 @@ class Codebook(nn.Module):
                 self.register_buffer(f'{which}_mean_initted', torch.tensor(False, device=device))
                 self.register_buffer(f'{which}_variance_initted', torch.tensor(False, device=device))
 
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
+        self.generator = attach_stream(self, device)
 
     def transform_input(self, x: torch.Tensor) -> torch.Tensor:
         return l2norm(x) if self.use_cosine_sim else x
@@ -377,21 +380,37 @@ class Codebook(nn.Module):
 
     @torch.no_grad()
     def init_embed_(self, flatten: torch.Tensor, mask: torch.Tensor | None = None):
-        """First-batch kmeans init; a no-op once `initted` is set."""
-        if bool(self.initted):
+        """First-batch kmeans init, the JAX package's `lax.cond` on the
+        `initted` flag: kmeans' (embed, embed_avg, cluster_size) while the
+        flag is False, the codebook's own after. The kmeans key is split off
+        the stream on every call, as `self.rngs.kmeans()` is, so the stream
+        advances whether or not init runs. Once a forward has passed here
+        the flag is True, and `initted_on_host` says so: later calls return
+        with no work and no host read, and a compiled step, which guards on
+        that attribute, compiles once more without kmeans. Until then kmeans
+        runs in the op `vqtpu::kmeans`, which reads the flag (a loaded
+        codebook may be initted already) and returns at once when it is
+        set, and a select; the rows are marked rewritten where it ran."""
+        key = self.generator.split()
+        if self.initted_on_host:
             return
-        embed, cluster_size = kmeans_module.kmeans(
-            self.generator, flatten.detach(), self.codebook_size,
-            num_iters=self.kmeans_iters, use_cosine_sim=self.use_cosine_sim, mask=mask,
-            sync_axis=self.sync_axis if self.sync_kmeans else None,
-            code_axis=self.code_axis if self._code_parallel() else None,
-        )
-        embed_sum = embed * cluster_size[..., None]
-        self.embed.copy_(self._normalized_embed(embed_sum, cluster_size))
-        self.embed_avg.copy_(embed_sum)
-        self.cluster_size.copy_(cluster_size)
+        initted = self.initted.clone()
+        means, bins = kmeans_module.kmeans_op(
+            flatten.detach().contiguous(), key, self.codebook_size, self.kmeans_iters, self.use_cosine_sim, mask,
+            self.sync_axis if self.sync_kmeans else None, self.code_axis if self._code_parallel() else None,
+            initted)
+        embed_sum = means * bins[..., None]
+        self.embed.copy_(torch.where(initted, self.embed, self._normalized_embed(embed_sum, bins)))
+        self.embed_avg.copy_(torch.where(initted, self.embed_avg, embed_sum))
+        self.cluster_size.copy_(torch.where(initted, self.cluster_size, bins))
         self.initted.fill_(True)
-        self._mark_rewritten()
+        self._mark_rewritten((~initted).expand(self.embed.shape[:2]))
+        self.initted_on_host = True
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a loaded `initted` may be False: the next forward reads it
+        self.initted_on_host = False
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     # -- EMA update machinery ------------------------------------------------
 

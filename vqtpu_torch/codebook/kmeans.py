@@ -7,33 +7,46 @@ or of x.e (cosine), and sums with `code_statistics_plain`.
 
 Data parallel (`sync_axis`): each rank draws a fixed-size candidate buffer
 from its own tokens, the buffers are pooled with `all_gather`, and every
-rank draws the initial means from the pool with the same generator state,
+rank draws the initial means from the pool with the same stream state,
 so the ranks agree without a host round trip; the bins and sums of each
 step are psum'd over the axis.
 
 Row-sharded (`code_axis`): each rank draws and updates only its window of
 the centroids. The initial draw is the global index vector, drawn with the
-generator every rank of the axis holds in the same state, of which each
+stream every rank of the axis holds in the same state, of which each
 rank keeps its window (what the unsharded draw gives those rows); with
 `sync_axis` each slot also draws the data rank it comes from, and the
 candidates are summed over the data axis from that rank alone. Each step
 assigns with `parallel.shard.sharded_nearest_code` (the selection kernel
 on the rank's rows on the card) and sums with `code_sums`, every token of
 another rank's centroids sent to a dump row.
+
+`torch.ops.vqtpu.kmeans` is `kmeans` as a custom op keyed by a stream
+state (`RandomStream.split`) that returns at once when its `skip` flag is
+set: until a codebook has seen a forward, its init calls it with its
+`initted` flag (a loaded codebook may be initted already), the JAX
+package's `lax.cond` as a select. A compiled step then holds one opaque
+call in place of the unrolled Lloyd loop, which it would trace and compile
+in every layer that shares the codebook, and no `torch.cond`: inductor
+and AOTAutograd (torch 2.11) did not cache a graph that held one, so such
+a step compiled anew, for minutes, in every process. After that forward
+the codebook skips the op (`Codebook.init_embed_`).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..core.sampling import masked_sample_indices, masked_sample_vectors
+from ..core.sampling import RandomStream, masked_sample_indices, masked_sample_vectors, randint
 from ..core.utils import cdist_sq, l2norm
 from ..kernels.train_fused import code_statistics_plain, code_sums
 from ..parallel import collectives
 
 
 def sample_means(
-    generator: torch.Generator,
+    generator: RandomStream,
     samples: torch.Tensor,
     mask: torch.Tensor | None,
     num_clusters: int,
@@ -47,7 +60,7 @@ def sample_means(
 
 
 def sharded_draw(
-    generator: torch.Generator,
+    generator: RandomStream,
     samples: torch.Tensor,
     mask: torch.Tensor | None,
     num: int,
@@ -66,16 +79,15 @@ def sharded_draw(
     cand = samples.index_select(0, idx[row0:row0 + c_local])
     if sync_axis is None:
         return cand
-    src = torch.randint(0, collectives.axis_size(sync_axis), (num,), generator=generator,
-                        device=generator.device)[row0:row0 + c_local].to(samples.device)
+    src = randint(generator, collectives.axis_size(sync_axis), num, samples.device)[row0:row0 + c_local]
     mine = (src == collectives.axis_index(sync_axis))[:, None]
     return collectives.psum(torch.where(mine, cand, 0.0), sync_axis)
 
 
-def pool_candidates(generator: torch.Generator, local: torch.Tensor, sync_axis: str | None) -> torch.Tensor:
+def pool_candidates(generator: RandomStream, local: torch.Tensor, sync_axis: str | None) -> torch.Tensor:
     """(h, num, d) candidates of this rank -> (h, num, d) drawn with
     replacement from every rank's, the same rows on every rank (each rank's
-    generator in the same state); the identity without `sync_axis`."""
+    stream in the same state); the identity without `sync_axis`."""
     if sync_axis is None:
         return local
     pooled = collectives.all_gather(local, sync_axis, concat_axis=1)      # (h, world * num, d)
@@ -83,7 +95,7 @@ def pool_candidates(generator: torch.Generator, local: torch.Tensor, sync_axis: 
 
 
 def kmeans(
-    generator: torch.Generator,
+    generator: RandomStream,
     samples: torch.Tensor,
     num_clusters: int,
     num_iters: int = 10,
@@ -137,3 +149,28 @@ def kmeans(
             new_means = l2norm(new_means)
         means = torch.where(zero_mask[..., None], means, new_means)
     return means, bins
+
+
+@torch.library.custom_op('vqtpu::kmeans', mutates_args=())
+def kmeans_op(
+    samples: torch.Tensor, key: torch.Tensor, num_clusters: int, num_iters: int, use_cosine_sim: bool,
+    mask: Optional[torch.Tensor], sync_axis: Optional[str], code_axis: Optional[str], skip: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`kmeans` drawing from a stream with the state `key` (left as it
+    is), as an op: (means, bins), both float32; when the 0-d bool `skip`
+    is set (read on the host), ones of their shapes and no work."""
+    if bool(skip):
+        return _ones_like_result(samples, num_clusters, code_axis)
+    return kmeans(RandomStream(key.clone()), samples, num_clusters, num_iters=num_iters,
+                  use_cosine_sim=use_cosine_sim, mask=mask, sync_axis=sync_axis, code_axis=code_axis)
+
+
+def _ones_like_result(samples, num_clusters, code_axis, make=torch.Tensor.new_ones):
+    h, _, d = samples.shape
+    rows = num_clusters // collectives.axis_size(code_axis)
+    return make(samples, (h, rows, d), dtype=torch.float32), make(samples, (h, rows), dtype=torch.float32)
+
+
+@kmeans_op.register_fake
+def _(samples, key, num_clusters, num_iters, use_cosine_sim, mask, sync_axis, code_axis, skip):
+    return _ones_like_result(samples, num_clusters, code_axis, torch.Tensor.new_empty)

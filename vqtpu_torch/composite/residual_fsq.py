@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..core.sampling import quantize_dropout_index
+from ..core.sampling import attach_stream, quantize_dropout_index
 from ..core.utils import resolve_device
 from ..kernels.residual_fsq_fused import fused_residual_fsq_eval, soft_clamp_plain
 from ..quantizers.fsq import FSQ
@@ -101,8 +101,7 @@ class ResidualFSQ(nn.Module):
         self.register_buffer('scales_f32', scales.float().to(device), persistent=False)
 
         self.eval_fused = eval_fused
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
+        self.generator = attach_stream(self, device)
 
     def _scales(self) -> torch.Tensor:
         """(q, d) per-layer scales levels^-i."""
@@ -154,7 +153,7 @@ class ResidualFSQ(nn.Module):
                     and not l0.orthogonal_rotation and not l0.has_projections)
         return eligible and (self.eval_fused == 'on' or x.device.type == 'cuda')
 
-    def draw_dropout_index(self) -> int:
+    def draw_dropout_index(self) -> torch.Tensor:
         return quantize_dropout_index(self.generator, self.quantize_dropout_cutoff_index, self.num_quantizers,
                                       self.quantize_dropout_multiple_of)
 
@@ -195,8 +194,8 @@ class ResidualFSQ(nn.Module):
 
         dropout_index = None
         if self.training and self.quantize_dropout:
-            dropout_index = (int(rand_quantize_dropout_index) if rand_quantize_dropout_index is not None
-                             else self.draw_dropout_index())
+            dropout_index = (torch.as_tensor(rand_quantize_dropout_index, device=x.device)
+                             if rand_quantize_dropout_index is not None else self.draw_dropout_index())
 
         scales = self._scales()
         orig_dtype = x.dtype
@@ -207,9 +206,10 @@ class ResidualFSQ(nn.Module):
             scale = scales[quantizer_index]
             quantized, indices = layer(residual / scale)
             quantized = quantized.float() * scale
-            if dropout_index is not None and quantizer_index > dropout_index:
-                quantized = torch.zeros_like(quantized)
-                indices = torch.full_like(indices, -1)
+            if dropout_index is not None:
+                keep = quantizer_index <= dropout_index
+                quantized = torch.where(keep, quantized, 0.0)
+                indices = torch.where(keep, indices, -1)
             residual = residual - quantized.detach()
             quantized_out = quantized_out + quantized
             all_indices.append(indices)
@@ -248,7 +248,7 @@ class GroupedResidualFSQ(nn.Module):
     def forward(self, x: torch.Tensor, return_all_codes: bool = False,
                 rand_quantize_dropout_index: int | torch.Tensor | None = None):
         """`rand_quantize_dropout_index`: the dropout index all groups share;
-        drawn from the first group's generator when None."""
+        drawn from the first group's random stream when None."""
         if x.shape[self.split_dim] != self.dim:
             raise ValueError(f'expected dim {self.dim} on axis {self.split_dim}, got {tuple(x.shape)}')
         chunks = x.chunk(self.groups, dim=self.split_dim)

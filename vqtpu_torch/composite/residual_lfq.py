@@ -15,7 +15,7 @@ import math
 import torch
 from torch import nn
 
-from ..core.sampling import quantize_dropout_index
+from ..core.sampling import attach_stream, quantize_dropout_index
 from ..core.utils import exists, resolve_device
 from ..quantizers.lfq import LFQ
 
@@ -64,8 +64,7 @@ class ResidualLFQ(nn.Module):
             raise ValueError('quantize_dropout_cutoff_index must be >= 0')
         self.quantize_dropout_cutoff_index = quantize_dropout_cutoff_index
         self.quantize_dropout_multiple_of = quantize_dropout_multiple_of
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
+        self.generator = attach_stream(self, device)
 
     @property
     def codebooks(self) -> torch.Tensor:
@@ -96,7 +95,7 @@ class ResidualLFQ(nn.Module):
             summed = self.project_out(summed)
         return summed
 
-    def draw_dropout_index(self) -> int:
+    def draw_dropout_index(self) -> torch.Tensor:
         return quantize_dropout_index(self.generator, self.quantize_dropout_cutoff_index, self.num_quantizers,
                                       self.quantize_dropout_multiple_of)
 
@@ -112,16 +111,17 @@ class ResidualLFQ(nn.Module):
 
         dropout_index = None
         if self.training and self.quantize_dropout:
-            dropout_index = (int(rand_quantize_dropout_index) if rand_quantize_dropout_index is not None
-                             else self.draw_dropout_index())
+            dropout_index = (torch.as_tensor(rand_quantize_dropout_index, device=x.device)
+                             if rand_quantize_dropout_index is not None else self.draw_dropout_index())
 
         for quantizer_index, layer in enumerate(self.layers):
             quantized, indices, loss = layer(residual, mask=mask)
             quantized = quantized.float()
-            if dropout_index is not None and quantizer_index > dropout_index:
-                quantized = torch.zeros_like(quantized)
-                indices = torch.full_like(indices, -1)
-                loss = torch.zeros_like(loss)
+            if dropout_index is not None:
+                keep = quantizer_index <= dropout_index
+                quantized = torch.where(keep, quantized, 0.0)
+                indices = torch.where(keep, indices, -1)
+                loss = torch.where(keep, loss, 0.0)
             residual = residual - quantized.detach()
             quantized_out = quantized_out + quantized
             all_indices.append(indices)
@@ -170,7 +170,7 @@ class GroupedResidualLFQ(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, return_all_codes: bool = False,
                 rand_quantize_dropout_index: int | torch.Tensor | None = None):
         """`rand_quantize_dropout_index`: the dropout index all groups share;
-        drawn from the first group's generator when None."""
+        drawn from the first group's random stream when None."""
         if x.shape[self.split_dim] != self.dim:
             raise ValueError(f'expected dim {self.dim} on axis {self.split_dim}, got {tuple(x.shape)}')
         chunks = x.chunk(self.groups, dim=self.split_dim)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..core.sampling import quantize_dropout_index
+from ..core.sampling import attach_stream, quantize_dropout_index
 from ..core.utils import first, resolve_device
 from ..parallel.shard import sharded_gather_codes
 from ..quantizers.sim_vq import SimVQ
@@ -59,8 +59,7 @@ class ResidualSimVQ(nn.Module):
         self.quantize_dropout = quantize_dropout and num_quantizers > 1
         self.quantize_dropout_cutoff_index = quantize_dropout_cutoff_index
         self.quantize_dropout_multiple_of = quantize_dropout_multiple_of
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
+        self.generator = attach_stream(self, device)
 
     @property
     def codebook_size(self) -> int:
@@ -106,7 +105,7 @@ class ResidualSimVQ(nn.Module):
     def get_output_from_indices(self, indices: torch.Tensor) -> torch.Tensor:
         return self.get_codes_from_indices(indices).sum(0)
 
-    def draw_dropout_index(self) -> int:
+    def draw_dropout_index(self) -> torch.Tensor:
         """A layer index in [cutoff, q), rounded up to a multiple of
         `quantize_dropout_multiple_of` less one."""
         return quantize_dropout_index(self.generator, self.quantize_dropout_cutoff_index, self.num_quantizers,
@@ -126,17 +125,17 @@ class ResidualSimVQ(nn.Module):
 
         dropout_index = None
         if self.training and self.quantize_dropout:
-            dropout_index = (int(rand_quantize_dropout_index) if rand_quantize_dropout_index is not None
-                             else self.draw_dropout_index())
+            dropout_index = (torch.as_tensor(rand_quantize_dropout_index, device=x.device)
+                             if rand_quantize_dropout_index is not None else self.draw_dropout_index())
 
-        dropped = torch.ones((), dtype=torch.bool, device=x.device)
         for quantizer_index, sim_vq in enumerate(self.layers):
             quantized, indices, loss = sim_vq(residual)
-            if dropout_index is not None and quantizer_index > dropout_index:
+            if dropout_index is not None:
                 # zeros that stay in the graph, as the JAX package's where()
-                quantized = quantized.masked_fill(dropped, 0.0)
-                indices = torch.full_like(indices, -1)
-                loss = loss.masked_fill(dropped, 0.0)
+                keep = quantizer_index <= dropout_index
+                quantized = torch.where(keep, quantized, 0.0)
+                indices = torch.where(keep, indices, -1)
+                loss = torch.where(keep, loss, 0.0)
             residual = residual - quantized.detach()
             quantized_out = quantized_out + quantized
             all_indices.append(indices)

@@ -50,7 +50,7 @@ from functools import partial
 import torch
 from torch import nn
 
-from ..core.sampling import quantize_dropout_index, topk_first
+from ..core.sampling import attach_stream, quantize_dropout_index, topk_first
 from ..core.ste import directional_reparam, frac_gradient
 from ..core.utils import cast_tuple, default, exists, first, resolve_device
 from ..parallel.collectives import psum_exact, psum_in_bwd
@@ -236,8 +236,7 @@ class ResidualVQ(nn.Module):
                 vq._codebook = shared
                 vq.in_place_codebook_optimizer = shared_opt
 
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
+        self.generator = attach_stream(self, device)
 
     # -- properties -------------------------------------------------------------
 
@@ -329,9 +328,9 @@ class ResidualVQ(nn.Module):
 
     # -- dropout index ------------------------------------------------------------
 
-    def draw_dropout_index(self) -> int:
+    def draw_dropout_index(self) -> torch.Tensor:
         """A layer index uniform in [cutoff, num_quantizers), rounded up to
-        the configured multiple (minus one)."""
+        the configured multiple (minus one), as a 0-d int64 tensor."""
         return quantize_dropout_index(self.generator, self.quantize_dropout_cutoff_index, self.num_quantizers,
                                       self.quantize_dropout_multiple_of)
 
@@ -369,8 +368,8 @@ class ResidualVQ(nn.Module):
 
         dropout_index = None
         if self.training and self.quantize_dropout and not return_loss:
-            dropout_index = (int(rand_quantize_dropout_index) if rand_quantize_dropout_index is not None
-                             else self.draw_dropout_index())
+            dropout_index = (torch.as_tensor(rand_quantize_dropout_index, device=x.device)
+                             if rand_quantize_dropout_index is not None else self.draw_dropout_index())
 
         if is_beam_search:
             return self._forward_beam(x, mask, beam_size, sample_codebook_temp, freeze_codebook,
@@ -381,24 +380,25 @@ class ResidualVQ(nn.Module):
         all_indices, all_losses, ce_losses, layer_inputs = [], [], [], []
 
         for quantizer_index, (vq, mlp) in enumerate(zip(self.layers, self._layer_mlps())):
-            keep = dropout_index is None or quantizer_index <= dropout_index
+            keep = None if dropout_index is None else quantizer_index <= dropout_index
             layer_inputs.append(residual)
             out = vq(
                 residual, mask=mask,
                 indices=indices[..., quantizer_index] if return_loss else None,
                 sample_codebook_temp=sample_codebook_temp, freeze_codebook=freeze_codebook,
                 codebook_transform_fn=None if mlp is None else partial(mlp, condition=self._condition(quantized_out)),
-                ema_update_weight=None if dropout_index is None else float(keep),
+                ema_update_weight=None if keep is None else keep.float(),
             )
             if return_loss:
                 quantized, ce_loss = out
                 ce_losses.append(ce_loss)
             else:
                 quantized, embed_indices, loss = out
-                if not keep:
-                    quantized = torch.zeros_like(quantized)
-                    embed_indices = torch.full_like(embed_indices, -1)
-                    loss = torch.zeros_like(loss)
+                if keep is not None:
+                    # a traced mask, as the JAX package's where()
+                    quantized = torch.where(keep, quantized, 0.0)
+                    embed_indices = torch.where(keep, embed_indices, -1)
+                    loss = torch.where(keep, loss, 0.0)
                 all_indices.append(embed_indices)
                 all_losses.append(loss)
             residual = residual - frac_gradient(quantized, self.quant_grad_frac)
@@ -454,10 +454,11 @@ class ResidualVQ(nn.Module):
                 freeze_codebook=freeze_codebook, topk=k, dist_precision=self.beam_score_precision,
                 codebook_transform_fn=None if mlp is None else partial(mlp, condition=self._condition(quantized_out)),
             )                                  # quantized (..., j, k, d); indices, loss (..., j, k)
-            if dropout_index is not None and quantizer_index > dropout_index:
-                quantized = torch.zeros_like(quantized)
-                embed_indices = torch.full_like(embed_indices, -1)
-                loss = torch.zeros_like(loss)
+            if dropout_index is not None:
+                keep = quantizer_index <= dropout_index
+                quantized = torch.where(keep, quantized, 0.0)
+                embed_indices = torch.where(keep, embed_indices, -1)
+                loss = torch.where(keep, loss, 0.0)
 
             j = search_scores.shape[-1]
             layers_so_far = all_indices.shape[-1]
@@ -567,7 +568,7 @@ class GroupedResidualVQ(nn.Module):
         with `return_all_codes`; with `indices` (one per group) ->
         (quantized, the sum of the groups' cross-entropy losses).
         `rand_quantize_dropout_index`: the dropout index all groups share;
-        drawn from the first group's generator when None."""
+        drawn from the first group's random stream when None."""
         split_dim = self.split_dim
         if x.shape[split_dim] != self.dim:
             raise ValueError(f'expected dim {self.dim} on axis {split_dim}, got {tuple(x.shape)}')

@@ -1,5 +1,7 @@
 """The optimizer the port's trainers and entry points use in place of
-`optax.adamw`."""
+`optax.adamw`, and the updates of `torch.optim`'s SGD, Adam and AdamW as
+functions of given gradients, which `torch.compile` traces into the
+step's graph (`Optimizer.step` breaks the graph on purpose)."""
 
 from __future__ import annotations
 
@@ -77,3 +79,66 @@ def adamw_update(opt: torch.optim.AdamW, grads) -> None:
                  weight_decay=group['weight_decay'], eps=group['eps'], maximize=group['maximize'])
     if at != len(grads):
         raise ValueError(f'{len(grads)} gradients for {at} parameters')
+
+
+def sgd_update(opt: torch.optim.SGD, grads) -> None:
+    """`opt.step()` with `grads` in place of the parameters' `.grad` (one
+    gradient or None per parameter, in the order of `opt.param_groups`):
+    `torch.optim.sgd.sgd`, the update `SGD.step` calls, on the optimizer's
+    own settings and momentum buffers, without `Optimizer.step`'s graph
+    breaks."""
+    from torch.optim.sgd import sgd
+
+    grads = list(grads)
+    at = 0
+    with torch.no_grad():
+        for group in opt.param_groups:
+            params, gs, buffers = [], [], []
+            for p in group['params']:
+                g = grads[at]
+                at += 1
+                if g is None:
+                    continue
+                params.append(p)
+                gs.append(g)
+                if group['momentum'] != 0:
+                    buffers.append(opt.state[p].get('momentum_buffer'))
+            if not params:
+                continue
+            sgd(params, gs, buffers, weight_decay=group['weight_decay'], momentum=group['momentum'],
+                lr=group['lr'], dampening=group['dampening'], nesterov=group['nesterov'],
+                maximize=group['maximize'], foreach=group['foreach'], fused=group['fused'])
+            if group['momentum'] != 0:
+                for p, buffer in zip(params, buffers):
+                    opt.state[p]['momentum_buffer'] = buffer
+    if at != len(grads):
+        raise ValueError(f'{len(grads)} gradients for {at} parameters')
+
+
+def optimizer_update(opt: torch.optim.Optimizer, grads) -> None:
+    """`opt.step()` with `grads` in place of the parameters' `.grad`, which
+    are left as they were: SGD by `sgd_update`, Adam and AdamW (without
+    amsgrad) by `adamw_update` (their state made first, outside any trace),
+    both of which `torch.compile` traces; any other optimizer by its own
+    `step()` on the gradients swapped into `.grad` (which breaks a compiled
+    graph)."""
+    grads = list(grads)
+    if isinstance(opt, torch.optim.SGD):
+        sgd_update(opt, grads)
+        return
+    if isinstance(opt, torch.optim.Adam) and not any(g['amsgrad'] for g in opt.param_groups):
+        if not torch.compiler.is_compiling():
+            prepare_adamw_for_graph(opt)
+        adamw_update(opt, grads)
+        return
+    params = [p for group in opt.param_groups for p in group['params']]
+    if len(params) != len(grads):
+        raise ValueError(f'{len(grads)} gradients for {len(params)} parameters')
+    outer = [p.grad for p in params]
+    for p, g in zip(params, grads):
+        p.grad = g
+    try:
+        opt.step()
+    finally:
+        for p, g in zip(params, outer):
+            p.grad = g

@@ -89,7 +89,7 @@ def directional_reparam(
     tgt: torch.Tensor,
     noise_variance: float = 5e-3,
     *,
-    generator: torch.Generator | None = None,
+    generator: sampling.RandomStream | None = None,
     noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """DiVeQ's directional reparameterization (figure 1 of
@@ -98,7 +98,7 @@ def directional_reparam(
     error's norm, which carries the gradient to both src and tgt.
 
     The standard normal noise is `noise` when given (of tgt's shape), else
-    drawn from `generator` by `core.sampling.normal_noise`, which is looked
+    drawn from the stream `generator` by `core.sampling.normal_noise`, which is looked
     up at call time."""
     error_dir = tgt - src
     error_dir_norm = torch.linalg.vector_norm(error_dir, dim=-1, keepdim=True)

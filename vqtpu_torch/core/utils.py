@@ -14,6 +14,8 @@ from typing import Any, Callable
 
 import torch
 
+from .sampling import RandomStream, normal_noise
+
 
 def exists(val: Any) -> bool:
     return val is not None
@@ -44,22 +46,24 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return device
 
 
-def module_generators(model) -> list[torch.Generator]:
-    """The distinct `generator`s of `model`'s modules, in module order (the
-    random state a module keeps beside its parameters and buffers)."""
+def module_generators(model) -> list[RandomStream]:
+    """The distinct random streams (`generator`, a `core.sampling.RandomStream`)
+    of `model`'s modules, in module order (the random state a module keeps
+    as its buffer `rng_state`)."""
     seen, out = set(), []
     for m in model.modules():
         g = getattr(m, 'generator', None)
-        if isinstance(g, torch.Generator) and id(g) not in seen:
+        if isinstance(g, RandomStream) and id(g) not in seen:
             seen.add(id(g))
             out.append(g)
     return out
 
 
-def random_orthogonal(n: int, generator: torch.Generator, device) -> torch.Tensor:
-    """A Haar-random (n, n) orthogonal matrix: QR of a Gaussian matrix with
-    the signs of R's diagonal folded into Q."""
-    q, r = torch.linalg.qr(torch.randn(n, n, generator=generator, device=generator.device).to(device))
+def random_orthogonal(n: int, generator: RandomStream, device) -> torch.Tensor:
+    """A Haar-random (n, n) orthogonal matrix: QR of a Gaussian matrix (drawn
+    from the stream `generator` by `core.sampling.normal_noise`) with the
+    signs of R's diagonal folded into Q."""
+    q, r = torch.linalg.qr(normal_noise(generator, (n, n), device=device))
     return q * torch.sign(torch.diagonal(r))[None, :]
 
 

@@ -72,9 +72,9 @@ def entry(device=None):
     As `nnx.merge(graphdef, state)` leaves the JAX state, the call runs on
     copies of the state's tensors (the EMA update writes into the copies;
     gradients flow to the originals). The forward draws nothing from the
-    model's generators (no kmeans init, no expiry, no stochastic codes), so
-    `fn` reads and writes no random state and compiles whole, as
-    `jax.jit(fn)` does:
+    model's random streams (no kmeans init, no expiry, no stochastic
+    codes), so `fn` leaves their states (`rng_state`) as they were and
+    compiles whole, as `jax.jit(fn)` does:
 
         fn, (state, x) = entry()
         recon, indices, commit_loss = torch.compile(fn, fullgraph=True)(state, x)
@@ -154,7 +154,8 @@ class TPRVQModel(nn.Module):
 
 def built_on_cpu(build, device) -> nn.Module:
     """`build('cpu')` under torch seed SEED, moved to `device`: the same
-    weights, and generators that draw the same numbers, on every device."""
+    weights, and random streams that draw the same numbers, on every
+    device."""
     torch.manual_seed(SEED)
     return build('cpu').to(device)
 

@@ -30,12 +30,9 @@ def main(train_iter=1000, lr=3e-4, dim=32, levels=(8, 6, 5), seed=1234,
         quantize_rate=quantize_rate, vector_norm=vector_norm, device=device,
     )
     model = SimpleQuantizeAutoEncoder(quantizer, dim=dim, device=device)
-    # its quantize dropout draws from the module's generator, which torch.compile
-    # cannot trace yet: this example runs its step eagerly
     return train_loop(model, loss_from_outputs=loss_from_outputs,
                       codebook_size=math.prod(levels), train_iter=train_iter,
-                      lr=lr, alpha=alpha, batch_size=batch_size, seed=seed, device=device,
-                      compiled=False)
+                      lr=lr, alpha=alpha, batch_size=batch_size, seed=seed, device=device)
 
 
 if __name__ == '__main__':

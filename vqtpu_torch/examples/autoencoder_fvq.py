@@ -41,12 +41,9 @@ def main(train_iter=1000, lr=3e-4, dim=32, num_codes=256, seed=1234,
         in_place_codebook_optimizer=lambda p: torch.optim.SGD(p, lr=1e-3), device=device,
     )
     model = SimpleQuantizeAutoEncoder(quantizer, dim=dim, device=device)
-    # the bridge's step saves and restores the codebook's generator, which
-    # torch.compile cannot trace yet: this example runs its step eagerly
     return train_loop(model, loss_from_outputs=loss_from_outputs,
                       codebook_size=num_codes, train_iter=train_iter, lr=lr,
-                      alpha=alpha, batch_size=batch_size, seed=seed, device=device,
-                      compiled=False)
+                      alpha=alpha, batch_size=batch_size, seed=seed, device=device)
 
 
 if __name__ == '__main__':

@@ -47,12 +47,9 @@ def main(train_iter=1000, lr=3e-4, dim=32, num_codes=512, seed=1234,
     device = resolve_device(device)
     torch.manual_seed(seed)
     model = HQAutoEncoder(dim, num_codes, scales, device=device)
-    # its kmeans init draws from the codebook's generator, which torch.compile
-    # cannot trace yet: this example runs its step eagerly
     return train_loop(model, loss_from_outputs=loss_from_outputs,
                       codebook_size=num_codes, train_iter=train_iter, lr=lr,
-                      alpha=alpha, batch_size=batch_size, seed=seed, device=device,
-                      compiled=False)
+                      alpha=alpha, batch_size=batch_size, seed=seed, device=device)
 
 
 if __name__ == '__main__':

@@ -7,8 +7,11 @@ The step is one function of the batch: the forward, the loss, its
 gradients (`torch.autograd.grad`) and the AdamW update
 (`core.optim.adamw_update`). On the card it runs compiled whole
 (`core.compile.compile_step`: one graph, or an error), as the JAX script's
-`@nnx.jit` step does; an example whose quantizer draws from a generator
-passes `compiled=False` and says so.
+`@nnx.jit` step does, for every example: their random draws come from
+counter-based streams held as module state (`core.sampling`), kmeans init
+is one op that returns at once once the codebook is initialized, and an
+in-place codebook optimizer steps through its functional update
+(`core.optim.optimizer_update`).
 """
 
 from __future__ import annotations

@@ -8,15 +8,15 @@ members [r * g_local, (r + 1) * g_local) (g_local = groups / W) on its
 feature slices of the same tokens, with the ordinary member forward, so the
 members' kernels launch there as they do in the serial loop. The outputs
 are all-gathered over the axis and assembled in group order as the serial
-forward assembles them; then every member's state (parameters, buffers and
-generators) is broadcast from the rank that ran it, so every rank's module
+forward assembles them; then every member's state (parameters and buffers,
+its random streams' states among them) is broadcast from the rank that ran it, so every rank's module
 equals the serial loop's (the JAX package's writeback).
 
-Each member draws from its own generators, on its owner rank, as it does in
-the serial loop, so even a stochastic forward matches the serial one, and
-the groups' streams differ (each member's generator was seeded apart). The
+Each member draws from its own random streams, on its owner rank, as it
+does in the serial loop, so even a stochastic forward matches the serial
+one, and the groups' streams differ (each member's was seeded apart). The
 shared quantize-dropout index is drawn once, by every rank alike, from the
-first member's generator, as the serial forward draws it.
+first member's stream, as the serial forward draws it.
 
 With `data_axis`, `x` (and `mask`, the indices of the cross-entropy path)
 are this rank's shard of the batch; members built with
@@ -31,7 +31,6 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..core.utils import module_generators
 from . import collectives
 from .shard import Mesh
 
@@ -52,8 +51,9 @@ def _gather_groups(per_member: list, group_axis: str) -> list:
 
 @torch.no_grad()
 def broadcast_member_state(gmodule, mesh: Mesh, group_axis: str = 'group') -> None:
-    """Copy every member's parameters, buffers and generator states from the
-    rank that owns it to the other ranks of `group_axis`."""
+    """Copy every member's parameters and buffers (its random streams' states
+    among them) from the rank that owns it to the other ranks of
+    `group_axis`."""
     g_local, _ = _layout(gmodule, mesh, group_axis)
     pg = mesh.group(group_axis)
     for g, member in enumerate(gmodule.rvqs):
@@ -68,11 +68,6 @@ def broadcast_member_state(gmodule, mesh: Mesh, group_axis: str = 'group') -> No
             dist.broadcast(buf, src=src, group=pg)
             if buf is not t.data:
                 t.data.copy_(buf)
-        device = next(iter(member.buffers()), torch.zeros(())).device
-        for gen in module_generators(member):
-            state = gen.get_state().to(device)
-            dist.broadcast(state, src=src, group=pg)
-            gen.set_state(state.cpu())
 
 
 def group_parallel_forward(

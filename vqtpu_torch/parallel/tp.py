@@ -31,7 +31,6 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..core.utils import module_generators
 from . import collectives
 from .shard import Mesh, average_gradients
 
@@ -242,15 +241,15 @@ def tp_apply(model: nn.Module, mesh: Mesh, fn: Callable, *args, mutates_state: b
     rows). A model at rest is sharded for the call. With `mutates_state`
     the state the call leaves (EMA statistics, expired codes) is kept, and
     a model that was at rest is gathered back to full rows; without it the
-    model's parameters, buffers and generators are restored after the
-    call, as the JAX package discards a non-mutating call's state."""
+    model's parameters and buffers (its random streams' states among them)
+    are restored after the call, as the JAX package discards a non-mutating
+    call's state."""
     at_rest = not is_sharded(model)
     full = {id(t): t.data for _, _, t, _ in _leaves(model)} if at_rest and not mutates_state else None
     saved = None
     if not mutates_state:
         tensors = {id(t): t for t in [*model.parameters(), *model.buffers()]}
-        saved = ({i: t.detach().clone() for i, t in tensors.items() if full is None or i not in full},
-                 [(g, g.get_state()) for g in module_generators(model)])
+        saved = {i: t.detach().clone() for i, t in tensors.items() if full is None or i not in full}
     if at_rest:
         shard_codebooks(model, mesh)
     try:
@@ -265,10 +264,12 @@ def tp_apply(model: nn.Module, mesh: Mesh, fn: Callable, *args, mutates_state: b
                 for t in [*model.parameters(), *model.buffers()]:
                     if full is not None and id(t) in full:
                         t.data = full[id(t)]
-                    elif id(t) in saved[0]:
-                        t.data = saved[0][id(t)]
-            for g, state in saved[1]:
-                g.set_state(state)
+                    elif id(t) in saved:
+                        t.data = saved[id(t)]
             for m, _, _, _ in _leaves(model):
                 if hasattr(m, 'rewritten_rows'):
                     m.rewritten_rows = None
+            # a restored `initted` may be False again: the next forward reads it
+            for m in model.modules():
+                if hasattr(m, 'initted_on_host'):
+                    m.initted_on_host = False

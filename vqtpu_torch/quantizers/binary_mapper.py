@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import sampling
-from ..core.sampling import one_hot_float
+from ..core.sampling import attach_stream, one_hot_float
 from ..core.utils import default, resolve_device
 
 NAT = math.log(2)
@@ -42,7 +42,7 @@ class BinaryMapper(nn.Module):
         rngs=None,
         device: str | torch.device | None = None,
     ):
-        """`device` as for VectorQuantize (the generator's device); `rngs`
+        """`device` as for VectorQuantize (the random stream's device); `rngs`
         must be None (`self.generator` is seeded from torch's global
         generator)."""
         super().__init__()
@@ -53,8 +53,7 @@ class BinaryMapper(nn.Module):
         self.num_codes = 2 ** bits
         self.kl_loss_threshold = kl_loss_threshold
         self.deterministic_on_eval = deterministic_on_eval
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
+        self.generator = attach_stream(self, device)
 
     def _power_two(self, device) -> torch.Tensor:
         return 2 ** torch.arange(self.bits, device=device)

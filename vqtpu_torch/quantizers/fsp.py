@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..core import sampling
+from ..core.sampling import attach_stream
 from ..core.utils import default, resolve_device
 from ..parallel.collectives import axis_size, psum
 
@@ -169,8 +170,7 @@ class FSP(nn.Module):
         # data-parallel: the moments psum over this mesh axis
         self.vector_norm.sync_axis = sync_axis
         self.sync_axis = sync_axis
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
+        self.generator = attach_stream(self, device)
 
     def extra_repr(self) -> str:
         return (f'levels={list(self.levels)}, codebook_size={self.codebook_size}, '

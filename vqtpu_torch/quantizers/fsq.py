@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from ..core.layout import to_tokens
-from ..core.sampling import bernoulli_and_uniform
+from ..core.sampling import attach_stream, bernoulli_and_uniform
 from ..core.ste import floor_ste, round_ste
 from ..core.utils import autocast_off, default, random_orthogonal, resolve_device, rotate
 
@@ -106,8 +106,7 @@ class FSQ(nn.Module):
         # accepts strings or dtypes
         self.allowed_dtypes = tuple(getattr(torch, d) if isinstance(d, str) else d for d in allowed_dtypes)
 
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
+        self.generator = attach_stream(self, device)
 
         self.orthogonal_rotation = orthogonal_rotation
         if orthogonal_rotation:

@@ -26,6 +26,7 @@ from itertools import accumulate
 import torch
 from torch import nn
 
+from ..core.optim import optimizer_update
 from ..core.utils import resolve_device
 
 
@@ -199,14 +200,8 @@ class LatentQuantize(nn.Module):
             if self.quantization_loss_weight != 0:
                 loss = loss + self.quantization_loss(original_input, out)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-        outer = [p.grad for p in params]
-        for p, g in zip(params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
-        try:
-            self.in_place_codebook_optimizer.step()
-        finally:
-            for p, g in zip(params, outer):
-                p.grad = g
+        optimizer_update(self.in_place_codebook_optimizer,
+                         [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
 
     def forward(self, z: torch.Tensor):
         """Channel-first (b, dim, ...) -> (out (b, dim, ...), indices

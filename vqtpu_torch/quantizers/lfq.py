@@ -43,7 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.layout import to_tokens
-from ..core.sampling import gumbel_noise
+from ..core.sampling import attach_stream, gumbel_noise
 from ..core.utils import (
     default, entropy as entropy_fn, f32_core, l2norm, random_orthogonal, resolve_device, rotate,
 )
@@ -184,8 +184,7 @@ class LFQ(nn.Module):
         self.channel_first = channel_first
         self.spherical = spherical
 
-        self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(int(torch.randint(0, 2**62, (), dtype=torch.int64)))
+        self.generator = attach_stream(self, device)
 
         # powers of two, MSB first; derived, so not part of the state
         self.register_buffer(

@@ -47,6 +47,7 @@ from torch import nn
 from ..codebook.codebook import Codebook
 from ..core import sampling
 from ..core.layout import to_tokens
+from ..core.optim import optimizer_update
 from ..core.sampling import gumbel_sample
 from ..core.ste import (
     directional_reparam as directional_reparam_estimator, rotate_to,
@@ -82,7 +83,7 @@ def _cross_entropy_ignore_index(
 
 
 def orthogonal_reg_code_ids(
-    generator: torch.Generator, codebook_size: int, max_codes: int,
+    generator: sampling.RandomStream, codebook_size: int, max_codes: int,
     active: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The `max_codes` codes the orthogonal loss keeps: a uniform random
@@ -98,19 +99,21 @@ def orthogonal_reg_code_ids(
 
 
 @contextmanager
-def _state_discarded(module: nn.Module, generator: torch.Generator):
-    """Undo, on exit, every change to `module`'s buffers and to the state
-    of `generator` made inside."""
+def _state_discarded(module: nn.Module):
+    """Undo, on exit, every change made inside to `module`'s buffers, its
+    random stream's state (`rng_state`) among them, and to the host mirror
+    of its `initted` flag."""
     buffers = dict(module.named_buffers())
     saved = {name: b.clone() for name, b in buffers.items()}
-    rng = generator.get_state()
+    on_host = getattr(module, 'initted_on_host', None)
     try:
         yield
     finally:
         with torch.no_grad():
             for name, b in buffers.items():
                 b.copy_(saved[name])
-        generator.set_state(rng)
+        if on_host is not None:
+            module.initted_on_host = on_host
 
 
 class VectorQuantize(nn.Module):
@@ -496,15 +499,7 @@ class VectorQuantize(nn.Module):
         """One step of the in-place optimizer on `grads`, one a codebook
         parameter, averaged over the data axis; the parameters' `.grad` are
         left as they were."""
-        params = list(self._codebook.parameters())
-        outer = [p.grad for p in params]
-        for p, g in zip(params, grads):
-            p.grad = pmean(g, self.sync_axis)
-        try:
-            self.in_place_codebook_optimizer.step()
-        finally:
-            for p, g in zip(params, outer):
-                p.grad = g
+        optimizer_update(self.in_place_codebook_optimizer, [pmean(g, self.sync_axis) for g in grads])
 
     def update_in_place_optimizer(self):
         """Take the in-place optimizer's step on the gradients accumulated
@@ -518,12 +513,14 @@ class VectorQuantize(nn.Module):
     def _inner_codebook_step(self, x: torch.Tensor, mask, codebook_kwargs: dict) -> torch.Tensor:
         """The gradient of MSE(quantized, x) with respect to the codebook's
         parameters, from a forward whose changes to the codebook's state
-        (its buffers, its generator) are discarded, as the JAX package
-        discards them; then the optimizer's step, or the gradients added to
-        the pending ones in manual mode. Returns the MSE."""
+        (its buffers, its random stream's among them) are discarded, as the
+        JAX package discards them; then the optimizer's step
+        (`core.optim.optimizer_update`, which a compiled step traces), or
+        the gradients added to the pending ones in manual mode. Returns the
+        MSE."""
         params = list(self._codebook.parameters())
         target = x.detach().float()
-        with torch.enable_grad(), _state_discarded(self._codebook, self._codebook.generator):
+        with torch.enable_grad(), _state_discarded(self._codebook):
             q, _, _ = self._codebook(target, **{**codebook_kwargs, 'update_usage': False})
             err = (q - target) ** 2
             loss = err.mean() if mask is None else masked_mean(err, self._loss_mask(err, mask))

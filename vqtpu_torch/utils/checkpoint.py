@@ -18,14 +18,16 @@ vector_quantize_pytorch.py:415-448, as the JAX package keeps it):
               LatentQuantize's values, QINCo's MLPs, HierarchicalVQ's Phi
               convolutions); SimVQ's frozen codebook, the
               RandomProjectionQuantizer's projections, LFQ's and FSQ's
-              orthogonal rotations.
+              orthogonal rotations; every random stream's `rng_state`.
   derived (made again at construction, never checkpointed): FSQ's levels
               and mixed-radix basis, LFQ's bit mask, ResidualFSQ's scales
               (buffers registered with persistent=False), LFQ's implicit
               codebook and FSQ's (computed from them when asked for).
 
-The draws' generators (`module.generator`) are not persisted, as the JAX
-package persists no RNG state: a freshly constructed module brings its own.
+A module's random stream (`module.generator`, core.sampling.RandomStream)
+keeps its key and counter in the buffer `rng_state`, so a snapshot holds
+them and a restored module draws on from where the saved one was (the JAX
+package persists no RNG state: there a fresh module brings its own).
 
 Row-sharded codebooks (`code_axis`, parallel.tp): given the mesh, a sharded
 module's snapshot gathers every codebook over its code axis (every rank

@@ -66,6 +66,7 @@ def _codebook(torch_state, prefix, cb):
             _set(getattr(cb, name), torch_state[f'{prefix}.{name}'])
     if f'{prefix}.initted' in torch_state:
         cb.initted.fill_(bool(np.asarray(torch_state[f'{prefix}.initted'])))
+        cb.initted_on_host = False
     for stat in ('batch_mean', 'batch_variance', 'codebook_mean', 'codebook_variance'):
         key = f'{prefix}.{stat}'
         if key in torch_state and hasattr(cb, stat):

@@ -19,8 +19,16 @@ attribute names, so the trees line up. Layouts converted:
     nn.ParameterList here)            -> copied as they are
   - the integer keys of an nnx.List   -> the nn.ModuleList children '0', '1', ...
 
-A `rngs` entry (flax's RNG streams) has no torch counterpart and is
-skipped. So are VectorQuantize's and LatentQuantize's
+A `rngs` entry (flax's RNG streams) seeds the port's random streams
+instead of loading as a tensor: every module's stream state (the buffer
+`rng_state`, core.sampling) becomes the key of the nearest stream at or
+above the module's path in the state (its 'default' stream, else its
+first; the state's first stream where none is above), folded with the
+module's path (threefry-2x32 of the key on the path's CRC-32), and that
+stream's count. So a module loaded from a JAX state draws the same on
+every load and in every process, and a state without `rngs` leaves the
+streams as they were. The two frameworks' streams still draw different
+numbers. So are VectorQuantize's and LatentQuantize's
 `in_place_codebook_optimizer` (optax's state) and `_pending_inner_grads`
 as long as every leaf under them is 0, the state before the first
 in-place step: the port's inner optimizer starts
@@ -36,11 +44,14 @@ stream it shares with another.
 
 from __future__ import annotations
 
+import zlib
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..core.sampling import STATE_BUFFER, threefry2x32
 
 # keys of optimizer state the port does not carry; they load only while
 # every leaf under them is 0
@@ -88,9 +99,46 @@ def load_vqtpu_state(module: nn.Module, state: Mapping, prefix: str = '') -> Non
     absent: list[tuple[str, nn.Module]] = []
     _load(module, state, prefix, filled, absent)
     missing = [path for path, child in absent
-               if any(id(t) not in filled for t in child.state_dict(keep_vars=True).values())]
+               if any(id(t) not in filled for key, t in child.state_dict(keep_vars=True).items()
+                      if key.rpartition('.')[2] != STATE_BUFFER)]
     if missing:
         raise KeyError(f'state gives no value for {", ".join(missing)}')
+    _seed_streams(module, list(_rng_streams(state)))
+    # a loaded `initted` may be False: each codebook's next forward reads it
+    for m in module.modules():
+        if hasattr(m, 'initted_on_host'):
+            m.initted_on_host = False
+
+
+def _rng_streams(state: Mapping, path: str = ''):
+    """(path of the module that holds it, key (2,) uint32, count) of every
+    flax RNG stream entry in `state`, in the state's order."""
+    for key, value in state.items():
+        if not isinstance(value, Mapping):
+            continue
+        if str(key) == 'rngs':
+            streams = value.get('default') or next((v for v in value.values() if isinstance(v, Mapping)), None)
+            if streams is not None and 'key' in streams and 'count' in streams:
+                yield path, np.asarray(streams['key']).reshape(-1)[-2:], int(np.asarray(streams['count']))
+        else:
+            yield from _rng_streams(value, f'{path}{key}.')
+
+
+def _seed_streams(module: nn.Module, streams: list) -> None:
+    """Seed each module's `rng_state` from the nearest JAX stream (see the
+    module doc)."""
+    if not streams:
+        return
+    for path, m in module.named_modules():
+        state = m._buffers.get(STATE_BUFFER)
+        if state is None:
+            continue
+        above = [s for s in streams if f'{path}.'.startswith(s[0])]
+        where, key, count = max(above, key=lambda s: len(s[0])) if above else streams[0]
+        k0, k1 = (torch.tensor(int(k)) for k in key)
+        y0, y1 = threefry2x32(k0, k1, torch.tensor(zlib.crc32(path.encode())), torch.tensor(0))
+        with torch.no_grad():
+            state.copy_(torch.stack((y0, y1, torch.tensor(count))))
 
 
 def _load(module: nn.Module, state: Mapping, prefix: str, filled: set[int],
@@ -100,7 +148,7 @@ def _load(module: nn.Module, state: Mapping, prefix: str, filled: set[int],
     rules = leaf_rules(module)
     tensors = dict(module.named_parameters(recurse=False))
     tensors.update((name, t) for name, t in module.named_buffers(recurse=False)
-                   if name not in module._non_persistent_buffers_set)
+                   if name not in module._non_persistent_buffers_set and name != STATE_BUFFER)
     children = dict(module.named_children())
     given = set()
 
