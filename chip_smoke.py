@@ -196,7 +196,18 @@ prints one JSON line per phase:
    x.grad over the world size against one process;
 37. dp_nccl1: the dp_vq_train step on a one-rank NCCL group: with kmeans
    and expiry a finite codebook and K4 once; without them bit-identical to
-   the module without sync_axis;
+   the module without sync_axis; and the step compiled (kmeans init, then
+   the step after it) against its eager twin, as dp_compiled holds it;
+37a. dp_compiled: dp_vq_train's configuration with the trainer's step
+   compiled whole by inductor (DataParallelTrainer's default on the card),
+   its collectives in the graph, on two gloo ranks on the card: 2 'on'
+   steps (kmeans init inside the first) and one 'off' step, each from an
+   eager twin's state; the ranks bit-identical, every flipped index a
+   near-tie in float64, loss, gain and codebook within 1e-5 of eager over
+   the unflipped codes, K4 (or K1) once a rank a step, three graphs (two
+   for 'on'), K4's symbols in each rank's profiler trace, an unbound axis
+   raising NameError from a compiled call; compile seconds, eager and
+   compiled ms a rank (CUDA events), idle shares, FX graph cache hits;
 38. utils: timeit_chained on the VQ eval forward beside phase 5's time, a
    torch.profiler trace holding an annotate label, and dp_vq_train's module
    saved by rank 0 and restored here, its eval forward bit-equal;
@@ -4415,7 +4426,8 @@ def dp_vq_body(rank, world, mesh, out, route_steps, device, shape=DP_MAIN):
     cb.init_embed_ = init_and_record
 
     steps = []
-    trainer = DataParallelTrainer(model, torch.optim.SGD(model.parameters(), lr=1e-3), loss_fn, mesh)
+    trainer = DataParallelTrainer(model, torch.optim.SGD(model.parameters(), lr=1e-3), loss_fn, mesh,
+                                  compiled=False)
     for route, s in route_steps:
         model.vq._codebook.train_fused = route
         full = dp_batch(s, device, (b, n, d))
@@ -4699,7 +4711,7 @@ def dp_nccl1_body(rank, world, mesh, out, device, shape=DP_MAIN):
             loss_fn(model, full).backward()
             opt.step()
         else:
-            DataParallelTrainer(model, opt, loss_fn, mesh).step(full)
+            DataParallelTrainer(model, opt, loss_fn, mesh, compiled=False).step(full)
         sync(device)
         return dict(idx=picked['idx'], gain=model.gain.detach().clone(), launches=fused_train_quantize.launches,
                     **dp_state(model))
@@ -4707,7 +4719,14 @@ def dp_nccl1_body(rank, world, mesh, out, device, shape=DP_MAIN):
     full_path = trained(DP_VQ_KW, 'data')
     plain_kw = dict(DP_VQ_KW, kmeans_init=False, threshold_ema_dead_code=0)
     synced, plain = trained(plain_kw, 'data'), trained(plain_kw, None)
+    del full
+    # the same step compiled over NCCL against its eager twin: kmeans init, then the step after it
+    compiled_steps, _, _ = dp_twin_steps(mesh, device, shape, [('on', 0), ('on', 1)],
+                                         lambda s: dp_batch(s, device, (b, n, d)))
+    for st in compiled_steps:
+        st.pop('state')
     return dict(backend=dist.get_backend(), launches=[full_path['launches'], synced['launches']],
+                compiled_steps=compiled_steps,
                 full_path_finite=all(bool(torch.isfinite(full_path[k]).all()) for k in ('embed', 'embed_avg')),
                 identical={k: bool(torch.equal(synced[k], plain[k]))
                            for k in ('idx', 'gain', 'embed', 'embed_avg', 'cluster_size')})
@@ -4717,15 +4736,217 @@ def phase_dp_nccl1():
     """dp_nccl1: the dp_vq_train step on a one-rank NCCL group, so that the
     collectives run over NCCL on the card: with kmeans init and expiry, K4
     once and a finite codebook; without them, bit-identical to the module
-    without sync_axis."""
+    without sync_axis; and compiled (the kmeans step and the one after it)
+    against its eager twin, as dp_compiled holds it."""
     (res,) = dp_run_world(dp_nccl1_body, 'dp_nccl1', world=1, backend='nccl')
+    check_twin_steps('dp_nccl1 compiled', res['compiled_steps'])
     check(res['backend'] == 'nccl', f"the group runs NCCL ({res['backend']})")
     check(res['launches'] == [1, 1], f"K4 once a step ({res['launches']})")
     check(res['full_path_finite'], 'the kmeans and expiry step gives a finite codebook')
     check(all(res['identical'].values()), f'the one-rank NCCL step equals the un-synced one {res["identical"]}')
     emit('dp_nccl1', backend=res['backend'], world=1, identical_to_unsynced=res['identical'],
-         launches_train_fused=res['launches'])
+         launches_train_fused=res['launches'], compiled_steps=res['compiled_steps'])
     return res
+
+
+# -- the data-parallel step compiled whole (DataParallelTrainer(compiled=None) on the card) --
+
+# 'on' steps of dp_compiled, kmeans init at the first, then one 'off' step;
+# 2, not 3: the script ran over its 1000 s aim on a slower host (PERF.md §4)
+DP_COMPILED_ON_STEPS = 2
+
+
+def copy_state_(model, ref) -> None:
+    """`model`'s parameters and buffers take `ref`'s values in place: the
+    tensors a compiled step holds stay the same, and so does the host
+    mirror of kmeans init, which load_state_dict would clear."""
+    with torch.no_grad():
+        want = ref.state_dict()
+        for k, v in model.state_dict().items():
+            v.copy_(want[k])
+
+
+def ranks_agree(mesh):
+    """agree(ok) -> whether `ok` holds on every rank of the mesh's 'data'
+    axis (warm_profile's window retries, taken by all ranks together)."""
+    from vqtpu_torch.parallel import collectives
+
+    def agree(ok):
+        with mesh:
+            return bool(collectives.pmin(torch.tensor([float(ok)]), 'data')[0] > 0)
+    return agree
+
+
+def dp_twin_steps(mesh, device, shape, route_steps, batch_of):
+    """DataParallelTrainer over GainVQ(sync_axis='data', train_fused, kmeans
+    init, expiry) with SGD(lr=1e-3), compiled (compiled=None: the card) and
+    its eager twin (compiled=False) from one seed. Before each (route,
+    step) the compiled model takes the twin's state; both then step on
+    `batch_of(step)`. Per step: both losses and seconds, each one's K4 and
+    K1 launches, the compiled indices judged against eager's in float64
+    on the quantizer's input and the codebook the selection used, the
+    codebook's and gain's errors against eager over the unflipped codes,
+    the compiled versions of the step so far, and the compiled state.
+    Returns (steps, models, trainers), each of the two by mode."""
+    import torch.distributed as dist
+    from torch._dynamo.eval_frame import _debug_get_cache_entry_list
+    from vqtpu_torch.kernels.distance import nearest_code, selection_bias, selection_disagreements
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    from vqtpu_torch.parallel import DataParallelTrainer
+    b, n, d, c = shape
+    kw = dict(DP_VQ_KW, dim=d, codebook_size=c, sync_axis='data', train_fused='on')
+    torch.manual_seed(0)
+    models = dict(compiled=GainVQ(device, **kw).train(), eager=GainVQ(device, **kw).train())
+    models['compiled'].load_state_dict(models['eager'].state_dict())
+    picked = {}
+
+    def loss_fn(m, batch):
+        q, idx, loss = m(batch)
+        picked['idx'] = idx
+        return loss + q.square().mean()
+
+    trainers = dict(compiled=DataParallelTrainer(models['compiled'], torch.optim.SGD(models['compiled'].parameters(),
+                                                                                     lr=1e-3), loss_fn, mesh),
+                    eager=DataParallelTrainer(models['eager'], torch.optim.SGD(models['eager'].parameters(), lr=1e-3),
+                                              loss_fn, mesh, compiled=False))
+    check(trainers['compiled'].compiled, 'compiled=None compiles the step on the card')
+    cb = models['eager'].vq._codebook
+    init, used = cb.init_embed_, {}
+
+    def init_and_record(flatten, mask=None):
+        init(flatten, mask)
+        used['embed'] = cb.embed[0].detach().clone()
+    cb.init_embed_ = init_and_record
+
+    steps = []
+    for route, s in route_steps:
+        for m in models.values():
+            m.vq._codebook.train_fused = route
+        copy_state_(models['compiled'], models['eager'])
+        local = batch_of(s)
+        used['embed'] = cb.embed[0].detach().clone()
+        x_in = (local * models['eager'].gain).detach().reshape(-1, d)
+        st, idx, loss = dict(route=route, step=s), {}, {}
+        for mode in ('eager', 'compiled'):
+            nearest_code.launches = fused_train_quantize.launches = 0
+            dist.barrier()
+            sync(device)
+            t0 = time.perf_counter()
+            loss[mode] = trainers[mode].step(local)
+            sync(device)
+            st[f'{mode}_s'] = time.perf_counter() - t0
+            st[f'{mode}_launches'] = dict(train_fused=fused_train_quantize.launches, nearest_code=nearest_code.launches)
+            idx[mode] = picked['idx'].reshape(-1)
+        # the compiled versions of the trainer's step so far (the random
+        # stream's own compiled function on the card is not among them)
+        st['step_graphs'] = len(_debug_get_cache_entry_list(DataParallelTrainer._step_body.__code__))
+        embed = used['embed']
+        st['ties'] = selection_disagreements(x_in, embed, selection_bias(embed, 'euclidean'), idx['compiled'],
+                                             idx['eager'])
+        cb_err, st['flips'] = codebook_vs_eager(models['compiled'].vq._codebook.state_dict(), cb.state_dict(),
+                                                idx['compiled'], idx['eager'])
+        st['errors'] = dict(loss=rel_err(loss['compiled'], loss['eager']),
+                            gain=rel_err(models['compiled'].gain, models['eager'].gain), **cb_err)
+        st['loss'] = float(loss['compiled'])
+        st['state'] = {k: v.detach().clone() for k, v in models['compiled'].state_dict().items()}
+        steps.append(st)
+    return steps, models, trainers
+
+
+def check_twin_steps(name, steps) -> None:
+    """Each step of dp_twin_steps against its eager twin, and the step's
+    compiled versions: one for the 'on' step with kmeans init, one for the
+    'on' steps after it, one for 'off'."""
+    seen = set()
+    for st in steps:
+        seen.add((st['route'], st['route'] == 'on' and st is steps[0]))
+        check(st['step_graphs'] == len(seen), f"{name} step {st['step']}: {st['step_graphs']} compiled versions of "
+                                              f"the step, expected {len(seen)}")
+        at = f"{name} step {st['step']} ({st['route']})"
+        want = dict(train_fused=1, nearest_code=0) if st['route'] == 'on' else dict(train_fused=0, nearest_code=1)
+        check(st['compiled_launches'] == want and st['eager_launches'] == want,
+              f"{at}: launches compiled {st['compiled_launches']}, eager {st['eager_launches']}")
+        check(st['ties']['non_tie'] == 0, f'{at}: every flipped index a near-tie in float64 {st["ties"]}')
+        check(max(st['errors'].values()) <= COMPILED_REL, f"{at}: within {COMPILED_REL} of eager {st['errors']}")
+        check(np.isfinite(st['loss']), f'{at}: finite loss')
+
+
+def dp_compiled_body(rank, world, mesh, out, device, shape=DP_MAIN, on_steps=DP_COMPILED_ON_STEPS):
+    """Rank body of dp_compiled: dp_twin_steps on this rank's half of each
+    global batch ('on' steps, then one 'off'), the compiled state gathered
+    from both ranks after each step; then, on 'on', each trainer's step
+    timed (CUDA events), the compiled step's kernels in a profiler trace,
+    both idle shares, the compiles and FX graph cache hits, and the
+    compiled NameError of an unbound axis. The ranks call every
+    collective together, profiler retries included."""
+    from torch._dynamo.utils import counters
+    from vqtpu_torch.core.compile import compile_step
+    from vqtpu_torch.parallel import collectives, global_batch
+    b, n, d, c = shape
+    torch._dynamo.reset()
+    counters.clear()
+
+    def batch_of(s):
+        return global_batch(mesh, ('data',), dp_batch(s, device, (b, n, d)), device)
+
+    route_steps = [('on', s) for s in range(on_steps)] + [('off', on_steps)]
+    steps, models, trainers = dp_twin_steps(mesh, device, shape, route_steps, batch_of)
+    for st in steps:
+        state = st.pop('state')
+        with mesh:
+            st['ranks_identical'] = {k: bool(torch.equal(*dp_gather(state[k]))) for k in (
+                'gain', 'vq._codebook.embed', 'vq._codebook.embed_avg', 'vq._codebook.cluster_size')}
+    cache = {k: v for k, v in counters['inductor'].items() if 'fxgraph' in k}
+    for m in models.values():
+        m.vq._codebook.train_fused = 'on'
+    local = batch_of(0)
+    fns = {mode: (lambda t=t: t.step(local)) for mode, t in trainers.items()}
+    times = mode_times(fns)
+    agree = ranks_agree(mesh)
+    trace = compiled_trace(fns['compiled'], agree=agree)
+    idle = {mode: warm_idle_share(fn, agree=agree) for mode, fn in fns.items()}
+    with mesh:
+        try:
+            compile_step(lambda t: collectives.psum(t, 'code'))(local[:1])
+            unbound = 'no error'
+        except NameError as e:
+            unbound = f'NameError: {e}'
+    return dict(steps=steps, fxgraph_cache=cache, trace=trace, idle=idle, unbound=unbound, **times)
+
+
+def phase_dp_compiled():
+    """dp_compiled: dp_vq_train's configuration (DataParallelTrainer over
+    VectorQuantize(dim=256, codebook_size=512, decay=0.8, sync_axis='data',
+    train_fused='on', kmeans_init=True, threshold_ema_dead_code=2) behind a
+    scalar gain, (1024, 1024, 256) as 2 x (512, 1024, 256) on two gloo
+    ranks on cuda:0) with the step compiled whole by inductor, the
+    collectives in its graph: 2 'on' steps (kmeans init inside the first)
+    and one 'off' step, each from its eager twin's state; the ranks
+    bit-identical, every flipped index a near-tie in float64, the loss,
+    gain and codebook within COMPILED_REL of eager over the unflipped
+    codes, K4 (or K1) once a rank a step, K4's symbols in each rank's
+    trace, at most two graphs for the 'on' steps."""
+    ranks = dp_run_world(dp_compiled_body, 'dp_compiled')
+    for r, res in enumerate(ranks):
+        check_twin_steps(f'dp_compiled rank {r}', res['steps'])
+        for st in res['steps']:
+            check(all(st['ranks_identical'].values()), f"dp_compiled step {st['step']}: ranks bit-identical "
+                                                       f"{st['ranks_identical']}")
+        check_trace(f'dp_compiled rank {r}', res['trace'], K4_SYMBOLS, dict(train_fused=1))
+        check(res['unbound'].startswith('NameError'), f"dp_compiled rank {r}: an unbound axis, compiled: "
+                                                      f"{res['unbound']}")
+    b, n, d, c = DP_MAIN
+    per_rank = {k: [r[k] for r in ranks] for k in ('ms', 'ms_runs', 'idle', 'fxgraph_cache')}
+    emit('dp_compiled', model=f'VectorQuantize(dim={d}, codebook_size={c}, decay=0.8, sync_axis=data, '
+                              "train_fused='on', kmeans_init=True, threshold_ema_dead_code=2) behind a scalar gain",
+         trainer='DataParallelTrainer(compiled=None: inductor, fullgraph), SGD(lr=1e-3); eager twin compiled=False',
+         world=DP_WORLD, backend='gloo (both ranks on cuda:0)', global_input=[b, n, d],
+         per_rank_input=[b // DP_WORLD, n, d],
+         steps_per_rank=[r['steps'] for r in ranks],
+         trace_per_rank=[r['trace'] for r in ranks], unbound_axis_compiled=ranks[0]['unbound'], **per_rank,
+         step_ms_note='CUDA events over 10 steps a round, two ranks time-sharing one card over gloo: '
+                      'a correctness run, not a data-parallel rate')
+    return ranks
 
 
 def phase_utils(dp_ranks, forward_ms):
@@ -6079,7 +6300,7 @@ class LostWindows(AssertionError):
     """Every profiler window of a measurement lost device events."""
 
 
-def warm_profile(fn, calls: int = 1, windows: int = 4):
+def warm_profile(fn, calls: int = 1, windows: int = 4, agree=None):
     """torch.profiler events of `calls` calls of `fn`, and the launch
     counters' delta over them. A window may lose device events (seen on an
     H100 with torch 2.11: the first milliseconds of a cold window, and now
@@ -6087,8 +6308,10 @@ def warm_profile(fn, calls: int = 1, windows: int = 4):
     so a spin kernel and one call warm the profiler up, spin kernels of
     about 25 ms pad the measured calls on either side, and a window that
     did not record both pads lost events and is taken again, up to
-    `windows` in all. Returns (events without the pads and the step
-    annotation, launches, windows taken)."""
+    `windows` in all. `agree(ok) -> ok`, where ranks call `fn` together,
+    makes every rank take a window again while any lost events. Returns
+    (events without the pads and the step annotation, launches, windows
+    taken)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -6109,7 +6332,10 @@ def warm_profile(fn, calls: int = 1, windows: int = 4):
             torch.cuda.synchronize()
             prof.step()
         events = prof.events()
-        if sum(e.device_type == DeviceType.CUDA and 'spin_kernel' in e.name for e in events) == 2:
+        ok = sum(e.device_type == DeviceType.CUDA and 'spin_kernel' in e.name for e in events) == 2
+        if agree is not None:
+            ok = agree(ok)
+        if ok:
             break
     else:
         raise LostWindows(f'check failed: {windows} profiler windows each lost device events')
@@ -6118,14 +6344,14 @@ def warm_profile(fn, calls: int = 1, windows: int = 4):
     return kept, launches, window
 
 
-def compiled_trace(fn, windows: int = 4) -> dict:
+def compiled_trace(fn, windows: int = 4, agree=None) -> dict:
     """One call of `fn` under a warmed profiler (`warm_profile`): the
     hand-written kernels by symbol, every device kernel or host op whose
     name holds 'argmax' (a product and an argmax standing in for the
     selection), and the launch counters' delta."""
     from torch.autograd import DeviceType
 
-    events, launches, windows = warm_profile(fn, windows=windows)
+    events, launches, windows = warm_profile(fn, windows=windows, agree=agree)
     device = [e.name for e in events if e.device_type == DeviceType.CUDA]
     symbols = {k: sum(sym in name for name in device) for k, sym in KERNEL_SYMBOLS.items()}
     return dict(symbols={k: v for k, v in symbols.items() if v}, device_kernels=len(device), windows=windows,
@@ -6134,14 +6360,14 @@ def compiled_trace(fn, windows: int = 4) -> dict:
                 launches=launches)
 
 
-def warm_idle_share(fn, calls: int = 5, windows: int = 4) -> dict:
+def warm_idle_share(fn, calls: int = 5, windows: int = 4, agree=None) -> dict:
     """The device's idle share over `calls` back-to-back calls of `fn`
     under a warmed profiler: 1 - the time some kernel ran (the union of the
     kernels' intervals, each interval once) / the span from the first
     kernel's start to the last one's end."""
     from torch.autograd import DeviceType
 
-    events, _, windows = warm_profile(fn, calls, windows)
+    events, _, windows = warm_profile(fn, calls, windows, agree)
     spans = sorted({(e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA})
     if not spans:
         return dict(idle_share=None, device_events=0, windows=windows)
@@ -7098,6 +7324,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with concurrent.futures.ThreadPoolExecutor(BESIDE) as pool:
         beside = {name: pool.submit(fn) for name, fn in (
+            ('dp_compiled', phase_dp_compiled),
             *((f'dryrun_{k}', functools.partial(timed_dryrun, k)) for k in ('gloo4_cpu', 'gloo4')),
             ('tp_train', phase_tp_vq_train), ('examples_distributed', examples_distributed),
             ('dp_vq', phase_dp_vq_train), ('dp_lfq', phase_dp_lfq_train), ('gp', phase_gp_grouped),
@@ -7120,6 +7347,9 @@ def main() -> int:
     tp_train_launches = [[r['steps'][i]['launches'] for r in tp_train] for i in range(len(tp_train[0]['steps']))]
     dp_vq_launches = {f"{st['route']}_step_{st['step']}": [r['steps'][i]['launches'] for r in dp_vq]
                       for i, st in enumerate(dp_vq[0]['steps'])}
+    dp_compiled_launches = {f"{st['route']}_step_{st['step']}": [r['steps'][i]['compiled_launches']
+                                                                 for r in done['dp_compiled']]
+                            for i, st in enumerate(done['dp_compiled'][0]['steps'])}
     check_no_spill(ptxas)
 
     print(json.dumps({'kernels': [{
@@ -7152,6 +7382,8 @@ def main() -> int:
         'launches_sequential_simvq_step': zoo['sequential_step0']['launches']['nearest_code'],
         'launches_dp_vq_off_step_per_rank': [[x['nearest_code'] for x in v] for k, v in dp_vq_launches.items()
                                              if k.startswith('off')][0],
+        'launches_dp_compiled_off_step_per_rank': [[x['nearest_code'] for x in v]
+                                                   for k, v in dp_compiled_launches.items() if k.startswith('off')][0],
         'launches_tp_select_blocks': tp_sel['launches'],
         'launches_tp_vq_train_per_step_per_rank': [[x['nearest_code'] for x in st] for st in tp_train_launches],
         'launches_tp_vq_eval_per_rank': [r['launches'] for r in tp_eval],
@@ -7195,6 +7427,8 @@ def main() -> int:
         'launches_hq_step': hq_launches['step']['train_fused'],
         'launches_dp_vq_step_per_rank': {k: [r['train_fused'] for r in v] for k, v in dp_vq_launches.items()
                                          if k.startswith('on')},
+        'launches_dp_compiled_step_per_rank': {k: [r['train_fused'] for r in v]
+                                               for k, v in dp_compiled_launches.items() if k.startswith('on')},
         'launches_gp_grouped_rvq_on_step_per_rank': [r['vq_train_launches']['train_fused'] for r in gp],
         'launches_example_step': example_launches(examples, 'launches_step', 'train_fused'),
         'launches_example_group_parallel_grvq_per_rank': [r['launches']['train_fused'] for r in ex_gp],

@@ -1000,6 +1000,22 @@ def test_dp_vq_train_two_gloo_ranks(card):
         assert st['one_process_indices'] and st['one_process_cluster_size']
 
 
+def test_dp_compiled_step_one_nccl_rank(card):
+    """DataParallelTrainer's step compiled whole on the card (its default
+    there) on one NCCL rank, the collectives in the graph, against its
+    eager twin from the same state: kmeans init, then the step after it;
+    K4 once a compiled step, every flipped index a near-tie in float64,
+    loss, gain and codebook within 1e-5 of eager over the unflipped codes."""
+    import torch_dist
+    from vqtpu_torch.parallel import run_ranks
+
+    (steps,) = run_ranks(torch_dist.dp_compiled_card_body, 1, backend='nccl', device='cuda', timeout=600)
+    for st in steps:
+        assert st['compiled'] and st['launches'] == 1, st
+        assert st['ties']['non_tie'] == 0, st
+        assert max(st['errors'].values()) <= 1e-5, st
+
+
 @pytest.mark.parametrize('metric', td.METRICS)
 @pytest.mark.parametrize('shape', ((300, 130, 96), (3, 1000, 257, 40), (4099, 1024, 256), (500, 300, 30)))
 def test_kernel_return_best_matches_plain(card, metric, shape):

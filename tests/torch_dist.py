@@ -776,3 +776,329 @@ def entry_sections_body(rank, world, mesh, *, c5_state, c5_batch, rvq_state, rvq
     gather_codebooks(rvq, mesh2d)
     return dict(c5_loss=c5_loss, c5_codebooks=_codebooks(c5), c5_state=np_tree(c5.state_dict()),
                 rvq_loss=rvq_loss, rvq_codebooks=_codebooks(rvq), rvq_state=np_tree(rvq.state_dict()))
+
+
+# -- the compiled data-parallel step (DataParallelTrainer(compiled=True)) -----------
+
+
+def recording_backend(graphs: list):
+    """aot_eager that keeps each captured graph (forward and backward) in
+    `graphs`."""
+    from torch._dynamo.backends.common import aot_autograd
+
+    def record(gm, example_inputs):
+        graphs.append(gm)
+        return gm.forward
+    return aot_autograd(fw_compiler=record, bw_compiler=record)
+
+
+def graph_ops(gm) -> dict:
+    """{'namespace::op': [shape of the first operand, per call]} of the
+    collectives, the vqtpu ops and argmax in a captured graph."""
+    out = {}
+    for n in gm.graph.nodes:
+        if n.op != 'call_function' or not isinstance(n.target, torch._ops.OpOverload):
+            continue
+        name = f'{n.target.namespace}::{n.target._opname}'
+        if n.target.namespace in ('_c10d_functional', 'vqtpu') or name == 'aten::argmax':
+            first = n.args[0] if n.args else None
+            val = first.meta.get('val') if isinstance(first, torch.fx.Node) else None
+            out.setdefault(name, []).append(tuple(val.shape) if isinstance(val, torch.Tensor) else None)
+    return out
+
+
+# the collectives of vqtpu_torch.parallel.collectives, each as a function of
+# a (4,) tensor that returns a (4,) tensor
+COLLECTIVE_CASES = ('psum', 'psum_exact', 'psum_in_bwd', 'pmean', 'all_gather', 'all_gather_by_sum',
+                    'all_gather_exact', 'pmax', 'pmin', 'axis_size', 'axis_index', 'axis_is_bound')
+
+
+def _collective_case(name):
+    from vqtpu_torch.parallel import collectives as c
+    return {
+        'psum': lambda x: c.psum(x, 'data'),
+        'psum_exact': lambda x: c.psum_exact(x, 'data'),
+        'psum_in_bwd': lambda x: c.psum_in_bwd(x, 'data'),
+        'pmean': lambda x: c.pmean(x, 'data'),
+        # stacked on a new axis, then every rank's first half: each rank's
+        # cotangent reaches the other rank's block too
+        'all_gather': lambda x: c.all_gather(x.reshape(2, 2), 'data', tiled=False, concat_axis=1).reshape(-1)[:4],
+        # the same gather as a psum of blocks among zeros (a compiled graph's
+        # form over gloo on the card)
+        'all_gather_by_sum': lambda x: c._AllGather.apply(x.reshape(2, 2), c.group('data'), 1, False, True,
+                                                          True).reshape(-1)[:4],
+        'all_gather_exact': lambda x: c.all_gather_exact(x, 'data')[2:6],
+        'pmax': lambda x: c.pmax(x, 'data') * x,
+        'pmin': lambda x: c.pmin(x, 'data') * x,
+        'axis_size': lambda x: x * c.axis_size('data'),
+        'axis_index': lambda x: x + c.axis_index('data'),
+        'axis_is_bound': lambda x: x * (2.0 if c.axis_is_bound('data') else 3.0),
+    }[name]
+
+
+def compiled_collectives(rank, world, mesh):
+    """Each collective eager and compiled (fullgraph) on this rank's (4,)
+    input: the value and the gradient of a weighted sum in both, the
+    collectives of the captured forward and backward graphs, and what an
+    unbound axis raises, compiled."""
+    from vqtpu_torch.core.compile import compile_step
+
+    w = torch.arange(4, dtype=torch.float32) + 1.0
+    out = {}
+    for name in COLLECTIVE_CASES:
+        fn = _collective_case(name)
+        res = {}
+        for mode in ('eager', 'compiled'):
+            torch._dynamo.reset()
+            graphs = []
+            run = fn if mode == 'eager' else torch.compile(fn, backend=recording_backend(graphs), fullgraph=True)
+            x = (torch.arange(4, dtype=torch.float32) + 1.0 + 10.0 * rank).requires_grad_()
+            with mesh:
+                y = run(x)
+                (y * w).sum().backward()
+            res[mode] = dict(value=y.detach(), grad=x.grad)
+            if mode == 'compiled':
+                res['graphs'] = [graph_ops(gm) for gm in graphs]
+        torch._dynamo.reset()
+        try:
+            compile_step(fn, backend='aot_eager')(torch.ones(4))
+            res['unbound'] = None
+        except NameError as e:
+            res['unbound'] = f'NameError: {e}'
+        out[name] = np_tree(res)
+    torch._dynamo.reset()
+    return out
+
+
+class GainVQ(torch.nn.Module):
+    """A scalar gain before a VectorQuantize (chip_smoke.py's dp_vq_train
+    model): the trainer's one parameter."""
+
+    def __init__(self, device='cpu', **vq_kwargs):
+        import vqtpu_torch
+        super().__init__()
+        self.gain = torch.nn.Parameter(torch.ones((), device=device))
+        self.vq = vqtpu_torch.VectorQuantize(**vq_kwargs, device=device)
+
+    def forward(self, x):
+        return self.vq(x * self.gain)
+
+
+def _state(model, opt) -> dict:
+    out = {f'model.{k}': v.detach().clone() for k, v in model.state_dict().items()}
+    for i, p in enumerate(p for g in opt.param_groups for p in g['params']):
+        out.update({f'opt.{i}.{k}': v.detach().clone() for k, v in opt.state[p].items()})
+    return out
+
+
+def _twins(build, make_opt, loss_fn, mesh, backend):
+    """A model compiled under DataParallelTrainer(compiled=True) and its
+    eager twin from the same state (the compiled one loaded from the twin),
+    each with its own optimizer."""
+    from vqtpu_torch.parallel import DataParallelTrainer
+
+    eager = build()
+    compiled = build()
+    compiled.load_state_dict(eager.state_dict())
+    opt_e, opt_c = make_opt(eager), make_opt(compiled)
+    return (compiled, DataParallelTrainer(compiled, opt_c, loss_fn, mesh, compiled=True, backend=backend), opt_c,
+            eager, DataParallelTrainer(eager, opt_e, loss_fn, mesh, compiled=False), opt_e)
+
+
+def compiled_vq_steps(rank, world, mesh, *, kwargs, xs):
+    """The compiled trainer over GainVQ(sync_axis='data', **kwargs) and its
+    eager twin, Adam(1e-2), a step per global batch in `xs` on this rank's
+    shard: per step both losses, indices and states (model and Adam), the
+    quantizer's input and the codebook its selection used, and the graphs
+    the compiled trainer captured in it."""
+    torch._dynamo.reset()
+    torch.manual_seed(0)
+    graphs = []
+    picked = {}
+
+    def loss_fn(m, batch):
+        q, idx, loss = m(batch)
+        picked['idx'] = idx
+        return loss + q.square().mean()
+
+    mc, tc, oc, me, te, oe = _twins(lambda: GainVQ(**kwargs, sync_axis='data').train(),
+                                    lambda m: torch.optim.Adam(m.parameters(), lr=1e-2), loss_fn, mesh,
+                                    recording_backend(graphs))
+    used = {}
+    cb = me.vq._codebook
+    init = cb.init_embed_
+
+    def init_and_record(flatten, mask=None):
+        init(flatten, mask)
+        used['embed'] = cb.embed.detach().clone()
+    cb.init_embed_ = init_and_record
+    out = []
+    for x in xs:
+        local = torch.from_numpy(shard(x, rank, world))
+        used['embed'] = cb.embed.detach().clone()
+        x_in = (local * me.gain).detach()
+        n_graphs = len(graphs)
+        loss_c = tc.step(local)
+        idx_c = picked['idx']
+        loss_e = te.step(local)
+        idx_e = picked['idx']
+        out.append(np_tree(dict(loss=(loss_c, loss_e), idx=(idx_c, idx_e), x_in=x_in, embed_used=used['embed'],
+                                compiled=_state(mc, oc), eager=_state(me, oe),
+                                graphs=[graph_ops(gm) for gm in graphs[n_graphs:]])))
+    out[-1]['n_params'] = sum(p.numel() for p in mc.parameters())
+    torch._dynamo.reset()
+    return out
+
+
+def compiled_config5_step(rank, world, mesh, *, state, batch):
+    """BASELINE config 5's DataParallelTrainer step (AdamW 3e-4,
+    entry.recon_plus_aux) compiled, and eagerly, from a JAX state on this
+    rank's shard of `batch`: both losses and states after the step, and the
+    captured graphs."""
+    from vqtpu_torch import load_vqtpu_state
+    from vqtpu_torch.core.optim import adamw
+    from vqtpu_torch.entry import Config5Model, recon_plus_aux
+
+    torch._dynamo.reset()
+    graphs = []
+
+    def build():
+        m = Config5Model('cpu')
+        load_vqtpu_state(m, state)
+        return m
+
+    mc, tc, _, me, te, _ = _twins(build, lambda m: adamw(m.parameters(), 3e-4), recon_plus_aux, mesh,
+                                  recording_backend(graphs))
+    local = torch.from_numpy(shard(batch, rank, world))
+    loss_c, loss_e = tc.step(local), te.step(local)
+    torch._dynamo.reset()
+    return np_tree(dict(loss=(loss_c, loss_e), compiled=mc.state_dict(), eager=me.state_dict(),
+                        codebooks=_codebooks(mc), graphs=[graph_ops(gm) for gm in graphs]))
+
+
+class LFQModel(torch.nn.Module):
+    """Linear -> LFQ(sync_axis='data', entropy aux loss) on 8 dims."""
+
+    def __init__(self, **lfq_kwargs):
+        import vqtpu_torch
+        super().__init__()
+        self.enc = torch.nn.Linear(8, 8)
+        self.lfq = vqtpu_torch.LFQ(dim=8, codebook_size=2 ** 8, spherical=True, entropy_loss_weight=0.1,
+                                   sync_axis='data', device='cpu', **lfq_kwargs)
+
+    def forward(self, x):
+        return self.lfq(self.enc(x))
+
+
+def compiled_lfq_step(rank, world, mesh, *, kwargs, x):
+    """One DataParallelTrainer step of LFQModel(**kwargs) compiled and
+    eagerly from the same seed, SGD(lr=0.5), on this rank's shard of `x`:
+    both losses, indices and parameters after the step, the parameters
+    before it, and the captured graphs."""
+    torch._dynamo.reset()
+    torch.manual_seed(0)
+    graphs = []
+    picked = {}
+
+    def loss_fn(m, batch):
+        q, idx, aux = m(batch)
+        picked['idx'] = idx
+        return aux + (q - batch).square().mean()
+
+    mc, tc, _, me, te, _ = _twins(lambda: LFQModel(**kwargs).train(), lambda m: torch.optim.SGD(m.parameters(), 0.5),
+                                  loss_fn, mesh, recording_backend(graphs))
+    before = {k: p.detach().clone() for k, p in me.named_parameters()}
+    local = torch.from_numpy(shard(x, rank, world))
+    loss_c = tc.step(local)
+    idx_c = picked['idx']
+    loss_e = te.step(local)
+    torch._dynamo.reset()
+    return np_tree(dict(loss=(loss_c, loss_e), idx=(idx_c, picked['idx']), before=before,
+                        compiled=dict(mc.named_parameters()), eager=dict(me.named_parameters()),
+                        graphs=[graph_ops(gm) for gm in graphs]))
+
+
+def compiled_eval(rank, world, mesh, *, x):
+    """eval_step_fn of a trained-mode-free DPModel compiled and eagerly on
+    this rank's shard of `x`: both outputs and the captured graphs."""
+    from vqtpu_torch.parallel import eval_step_fn
+
+    torch._dynamo.reset()
+    torch.manual_seed(0)
+    model = DPModel().eval()
+    graphs = []
+    local = torch.from_numpy(shard(x, rank, world))
+    got = eval_step_fn(model, mesh, compiled=True, backend=recording_backend(graphs))(local)
+    want = eval_step_fn(model, mesh, compiled=False)(local)
+    torch._dynamo.reset()
+    return np_tree(dict(compiled=got, eager=want, graphs=[graph_ops(gm) for gm in graphs]))
+
+
+def dp_compile_body(rank, world, mesh, *, cases):
+    """Every case of tests/test_torch_dp_compile.py in one world: {name:
+    its body's result}; `cases` is {name: (body name, kwargs)}."""
+    bodies = dict(collectives=compiled_collectives, vq=compiled_vq_steps, config5=compiled_config5_step,
+                  lfq=compiled_lfq_step, eval=compiled_eval)
+    return {name: bodies[body](rank, world, mesh, **kw) for name, (body, kw) in cases.items()}
+
+
+def dp_compiled_card_body(rank, world, mesh, device, *, steps=2, shape=(16, 256, 64), codes=128):
+    """The trainer's step compiled on the card (compiled=None) over
+    GainVQ(sync_axis='data', train_fused='on', kmeans init, expiry), SGD,
+    against an eager twin, each step from the twin's state (copied in
+    place): per step the compiled step's K4 launches, the float64 verdict
+    on its indices against eager's, and the largest error of the loss, the
+    gain and the codebook against eager over the codes no flipped token
+    touched."""
+    from vqtpu_torch.kernels.distance import selection_bias, selection_disagreements
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    from vqtpu_torch.parallel import DataParallelTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(dim=shape[-1], codebook_size=codes, decay=0.8, train_fused='on', kmeans_init=True,
+              threshold_ema_dead_code=2, sync_axis='data')
+    torch.manual_seed(0)
+    eager, compiled = GainVQ(device, **kw).train(), GainVQ(device, **kw).train()
+    compiled.load_state_dict(eager.state_dict())
+    picked = {}
+
+    def loss_fn(m, batch):
+        q, idx, loss = m(batch)
+        picked['idx'] = idx
+        return loss + q.square().mean()
+
+    te = DataParallelTrainer(eager, torch.optim.SGD(eager.parameters(), lr=1e-3), loss_fn, mesh, compiled=False)
+    tc = DataParallelTrainer(compiled, torch.optim.SGD(compiled.parameters(), lr=1e-3), loss_fn, mesh)
+    cb = eager.vq._codebook
+    init, used = cb.init_embed_, {}
+
+    def init_and_record(flatten, mask=None):
+        init(flatten, mask)
+        used['embed'] = cb.embed[0].detach().clone()
+    cb.init_embed_ = init_and_record
+    out = []
+    for s in range(steps):
+        with torch.no_grad():
+            for k, v in compiled.state_dict().items():
+                v.copy_(eager.state_dict()[k])
+        x = torch.randn(shape, generator=torch.Generator(device).manual_seed(s), device=device)
+        used['embed'] = cb.embed[0].detach().clone()
+        x_in = (x * eager.gain).detach().reshape(-1, shape[-1])
+        loss_e = te.step(x)
+        idx_e = picked['idx'].reshape(-1)
+        fused_train_quantize.launches = 0
+        loss_c = tc.step(x)
+        torch.cuda.synchronize()
+        launches = fused_train_quantize.launches
+        idx_c = picked['idx'].reshape(-1)
+        ties = selection_disagreements(x_in, used['embed'], selection_bias(used['embed'], 'euclidean'), idx_c, idx_e)
+        flipped = idx_c != idx_e
+        keep = torch.ones(codes, dtype=torch.bool, device=device)
+        keep[torch.cat([idx_c[flipped], idx_e[flipped]]).long()] = False
+        errs = {'loss': (loss_c - loss_e).abs() / loss_e.abs(), 'gain': (compiled.gain - eager.gain).abs()}
+        for k in ('embed', 'embed_avg', 'cluster_size'):
+            a, b = getattr(compiled.vq._codebook, k)[:, keep], getattr(cb, k)[:, keep]
+            errs[k] = (a - b).abs().max() / b.abs().max()
+        out.append(dict(launches=launches, compiled=tc.compiled, ties=ties,
+                        errors={k: float(v) for k, v in errs.items()}))
+    return out

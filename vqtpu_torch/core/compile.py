@@ -10,6 +10,10 @@ compiles whole, forward, backward and update, as JAX's jitted step does.
 The hand-written kernels are `torch.ops.vqtpu` custom ops, opaque to the
 compiler: the graph calls the kernel, and inductor fuses the glue around
 it, as XLA fuses around a `pallas_call`.
+
+An exception that the traced code raises (an unbound axis name's
+NameError, say) propagates as its own type, as it does from a
+`jax.jit`'s trace, not as Dynamo's refusal to compile it.
 """
 
 from __future__ import annotations
@@ -30,6 +34,24 @@ def compile_step(fn: Callable, *, backend: str = 'inductor', mode: str | None = 
     @functools.wraps(fn)
     def run(*args, **kwargs):
         with torch._dynamo.config.patch(trace_autograd_ops=True):
-            return compiled(*args, **kwargs)
+            try:
+                return compiled(*args, **kwargs)
+            except torch._dynamo.exc.Unsupported as e:
+                raised = _raised_by_traced_code(e)
+                if raised is None:
+                    raise
+                raise raised(str(e.__cause__)) from e
 
     return run
+
+
+def _raised_by_traced_code(e: Exception) -> type | None:
+    """The type of the exception the traced code raised, where that is why
+    Dynamo refused a whole-graph compile (its `Observed...` exception is
+    the cause), else None."""
+    from torch._dynamo import exc
+
+    for raised, observed in getattr(exc, 'observed_exception_map', {}).items():
+        if type(e.__cause__) is observed:
+            return raised
+    return None

@@ -43,14 +43,15 @@ def prepare_adamw_for_graph(opt: torch.optim.AdamW) -> None:
                     torch._dynamo.mark_static_address(t)
 
 
-def adamw_update(opt: torch.optim.AdamW, grads) -> None:
+def adamw_update(opt: torch.optim.AdamW, grads, *, foreach: bool | None = None) -> None:
     """`opt.step()` with `grads` in place of the parameters' `.grad`: one
     gradient (or None) per parameter, in the order of `opt.param_groups`.
     It calls `torch.optim.adam.adam`, the update `AdamW.step` itself calls,
     on the optimizer's own state and settings, without the graph breaks
     that `Optimizer.step` places around itself, so that `torch.compile`
     takes a forward, its backward and this update as one graph (JAX's
-    `nnx.jit` step). Call `prepare_adamw_for_graph(opt)` first."""
+    `nnx.jit` step). Call `prepare_adamw_for_graph(opt)` first. `foreach`,
+    where given, overrides the groups' setting."""
     from torch.optim.adam import adam
 
     grads = list(grads)
@@ -72,21 +73,22 @@ def adamw_update(opt: torch.optim.AdamW, grads) -> None:
             if not params:
                 continue
             beta1, beta2 = group['betas']
-            adam(params, gs, exp_avgs, exp_avg_sqs, [], steps, foreach=group['foreach'],
-                 capturable=group['capturable'], differentiable=group['differentiable'], fused=group['fused'],
-                 has_complex=False, decoupled_weight_decay=group['decoupled_weight_decay'],
-                 amsgrad=group['amsgrad'], beta1=beta1, beta2=beta2, lr=group['lr'],
-                 weight_decay=group['weight_decay'], eps=group['eps'], maximize=group['maximize'])
+            adam(params, gs, exp_avgs, exp_avg_sqs, [], steps,
+                 foreach=group['foreach'] if foreach is None else foreach, capturable=group['capturable'],
+                 differentiable=group['differentiable'], fused=group['fused'], has_complex=False,
+                 decoupled_weight_decay=group['decoupled_weight_decay'], amsgrad=group['amsgrad'],
+                 beta1=beta1, beta2=beta2, lr=group['lr'], weight_decay=group['weight_decay'], eps=group['eps'],
+                 maximize=group['maximize'])
     if at != len(grads):
         raise ValueError(f'{len(grads)} gradients for {at} parameters')
 
 
-def sgd_update(opt: torch.optim.SGD, grads) -> None:
+def sgd_update(opt: torch.optim.SGD, grads, *, foreach: bool | None = None) -> None:
     """`opt.step()` with `grads` in place of the parameters' `.grad` (one
     gradient or None per parameter, in the order of `opt.param_groups`):
     `torch.optim.sgd.sgd`, the update `SGD.step` calls, on the optimizer's
     own settings and momentum buffers, without `Optimizer.step`'s graph
-    breaks."""
+    breaks; `foreach`, where given, overrides the groups' setting."""
     from torch.optim.sgd import sgd
 
     grads = list(grads)
@@ -107,7 +109,8 @@ def sgd_update(opt: torch.optim.SGD, grads) -> None:
                 continue
             sgd(params, gs, buffers, weight_decay=group['weight_decay'], momentum=group['momentum'],
                 lr=group['lr'], dampening=group['dampening'], nesterov=group['nesterov'],
-                maximize=group['maximize'], foreach=group['foreach'], fused=group['fused'])
+                maximize=group['maximize'], foreach=group['foreach'] if foreach is None else foreach,
+                fused=group['fused'])
             if group['momentum'] != 0:
                 for p, buffer in zip(params, buffers):
                     opt.state[p]['momentum_buffer'] = buffer
@@ -115,21 +118,21 @@ def sgd_update(opt: torch.optim.SGD, grads) -> None:
         raise ValueError(f'{len(grads)} gradients for {at} parameters')
 
 
-def optimizer_update(opt: torch.optim.Optimizer, grads) -> None:
+def optimizer_update(opt: torch.optim.Optimizer, grads, *, foreach: bool | None = None) -> None:
     """`opt.step()` with `grads` in place of the parameters' `.grad`, which
     are left as they were: SGD by `sgd_update`, Adam and AdamW (without
     amsgrad) by `adamw_update` (their state made first, outside any trace),
-    both of which `torch.compile` traces; any other optimizer by its own
-    `step()` on the gradients swapped into `.grad` (which breaks a compiled
-    graph)."""
+    both of which `torch.compile` traces (`foreach` passed on); any other
+    optimizer by its own `step()` on the gradients swapped into `.grad`
+    (which breaks a compiled graph)."""
     grads = list(grads)
     if isinstance(opt, torch.optim.SGD):
-        sgd_update(opt, grads)
+        sgd_update(opt, grads, foreach=foreach)
         return
     if isinstance(opt, torch.optim.Adam) and not any(g['amsgrad'] for g in opt.param_groups):
         if not torch.compiler.is_compiling():
             prepare_adamw_for_graph(opt)
-        adamw_update(opt, grads)
+        adamw_update(opt, grads, foreach=foreach)
         return
     params = [p for group in opt.param_groups for p in group['params']]
     if len(params) != len(grads):

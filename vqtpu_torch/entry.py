@@ -203,7 +203,8 @@ def dp_autoencoder_step(mesh, device) -> tuple[float, dict]:
         recon, _, commit = m(batch)
         return (recon.clamp(-1, 1) - batch).abs().mean() + 10.0 * commit
 
-    trainer = DataParallelTrainer(model, adamw(model.parameters(), 3e-4), loss_fn, mesh)
+    # eager, as the dryrun's other sections run
+    trainer = DataParallelTrainer(model, adamw(model.parameters(), 3e-4), loss_fn, mesh, compiled=False)
     batch = global_batch(mesh, ('data',), torch.zeros(2 * mesh.size('data'), 28, 28, 1), device)
     loss = float(trainer.step(batch))
     _check(math.isfinite(loss), f'dp train loss {loss}')
@@ -265,7 +266,7 @@ def config5_step(model: Config5Model, mesh, batch: torch.Tensor) -> tuple[float,
     """One DataParallelTrainer step (AdamW 3e-4) of config 5 on this rank's
     `batch`; each group's first codebook must be bit-identical on every
     rank afterwards. The loss and the model's state after the step."""
-    trainer = DataParallelTrainer(model, adamw(model.parameters(), 3e-4), recon_plus_aux, mesh)
+    trainer = DataParallelTrainer(model, adamw(model.parameters(), 3e-4), recon_plus_aux, mesh, compiled=False)
     loss = float(trainer.step(batch))
     _check(math.isfinite(loss), f'config-5 loss {loss}')
     for g, rvq in enumerate(model.grvq.rvqs):

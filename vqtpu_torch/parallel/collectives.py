@@ -24,33 +24,44 @@ Gradient contracts, as in the JAX package under `shard_map(check_vma=False)`:
 
 Every rank must call the same collectives in the same order, forward and
 backward, as with any torch.distributed program.
+
+Under `torch.compile` every collective traces (`fullgraph=True`), forward
+and backward: the binding is a plain module-level stack, which Dynamo
+reads and guards on, and the in-place `torch.distributed` calls become
+functional collectives (`_c10d_functional`) in the captured graphs. Bind
+the mesh outside the compiled function (`DataParallelTrainer` does), so
+that an op whose body runs collectives when it runs (`vqtpu::kmeans`)
+finds it too. Each rank is its own process, so the stack is not
+per-thread.
 """
 
 from __future__ import annotations
 
-import contextvars
-from contextlib import contextmanager
-
 import torch
 import torch.distributed as dist
 
-# the mesh the caller bound (parallel.shard.Mesh), or None
-_BOUND_MESH = contextvars.ContextVar('vqtpu_torch_bound_mesh', default=None)
+# the meshes the caller bound (parallel.shard.Mesh), innermost last
+_BOUND_MESHES: list = []
 
 
-@contextmanager
-def bind(mesh):
-    """Resolve axis names against `mesh` inside the block."""
-    token = _BOUND_MESH.set(mesh)
-    try:
-        yield mesh
-    finally:
-        _BOUND_MESH.reset(token)
+def push_mesh(mesh) -> None:
+    """Resolve axis names against `mesh` until the matching `pop_mesh`
+    (`with mesh:` calls both)."""
+    _BOUND_MESHES.append(mesh)
+
+
+def pop_mesh() -> None:
+    _BOUND_MESHES.pop()
+
+
+def bound_mesh():
+    """The innermost bound mesh, or None."""
+    return _BOUND_MESHES[-1] if _BOUND_MESHES else None
 
 
 def group(axis: str):
     """The process group of a bound axis name; NameError if none is bound."""
-    mesh = _BOUND_MESH.get()
+    mesh = bound_mesh()
     if mesh is None or axis not in mesh.axis_names:
         raise NameError(f'unbound axis name: {axis!r} (bind a mesh that has it: `with mesh:`)')
     return mesh.group(axis)
@@ -62,11 +73,27 @@ def _all_reduce(x: torch.Tensor, pg) -> torch.Tensor:
     return out
 
 
-def _gather(x: torch.Tensor, pg, concat_axis: int, tiled: bool) -> torch.Tensor:
+def _gather(x: torch.Tensor, pg, concat_axis: int, tiled: bool, by_sum: bool = False) -> torch.Tensor:
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(pg))]
-    dist.all_gather(parts, x, group=pg)
+    world = dist.get_world_size(pg)
+    if by_sum:
+        # each rank's block among zeros, summed over the ranks: exact (only
+        # a -0.0 comes back +0.0)
+        rank = dist.get_group_rank(pg, dist.get_rank())
+        parts = _all_reduce(torch.stack([x if r == rank else torch.zeros_like(x) for r in range(world)]),
+                            pg).unbind(0)
+    else:
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x, group=pg)
     return torch.cat(parts, concat_axis) if tiled else torch.stack(parts, concat_axis)
+
+
+def _gathers_by_sum(x: torch.Tensor, axis: str) -> bool:
+    """Whether a compiled graph gathers `x` over `axis` as a sum of blocks
+    placed among zeros: gloo's all_gather into one CUDA tensor (the
+    functional collective a compiled graph holds) crashed the process on an
+    H100 (torch 2.11), while its all-reduce of CUDA tensors runs."""
+    return torch.compiler.is_compiling() and x.is_cuda and bound_mesh().backends.get(axis) == 'gloo'
 
 
 def _own_block(g: torch.Tensor, pg, concat_axis: int, tiled: bool, size: int) -> torch.Tensor:
@@ -100,16 +127,16 @@ class _PsumInBwd(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, pg, concat_axis, tiled, sum_cotangent):
+    def forward(ctx, x, pg, concat_axis, tiled, sum_cotangent, by_sum):
         ctx.pg, ctx.concat_axis, ctx.tiled, ctx.sum_cotangent = pg, concat_axis, tiled, sum_cotangent
         ctx.size = x.shape[concat_axis] if tiled else 1
-        return _gather(x, pg, concat_axis, tiled)
+        return _gather(x, pg, concat_axis, tiled, by_sum)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.sum_cotangent:
             g = _all_reduce(g, ctx.pg)
-        return _own_block(g, ctx.pg, ctx.concat_axis, ctx.tiled, ctx.size), None, None, None, None
+        return _own_block(g, ctx.pg, ctx.concat_axis, ctx.tiled, ctx.size), None, None, None, None, None
 
 
 def psum(x: torch.Tensor, axis: str | None) -> torch.Tensor:
@@ -133,7 +160,7 @@ def all_gather_exact(x: torch.Tensor, axis: str | None, *, concat_axis: int = 0)
     backward hands each rank its own block of the cotangent, unscaled."""
     if axis is None:
         return x
-    return _AllGather.apply(x, group(axis), concat_axis, True, False)
+    return _AllGather.apply(x, group(axis), concat_axis, True, False, _gathers_by_sum(x, axis))
 
 
 def psum_in_bwd(x: torch.Tensor, axis: str | None) -> torch.Tensor:
@@ -157,7 +184,7 @@ def all_gather(x: torch.Tensor, axis: str | None, *, tiled: bool = True, concat_
     each rank)."""
     if axis is None:
         return x
-    return _AllGather.apply(x, group(axis), concat_axis, tiled, True)
+    return _AllGather.apply(x, group(axis), concat_axis, tiled, True, _gathers_by_sum(x, axis))
 
 
 def _reduce_no_grad(x: torch.Tensor, axis: str | None, op) -> torch.Tensor:
@@ -192,5 +219,5 @@ def axis_index(axis: str | None) -> int:
 
 def axis_is_bound(axis: str | None) -> bool:
     """Whether a bound mesh has `axis`; False for None."""
-    mesh = _BOUND_MESH.get()
+    mesh = bound_mesh()
     return axis is not None and mesh is not None and axis in mesh.axis_names

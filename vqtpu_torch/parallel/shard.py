@@ -27,6 +27,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..core.compile import compile_step
+from ..core.optim import optimizer_update, prepare_adamw_for_graph
 from ..kernels.distance import bf16_select, nearest_code
 from ..kernels.train_fused import code_sums
 from . import collectives
@@ -36,14 +38,16 @@ class Mesh:
     """Named axes over the ranks of the default process group, each axis a
     process group of the ranks that differ only in that coordinate. Rank r
     sits at the row-major coordinates of r in `shape`. `with mesh:` binds
-    its axis names for the collectives."""
+    its axis names for the collectives. `backends`: each axis's
+    torch.distributed backend ('gloo', 'nccl'), where known."""
 
-    def __init__(self, axis_names: tuple[str, ...], shape: tuple[int, ...], groups: dict, coords: tuple[int, ...]):
+    def __init__(self, axis_names: tuple[str, ...], shape: tuple[int, ...], groups: dict, coords: tuple[int, ...],
+                 backends: dict | None = None):
         self.axis_names = tuple(axis_names)
         self.shape = tuple(shape)
         self.groups = groups
         self.coords = tuple(coords)
-        self._bindings = []
+        self.backends = dict(backends or {})
 
     def group(self, axis: str):
         return self.groups[axis]
@@ -55,12 +59,11 @@ class Mesh:
         return self.coords[self.axis_names.index(axis)]
 
     def __enter__(self):
-        binding = collectives.bind(self)
-        self._bindings.append(binding)
-        return binding.__enter__()
+        collectives.push_mesh(self)
+        return self
 
     def __exit__(self, *exc):
-        return self._bindings.pop().__exit__(*exc)
+        collectives.pop_mesh()
 
     def __repr__(self):
         return f'Mesh(axis_names={self.axis_names}, shape={self.shape}, coords={self.coords})'
@@ -99,7 +102,18 @@ def make_mesh(axis_names: tuple[str, ...] = ('data',), shape: tuple[int, ...] | 
             pg = dist.new_group(members)
             if rank in members:
                 groups[name] = pg
-    return Mesh(axis_names, shape, groups, coords)
+    return Mesh(axis_names, shape, groups, coords, {name: dist.get_backend(pg) for name, pg in groups.items()})
+
+
+def _pmean_flat(grads: list, axis: str, reduce: Callable = collectives.pmean) -> list:
+    """`reduce` of each gradient over `axis`, in one collective over the
+    flattened gradients; each back in its shape and dtype."""
+    flat = reduce(torch.cat([g.reshape(-1) for g in grads]), axis)
+    out, offset = [], 0
+    for g in grads:
+        out.append(flat[offset:offset + g.numel()].reshape(g.shape).to(g.dtype, copy=True))
+        offset += g.numel()
+    return out
 
 
 def average_gradients(params: list, axis: str, reduce: Callable = collectives.pmean) -> None:
@@ -109,11 +123,12 @@ def average_gradients(params: list, axis: str, reduce: Callable = collectives.pm
     if not params:
         return
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-    flat = reduce(torch.cat([g.reshape(-1) for g in grads]), axis)
-    offset = 0
-    for p, g in zip(params, grads):
-        p.grad = flat[offset:offset + g.numel()].reshape(g.shape).to(g.dtype, copy=True)
-        offset += g.numel()
+    for p, g in zip(params, _pmean_flat(grads, axis, reduce)):
+        p.grad = g
+
+
+def _on_card(model: nn.Module) -> bool:
+    return any(t.is_cuda for t in itertools.chain(model.parameters(), model.buffers()))
 
 
 class DataParallelTrainer:
@@ -130,6 +145,18 @@ class DataParallelTrainer:
     of the ranks' losses, the loss on the global batch when the shards are
     equal.
 
+    `compiled`: run the step compiled whole, as the JAX package jits its
+    shard_map'd step (`core.compile.compile_step` with `backend`: one
+    graph, or an error): the loss, `torch.autograd.grad` over
+    the trainable parameters, one pmean of the flattened gradients, the
+    optimizer's functional update (`core.optim.optimizer_update`; SGD, Adam
+    and AdamW trace) and the pmean of the loss, the collectives inside the
+    graph. None compiles when the model is on the card and runs eagerly on
+    the CPU. The compiled step leaves the parameters' `.grad` alone; the
+    eager one (`compiled=False`) leaves the averaged gradients there. A
+    codebook with kmeans init compiles twice: once for the step that runs
+    the init, once for the steps after it (`Codebook.initted_on_host`).
+
     Usage:
         mesh = make_mesh(('data',))
         trainer = DataParallelTrainer(model, torch.optim.Adam(model.parameters(), 1e-3), loss_fn, mesh)
@@ -137,7 +164,7 @@ class DataParallelTrainer:
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable,
-                 mesh: Mesh, axis: str = 'data'):
+                 mesh: Mesh, axis: str = 'data', *, compiled: bool | None = None, backend: str = 'inductor'):
         if axis not in mesh.axis_names:
             raise ValueError(f'axis {axis!r} is not an axis of {mesh}')
         self.model = model
@@ -145,12 +172,25 @@ class DataParallelTrainer:
         self.loss_fn = loss_fn
         self.mesh = mesh
         self.axis = axis
+        self.compiled = _on_card(model) if compiled is None else bool(compiled)
+        self._graph_step = None
+        if self.compiled:
+            # the trainable parameters, and where each of the optimizer's
+            # parameters sits among them, fixed here, outside the trace
+            self._params = [p for p in model.parameters() if p.requires_grad]
+            at = {id(p): i for i, p in enumerate(self._params)}
+            self._slots = [at.get(id(p)) for group in optimizer.param_groups for p in group['params']]
+            if isinstance(optimizer, torch.optim.Adam) and not any(g['amsgrad'] for g in optimizer.param_groups):
+                prepare_adamw_for_graph(optimizer)
+            self._graph_step = compile_step(self._step_body, backend=backend)
 
     def step(self, batch) -> torch.Tensor:
         """One optimizer step on this rank's shard `batch`; updates the
         model and the optimizer in place and returns the mean loss over
         the axis (detached)."""
         with self.mesh:
+            if self._graph_step is not None:
+                return self._graph_step(batch)
             self.optimizer.zero_grad(set_to_none=True)
             loss = self.loss_fn(self.model, batch)
             loss.backward()
@@ -159,17 +199,43 @@ class DataParallelTrainer:
             self.optimizer.step()
             return collectives.pmean(loss.detach(), self.axis)
 
+    def _step_body(self, batch) -> torch.Tensor:
+        """The compiled step: the gradients as the eager step averages
+        them, handed to the optimizer's update in its parameters' order (a
+        parameter the model does not train gets None, which leaves it)."""
+        params, grads = self._params, ()
+        loss = self.loss_fn(self.model, batch)
+        if params:
+            raw = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = _pmean_flat([torch.zeros_like(p) if g is None else g for p, g in zip(params, raw)], self.axis)
+        # each parameter updated on its own: inductor (torch 2.11, H100) ran
+        # a foreach update before a fused kernel that still read the
+        # parameter's old value, and the step returned the loss of the
+        # updated parameter
+        optimizer_update(self.optimizer, [None if i is None else grads[i] for i in self._slots], foreach=False)
+        return collectives.pmean(loss.detach(), self.axis)
 
-def eval_step_fn(model: nn.Module, mesh: Mesh, axis: str = 'data') -> Callable:
+
+def eval_step_fn(model: nn.Module, mesh: Mesh, axis: str = 'data', *, compiled: bool | None = None,
+                 backend: str = 'inductor') -> Callable:
     """f(batch) -> the model's outputs on this rank's shard, without
     gradients, with the mesh bound (a quantizer that syncs statistics in
-    eval, affine_param's batch moments, finds its axis)."""
+    eval, affine_param's batch moments, finds its axis). `compiled` as
+    `DataParallelTrainer`'s: None compiles `model(batch)` when the model
+    is on the card."""
     if axis not in mesh.axis_names:
         raise ValueError(f'axis {axis!r} is not an axis of {mesh}')
 
-    def run(batch):
-        with mesh, torch.no_grad():
+    def forward(batch):
+        with torch.no_grad():
             return model(batch)
+
+    if _on_card(model) if compiled is None else compiled:
+        forward = compile_step(forward, backend=backend)
+
+    def run(batch):
+        with mesh:
+            return forward(batch)
 
     return run
 
