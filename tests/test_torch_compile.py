@@ -333,6 +333,109 @@ def test_drawing_example_steps_compiled_match_eager(name):
         assert max(float((g - w).abs().max()) for g, w in moments) <= 10 * REL * largest, key
 
 
+def _put_back(model, opt, saved):
+    """`model` and `opt` in place as chip_smoke.twin_state saw them (the
+    compiled step's tensors and the host mirrors stay)."""
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(saved[0][k])
+    for p, state in zip(model.parameters(), saved[1]):
+        for k, v in state.items():
+            opt.state[p][k].copy_(v)
+
+
+def _moments_rel(opt_a, model_a, opt_b, model_b) -> float:
+    """Adam's moments of a against b's, each kind against b's largest entry
+    of that kind (chip_smoke.py's measure)."""
+    return max(
+        max(float((opt_a.state[p][k] - opt_b.state[q][k]).abs().max())
+            for p, q in zip(model_a.parameters(), model_b.parameters()))
+        / max(float(opt_b.state[q][k].abs().max()) for q in model_b.parameters())
+        for k in ('exp_avg', 'exp_avg_sq'))
+
+
+@pytest.mark.parametrize('name', DRAWING_EXAMPLES)
+def test_replay_with_the_compiled_picks(name):
+    """chip_smoke.py's check of the compiled drawing examples replays the
+    eager step from the same state with the compiled step's picks where the
+    two picked differently (a near-tie flip moves its token's whole share
+    of every gradient). HQ and FVQ: a compiled step made to pick another
+    code for one token (chip_smoke.selection_tape, forcing K4's or K1's
+    picks) moves Adam's moments or the codebook beyond the check's limits
+    from the eager step; the eager step replayed with the compiled picks
+    (chip_smoke.compiled_picks, FVQ's three launches from the compiled
+    step's two) is within them, COMPILED_MOMENTS_REL (1e-4) and
+    COMPILED_REL (1e-5), with the same indices. The RQ-VAE and FSP (their
+    picks inside the graph): the replay returns the picks it is given, one
+    flipped, and with the eager step's own picks it is the eager step."""
+    import chip_smoke as cs
+
+    mod = importlib.import_module(f'vqtpu_torch.examples.{name}')
+    eager_model = mod.main(train_iter=0, batch_size=8, device='cpu')
+    compiled_model = mod.main(train_iter=0, batch_size=8, device='cpu')
+    compiled_model.load_state_dict(eager_model.state_dict())
+    eager_opt, compiled_opt = adamw(eager_model.parameters(), 3e-4), adamw(compiled_model.parameters(), 3e-4)
+    eager_step = train_step(eager_model, eager_opt, mod.loss_from_outputs, 10.0)
+    compiled_step = train_step(compiled_model, compiled_opt, mod.loss_from_outputs, 10.0, compiled=True,
+                               backend=BACKEND)
+    x0, x = _example_batches(2)
+    # a first step (kmeans init in HQ and the RQ-VAE), then both from one state
+    eager_step(x0)
+    compiled_step(x0)
+    _put_back(compiled_model, compiled_opt, cs.twin_state(eager_model, eager_opt))
+    before = cs.twin_state(eager_model, eager_opt)
+    cpu = torch.device('cpu')
+    codebooks = lambda m: {k: v.detach().clone() for k, v in m.state_dict().items()    # noqa: E731
+                           if '_codebook.' in k and v.is_floating_point()}
+    if name in ('autoencoder_rvq', 'autoencoder_fsp'):
+        want = eager_step(x)
+        for flip in (False, True):
+            picks = want[2].clone()
+            if flip:
+                picks.view(-1)[0] = (picks.view(-1)[0] + 1) % 2
+            cs.restore_twin(eager_model, eager_opt, before)
+            with cs.compiled_picks(name, eager_model, picks, [], cpu):
+                got = eager_step(x)
+            assert torch.equal(got[2], picks), flip
+            if not flip:
+                for a, b, what in zip(got[:2], want[:2], ('rec', 'aux')):
+                    _assert_close_to_largest(a, b, what=what)
+        return
+
+    launched = []
+    with cs.selection_tape('cpu', record=launched):
+        compiled_step(x)
+    assert len(launched) == (2 if name == 'autoencoder_fvq' else 4)
+    _put_back(compiled_model, compiled_opt, before)
+    # one token of the selection of FVQ's outer forward, of HQ's last scale,
+    # takes the next code
+    flipped = [t.clone() for t in launched]
+    k = 0 if name == 'autoencoder_fvq' else len(flipped) - 1
+    flipped[k].view(-1)[0] = (flipped[k].view(-1)[0] + 1) % 8
+    with cs.selection_tape('cpu', force=flipped):
+        got = compiled_step(x)
+
+    def gaps(want):
+        cb_want, cb_got = codebooks(eager_model), codebooks(compiled_model)
+        codebook = max((cs.rel_err(cb_got[k], w) for k, w in cb_want.items()), default=0.0)
+        return dict(moments=_moments_rel(compiled_opt, compiled_model, eager_opt, eager_model), codebook=codebook,
+                    rec=cs.rel_err(got[0], want[0]), aux=cs.rel_err(got[1], want[1]))
+
+    plain = gaps(eager_step(x))
+    assert plain['moments'] > cs.COMPILED_MOMENTS_REL or plain['codebook'] > cs.COMPILED_REL, plain
+    cs.restore_twin(eager_model, eager_opt, before)
+    with cs.compiled_picks(name, eager_model, got[2], flipped, cpu) as verdicts:
+        want = eager_step(x)
+    assert torch.equal(want[2], got[2])
+    replayed = gaps(want)
+    assert replayed['moments'] <= cs.COMPILED_MOMENTS_REL and replayed['codebook'] <= cs.COMPILED_REL, replayed
+    assert replayed['rec'] <= cs.COMPILED_REL and replayed['aux'] <= cs.COMPILED_REL, replayed
+    # the replay changed the flipped token's pick (in FVQ in its outer and
+    # inner forward), and the float64 verdict counts it: not a near-tie here
+    assert sum(v['disagree'] for v in verdicts) == (2 if name == 'autoencoder_fvq' else 1), verdicts
+    assert sum(v['non_tie'] for v in verdicts) >= 1, verdicts
+
+
 def test_kmeans_init_runs_once_inside_the_compiled_forward(monkeypatch):
     """kmeans init inside a compiled training forward: the first call's
     graph calls the op `vqtpu::kmeans` once, with the `initted` flag, and

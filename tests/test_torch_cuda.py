@@ -1092,12 +1092,56 @@ def test_code_sums_with_a_dump_row(card):
 def test_tp_vq_train_two_gloo_ranks(card):
     """A row-sharded VectorQuantize on two ('code',) gloo ranks of one card
     at a small size: K1 and code_sums once a rank a step, and the eval
-    forward equal to the unsharded module's."""
+    forward equal to the unsharded module's. Then TensorParallelTrainer's
+    step compiled on the card (its default there), the collectives in the
+    graph, against its eager twin from the same state: kmeans init (10
+    more K1 and code_sums launches), then the step after it; every flipped
+    index a near-tie in float64, the loss, gain and codebook within 1e-5 of
+    eager over the unflipped codes."""
     import torch_dist
-    ranks = torch_dist.run_world(torch_dist.tp_card_body, axes=('code',))
+    ranks = torch_dist.run_world(torch_dist.tp_card_body, axes=('code',), timeout=600)
     for r in ranks:
         assert r['launches'] == [dict(nearest_code=1, code_sums=1)] * 3
         assert r['eval_equal']
+        for s, st in enumerate(r['compiled_steps']):
+            extra = 10 if s == 0 else 0
+            assert st['compiled'] and st['launches'] == dict(nearest_code=1 + extra, code_sums=1 + extra), st
+            assert st['ties']['non_tie'] == 0, st
+            assert max(st['errors'].values()) <= 1e-5, st
+
+
+def test_selection_tape_on_the_card(card):
+    """chip_smoke.py's replay of a compiled step's picks (`selection_tape`)
+    on the card: K1's and K4's launches record their picks; picks forced in
+    place of a launch's own come back with their codebook rows and, for K4,
+    the statistics of those picks (K4's statistics passes alone,
+    `code_sums`), whose bins equal K4's own on its own picks and whose sums
+    agree with them to f32 rounding; every changed pick is judged in
+    float64 on the launch's operands (here none is a near-tie)."""
+    import chip_smoke as cs
+
+    x, e = _operands((4096, 512, 64), 'euclidean', card)
+    w = (torch.arange(4096, device=card) % 3 > 0).float()
+    rec = []
+    with cs.selection_tape('cuda', record=rec):
+        idx = td.nearest_code(x, e)
+        idx4, _, bins4, esum4 = ttf.fused_train_quantize(x, e, weights=w)
+    assert len(rec) == 2 and torch.equal(rec[0], idx) and torch.equal(rec[1], idx4)
+    bins, esum = ttf.code_sums(x, idx4, 512, w)
+    assert torch.equal(bins, bins4)
+    assert float((esum - esum4).abs().max()) <= 1e-5 * float(esum4.abs().max())
+    forced = idx.clone()
+    forced[:7] = (forced[:7] + 1) % 512
+    with cs.selection_tape('cuda', force=[forced, forced]) as verdicts:
+        gidx, gq = td.quantize_lookup(x, e)
+        fidx, fq, fbins, fesum = ttf.fused_train_quantize(x, e, weights=w)
+    torch.cuda.synchronize()
+    rows = e[forced.long()]
+    assert torch.equal(gidx, forced) and torch.equal(gq, rows)
+    assert torch.equal(fidx, forced) and torch.equal(fq, rows)
+    bins, esum = ttf.code_sums(x, forced, 512, w)
+    assert torch.equal(fbins, bins) and torch.equal(fesum, esum)
+    assert sum(v['disagree'] for v in verdicts) == 14 and sum(v['non_tie'] for v in verdicts) == 14, verdicts
 
 
 @pytest.mark.parametrize('metric', td.METRICS)

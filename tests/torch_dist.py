@@ -693,7 +693,9 @@ def tp_card_body(rank, world, mesh, *, shape=(16, 256, 64), codes=1024):
     """tp_vq_train at a small size on the card (tests/test_torch_cuda.py):
     VectorQuantize(code_axis='code') with expiry, three steps sharded over
     'code' with this rank's K1 and code_sums launches per step, then the
-    eval forward through tp_apply against the gathered module at rest."""
+    eval forward through tp_apply against the gathered module at rest;
+    then TensorParallelTrainer's compiled step against its eager twin
+    (tp_compiled_card_steps)."""
     import vqtpu_torch
     from vqtpu_torch.kernels.distance import nearest_code
     from vqtpu_torch.kernels.train_fused import code_sums
@@ -718,7 +720,78 @@ def tp_card_body(rank, world, mesh, *, shape=(16, 256, 64), codes=1024):
     with torch.no_grad():
         q, idx, _ = tp_apply(vq, mesh, lambda m, t: m(t), x)
         q1, idx1, _ = vq(x)
-    return dict(launches=launches, eval_equal=bool(torch.equal(q, q1) and torch.equal(idx, idx1)))
+    return dict(launches=launches, eval_equal=bool(torch.equal(q, q1) and torch.equal(idx, idx1)),
+                compiled_steps=tp_compiled_card_steps(mesh, shape, codes))
+
+
+def tp_compiled_card_steps(mesh, shape, codes, steps=2):
+    """TensorParallelTrainer (data_axis=None) over GainVQ(code_axis='code',
+    kmeans init, expiry), SGD, its step compiled on the card (compiled=
+    None) against an eager twin, each step from the twin's state (copied
+    in place): per step the compiled step's K1 and code_sums launches on
+    this rank, the float64 verdict on its indices against eager's (the
+    whole codebook the selection used, gathered over 'code'), and the
+    largest error of the loss, the gain and this rank's codebook rows
+    against eager over the codes no flipped token touched."""
+    from vqtpu_torch.kernels.distance import nearest_code, selection_bias, selection_disagreements
+    from vqtpu_torch.kernels.train_fused import code_sums
+    from vqtpu_torch.parallel import TensorParallelTrainer, collectives
+
+    torch._dynamo.reset()
+    device = 'cuda'
+    kw = dict(dim=shape[-1], codebook_size=codes, kmeans_init=True, threshold_ema_dead_code=2, code_axis='code')
+    torch.manual_seed(0)
+    eager, compiled = GainVQ(device, **kw).train(), GainVQ(device, **kw).train()
+    compiled.load_state_dict(eager.state_dict())
+    picked = {}
+
+    def loss_fn(m, batch):
+        q, idx, loss = m(batch)
+        picked['idx'] = idx
+        return loss + q.square().mean()
+
+    te = TensorParallelTrainer(eager, torch.optim.SGD(eager.parameters(), lr=1e-3), loss_fn, mesh, None,
+                               compiled=False)
+    tc = TensorParallelTrainer(compiled, torch.optim.SGD(compiled.parameters(), lr=1e-3), loss_fn, mesh, None)
+    cb = eager.vq._codebook
+    c_local = cb.embed.shape[-2]
+    row0 = mesh.index('code') * c_local
+    init, used = cb.init_embed_, {}
+
+    def init_and_record(flatten, mask=None):
+        init(flatten, mask)
+        used['embed'] = cb.embed[0].detach().clone()
+    cb.init_embed_ = init_and_record
+    out = []
+    for s in range(steps):
+        with torch.no_grad():
+            for k, v in compiled.state_dict().items():
+                v.copy_(eager.state_dict()[k])
+        x = torch.randn(shape, generator=torch.Generator(device).manual_seed(s), device=device)
+        used['embed'] = cb.embed[0].detach().clone()
+        x_in = (x * eager.gain).detach().reshape(-1, shape[-1])
+        loss_e = te.step(x)
+        idx_e = picked['idx'].reshape(-1)
+        nearest_code.launches = code_sums.launches = 0
+        loss_c = tc.step(x)
+        torch.cuda.synchronize()
+        launches = dict(nearest_code=nearest_code.launches, code_sums=code_sums.launches)
+        idx_c = picked['idx'].reshape(-1)
+        with mesh:
+            embed = collectives.all_gather_exact(used['embed'].contiguous(), 'code')
+        ties = selection_disagreements(x_in, embed, selection_bias(embed, 'euclidean'), idx_c, idx_e)
+        flipped = idx_c != idx_e
+        touched = torch.cat([idx_c[flipped], idx_e[flipped]]).long() - row0
+        keep = torch.ones(c_local, dtype=torch.bool, device=device)
+        keep[touched[(touched >= 0) & (touched < c_local)]] = False
+        errs = {'loss': (loss_c - loss_e).abs() / loss_e.abs(), 'gain': (compiled.gain - eager.gain).abs()}
+        for k in ('embed', 'embed_avg', 'cluster_size'):
+            a, b = getattr(compiled.vq._codebook, k)[:, keep], getattr(cb, k)[:, keep]
+            errs[k] = (a - b).abs().max() / b.abs().max()
+        out.append(dict(launches=launches, compiled=tc.compiled, ties=ties,
+                        errors={k: float(v) for k, v in errs.items()}))
+    torch._dynamo.reset()
+    return out
 
 
 def examples_body(rank, world, mesh, *, tp_kwargs, gp_kwargs):
@@ -891,18 +964,19 @@ def _state(model, opt) -> dict:
     return out
 
 
-def _twins(build, make_opt, loss_fn, mesh, backend):
-    """A model compiled under DataParallelTrainer(compiled=True) and its
-    eager twin from the same state (the compiled one loaded from the twin),
-    each with its own optimizer."""
+def _twins(build, make_opt, loss_fn, mesh, backend, trainer=None):
+    """A model compiled under `trainer(compiled=True)` (DataParallelTrainer
+    by default) and its eager twin from the same state (the compiled one
+    loaded from the twin at rest), each with its own optimizer."""
     from vqtpu_torch.parallel import DataParallelTrainer
 
+    trainer = trainer or DataParallelTrainer
     eager = build()
     compiled = build()
     compiled.load_state_dict(eager.state_dict())
     opt_e, opt_c = make_opt(eager), make_opt(compiled)
-    return (compiled, DataParallelTrainer(compiled, opt_c, loss_fn, mesh, compiled=True, backend=backend), opt_c,
-            eager, DataParallelTrainer(eager, opt_e, loss_fn, mesh, compiled=False), opt_e)
+    return (compiled, trainer(compiled, opt_c, loss_fn, mesh, compiled=True, backend=backend), opt_c,
+            eager, trainer(eager, opt_e, loss_fn, mesh, compiled=False), opt_e)
 
 
 def compiled_vq_steps(rank, world, mesh, *, kwargs, xs):
@@ -1102,3 +1176,120 @@ def dp_compiled_card_body(rank, world, mesh, device, *, steps=2, shape=(16, 256,
         out.append(dict(launches=launches, compiled=tc.compiled, ties=ties,
                         errors={k: float(v) for k, v in errs.items()}))
     return out
+
+
+# -- the compiled tensor-parallel step (TensorParallelTrainer(compiled=True)) -------
+
+
+class SimVQModel(torch.nn.Module):
+    """Linear -> SimVQ(dim=16, codebook_size=32, code_axis='code') ->
+    Linear: the transform sees only the rank's rows of the frozen codebook,
+    so its gradient is partial per code shard."""
+
+    def __init__(self):
+        import vqtpu_torch
+        super().__init__()
+        self.enc = torch.nn.Linear(8, 16)
+        self.sim = vqtpu_torch.SimVQ(dim=16, codebook_size=32, code_axis='code', device='cpu')
+        self.dec = torch.nn.Linear(16, 8)
+
+    def forward(self, x):
+        q, idx, commit = self.sim(self.enc(x))
+        return self.dec(q), idx, commit
+
+
+def compiled_tp_steps(rank, world, mesh, *, model, kwargs, opt, xs):
+    """TensorParallelTrainer compiled (a recording aot_eager backend) and
+    its eager twin from one seed over `model` ('ae': AEModel(sync_axis=
+    'data', code_axis='code', **kwargs); 'simvq': SimVQModel) with `opt`
+    ('sgd': SGD(1e-2); 'adam': Adam(1e-2)), a step per global batch in `xs`
+    on this rank's block over 'data': per step both losses and indices,
+    both states (the rank's rows; the optimizer's state), the quantizer's
+    input and, for 'ae', the whole codebook its selection used (gathered
+    over 'code'), the shapes of Adam's first moments, and the graphs
+    captured in the step."""
+    from vqtpu_torch.parallel import TensorParallelTrainer, collectives
+    torch._dynamo.reset()
+    torch.manual_seed(0)
+    graphs, picked = [], {}
+
+    def loss_fn(m, batch):
+        out, idx, commit = m(batch)
+        picked['idx'] = idx
+        return ((out - batch) ** 2).mean() + commit
+
+    build = dict(ae=lambda: AEModel(sync_axis='data', code_axis='code', **kwargs), simvq=SimVQModel)[model]
+    make_opt = dict(sgd=lambda m: torch.optim.SGD(m.parameters(), lr=1e-2),
+                    adam=lambda m: torch.optim.Adam(m.parameters(), lr=1e-2))[opt]
+    mc, tc, oc, me, te, oe = _twins(build, make_opt, loss_fn, mesh, recording_backend(graphs),
+                                    TensorParallelTrainer)
+    used = {}
+    if model == 'ae':
+        cb = me.vq._codebook
+        init = cb.init_embed_
+
+        def init_and_record(flatten, mask=None):
+            init(flatten, mask)
+            used['embed'] = cb.embed.detach().clone()
+        cb.init_embed_ = init_and_record
+    out = []
+    for x in xs:
+        local = torch.from_numpy(shard(x, mesh.index('data'), mesh.size('data')))
+        with torch.no_grad():
+            x_in = me.enc(local)
+        if model == 'ae':
+            used['embed'] = cb.embed.detach().clone()
+        n_graphs = len(graphs)
+        loss_c = tc.step(local)
+        idx_c = picked['idx']
+        loss_e = te.step(local)
+        idx_e = picked['idx']
+        step = dict(loss=(loss_c, loss_e), idx=(idx_c, idx_e), x_in=x_in, compiled=_state(mc, oc),
+                    eager=_state(me, oe), moment_shapes=sorted({tuple(s['exp_avg'].shape)
+                                                                for s in oc.state.values() if 'exp_avg' in s}),
+                    graphs=[graph_ops(gm) for gm in graphs[n_graphs:]])
+        if model == 'ae':
+            with mesh:
+                step['embed_used'] = collectives.all_gather_exact(used['embed'].contiguous(), 'code', concat_axis=1)
+        out.append(np_tree(step))
+    out[-1]['n_params'] = sum(p.numel() for p in mc.parameters())
+    out[-1]['n_partial'] = sum(p.numel() for p in mc.sim.code_transform.parameters()) if model == 'simvq' else 0
+    torch._dynamo.reset()
+    return out
+
+
+def compiled_tp_rvq_step(rank, world, mesh, *, state, batch):
+    """vqtpu_torch.entry's code-sharded ResidualVQ (TPRVQModel, AdamW
+    3e-4, entry.recon_plus_aux): one TensorParallelTrainer step compiled,
+    and eagerly, from a JAX state on this rank's block of `batch` over
+    'data': both losses and states after the step (gathered back to full
+    rows), and the captured graphs."""
+    from vqtpu_torch import load_vqtpu_state
+    from vqtpu_torch.core.optim import adamw
+    from vqtpu_torch.entry import TPRVQModel, recon_plus_aux
+    from vqtpu_torch.parallel import TensorParallelTrainer, gather_codebooks
+
+    torch._dynamo.reset()
+    graphs = []
+
+    def build():
+        m = TPRVQModel(16 * world, 'cpu')
+        load_vqtpu_state(m, state)
+        return m
+
+    mc, tc, _, me, te, _ = _twins(build, lambda m: adamw(m.parameters(), 3e-4), recon_plus_aux, mesh,
+                                  recording_backend(graphs), TensorParallelTrainer)
+    local = torch.from_numpy(shard(batch, mesh.index('data'), mesh.size('data')))
+    loss_c, loss_e = tc.step(local), te.step(local)
+    gather_codebooks(mc, mesh)
+    gather_codebooks(me, mesh)
+    torch._dynamo.reset()
+    return np_tree(dict(loss=(loss_c, loss_e), compiled=mc.state_dict(), eager=me.state_dict(),
+                        codebooks=_codebooks(mc), graphs=[graph_ops(gm) for gm in graphs]))
+
+
+def tp_compile_body(rank, world, mesh, *, cases):
+    """Every case of tests/test_torch_tp_compile.py in one world: {name:
+    its body's result}; `cases` is {name: (body name, kwargs)}."""
+    bodies = dict(steps=compiled_tp_steps, rvq=compiled_tp_rvq_step)
+    return {name: bodies[body](rank, world, mesh, **kw) for name, (body, kw) in cases.items()}

@@ -253,7 +253,8 @@ def tp_vq_steps(mesh2d, device) -> tuple[float, dict]:
     second step's loss and the state after it (this rank's rows)."""
     world = math.prod(mesh2d.shape)
     model = built_on_cpu(TPModel, device)
-    trainer = TensorParallelTrainer(model, adamw(model.parameters(), 3e-4), recon_plus_aux, mesh2d)
+    # eager, as the dryrun's other sections run
+    trainer = TensorParallelTrainer(model, adamw(model.parameters(), 3e-4), recon_plus_aux, mesh2d, compiled=False)
     batch = global_batch(mesh2d, ('data',), _normal((4 * world, 4, 8), 4, device), device)
     trainer.step(batch)
     loss = float(trainer.step(batch))
@@ -279,7 +280,7 @@ def rvq_tp_step(model: TPRVQModel, mesh2d, batch: torch.Tensor) -> tuple[float, 
     """One TensorParallelTrainer step (AdamW 3e-4) of the code-sharded
     ResidualVQ on this rank's `batch` (sharding the model's codebooks). The
     loss and the state after the step (this rank's rows)."""
-    trainer = TensorParallelTrainer(model, adamw(model.parameters(), 3e-4), recon_plus_aux, mesh2d)
+    trainer = TensorParallelTrainer(model, adamw(model.parameters(), 3e-4), recon_plus_aux, mesh2d, compiled=False)
     loss = float(trainer.step(batch))
     _check(math.isfinite(loss), f'code-sharded ResidualVQ loss {loss}')
     return loss, held(model)

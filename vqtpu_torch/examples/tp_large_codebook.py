@@ -15,7 +15,8 @@ one card:
 Every rank draws the same global batch from the same seed and trains on
 its block of it (`parallel.global_batch`); at the end the ranks holding
 the same code shard are checked to hold bit-identical parameters and
-state.
+state. On the card the step is compiled whole (the trainer's default), as
+the JAX script jits its shard_map'd step.
 """
 
 import argparse
@@ -95,7 +96,7 @@ def run(mesh, *, train_iter=200, lr=3e-4, dim=64, num_codes=65536, seed=0, alpha
     if not all(replicas.values()):
         raise AssertionError(f'the data replicas of a code shard differ: {replicas}')
     return dict(coords=mesh.coords, losses=losses, rows_per_rank=rows, ema_perplexity=pplx,
-                data_replicas_identical=replicas)
+                data_replicas_identical=replicas, compiled=trainer.compiled)
 
 
 def main(train_iter=200, lr=3e-4, dim=64, num_codes=65536, seed=0,

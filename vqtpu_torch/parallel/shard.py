@@ -131,6 +131,19 @@ def _on_card(model: nn.Module) -> bool:
     return any(t.is_cuda for t in itertools.chain(model.parameters(), model.buffers()))
 
 
+def _graph_params(model: nn.Module, optimizer: torch.optim.Optimizer) -> tuple[list, list]:
+    """For a compiled step, fixed outside the trace: the model's trainable
+    parameters, and where each of the optimizer's parameters sits among
+    them (None for one the model does not train). Adam's state is made
+    here, in the parameters' shapes as they are now."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    at = {id(p): i for i, p in enumerate(params)}
+    slots = [at.get(id(p)) for group in optimizer.param_groups for p in group['params']]
+    if isinstance(optimizer, torch.optim.Adam) and not any(g['amsgrad'] for g in optimizer.param_groups):
+        prepare_adamw_for_graph(optimizer)
+    return params, slots
+
+
 class DataParallelTrainer:
     """Data-parallel training of a model whose quantizers take
     `sync_axis=axis`: each rank runs `step` on its own shard of the global
@@ -175,13 +188,7 @@ class DataParallelTrainer:
         self.compiled = _on_card(model) if compiled is None else bool(compiled)
         self._graph_step = None
         if self.compiled:
-            # the trainable parameters, and where each of the optimizer's
-            # parameters sits among them, fixed here, outside the trace
-            self._params = [p for p in model.parameters() if p.requires_grad]
-            at = {id(p): i for i, p in enumerate(self._params)}
-            self._slots = [at.get(id(p)) for group in optimizer.param_groups for p in group['params']]
-            if isinstance(optimizer, torch.optim.Adam) and not any(g['amsgrad'] for g in optimizer.param_groups):
-                prepare_adamw_for_graph(optimizer)
+            self._params, self._slots = _graph_params(model, optimizer)
             self._graph_step = compile_step(self._step_body, backend=backend)
 
     def step(self, batch) -> torch.Tensor:

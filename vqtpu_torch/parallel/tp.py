@@ -31,8 +31,10 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..core.compile import compile_step
+from ..core.optim import optimizer_update
 from . import collectives
-from .shard import Mesh, average_gradients
+from .shard import Mesh, _graph_params, _on_card, _pmean_flat, average_gradients
 
 
 def _declares(module) -> bool:
@@ -196,9 +198,22 @@ class TensorParallelTrainer:
     returns the loss averaged over `data_axis`, as the JAX package's
     shard_map body does.
 
+    `compiled`: run the step compiled whole, as the JAX package jits its
+    shard_map'd step (`core.compile.compile_step` with `backend`: one
+    graph, or an error): the loss, `torch.autograd.grad` over the trainable
+    parameters (a codebook's rows are the rank's), one pmean of the
+    flattened gradients over `data_axis`, one psum of the flattened
+    partial gradients over their code axis, the optimizer's functional
+    update (`core.optim.optimizer_update`) and the pmean of the loss, the
+    collectives inside the graph. None compiles when the model is on the
+    card and runs eagerly on the CPU. As `parallel.DataParallelTrainer`'s,
+    the compiled step leaves the parameters' `.grad` alone, and a codebook
+    with kmeans init compiles twice.
+
     Usage:
         mesh = make_mesh(('data', 'code'), shape=(2, 4))
-        trainer = TensorParallelTrainer(model, torch.optim.Adam(model.parameters(), 1e-3), loss_fn, mesh)
+        trainer = TensorParallelTrainer(model, torch.optim.Adam(model.parameters(), 1e-3), loss_fn, mesh,
+                                        compiled=None)      # compiled on the card, eager on the CPU
         loss = trainer.step(global_batch(mesh, ('data',), batch))
 
     `gather_codebooks(model, mesh)` (or `utils.checkpoint.save_checkpoint`
@@ -206,7 +221,7 @@ class TensorParallelTrainer:
     """
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, loss_fn: Callable, mesh: Mesh,
-                 data_axis: str | None = 'data'):
+                 data_axis: str | None = 'data', *, compiled: bool | None = None, backend: str = 'inductor'):
         if data_axis is not None and data_axis not in mesh.axis_names:
             raise ValueError(f'data axis {data_axis!r} is not an axis of {mesh}')
         for _, m in find_sharded_codebooks(model):
@@ -219,11 +234,29 @@ class TensorParallelTrainer:
         self.data_axis = data_axis
         shard_codebooks(model, mesh, optimizer)
         self._partial_grad_paths = find_code_partial_grad_paths(model)
+        self.compiled = _on_card(model) if compiled is None else bool(compiled)
+        self._graph_step = None
+        if self.compiled:
+            # after the sharding: the graph traces the rank's rows, and a
+            # learnable codebook's Adam state holds them
+            self._params, self._slots = _graph_params(model, optimizer)
+            at = {id(p): i for i, p in enumerate(self._params)}
+            # {code axis: the positions among the parameters of those whose
+            # gradients are partial per code shard}, each parameter once
+            self._partial_at, seen = {}, set()
+            for path, axis in self._partial_grad_paths:
+                for p in model.get_submodule(path).parameters():
+                    if id(p) in at and id(p) not in seen:
+                        seen.add(id(p))
+                        self._partial_at.setdefault(axis, []).append(at[id(p)])
+            self._graph_step = compile_step(self._step_body, backend=backend)
 
     def step(self, batch) -> torch.Tensor:
         """One optimizer step on this rank's shard `batch`; returns the mean
         loss over the data axis (detached)."""
         with self.mesh:
+            if self._graph_step is not None:
+                return self._graph_step(batch)
             self.optimizer.zero_grad(set_to_none=True)
             loss = self.loss_fn(self.model, batch)
             loss.backward()
@@ -233,6 +266,25 @@ class TensorParallelTrainer:
                 psum_partial_grads(self.model, self._partial_grad_paths)
             self.optimizer.step()
             return collectives.pmean(loss.detach(), self.data_axis)
+
+    def _step_body(self, batch) -> torch.Tensor:
+        """The compiled step: the gradients as the eager step reduces them
+        (the pmean over the data axis first, then the partial gradients'
+        psum, as in JAX), handed to the optimizer's update in its
+        parameters' order."""
+        params, grads = self._params, []
+        loss = self.loss_fn(self.model, batch)
+        if params:
+            raw = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, raw)]
+            if self.data_axis is not None:
+                grads = _pmean_flat(grads, self.data_axis)
+            for axis, at in self._partial_at.items():
+                for i, g in zip(at, _pmean_flat([grads[i] for i in at], axis, collectives.psum)):
+                    grads[i] = g
+        # without foreach, as DataParallelTrainer's compiled step updates
+        optimizer_update(self.optimizer, [None if i is None else grads[i] for i in self._slots], foreach=False)
+        return collectives.pmean(loss.detach(), self.data_axis)
 
 
 def tp_apply(model: nn.Module, mesh: Mesh, fn: Callable, *args, mutates_state: bool = False):
