@@ -1110,6 +1110,56 @@ def test_tp_vq_train_two_gloo_ranks(card):
             assert max(st['errors'].values()) <= 1e-5, st
 
 
+def test_tp_apply_compiled_two_gloo_ranks(card):
+    """tp_apply of a row-sharded VectorQuantize's eval forward and decode on
+    two ('code',) gloo ranks of the card, compiled (its default there):
+    K1 once a rank a call, bit-equal to the eager call and the unsharded
+    eval, the decode its rows, the module as before, and a second call on
+    another batch capturing no graph."""
+    import torch_dist
+    ranks = torch_dist.run_world(torch_dist.tp_apply_card_body, axes=('code',), timeout=600)
+    for r in ranks:
+        assert r['launches'] == dict(eager=1, compiled=1, again=1), r
+        assert r['frames'] == 1, r
+        assert r['compiled_equal'] and r['unsharded_equal'] and r['decode_equal'] and r['unchanged'], r
+
+
+def test_group_parallel_compiled_two_gloo_ranks(card):
+    """group_parallel_forward compiled on two ('group',) gloo ranks of the
+    card (its default there): GroupedResidualVQ eval bit-equal to eager and
+    serial with K1 once a layer a rank; a training call with
+    update_state=False leaves the state as it was (F4) and returns the
+    step's outputs; the 'on' step with K4 once a layer a rank, its indices
+    eager's and serial's, its rows and loss within 1e-6 and its state within
+    1e-5 of eager's; GroupedResidualFSQ eval with K9 once a rank; the
+    decodes round trip (FSQ's within 1e-6)."""
+    import torch_dist
+    ranks = torch_dist.run_world(torch_dist.gp_card_body, axes=('group',), timeout=600)
+    for r in ranks:
+        assert r['vq_eval_launches'] == r['vq_eval_compiled_launches'] == (2, 0, 0), r
+        assert r['vq_train_launches'] == r['vq_train_compiled_launches'] == r['vq_kept_launches'] == (0, 2, 0), r
+        assert r['fsq_eval_launches'] == r['fsq_eval_compiled_launches'] == (0, 0, 1), r
+        for key in ('vq_eval_equal', 'vq_decode_equal', 'vq_kept_unchanged', 'vq_kept_equals_step',
+                    'vq_train_indices_equal', 'fsq_eval_equal'):
+            assert r[key], (key, r)
+        assert r['vq_train_rows_rel_err'] <= 1e-6 and r['vq_train_loss_rel_err'] <= 1e-6, r
+        # FSQ's decode is arithmetic, which inductor may contract into FMAs
+        assert r['fsq_decode_rel_err'] <= 1e-6, r
+        assert r['vq_train_state_rel_err'] <= 1e-5, r
+
+
+def test_group_parallel_example_compiled_two_gloo_ranks(card):
+    """vqtpu_torch.examples.group_parallel_grvq on two ('group',) gloo ranks
+    of the card, as it runs there by default: its group-parallel calls
+    compiled, step 0 the serial loop's (indices bit for bit, the output
+    and the loss within 1e-6), the decode round trip."""
+    import torch_dist
+    ranks = torch_dist.run_world(torch_dist.gp_example_card_body, axes=('group',), timeout=600)
+    for r in ranks:
+        assert r['compiled'] and all(r['step0'].values()), r
+        assert r['decode_max_err'] < 1e-5, r
+
+
 def test_selection_tape_on_the_card(card):
     """chip_smoke.py's replay of a compiled step's picks (`selection_tape`)
     on the card: K1's and K4's launches record their picks; picks forced in

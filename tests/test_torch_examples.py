@@ -285,6 +285,7 @@ def test_distributed_examples_on_two_gloo_ranks():
         assert all(r['tp']['data_replicas_identical'].values())
         assert np.isfinite(r['tp']['losses']).all() and math.isfinite(r['tp']['ema_perplexity'])
         assert r['gp']['step0'] == dict(indices_equal=True, output_equal=True, loss_equal=True)
+        assert r['gp']['output_rel_err'] == r['gp']['loss_rel_err'] == 0 and not r['gp']['compiled']
         assert r['gp']['decode_max_err'] < 1e-5
     assert ranks[0]['tp']['losses'] == ranks[1]['tp']['losses']
     assert ranks[0]['gp']['losses'] == ranks[1]['gp']['losses']

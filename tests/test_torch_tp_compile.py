@@ -25,7 +25,18 @@ steps beside an eager twin (`compiled=False`) from the same state:
     batch with tests/test_torch_entry.py's tolerances (loss rtol 1e-5, the
     state within 1e-5 of its largest entry) and to its eager twin;
   - (e) `compiled=None` runs eagerly on the CPU and compiles for a model
-    on the card.
+    on the card;
+  - (f) `tp_apply(compiled=True)` of VectorQuantize(dim=32,
+    codebook_size=256, sync_axis='data', code_axis='code') loaded from a
+    JAX state at rest, beside its eager call (`compiled=None`) and JAX's
+    jitted tp_apply on a (2, 2) device mesh from the same state: the eval
+    forward and decode over three batches (one graph, holding
+    `vqtpu::nearest_code_best` and the winner reduction's all_reduce, no
+    argmax), a `mutates_state=True` training forward, and the restore of a
+    non-mutating one. Tolerances as tests/test_torch_tp.py's: against eager
+    bit-identical (outputs, the state after), against JAX the indices by
+    the float64 tie rule on the whole codebook, the rows bit-equal to
+    codebook rows, the EMA state to rtol 1e-5, atol 1e-5.
 """
 
 import jax
@@ -36,10 +47,12 @@ import pytest
 import torch
 from flax import nnx
 from jax.sharding import Mesh as JaxMesh
+from jax.sharding import PartitionSpec as P
 
 import torch_dist as td
+import vqtpu
 from test_torch_entry import JaxTPRVQModel, _close_to_largest, _jax_codebooks, _jax_recon_plus_aux, _numpy_tree
-from torch_parity import assert_indices_tie_equal, one_torch_thread  # noqa: F401  (autouse)
+from torch_parity import assert_indices_tie_equal, jax_state, one_torch_thread  # noqa: F401  (autouse)
 from vqtpu_torch.parallel import Mesh, TensorParallelTrainer
 from vqtpu_torch.parallel import tp as ttp
 
@@ -74,8 +87,29 @@ def world():
     cases = {name: ('steps', dict(model='ae', kwargs=kw, opt=opt, xs=xs)) for name, (kw, opt) in AE_CASES.items()}
     cases['simvq'] = ('steps', dict(model='simvq', kwargs={}, opt='sgd', xs=xs))
     cases['rvq'] = ('rvq', dict(state=rvq_state, batch=rvq_batch))
+    cases['tp_apply'] = ('tp_apply', dict(state=jax_state(_jax_apply_vq()), xs=TP_APPLY_XS))
     ranks = td.run_world(td.tp_compile_body, world=WORLD, axes=MESH[0], shape=MESH[1], cases=cases)
     return dict(jax=jax_side, ranks=ranks)
+
+
+TP_APPLY_XS = [np.random.default_rng(40 + s).standard_normal((4, 16, 32), dtype=np.float32) for s in range(3)]
+
+
+def _jax_apply_vq():
+    return vqtpu.VectorQuantize(dim=32, codebook_size=256, sync_axis='data', code_axis='code', rngs=nnx.Rngs(0))
+
+
+def _jax_tp_apply(fn, x, train: bool, mutates_state: bool = False):
+    """JAX's tp_apply of `fn` on the (2, 2) ('data', 'code') device mesh,
+    the batch over 'data': its outputs and the module's state after."""
+    from vqtpu.parallel import tp_apply as jtp_apply
+
+    vq = _jax_apply_vq()
+    vq.train() if train else vq.eval()
+    mesh = JaxMesh(np.array(jax.devices()[:WORLD]).reshape(MESH[1]), MESH[0])
+    out = jtp_apply(vq, mesh, fn, jnp.asarray(x), in_specs=P('data'), out_specs=P('data'),
+                    mutates_state=mutates_state)
+    return [np.asarray(o) for o in out], jax_state(vq)
 
 
 def _ops(graph: dict, name: str) -> list:
@@ -223,3 +257,101 @@ def test_compiled_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(ttp, '_on_card', lambda model: True)
     assert trainer().compiled
     assert not trainer(compiled=False).compiled
+
+
+def _jax_eval_decode(m, z):
+    q, ind, _ = m(z)
+    return q, ind, m.get_output_from_indices(ind)
+
+
+def _jax_train_forward(m, z):
+    q, ind, _ = m(z)        # the loss is a scalar: no 'data' blocks
+    return q, ind
+
+
+def _rank_blocks(ranks, key, i):
+    """Output i of `key` of every data rank (ranks 0 and 2), in data
+    order: the global batch's."""
+    return np.concatenate([ranks[r][key][i] for r in (0, 2)])
+
+
+def test_tp_apply_eval_decode_compiled(world):
+    """Three eval calls of one module-level fn: one graph, captured by the
+    first, with the sharded selection's op and the winner reduction's
+    all_reduce and no argmax; each call bit-identical to the eager call,
+    its rows bit-equal to codebook rows and to the decode, its indices
+    JAX's by the float64 tie rule; the model at rest after it."""
+    ranks = [out['tp_apply']['eval'] for out in world['ranks']]
+    embed = jax_state(_jax_apply_vq())['_codebook']['embed']            # (1, 256, 32)
+    for s, x in enumerate(TP_APPLY_XS):
+        for r in ranks:
+            call = r['calls'][s]
+            for got, want in zip(call['compiled'], call['eager']):
+                np.testing.assert_array_equal(got, want, err_msg=f'call {s}')
+            q, idx, dec = call['compiled']
+            np.testing.assert_array_equal(q, embed[0][idx.astype(np.int64)])
+            np.testing.assert_array_equal(dec, q)
+            assert len(call['graphs']) == (1 if s == 0 else 0), (s, len(call['graphs']))
+        (jq, jidx, jdec), _ = _jax_tp_apply(_jax_eval_decode, x, train=False)
+        idx = np.concatenate([ranks[r]['calls'][s]['compiled'][1] for r in (0, 2)])
+        assert_indices_tie_equal(x.reshape(1, -1, 32), embed, 'euclidean', jidx.reshape(1, -1), idx.reshape(1, -1))
+    (g,) = ranks[0]['calls'][0]['graphs']
+    tokens = TP_APPLY_XS[0].shape[0] // MESH[1][0] * TP_APPLY_XS[0].shape[1]
+    assert len(g.get('vqtpu::nearest_code_best', [])) == 1 and 'aten::argmax' not in g, g
+    assert _ops(g, 'all_reduce').count((tokens,)) >= 3, _ops(g, 'all_reduce')
+    for r in ranks:
+        assert r['cached'] == 1 and r['rows_at_rest'] == 256
+
+
+def test_tp_apply_mutating_training_forward_compiled(world):
+    """A training forward with mutates_state=True, compiled: its outputs and
+    the state it leaves (gathered back to full rows) bit-identical to the
+    eager call's, the data replicas of a code shard alike, the statistics'
+    psums in the graph; against JAX's mutating tp_apply the indices by the
+    tie rule and the EMA state to rtol 1e-5, atol 1e-5."""
+    ranks = [out['tp_apply']['mutating'] for out in world['ranks']]
+    for r in ranks:
+        for got, want in zip(r['compiled'], r['eager']):
+            np.testing.assert_array_equal(got, want)
+        for key, want in r['state_eager'].items():
+            np.testing.assert_array_equal(r['state_compiled'][key], want, err_msg=key)
+            np.testing.assert_array_equal(r['state_compiled'][key], ranks[0]['state_compiled'][key], err_msg=key)
+        assert r['state_compiled']['_codebook.embed'].shape == (1, 256, 32)
+    (g,) = ranks[0]['graphs']
+    assert len(g.get('vqtpu::nearest_code_best', [])) == 1 and 'aten::argmax' not in g, g
+    # the statistics' psums over 'data' and 'code'
+    assert len(_ops(g, 'all_reduce')) >= 5, _ops(g, 'all_reduce')
+    x = TP_APPLY_XS[0]
+    (jq, jidx), jstate = _jax_tp_apply(_jax_train_forward, x, train=True, mutates_state=True)
+    embed = jax_state(_jax_apply_vq())['_codebook']['embed']
+    assert_indices_tie_equal(x.reshape(1, -1, 32), embed, 'euclidean', jidx.reshape(1, -1),
+                             _rank_blocks(ranks, 'compiled', 1).reshape(1, -1))
+    for key in ('embed', 'embed_avg', 'cluster_size'):
+        np.testing.assert_allclose(ranks[0]['state_compiled'][f'_codebook.{key}'], jstate['_codebook'][key],
+                                   rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+def test_tp_apply_restores_a_non_mutating_call(world):
+    """The same training forward without mutates_state, compiled: every
+    parameter and buffer (the random stream's state among them) bit-equal
+    to before the call, the codebook at rest, and the outputs those of the
+    mutating call from the same state."""
+    for out in world['ranks']:
+        r = out['tp_apply']['restore']
+        assert sorted(r['after']) == sorted(r['before'])
+        for key, want in r['before'].items():
+            np.testing.assert_array_equal(r['after'][key], want, err_msg=key)
+        for got, want in zip(r['out'], out['tp_apply']['mutating']['compiled']):
+            np.testing.assert_array_equal(got, want)
+
+
+def test_tp_apply_more_keys_than_dynamos_recompile_limit(world):
+    """One `fn` under more keys than Dynamo keeps graphs of one code object,
+    in one process and without a reset (the decode with recompile_limit + 1
+    backends): every call compiles (fullgraph raises past the limit) and
+    equals the eager decode, each body on a code object of its own with
+    one graph."""
+    for out in world['ranks']:
+        r = out['tp_apply']['many_keys']
+        assert r['equal'] == [True] * (torch._dynamo.config.recompile_limit + 1)
+        assert r['graphs'] == [1] * len(r['equal'])

@@ -689,6 +689,317 @@ def gp_body(rank, world, mesh, *, cases):
     return out
 
 
+def _state_copy(module) -> dict:
+    """The module's state_dict as numpy copies (a view would follow the
+    module's later in-place writes)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in module.state_dict().items()}
+
+
+def gp_compile_case(mesh_1d, mesh_2d, case):
+    """One case of tests/test_torch_gp_compile.py: three twins of a Grouped
+    composite from one torch seed (loaded from a JAX state when the case has
+    one): group_parallel_forward compiled (a recording aot_eager backend),
+    the same eagerly, and the serial module, each called on each step's
+    input (this data rank's block with `data_axis`; the serial one on the
+    whole batch then; not on a step without `update_state`), each step
+    with `update_state` as `case['update']` says (default True); with `gs`, the backward of sum(q * g) + the losses'
+    sum into x. Per step each twin's outputs, x.grad and state after it, and
+    the graphs the compiled call captured; the state before the first step;
+    the decodes (the compiled one twice); the number of cached bodies. The
+    eager twin passes `compiled=None`, which runs eagerly on the CPU."""
+    import vqtpu_torch
+    from vqtpu_torch import load_vqtpu_state
+    from vqtpu_torch.parallel import group as tgroup
+    from vqtpu_torch.parallel import group_parallel_forward, group_parallel_output_from_indices
+
+    torch._dynamo.reset()
+    tgroup._GP_CACHE.clear()
+    graphs = []
+    backend = recording_backend(graphs)
+    m = mesh_1d if case.get('mesh') == 'group' else mesh_2d
+    data_axis = case.get('data_axis')
+    dw = m.size('data') if data_axis else 1
+    di = m.index('data') if data_axis else 0
+    twins = []
+    for kwargs in (case['par_kwargs'], case['par_kwargs'], case['ser_kwargs']):
+        torch.manual_seed(case.get('seed', 0))
+        module = getattr(vqtpu_torch, case['cls'])(**kwargs, device='cpu')
+        if case.get('state') is not None:
+            load_vqtpu_state(module, case['state'])
+        twins.append(module.train(case.get('train', True)))
+    comp, eager, ser = twins
+    before = _state_copy(comp)
+    steps = []
+    for s, x in enumerate(case['xs']):
+        call = dict(case.get('call', {}))
+        if 'mask' in case:
+            call['mask'] = torch.from_numpy(shard(case['mask'], di, dw))
+        if 'indices' in case:
+            call['indices'] = tuple(torch.from_numpy(shard(i, di, dw)) for i in case['indices'])
+        update = case.get('update', [True] * len(case['xs']))[s]
+        step = dict(graphs=[])
+        for name, module in (('compiled', comp), ('eager', eager), ('ser', ser)):
+            if name == 'ser' and not update:
+                continue                    # the serial module always writes its state
+            grad = case.get('gs') is not None
+            xin = torch.from_numpy(x if name == 'ser' and data_axis else shard(x, di, dw)).requires_grad_(grad)
+            n = len(graphs)
+            with torch.set_grad_enabled(grad):
+                if name == 'ser':
+                    out = module(xin, **call)
+                else:
+                    out = group_parallel_forward(module, xin, m, group_axis='group', data_axis=data_axis,
+                                                 update_state=update, backend=backend,
+                                                 compiled=True if name == 'compiled' else None, **call)
+            if grad:
+                g = torch.from_numpy(case['gs'][s])
+                (out[0] * g).sum().add(sum(o.sum() for o in out[2:] if o.is_floating_point())).backward()
+            step[name] = np_tree(dict(out=out, x_grad=xin.grad, state=_state_copy(module)))
+            step['graphs'] += [graph_ops(gm) for gm in graphs[n:]]
+        steps.append(step)
+    decoded = None
+    if case.get('decode'):
+        idx = torch.from_numpy(steps[-1]['compiled']['out'][1])
+        with torch.no_grad():
+            calls = [group_parallel_output_from_indices(comp, idx, m, group_axis='group', compiled=True,
+                                                        backend=backend) for _ in range(2)]
+            eager_decode = group_parallel_output_from_indices(eager, idx, m, group_axis='group')
+            decoded = np_tree(dict(compiled=calls, eager=eager_decode, ser=ser.get_output_from_indices(idx)))
+    out = dict(steps=steps, decoded=decoded, before=before, n_graphs=len(graphs), cached=len(tgroup._GP_CACHE))
+    torch._dynamo.reset()
+    return out
+
+
+def gp_many_keys(mesh, kwargs, x):
+    """More cache keys than Dynamo's `recompile_limit` in one process,
+    without a reset: GroupedResidualFSQ(**kwargs) in eval on the ('group',)
+    mesh, group_parallel_forward compiled with recompile_limit + 1 backends
+    (each a recording aot_eager of its own, so each call is a key of its
+    own), against its eager call. Per key whether the outputs equal, and
+    the graphs each cached body holds."""
+    import vqtpu_torch
+    from torch._dynamo.eval_frame import _debug_get_cache_entry_list
+    from vqtpu_torch.parallel import group as tgroup
+    from vqtpu_torch.parallel import group_parallel_forward
+
+    torch._dynamo.reset()
+    tgroup._GP_CACHE.clear()
+    torch.manual_seed(0)
+    module = vqtpu_torch.GroupedResidualFSQ(**kwargs, device='cpu').eval()
+    x = torch.from_numpy(x)
+    with torch.no_grad():
+        want = group_parallel_forward(module, x, mesh, group_axis='group')
+        equal = []
+        for _ in range(torch._dynamo.config.recompile_limit + 1):
+            got = group_parallel_forward(module, x, mesh, group_axis='group', compiled=True,
+                                         backend=recording_backend([]))
+            equal.append(all(bool(torch.equal(a, b)) for a, b in zip(got, want)))
+    graphs = [len(_debug_get_cache_entry_list(body.__wrapped__.__code__)) for body in tgroup._GP_CACHE.values()]
+    torch._dynamo.reset()
+    return dict(equal=equal, graphs=graphs)
+
+
+def gp_compile_body(rank, world, mesh, *, cases, many_keys):
+    """Every case of tests/test_torch_gp_compile.py (gp_compile_case) in one
+    world of four ranks: on its ('group',) mesh of 4 or on a ('data',
+    'group') (2, 2) mesh made here; then gp_many_keys(**many_keys)."""
+    from vqtpu_torch.parallel import make_mesh
+
+    mesh_2d = make_mesh(('data', 'group'), (2, 2))
+    return [gp_compile_case(mesh, mesh_2d, case) for case in cases] + [gp_many_keys(mesh, **many_keys)]
+
+
+def tp_eval_decode(m, z):
+    """An eval forward and the decode of its indices, for tp_apply."""
+    with torch.no_grad():
+        q, idx, _ = m(z)
+        return q, idx, m.get_output_from_indices(idx)
+
+
+def tp_decode(m, idx):
+    """The decode of `idx`, for tp_apply."""
+    with torch.no_grad():
+        return m.get_output_from_indices(idx)
+
+
+def tp_train_forward(m, z):
+    """A training forward without gradients (the EMA update), for tp_apply."""
+    with torch.no_grad():
+        return m(z)
+
+
+def compiled_tp_apply(rank, world, mesh, *, state, xs):
+    """tp_apply on this rank's block over 'data' of each global batch of
+    `xs`, compiled (a recording aot_eager backend) and eagerly (`compiled=None`
+    on the CPU), over twins
+    of VectorQuantize(dim=32, codebook_size=256, sync_axis='data',
+    code_axis='code') loaded from a JAX state at rest: the eval forward and
+    decode on each batch (`eval`: both outputs, the graphs a call captured,
+    the cached bodies); a mutating training forward on the first batch
+    (`mutating`: both outputs and states after the call, gathered back); a
+    non-mutating one (`restore`: its output and the state before and
+    after); the decode with more keys than Dynamo's recompile_limit in one
+    process (`many_keys`: each call equal to eager's, each body's
+    graphs)."""
+    from torch._dynamo.eval_frame import _debug_get_cache_entry_list
+    from vqtpu_torch import VectorQuantize, load_vqtpu_state
+    from vqtpu_torch.parallel import tp as ttp
+    from vqtpu_torch.parallel import tp_apply
+
+    torch._dynamo.reset()
+    ttp._TP_APPLY_CACHE.clear()
+    graphs = []
+    backend = recording_backend(graphs)
+
+    def build(train):
+        torch.manual_seed(0)
+        m = VectorQuantize(dim=32, codebook_size=256, sync_axis='data', code_axis='code', device='cpu')
+        load_vqtpu_state(m, state)
+        return m.train(train)
+
+    local = [torch.from_numpy(shard(x, mesh.index('data'), mesh.size('data'))) for x in xs]
+    mc, me = build(False), build(False)
+    calls = []
+    for z in local:
+        n = len(graphs)
+        got = tp_apply(mc, mesh, tp_eval_decode, z, compiled=True, backend=backend)
+        calls.append(dict(compiled=got, eager=tp_apply(me, mesh, tp_eval_decode, z),
+                          graphs=[graph_ops(gm) for gm in graphs[n:]]))
+    out = dict(eval=dict(calls=calls, cached=len(ttp._TP_APPLY_CACHE), rows_at_rest=mc._codebook.embed.shape[-2]))
+    mc, me = build(True), build(True)
+    n = len(graphs)
+    got = tp_apply(mc, mesh, tp_train_forward, local[0], mutates_state=True, compiled=True, backend=backend)
+    out['mutating'] = dict(compiled=got, graphs=[graph_ops(gm) for gm in graphs[n:]],
+                           eager=tp_apply(me, mesh, tp_train_forward, local[0], mutates_state=True),
+                           state_compiled=dict(mc.state_dict()), state_eager=dict(me.state_dict()))
+    mc = build(True)
+    before = {k: v.clone() for k, v in mc.state_dict().items()}
+    got = tp_apply(mc, mesh, tp_train_forward, local[0], compiled=True, backend=backend)
+    out['restore'] = dict(out=got, before=before, after=dict(mc.state_dict()))
+    # more keys than Dynamo's recompile_limit without a reset: the decode
+    # with recompile_limit + 1 backends, each a key of its own
+    mc, me = build(False), build(False)
+    idx = out['eval']['calls'][0]['eager'][1]
+    want = tp_apply(me, mesh, tp_decode, idx)
+    ttp._TP_APPLY_CACHE.clear()
+    equal = [bool(torch.equal(tp_apply(mc, mesh, tp_decode, idx, compiled=True, backend=recording_backend([])), want))
+             for _ in range(torch._dynamo.config.recompile_limit + 1)]
+    out['many_keys'] = dict(equal=equal, graphs=[len(_debug_get_cache_entry_list(body.__wrapped__.__code__))
+                                                 for body in ttp._TP_APPLY_CACHE.values()])
+    torch._dynamo.reset()
+    return np_tree(out)
+
+
+def tp_apply_card_body(rank, world, mesh, *, shape=(4, 256, 64), codes=1024):
+    """tp_apply of a row-sharded VectorQuantize's eval forward and decode on
+    the card, eagerly and compiled (its default there), and once more
+    compiled on another batch: each call's K1 launches and outputs, whether
+    the compiled calls equal the eager one and the unsharded eval, whether
+    the module is as before, and the graphs Dynamo holds of the body."""
+    from torch._dynamo.eval_frame import _debug_get_cache_entry_list
+    from vqtpu_torch import VectorQuantize
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.parallel import tp as ttp
+    from vqtpu_torch.parallel import tp_apply
+
+    torch._dynamo.reset()
+    ttp._TP_APPLY_CACHE.clear()
+    torch.manual_seed(0)
+    vq = VectorQuantize(dim=shape[-1], codebook_size=codes, code_axis='code', device='cuda').eval()
+    x = torch.randn(shape, device='cuda')
+    before = {k: v.clone() for k, v in vq.state_dict().items()}
+    out, launches = {}, {}
+    for mode, compiled, batch in (('eager', False, x), ('compiled', None, x), ('again', None, x + 1)):
+        nearest_code.launches = 0
+        out[mode] = tp_apply(vq, mesh, tp_eval_decode, batch, compiled=compiled)
+        torch.cuda.synchronize()
+        launches[mode] = nearest_code.launches
+    with torch.no_grad():
+        q1, idx1, _ = vq(x)
+        q2, idx2, _ = vq(x + 1)
+    frames = sum(len(_debug_get_cache_entry_list(body.__wrapped__.__code__)) for body in ttp._TP_APPLY_CACHE.values())
+    return dict(launches=launches, frames=frames,
+                compiled_equal=all(bool(torch.equal(a, b)) for a, b in zip(out['compiled'], out['eager'])),
+                unsharded_equal=bool(torch.equal(out['compiled'][0], q1) and torch.equal(out['compiled'][1], idx1)
+                                     and torch.equal(out['again'][0], q2) and torch.equal(out['again'][1], idx2)),
+                decode_equal=bool(torch.equal(out['compiled'][2], out['compiled'][0])),
+                unchanged=all(torch.equal(v, before[k]) for k, v in vq.state_dict().items()))
+
+
+def gp_card_body(rank, world, mesh, *, shape=(4, 256, 64)):
+    """group_parallel_forward on the card, compiled (its default there)
+    against the eager call and the serial module, from one seed:
+    GroupedResidualVQ(dim=64, groups=2, num_quantizers=2, codebook_size=128,
+    train_fused='on') in eval, then a training call with update_state=False
+    (F4), then an 'on' step; GroupedResidualFSQ(dim=8, groups=2) in eval;
+    the decodes. Each call's launches of K1, K4 and K9, and the
+    comparisons."""
+    import vqtpu_torch
+    from vqtpu_torch.kernels.distance import nearest_code
+    from vqtpu_torch.kernels.residual_fsq_fused import fused_residual_fsq_eval
+    from vqtpu_torch.kernels.train_fused import fused_train_quantize
+    from vqtpu_torch.parallel import group_parallel_forward, group_parallel_output_from_indices
+
+    torch._dynamo.reset()
+
+    def triplet(cls, **kw):
+        mods = []
+        for _ in range(3):
+            torch.manual_seed(0)
+            mods.append(getattr(vqtpu_torch, cls)(**kw, device='cuda'))
+        return mods
+
+    def run(fn, *args, **kwargs):
+        nearest_code.launches = fused_train_quantize.launches = fused_residual_fsq_eval.launches = 0
+        result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return result, (nearest_code.launches, fused_train_quantize.launches, fused_residual_fsq_eval.launches)
+
+    def equal(a, b):
+        return all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+
+    out = {}
+    par, parc, ser = triplet('GroupedResidualVQ', dim=shape[-1], groups=2, num_quantizers=2, codebook_size=128,
+                             train_fused='on')
+    torch.manual_seed(1)
+    x = torch.randn(shape, device='cuda')
+    with torch.no_grad():
+        for m in (par, parc, ser):
+            m.eval()
+        eager, out['vq_eval_launches'] = run(group_parallel_forward, par, x, mesh, compiled=False)
+        got, out['vq_eval_compiled_launches'] = run(group_parallel_forward, parc, x, mesh)
+        out['vq_eval_equal'] = equal(got[:2], eager[:2]) and equal(got[:2], ser(x)[:2])
+        dec, _ = run(group_parallel_output_from_indices, parc, got[1], mesh)
+        out['vq_decode_equal'] = bool(torch.equal(dec, got[0]))
+    for m in (par, parc, ser):
+        m.train()
+    before = {k: v.clone() for k, v in parc.state_dict().items()}
+    kept, out['vq_kept_launches'] = run(group_parallel_forward, parc, x, mesh, update_state=False)
+    out['vq_kept_unchanged'] = all(torch.equal(v, before[k]) for k, v in parc.state_dict().items())
+    eager, out['vq_train_launches'] = run(group_parallel_forward, par, x, mesh, compiled=False)
+    got, out['vq_train_compiled_launches'] = run(group_parallel_forward, parc, x, mesh)
+    qs, is_, ls = ser(x)
+    out['vq_train_indices_equal'] = bool(torch.equal(got[1], eager[1]) and torch.equal(eager[1], is_))
+    out['vq_kept_equals_step'] = equal(kept, got)
+    out['vq_train_rows_rel_err'] = float((got[0] - eager[0]).abs().max() / eager[0].abs().max())
+    out['vq_train_loss_rel_err'] = float((got[2] - eager[2]).abs().max() / eager[2].abs().max())
+    sc, se = parc.state_dict(), par.state_dict()
+    out['vq_train_state_rel_err'] = max(float((sc[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                                        for k, v in se.items() if v.is_floating_point())
+    par, parc, ser = triplet('GroupedResidualFSQ', dim=8, groups=2, levels=[8, 5, 5, 5], num_quantizers=2)
+    x = torch.randn(shape[0], shape[1], 8, device='cuda')
+    with torch.no_grad():
+        for m in (par, parc, ser):
+            m.eval()
+        eager, out['fsq_eval_launches'] = run(group_parallel_forward, par, x, mesh, compiled=False)
+        got, out['fsq_eval_compiled_launches'] = run(group_parallel_forward, parc, x, mesh)
+        out['fsq_eval_equal'] = equal(got, eager) and equal(got, ser(x))
+        dec, _ = run(group_parallel_output_from_indices, parc, got[1], mesh)
+        want = ser.get_output_from_indices(got[1])
+        out['fsq_decode_rel_err'] = float((dec - want).abs().max() / want.abs().max())
+    return out
+
+
 def tp_card_body(rank, world, mesh, *, shape=(16, 256, 64), codes=1024):
     """tp_vq_train at a small size on the card (tests/test_torch_cuda.py):
     VectorQuantize(code_axis='code') with expiry, three steps sharded over
@@ -807,6 +1118,14 @@ def examples_body(rank, world, mesh, *, tp_kwargs, gp_kwargs):
     tp = tp_large_codebook.run(mesh, device='cpu', **tp_kwargs)
     gp = group_parallel_grvq.run(make_mesh(('group',)), device='cpu', **gp_kwargs)
     return dict(tp=tp, gp=gp)
+
+
+def gp_example_card_body(rank, world, mesh):
+    """vqtpu_torch.examples.group_parallel_grvq on the card at small widths,
+    as it runs there by default (its group-parallel calls compiled)."""
+    from vqtpu_torch.examples import group_parallel_grvq
+    return group_parallel_grvq.run(mesh, steps=2, groups=2, dim=16, num_quantizers=2, codes=32, tokens=256,
+                                   device='cuda')
 
 
 # -- the entry points' dryrun (vqtpu_torch.entry) and its launcher --------------------
@@ -1291,5 +1610,5 @@ def compiled_tp_rvq_step(rank, world, mesh, *, state, batch):
 def tp_compile_body(rank, world, mesh, *, cases):
     """Every case of tests/test_torch_tp_compile.py in one world: {name:
     its body's result}; `cases` is {name: (body name, kwargs)}."""
-    bodies = dict(steps=compiled_tp_steps, rvq=compiled_tp_rvq_step)
+    bodies = dict(steps=compiled_tp_steps, rvq=compiled_tp_rvq_step, tp_apply=compiled_tp_apply)
     return {name: bodies[body](rank, world, mesh, **kw) for name, (body, kw) in cases.items()}

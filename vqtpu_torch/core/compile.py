@@ -19,6 +19,8 @@ NameError, say) propagates as its own type, as it does from a
 from __future__ import annotations
 
 import functools
+import itertools
+import types
 from typing import Callable
 
 import torch
@@ -55,3 +57,36 @@ def _raised_by_traced_code(e: Exception) -> type | None:
         if type(e.__cause__) is observed:
             return raised
     return None
+
+
+def cached_body(cache: dict, key, build: Callable, backend: str) -> Callable:
+    """`cache[key]`: the function `build()` returns, compiled with `backend`
+    (`compile_step`) on a miss. These are the compiled bodies of the
+    distributed paths, kept as the JAX package keeps its jitted shard_maps,
+    so that a loop compiles once; a FIFO of at most `MAX_BODIES`.
+
+    Each body runs as a code object of its own. Dynamo keeps its graphs on
+    the code object it traces, at most `recompile_limit` of them, and a
+    fullgraph compile past that raises: with one code object for all
+    keys, a process that met more than that many keys would fail where
+    the eager path runs."""
+    body = cache.get(key)
+    if body is None:
+        if len(cache) >= MAX_BODIES:
+            cache.pop(next(iter(cache)))
+        body = cache[key] = compile_step(_own_code(build()), backend=backend)
+    return body
+
+
+# the most compiled bodies a cache keeps (cached_body)
+MAX_BODIES = 64
+_BODY_NUMBERS = itertools.count()
+
+
+def _own_code(fn: types.FunctionType) -> types.FunctionType:
+    """`fn` as a new function whose code object is its own, named apart."""
+    name = f'{fn.__name__}_{next(_BODY_NUMBERS)}'
+    code = fn.__code__.replace(co_name=name, co_qualname=name)
+    own = types.FunctionType(code, fn.__globals__, name, fn.__defaults__, fn.__closure__)
+    own.__kwdefaults__ = fn.__kwdefaults__
+    return own

@@ -24,6 +24,20 @@ are this rank's shard of the batch; members built with
 back averaged over it. The gradient of the output reaches each rank's own
 members (their parameters' gradients land on their owner rank) and all of
 `x` on every rank.
+
+With `update_state=False` the call leaves every member as it found it (its
+parameters, buffers and random streams' states), as the JAX package
+discards a non-writeback call's state; only the shared dropout draw, made
+before, advances the first member's stream.
+
+Compiled (`compiled=True`, or None with the module on the card), the
+members' forwards, the all-gather of their outputs and the losses' pmean
+run as one graph (`core.compile.compile_step`), as the JAX package jits its
+shard_map; the layout check, the dropout draw, the binding of the mesh and
+the write-back stay outside it. The compiled bodies are cached
+(`_GP_CACHE`) on the keys the JAX package uses, so a training or serving
+loop compiles once; Dynamo's guards on the module stand for JAX's
+graphdef.
 """
 
 from __future__ import annotations
@@ -31,8 +45,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..core.compile import cached_body
 from . import collectives
-from .shard import Mesh
+from .shard import Mesh, _on_card, _restore_state, _state_copy
+
+# the compiled bodies, FIFO (core.compile.cached_body)
+_GP_CACHE: dict = {}
 
 
 def _layout(gmodule, mesh: Mesh, group_axis: str) -> tuple[int, int]:
@@ -70,43 +88,25 @@ def broadcast_member_state(gmodule, mesh: Mesh, group_axis: str = 'group') -> No
                 t.data.copy_(buf)
 
 
-def group_parallel_forward(
-    gmodule,
-    x: torch.Tensor,
-    mesh: Mesh,
-    *,
-    group_axis: str = 'group',
-    data_axis: str | None = None,
-    indices=None,
-    mask: torch.Tensor | None = None,
-    return_all_codes: bool = False,
-    update_state: bool = True,
-    **fkwargs,
-):
-    """`gmodule(x, ...)` with its groups split over `group_axis`: the same
-    returns, and (with `update_state`) the same state on every rank
-    afterwards. Extra `fkwargs` (`sample_codebook_temp`,
-    `freeze_codebook`, ...) pass to each member."""
-    g_local, first_group = _layout(gmodule, mesh, group_axis)
-    split_dim = gmodule.split_dim
-    if x.shape[split_dim] != gmodule.dim:
-        raise ValueError(f'expected dim {gmodule.dim} on axis {split_dim}, got {tuple(x.shape)}')
-    members = list(gmodule.rvqs)
-    # GroupedResidualFSQ's members return no loss
-    has_loss = type(gmodule).__name__ != 'GroupedResidualFSQ'
-    return_ce_loss = indices is not None and len(indices) > 0
-    if return_ce_loss and len(indices) != gmodule.groups:
-        raise ValueError(f'{len(indices)} index groups for {gmodule.groups} groups')
+def _body(key: tuple, build, gmodule, compiled: bool | None, backend: str):
+    """The body `build()` makes, compiled and cached on `key` and the
+    backend when `compiled` (None: when the module is on the card)."""
+    if not (_on_card(gmodule) if compiled is None else compiled):
+        return build()
+    return cached_body(_GP_CACHE, (*key, backend), build, backend)
 
-    dropout_index = None
-    if gmodule.training and getattr(members[0], 'quantize_dropout', False) and not return_ce_loss:
-        dropout_index = members[0].draw_dropout_index()
 
-    with mesh:
+def _forward_body(first_group: int, g_local: int, group_axis: str, data_axis: str | None, has_loss: bool,
+                  return_ce_loss: bool, return_all_codes: bool, fkwargs: dict):
+    """f(gmodule, x, indices, mask, dropout_index): this rank's members'
+    forwards, their outputs gathered over `group_axis` in group order, the
+    losses averaged over `data_axis`; run with the mesh bound."""
+    def body(gmodule, x, indices, mask, dropout_index):
+        members = gmodule.rvqs
         # each rank's members take the gradient of their own slices; the
         # psum in the backward gives every rank all of x's
         xs = collectives.psum_in_bwd(x, group_axis) if x.requires_grad else x
-        chunks = xs.chunk(gmodule.groups, dim=split_dim)
+        chunks = xs.chunk(gmodule.groups, dim=gmodule.split_dim)
         outs = []
         for g in range(first_group, first_group + g_local):
             kwargs = dict(fkwargs)
@@ -120,16 +120,74 @@ def group_parallel_forward(
         fields = [_gather_groups(list(f), group_axis) for f in zip(*outs)]
         if return_ce_loss:
             quantized, ce = fields
-            result = (torch.cat(quantized, dim=split_dim),
-                      sum(collectives.pmean(c, data_axis) for c in ce))
-        else:
-            quantized, all_indices, *rest = fields
-            result = [torch.cat(quantized, dim=split_dim), torch.stack(all_indices)]
-            if has_loss:
-                result.append(collectives.pmean(torch.stack(rest.pop(0)), data_axis))
-            if return_all_codes:
-                result.append(tuple(rest.pop(0)))
-            result = tuple(result)
+            return (torch.cat(quantized, dim=gmodule.split_dim),
+                    sum(collectives.pmean(c, data_axis) for c in ce))
+        result = [torch.cat(fields[0], dim=gmodule.split_dim), torch.stack(fields[1])]
+        if has_loss:
+            result.append(collectives.pmean(torch.stack(fields[2]), data_axis))
+        if return_all_codes:
+            result.append(tuple(fields[-1]))
+        return tuple(result)
+    return body
+
+
+def group_parallel_forward(
+    gmodule,
+    x: torch.Tensor,
+    mesh: Mesh,
+    *,
+    group_axis: str = 'group',
+    data_axis: str | None = None,
+    indices=None,
+    mask: torch.Tensor | None = None,
+    return_all_codes: bool = False,
+    update_state: bool = True,
+    compiled: bool | None = None,
+    backend: str = 'inductor',
+    **fkwargs,
+):
+    """`gmodule(x, ...)` with its groups split over `group_axis`: the same
+    returns, and (with `update_state`) the same state on every rank
+    afterwards; without it, every member's state as before the call (a
+    serving loop). Extra `fkwargs` (`sample_codebook_temp`,
+    `freeze_codebook`, ...) pass to each member.
+
+    `compiled`: run the members' part as one cached graph
+    (`core.compile.compile_step` with `backend`); None compiles when the
+    module is on the card and runs eagerly on the CPU. A call whose key
+    (the mesh, the axes, the returns asked for, whether a dropout index or
+    a mask is given, `fkwargs`) was seen before reuses its graph. Each key's
+    body is a code object of its own, whose graphs (one a module class,
+    mode and input signature) count apart from other keys' against
+    Dynamo's `recompile_limit`."""
+    g_local, first_group = _layout(gmodule, mesh, group_axis)
+    if x.shape[gmodule.split_dim] != gmodule.dim:
+        raise ValueError(f'expected dim {gmodule.dim} on axis {gmodule.split_dim}, got {tuple(x.shape)}')
+    members = list(gmodule.rvqs)
+    # GroupedResidualFSQ's members return no loss
+    has_loss = type(gmodule).__name__ != 'GroupedResidualFSQ'
+    return_ce_loss = indices is not None and len(indices) > 0
+    if return_ce_loss and len(indices) != gmodule.groups:
+        raise ValueError(f'{len(indices)} index groups for {gmodule.groups} groups')
+
+    dropout_index = None
+    if gmodule.training and getattr(members[0], 'quantize_dropout', False) and not return_ce_loss:
+        dropout_index = members[0].draw_dropout_index()
+    # after the shared draw, whose advance stays, as in the JAX package
+    saved = None if update_state else _state_copy(gmodule.rvqs)
+
+    fkey = tuple(sorted(fkwargs.items()))
+    key = ('fwd', mesh, group_axis, data_axis, g_local, has_loss, return_ce_loss, return_all_codes,
+           dropout_index is not None, mask is not None, fkey)
+    body = _body(key, lambda: _forward_body(first_group, g_local, group_axis, data_axis, has_loss, return_ce_loss,
+                                            return_all_codes, fkwargs),
+                 gmodule, compiled, backend)
+    try:
+        with mesh:
+            result = body(gmodule, x, indices if return_ce_loss else None, mask, dropout_index)
+    finally:
+        if saved is not None:
+            _restore_state(saved)
     if update_state:
         broadcast_member_state(gmodule, mesh, group_axis)
     return result
@@ -142,14 +200,23 @@ def group_parallel_output_from_indices(
     *,
     group_axis: str = 'group',
     data_axis: str | None = None,
+    compiled: bool | None = None,
+    backend: str = 'inductor',
 ) -> torch.Tensor:
     """`gmodule.get_output_from_indices(indices)` with the groups split over
     `group_axis`: each rank decodes its members' codes and the outputs are
     all-gathered in group order. `indices`: the per-group index tensors, as
     the serial method takes them (this rank's batch shard with
-    `data_axis`)."""
+    `data_axis`). `compiled` as `group_parallel_forward`'s."""
     g_local, first_group = _layout(gmodule, mesh, group_axis)
-    members = list(gmodule.rvqs)
+
+    def build():
+        def body(gmodule, indices):
+            members = gmodule.rvqs
+            outs = [members[g].get_output_from_indices(indices[g]) for g in range(first_group, first_group + g_local)]
+            return torch.cat(_gather_groups(outs, group_axis), dim=gmodule.split_dim)
+        return body
+
+    body = _body(('decode', mesh, group_axis, data_axis, g_local), build, gmodule, compiled, backend)
     with mesh:
-        outs = [members[g].get_output_from_indices(indices[g]) for g in range(first_group, first_group + g_local)]
-        return torch.cat(_gather_groups(outs, group_axis), dim=gmodule.split_dim)
+        return body(gmodule, indices)

@@ -180,7 +180,9 @@ def run_ranks(target, world: int, *, backend: str = 'nccl', device=None, axes=('
             for r in failed:
                 err = work / f'rank{r}.err'
                 why = err.read_text() if err.exists() else ('did not finish' if r in hung else 'no traceback')
-                log = (work / f'rank{r}.log').read_text(errors='replace')[-4000:]
+                log = (work / f'rank{r}.log').read_text(errors='replace')
+                # a native abort prints its message before its stack's frames
+                log = log if len(log) <= 8000 else f'{log[:4000]}\n[...]\n{log[-4000:]}'
                 reports.append(f'rank {r} ({"hung" if r in hung else f"exit {procs[r].returncode}"}): '
                                f'{why}\n--- its output ---\n{log}')
             raise RuntimeError(f'{len(failed)} of {world} ranks of {module}.{name} failed '

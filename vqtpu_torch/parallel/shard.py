@@ -131,6 +131,29 @@ def _on_card(model: nn.Module) -> bool:
     return any(t.is_cuda for t in itertools.chain(model.parameters(), model.buffers()))
 
 
+def _state_copy(module: nn.Module, held: dict | None = None) -> tuple:
+    """What a call that keeps no state puts back afterwards
+    (`_restore_state`): each parameter and buffer of `module` with a copy of
+    its data, or with `held[id(tensor)]` where `held` has it, and each
+    codebook's host mirror of its `initted` flag."""
+    held = held or {}
+    tensors = {id(t): t for t in [*module.parameters(), *module.buffers()]}
+    return ([(t, held[i] if i in held else t.detach().clone()) for i, t in tensors.items()],
+            [(m, m.initted_on_host) for m in module.modules() if hasattr(m, 'initted_on_host')])
+
+
+def _restore_state(saved: tuple) -> None:
+    """Put back what `_state_copy` took: each tensor's data (the tensor
+    objects stay, and the call's outputs keep what they hold) and the host
+    mirrors, so that the next call meets the guards of this one."""
+    tensors, mirrors = saved
+    with torch.no_grad():
+        for t, data in tensors:
+            t.data = data
+    for m, on_host in mirrors:
+        m.initted_on_host = on_host
+
+
 def _graph_params(model: nn.Module, optimizer: torch.optim.Optimizer) -> tuple[list, list]:
     """For a compiled step, fixed outside the trace: the model's trainable
     parameters, and where each of the optimizer's parameters sits among

@@ -31,10 +31,10 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..core.compile import compile_step
+from ..core.compile import cached_body, compile_step
 from ..core.optim import optimizer_update
 from . import collectives
-from .shard import Mesh, _graph_params, _on_card, _pmean_flat, average_gradients
+from .shard import Mesh, _graph_params, _on_card, _pmean_flat, _restore_state, _state_copy, average_gradients
 
 
 def _declares(module) -> bool:
@@ -287,7 +287,20 @@ class TensorParallelTrainer:
         return collectives.pmean(loss.detach(), self.data_axis)
 
 
-def tp_apply(model: nn.Module, mesh: Mesh, fn: Callable, *args, mutates_state: bool = False):
+# the compiled bodies of tp_apply, FIFO (core.compile.cached_body)
+_TP_APPLY_CACHE: dict = {}
+
+
+def _apply_body(fn: Callable) -> Callable:
+    """fn(model, *args), as a function that `cached_body` gives a code
+    object of its own (`fn` may be any callable)."""
+    def tp_apply_body(model, *args):
+        return fn(model, *args)
+    return tp_apply_body
+
+
+def tp_apply(model: nn.Module, mesh: Mesh, fn: Callable, *args, mutates_state: bool = False,
+             compiled: bool | None = None, backend: str = 'inductor'):
     """`fn(model, *args)` with `mesh` bound and the model's codebooks
     sharded (an eval forward, or `get_output_from_indices` against sharded
     rows). A model at rest is sharded for the call. With `mutates_state`
@@ -295,33 +308,40 @@ def tp_apply(model: nn.Module, mesh: Mesh, fn: Callable, *args, mutates_state: b
     a model that was at rest is gathered back to full rows; without it the
     model's parameters and buffers (its random streams' states among them)
     are restored after the call, as the JAX package discards a non-mutating
-    call's state."""
+    call's state.
+
+    `compiled`: run `fn(model, *args)` as one graph
+    (`core.compile.compile_step` with `backend`), as the JAX package jits
+    its shard_map, with the sharded selection's winner reduction, the
+    statistics' psums and the decode's row psum inside it; the sharding,
+    the binding of the mesh, the restore and the gather back stay outside.
+    None compiles when the model is on the card and runs eagerly on the
+    CPU. The compiled body is cached on (fn, mesh, mutates_state, backend),
+    and Dynamo's guards on the model stand for JAX's graphdef, so a loop
+    that passes the same `fn` (a module-level function or a
+    functools.partial of one) compiles once; a fresh lambda a call
+    compiles a call. Each key's body is a code object of its own, whose
+    graphs count apart from other keys' against Dynamo's
+    `recompile_limit`."""
+    run = fn
+    if _on_card(model) if compiled is None else compiled:
+        run = cached_body(_TP_APPLY_CACHE, (fn, mesh, mutates_state, backend), lambda: _apply_body(fn), backend)
     at_rest = not is_sharded(model)
-    full = {id(t): t.data for _, _, t, _ in _leaves(model)} if at_rest and not mutates_state else None
     saved = None
     if not mutates_state:
-        tensors = {id(t): t for t in [*model.parameters(), *model.buffers()]}
-        saved = {i: t.detach().clone() for i, t in tensors.items() if full is None or i not in full}
+        # a model at rest gets its full rows back
+        saved = _state_copy(model, {id(t): t.data for _, _, t, _ in _leaves(model)} if at_rest else None)
     if at_rest:
         shard_codebooks(model, mesh)
     try:
         with mesh:
-            return fn(model, *args)
+            return run(model, *args)
     finally:
         if mutates_state:
             if at_rest:
                 gather_codebooks(model, mesh)
         else:
-            with torch.no_grad():
-                for t in [*model.parameters(), *model.buffers()]:
-                    if full is not None and id(t) in full:
-                        t.data = full[id(t)]
-                    elif id(t) in saved:
-                        t.data = saved[id(t)]
+            _restore_state(saved)
             for m, _, _, _ in _leaves(model):
                 if hasattr(m, 'rewritten_rows'):
                     m.rewritten_rows = None
-            # a restored `initted` may be False again: the next forward reads it
-            for m in model.modules():
-                if hasattr(m, 'initted_on_host'):
-                    m.initted_on_host = False

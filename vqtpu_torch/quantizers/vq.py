@@ -406,13 +406,17 @@ class VectorQuantize(nn.Module):
     def get_codes_from_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """Indices -> codebook vectors. As in the JAX package, an index in
         [-c, -1] counts from the end of the codebook; others outside [0, c)
-        raise IndexError. Inside a mesh binding `code_axis` the rows come
+        raise IndexError (compiled: a device-side assertion). Inside a mesh binding `code_axis` the rows come
         from the ranks that own them."""
         codebook = self.codebook
         if self.quantize_tier == 'bf16':
             codebook = codebook.to(torch.bfloat16)
         c = self.codebook_size
-        if bool(((indices < -c) | (indices >= c)).any()):
+        outside = ((indices < -c) | (indices >= c)).any()
+        if torch.compiler.is_compiling():
+            # a compiled decode checks on the device, with no host read
+            torch._assert_async(~outside, f'code indices must lie in [-{c}, {c})')
+        elif bool(outside):
             raise IndexError(f'code indices must lie in [-{c}, {c})')
         indices = torch.where(indices < 0, indices + c, indices)
         is_multiheaded = codebook.ndim > 2
